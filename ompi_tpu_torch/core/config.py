@@ -1,0 +1,118 @@
+"""Typed configuration-variable registry (the port's own copy).
+
+A trimmed copy of the JAX package's registry: every tunable is a
+registered, typed variable with one namespace and a fixed precedence
+
+    default  <  file ($OMPI_TPU_PARAM_FILE, then ./ompi-tpu-params.conf)
+             <  environment (OMPI_TPU_MCA_<framework>_<name>)
+
+The environment prefix and the file format are the JAX package's, so one
+``OMPI_TPU_MCA_ops_flash_block_q`` setting reads the same in both.  The
+port keeps only what its slices read: integer variables from the file
+and environment sources (no synonyms, info levels, read-only vars,
+command-line source or programmatic overrides).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import os
+import threading
+from typing import Any
+
+__all__ = ["VarType", "Var", "VarRegistry", "var_registry", "register_var"]
+
+#: highest-precedence params file
+ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
+
+
+class VarType(enum.Enum):
+    INT = "int"
+
+
+_PARSERS = {VarType.INT: int}
+
+
+@dataclasses.dataclass
+class Var:
+    """One registered configuration variable."""
+
+    framework: str
+    name: str
+    vtype: VarType
+    default: Any
+    description: str = ""
+    value: Any = None
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.framework}_{self.name}" if self.framework else self.name
+
+    def parse(self, raw: str) -> Any:
+        return _PARSERS[self.vtype](raw)
+
+
+class VarRegistry:
+    """The process-wide registry; sources apply at registration time."""
+
+    ENV_PREFIX = "OMPI_TPU_MCA_"
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._vars: dict[str, Var] = {}
+        self._file: dict[str, str] = {}
+        self._load_files()
+
+    def _load_files(self) -> None:
+        """``name = value`` lines, '#' comments; the first file to define
+        a name wins, so paths are listed highest precedence first."""
+        paths = [p for p in (os.environ.get(ENV_PARAM_FILE),
+                             os.path.join(os.getcwd(),
+                                          "ompi-tpu-params.conf")) if p]
+        for path in paths:
+            try:
+                with open(path) as fh:
+                    for line in fh:
+                        line = line.split("#", 1)[0].strip()
+                        if not line or "=" not in line:
+                            continue
+                        k, v = (p.strip() for p in line.split("=", 1))
+                        self._file.setdefault(k, v)
+            except OSError:
+                continue
+
+    def register(self, var: Var) -> Var:
+        with self._lock:
+            existing = self._vars.get(var.full_name)
+            if existing is not None:
+                return existing
+            var.value = var.default
+            self._vars[var.full_name] = var
+            for raw, source in (
+                    (self._file.get(var.full_name), "file"),
+                    (os.environ.get(self.ENV_PREFIX + var.full_name),
+                     self.ENV_PREFIX + var.full_name)):
+                if raw is None:
+                    continue
+                try:
+                    var.value = var.parse(raw)
+                except ValueError as e:
+                    raise ValueError(
+                        f"bad value {raw!r} for {var.vtype.value} variable "
+                        f"{var.full_name} (from {source}): {e}") from None
+            return var
+
+    def get(self, full_name: str) -> Any:
+        with self._lock:
+            return self._vars[full_name].value
+
+
+var_registry = VarRegistry()
+
+
+def register_var(framework: str, name: str, vtype: VarType, default: Any,
+                 description: str = "") -> Var:
+    return var_registry.register(
+        Var(framework=framework, name=name, vtype=vtype, default=default,
+            description=description))

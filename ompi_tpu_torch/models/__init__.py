@@ -1,0 +1,26 @@
+"""Flagship models of the port (lazy re-exports, as in the JAX package)."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+_LAZY = {
+    "TransformerConfig": ("ompi_tpu_torch.models.transformer",
+                          "TransformerConfig"),
+    "init_params": ("ompi_tpu_torch.models.transformer", "init_params"),
+    "make_forward": ("ompi_tpu_torch.models.transformer", "make_forward"),
+    "make_decoder": ("ompi_tpu_torch.models.decode", "make_decoder"),
+    "from_jax_params": ("ompi_tpu_torch.models.weights", "from_jax_params"),
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str) -> Any:
+    try:
+        mod, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}") from None
+    return getattr(importlib.import_module(mod), attr)

@@ -1,0 +1,110 @@
+"""The port stands alone: importing ompi_tpu_torch loads neither JAX nor
+the JAX package, its sources import neither, and its entry points refuse
+to drop quietly to the CPU when no CUDA is present."""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "ompi_tpu_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import ompi_tpu_torch
+names = ["ompi_tpu_torch"]
+for m in pkgutil.walk_packages(ompi_tpu_torch.__path__, "ompi_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+for n in ompi_tpu_torch.__all__:
+    getattr(ompi_tpu_torch, n)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k == "ompi_tpu" or k.startswith("ompi_tpu."))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("ompi_tpu_torch.ops.flash_attention",
+                "ompi_tpu_torch.models.decode",
+                "ompi_tpu_torch.models.weights",
+                "ompi_tpu_torch.core.config"):
+        assert mod in res["imported"]
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|ompi_tpu\b(?!_))",
+                     re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_sources_import_no_jax(path):
+    src = (ROOT / path).read_text()
+    assert not _IMPORT.search(src), path
+    assert "importlib.import_module(\"ompi_tpu." not in src
+    assert "importlib.import_module('ompi_tpu." not in src
+
+
+def test_entry_points_refuse_the_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks a machine without CUDA")
+    from ompi_tpu_torch.models.decode import make_decoder
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params, make_forward)
+    from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    cfg = TransformerConfig(vocab=97, d_model=64, n_heads=4, n_layers=2,
+                            d_ff=128, seq=64)
+    for call in (lambda: make_mesh(),
+                 lambda: make_mesh({"dp": 1, "sp": 1, "tp": 1}),
+                 lambda: make_decoder(cfg, Mesh({"dp": 1, "sp": 1, "tp": 1}),
+                                      max_new=2),
+                 lambda: from_jax_params(init_params(cfg), cfg)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+    class _CudaMesh:  # a mesh that claims the card, bypassing Mesh's check
+        shape = {"dp": 1, "sp": 1, "tp": 1}
+        axis_names = ("dp", "sp", "tp")
+        device = torch.device("cuda")
+
+    for call in (lambda: make_decoder(cfg, _CudaMesh(), max_new=2),
+                 lambda: make_forward(cfg, _CudaMesh())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks a machine without CUDA")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
