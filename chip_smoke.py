@@ -9,24 +9,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    nvidia-smi gives them (also printed alone on a line);
 2. build — nvcc builds every kernel from ``ompi_tpu_torch/ops/csrc`` for
    sm_90a, one nvcc per source, all started together; prints the
-   ``-Xptxas -v`` register and shared-memory lines;
+   ``-Xptxas -v`` register and shared-memory lines and fails on a spill;
 3. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, and at the decode prefill shape (B=16, T=512, H=16,
    D=128, bf16, causal), where it is timed beside the plain version, the
    byte/FLOP bound and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls);
-4. decode — the flagship 468M dense model (bench.py's decode widths) with
+   port never calls), in bf16 and in f32;
+4. kernel_bwd — the dq and dk/dv backward kernels against their plain
+   versions over causal/full, offsets, f32/bf16, head dims, lengths and
+   with or without an lse cotangent; the autograd backward with the
+   kernels against the recompute backward; and, at the training shape
+   (B·H=256, T=1024, D=128, bf16, causal), each kernel's time beside its
+   plain version, its bound, the recompute backward and SDPA's backward;
+5. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
    tokens, the launch counts of that one call, the same prompt through the
    plain attention path, the prefill time (max_new=1), the per-token time
    by the two-max_new slope, tokens/s and peak memory; then torch.profiler
    windows over the prefill and a 16-token decode: device busy and idle
    share, and the kernels that take the time;
-5. cache — on the small f32 config of the decode tests, the cached greedy
+6. cache — on the small f32 config of the decode tests, the cached greedy
    decode through the kernel equals a token-by-token full-forward greedy
    exactly;
-6. the ``kernels`` line, then the card's nvidia-smi line, then the result
+7. train — the flagship model training at bench.py's MFU widths (batch
+   16 × seq 1024, bf16, remat "dots", ce_chunk 256) with the flash
+   kernels forward and backward: the first step's loss and gradients
+   against the plain attention path and the recompute backward, then a
+   warm-up step and an 8-step ``make_train_loop`` whose launch counts are
+   read around it; step time, tokens/s, MFU, peak memory and a profiled
+   step;
+8. train_small — on the small f32 config of the model tests, the first
+   step's loss and gradients on the card equal the port's CPU run, and
+   three steps lower the loss on both;
+9. the ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,9 +61,26 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F32_TOL = 2e-5                 # tests/parallel/test_flash.py f32 tolerance
 BF16_TOL = 3e-2                # tests/parallel/test_flash.py bf16 tolerance
 LOGIT_TOL = 0.1                # flash vs plain prefill logits, bf16 model
+BWD_F32_TOL = 2e-3             # tests/parallel/test_flash.py:147-149
+BWD_BF16_TOL = 3e-2            # of max|ref|: a ds or p on a bf16 boundary
+TRAIN_LOSS_RTOL = 5e-3         # kernel vs plain paths, flagship first step
+TRAIN_GRAD_RL2 = 2e-2          # per-leaf relative L2, flagship first step
+SMALL_TOL = 1e-4               # small f32 model, card vs CPU
+OFFSETS = ((0, 0), (128, 0), (0, 128))
+#: the flagship dense model's widths (bench.py:478-484, 468M parameters)
+FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
+                d_ff=8192)
+#: its training batch (bench.py's MFU row): 16 sequences of 1024 tokens,
+#: the loss in chunks of 256 positions
+TRAIN = dict(batch=16, seq=1024, ce_chunk=256)
+#: sequence lengths of the backward kernels' checks
+BWD_LENGTHS = (96, 256, 512, 1024)
+#: where the phases put their tensors (a rehearsal on the CPU changes it)
+DEVICE = "cuda"
 
 
 def check(ok: bool, what: str) -> None:
@@ -78,21 +111,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def live_pairs(t_q, t_k, causal, q_off, k_off) -> int:
+    """(query, key) pairs a causal mask on global positions leaves."""
+    if not causal:
+        return t_q * t_k
+    qpos = q_off + np.arange(t_q)[:, None]
+    kpos = k_off + np.arange(t_k)[None, :]
+    return int((qpos >= kpos).sum())
+
+
+def bound(nbytes, flops, peak_flops):
+    """(least ms, what sets it): bytes over the HBM rate against
+    operations over the peak of their type, whichever is larger."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
 def attention_bound_ms(b, h, t_q, t_k, d, itemsize, causal, q_off, k_off):
     """Least time for the attention forward on this card: the larger of
     bytes (q, k, v read once, o and lse written once) over HBM rate and
-    the FLOPs of the live (query, key) pairs over the bf16 peak."""
+    the FLOPs of the live (query, key) pairs over the peak of the type
+    (bf16 tensor cores, or f32 CUDA cores)."""
     nbytes = (2 * t_q + 2 * t_k) * b * h * d * itemsize + b * h * t_q * 4
-    if causal:
-        qpos = q_off + np.arange(t_q)[:, None]
-        kpos = k_off + np.arange(t_k)[None, :]
-        pairs = int((qpos >= kpos).sum())
+    flops = 4 * b * h * d * live_pairs(t_q, t_k, causal, q_off, k_off)
+    peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    return (*bound(nbytes, flops, peak), nbytes, flops)
+
+
+def bwd_bound_ms(kernel, bh, t_q, t_k, d, itemsize, causal, q_off, k_off):
+    """Least time for one backward kernel: q, k, v and g read once, lse
+    and dm read once, its outputs (dq, or dk and dv) written once; 6
+    FLOPs a live pair and head-dim element for dq (s, dp, dq), 8 for
+    dk/dv (s, dp, dk, dv)."""
+    pairs = live_pairs(t_q, t_k, causal, q_off, k_off)
+    ins = (2 * t_q + 2 * t_k) * bh * d * itemsize + 2 * bh * t_q * 4
+    if kernel == "dq":
+        nbytes, flops = ins + t_q * bh * d * itemsize, 6 * pairs * d * bh
     else:
-        pairs = t_q * t_k
-    flops = 4 * b * h * d * pairs
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return (max(t_bytes, t_flops) * 1e3,
-            "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
+        nbytes, flops = ins + 2 * t_k * bh * d * itemsize, 8 * pairs * d * bh
+    peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    return (*bound(nbytes, flops, peak), nbytes, flops)
 
 
 def phase_device():
@@ -117,11 +176,17 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(_build.load, sources))
     secs = time.perf_counter() - t0
+    ptxas = {s: [ln for ln in _build.ptxas_info.get(s, [])
+                 if "Used" in ln or "spill" in ln] for s in sources}
+    spills = [f"{s}: {ln}" for s, lines in ptxas.items() for ln in lines
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
     emit("build", sources=sources, seconds=round(secs, 3),
          arch="sm_90a", libs=[str(lib._name) for lib in libs],
-         ptxas={s: [ln for ln in _build.ptxas_info.get(s, [])
-                    if "Used" in ln or "spill" in ln]
-                for s in sources})
+         ptxas=ptxas, spills=spills)
+    check(all(any("spill" in ln for ln in lines) for lines in ptxas.values()),
+          "no -Xptxas -v spill lines in the build log")
+    check(not spills, f"kernels spill registers: {spills}")
 
 
 def phase_kernel(fa):
@@ -195,7 +260,11 @@ def phase_kernel(fa):
            "plain_ms": cuda_ms(lambda: fa.flash_attention_lse_reference(
                *(x.unsqueeze(2) for x in (q3f, k3f, v3f)), causal=True,
                scale=scale)),
-           "bound_ms": attention_bound_ms(B, H, T, T, D, 4, True, 0, 0)[0]}
+           "bound_ms": attention_bound_ms(B, H, T, T, D, 4, True, 0, 0)[0],
+           "bound_by": attention_bound_ms(B, H, T, T, D, 4, True, 0, 0)[1]}
+    qf, kf, vf = (x.view(B, H, T, D) for x in (q3f, k3f, v3f))
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    f32["library_ms"] = cuda_ms(lambda: sdpa(qf, kf, vf, is_causal=True))
     emit("kernel", cases=n_cases, max_abs_err_o=worst, float32=f32,
          prefill_shape=[B, T, H, D], prefill_dtype="bfloat16",
          prefill_max_abs_err_o=err_o, prefill_max_abs_err_lse=err_lse,
@@ -207,24 +276,170 @@ def phase_kernel(fa):
             "bound_by": bound_by}
 
 
-def phase_decode(fa, card):
+def bwd_err(got, want, dtype):
+    """(ok, max abs error) of one backward output: f32 at BWD_F32_TOL abs
+    + rel, bf16 at BWD_BF16_TOL of max|ref|."""
+    import torch
+
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= BWD_F32_TOL * (1 + b.abs())).all())
+    else:
+        ok = bool((err <= BWD_BF16_TOL * b.abs().max()).all())
+    return ok, err.max().item()
+
+
+def phase_kernel_bwd(fa):
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        for d in (16, 64, 128):
+            scale = d ** -0.5
+            for t in BWD_LENGTHS:
+                q3, k3, v3, g3 = (torch.randn((4, t, d), generator=g,
+                                              device=DEVICE).to(dtype)
+                                  for _ in range(4))
+                g_lse = torch.randn((4, t), generator=g, device=DEVICE)
+                for causal in (True, False):
+                    for q_off, k_off in OFFSETS:
+                        o3, lse = fa.flash_fwd_3d(q3, k3, v3, q_off, k_off,
+                                                  scale, causal)
+                        delta = (g3.float() * o3.float()).sum(-1)
+                        for with_lse, dm in ((False, delta),
+                                             (True, delta - g_lse)):
+                            args = (q3, k3, v3, g3, lse, dm, q_off, k_off,
+                                    scale, causal)
+                            got = fa.flash_bwd_3d(*args)
+                            want = fa.flash_bwd_reference(*args)
+                            torch.cuda.synchronize()
+                            for name, a, b in zip(("dq", "dk", "dv"), got,
+                                                  want):
+                                ok, err = bwd_err(a, b, dtype)
+                                check(a.dtype == dtype and ok,
+                                      f"flash {name} kernel disagrees: "
+                                      f"{key} d={d} t={t} causal={causal} "
+                                      f"offsets=({q_off},{k_off}) lse "
+                                      f"cotangent={with_lse} max err {err}")
+                                worst[key] = max(worst[key], err)
+                            n_cases += 1
+
+    # the autograd backward with the kernels against the recompute one
+    var_before = var_registry.get("ops_flash_bwd_kernel")
+    autograd_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        base = [torch.randn((2, 512, 4, 128), generator=g, device=DEVICE)
+                .to(dtype) for _ in range(4)]
+        grads = {}
+        for kernel in (False, True):
+            var_registry.set("ops_flash_bwd_kernel", kernel)
+            ts = [x.clone().requires_grad_(True) for x in base[:3]]
+            o, lse = fa.flash_attention_lse(*ts, causal=True, q_offset=128)
+            loss = (o.float() * base[3].float()).sum() + (lse * 0.01).sum()
+            grads[kernel] = torch.autograd.grad(loss, ts)
+        var_registry.set("ops_flash_bwd_kernel", var_before)
+        key = str(dtype).split(".")[-1]
+        autograd_err[key] = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), grads[True], grads[False]):
+            ok, err = bwd_err(a, b, dtype)
+            check(ok, f"autograd {name} with the kernels disagrees with the "
+                      f"recompute backward: {key} max err {err}")
+            autograd_err[key] = max(autograd_err[key], err)
+
+    # the training shape: q/k/v/g (B·H=256, T=1024, D=128) bf16, causal
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    H = FLAGSHIP["n_heads"]
+    D = FLAGSHIP["d_model"] // H
+    scale = D ** -0.5
+    q, k, v, go = (torch.randn((B, T, H, D), generator=g, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    q3, k3, v3, g3 = (fa._to3(x) for x in (q, k, v, go))
+    o3, lse = fa.flash_fwd_3d(q3, k3, v3, 0, 0, scale, True)
+    dm = (g3.float() * o3.float()).sum(-1)
+    args = (q3, k3, v3, g3, lse, dm, 0, 0, scale, True)
+    got = fa.flash_bwd_3d(*args)
+    want = fa.flash_bwd_reference(*args)
+    torch.cuda.synchronize()
+    shape_err = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ok, shape_err[name] = bwd_err(a, b, torch.bfloat16)
+        check(ok, f"flash {name} kernel disagrees at the training shape: "
+                  f"max err {shape_err[name]}")
+    del got, want
+    dq_ms = cuda_ms(lambda: fa.flash_bwd_dq_3d(*args))
+    dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv_3d(*args))
+    dq_plain_ms = cuda_ms(lambda: fa.flash_bwd_dq_reference(*args), iters=5,
+                          warmup=1)
+    dkv_plain_ms = cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args),
+                           iters=5, warmup=1)
+    o = fa._from3(o3, B, H)
+    recompute_ms = cuda_ms(lambda: fa.flash_bwd_recompute(
+        q, k, v, o, go, None, 0, 0, scale, True), iters=5, warmup=1)
+
+    # SDPA's backward (a yardstick only): fwd+bwd minus fwd
+    qs, ks, vs = (x.view(B, H, T, D).detach().requires_grad_(True)
+                  for x in (q3, k3, v3))
+    gs = g3.view(B, H, T, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs),
+                            gs)
+
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True))
+    sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    out = {}
+    for name, ms, plain_ms in (("dq", dq_ms, dq_plain_ms),
+                               ("dkv", dkv_ms, dkv_plain_ms)):
+        bound_ms, bound_by, nbytes, flops = bwd_bound_ms(
+            name, B * H, T, T, D, 2, True, 0, 0)
+        err = (shape_err["dq"] if name == "dq"
+               else max(shape_err["dk"], shape_err["dv"]))
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                     "tflops": flops / ms / 1e9}
+    emit("kernel_bwd", cases=n_cases, max_abs_err=worst,
+         autograd_kernel_vs_recompute_max_abs_err=autograd_err,
+         train_shape=[B * H, T, D], train_dtype="bfloat16",
+         train_shape_max_abs_err=shape_err, dq=out["dq"], dkv=out["dkv"],
+         recompute_bwd_ms=recompute_ms, sdpa_fwd_ms=sdpa_fwd_ms,
+         sdpa_bwd_ms=sdpa_bwd_ms,
+         library_note="SDPA backward computes dq, dk and dv together")
+    return out
+
+
+def flagship_params():
+    """The flagship 468M model's parameters (init_params, seed 0) as numpy:
+    decode and train share them (init_params does not read ``seq``)."""
+    from ompi_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    return init_params(TransformerConfig(**FLAGSHIP), seed=0)
+
+
+def phase_decode(fa, card, params_np):
     import torch
 
     from ompi_tpu_torch.models.decode import make_decoder
     from ompi_tpu_torch.models.transformer import (TransformerConfig,
-                                                   init_params, make_forward)
+                                                   make_forward)
     from ompi_tpu_torch.models.weights import from_jax_params
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
     # bench.py matrix_decode_throughput flagship widths (468M params)
-    cfg = TransformerConfig(
-        vocab=32_000, d_model=2048, n_heads=16, n_layers=8, d_ff=8192,
-        seq=512 + 256, attention="flash", compute_dtype="bfloat16")
+    cfg = TransformerConfig(**FLAGSHIP, seq=512 + 256, attention="flash",
+                            compute_dtype="bfloat16")
     cfg_x = dataclasses.replace(cfg, attention="xla")
     batch, prompt_len, lo, hi = 16, 512, 32, 96
     mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1})
     t0 = time.perf_counter()
-    params = from_jax_params(init_params(cfg, seed=0), cfg, "cuda")
+    params = from_jax_params(params_np, cfg, "cuda")
     load_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.values())
     prompt = np.random.default_rng(0).integers(
@@ -298,9 +513,9 @@ def phase_decode(fa, card):
     return launches
 
 
-def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
+def profile_window(fn):
     """Device busy time and the kernels that take it, from torch.profiler,
-    for the prefill alone (max_new=1) and for a decode of 16 tokens."""
+    over one call of ``fn`` that ends in a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,29 +523,54 @@ def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    by_kind = dict.fromkeys(("flash", "gemm_f32", "gemm_other", "other"),
+                            0.0)
+    for e in kernels:
+        by_kind[kernel_kind(e.key)] += dev_us(e) / 1e3
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "flash_kernel_ms": {
+                name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e3
+                for name, tag in (("fwd", "flash_fwd_"),
+                                  ("dq", "bwd_dq_"), ("dkv", "bwd_dkv_"))},
+            "device_ms_by_kind": by_kind,
+            "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def kernel_kind(name: str) -> str:
+    """The port's flash kernels, float32 matrix products (cuBLAS/CUTLASS
+    f32 GEMMs on the CUDA cores), other matrix products, or the rest
+    (elementwise work, reductions, copies), by kernel name."""
+    if "flash_fwd_" in name or "bwd_dq_" in name or "bwd_dkv_" in name:
+        return "flash"
+    if "f32f32_f32f32" in name or "sgemm" in name:
+        return "gemm_f32"
+    if any(tag in name for tag in ("gemm", "gemv", "nvjet", "xmma")):
+        return "gemm_other"
+    return "other"
+
+
+def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
+    """The prefill alone (max_new=1) and a decode of 16 tokens, profiled."""
+    import torch
+
     for max_new in (1, 16):
         d = make_decoder(cfg, mesh, max_new=max_new)
         d(params, prompt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            d(params, prompt)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and dev_us(e) > 0]
-        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-        top = sorted(kernels, key=dev_us, reverse=True)[:6]
-        flash_ms = sum(dev_us(e) for e in kernels
-                       if "flash_fwd_" in e.key) / 1e3
-        emit("profile", max_new=max_new, wall_ms_profiled=wall_ms,
-             device_busy_ms=busy_ms,
-             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-             flash_kernel_ms=flash_ms,
-             top_kernels=[{"name": e.key[:80], "ms": dev_us(e) / 1e3,
-                           "calls": e.count} for e in top],
-             card=card)
+        emit("profile", max_new=max_new,
+             **profile_window(lambda: d(params, prompt)), card=card)
 
 
 def _greedy_reference(fwd, params, prompt, max_new):
@@ -369,6 +609,222 @@ def phase_cache(fa):
          kernel_launches=fa.launch_count - before)
 
 
+def counts(fa):
+    return {"flash_fwd": fa.launch_count, "flash_bwd_dq": fa.dq_launch_count,
+            "flash_bwd_dkv": fa.dkv_launch_count}
+
+
+def zero_counts(fa):
+    fa.launch_count = fa.dq_launch_count = fa.dkv_launch_count = 0
+
+
+def value_and_grad(cfg, mesh, params, tokens):
+    """(loss, {leaf: grad}) of one loss evaluation, as a train step takes
+    them."""
+    import torch
+
+    from ompi_tpu_torch.models.transformer import make_loss_fn
+
+    loss = make_loss_fn(cfg, mesh)(params, tokens)
+    keys = list(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    return loss.item(), dict(zip(keys, grads))
+
+
+def step_ms(step, params, opt_state, tokens, n):
+    """Device time of ``n`` train steps after a warm-up step, from CUDA
+    events, in ms a step."""
+    import torch
+
+    params, opt_state, _ = step(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        params, opt_state, _ = step(params, opt_state, tokens)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def phase_train(fa, card, params_np):
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.models.data import ArraySource, train_stream
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   make_train_loop,
+                                                   make_train_step)
+    from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    # bench.py:478-484 flagship MFU widths, with the flash kernels forward
+    # and backward (tools/mfu_sweep.py's "-pbwd" switch)
+    cfg = TransformerConfig(**FLAGSHIP, seq=TRAIN["seq"], attention="flash",
+                            compute_dtype="bfloat16", remat="dots",
+                            ce_chunk=TRAIN["ce_chunk"])
+    batch, steps, lr = TRAIN["batch"], 8, 1e-3        # bench.py:448
+    L = cfg.n_layers
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
+    corpus = (np.arange(32_768) * 2654435761 % cfg.vocab).astype(np.int32)
+    stream = train_stream(ArraySource(corpus, seed=0), mesh, batch, cfg.seq)
+    tokens = next(stream)
+    stream.close()
+    check(tokens.device.type == DEVICE and tuple(tokens.shape)
+          == (batch, cfg.seq), f"batch {tokens.device} {tokens.shape}")
+    var_registry.set("ops_flash_bwd_kernel", True)
+    params = from_jax_params(params_np, cfg, DEVICE, train=True)
+    n_params = sum(p.numel() for p in params.values())
+
+    # ---- the first step's loss and gradients: kernels vs plain paths ----
+    zero_counts(fa)
+    loss_k, grads_k = value_and_grad(cfg, mesh, params, tokens)
+    torch.cuda.synchronize()
+    first = counts(fa)
+    check(first == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L},
+          f"launches in one value_and_grad: {first}")
+    agree = {}
+    for name, cfg_v, kernel in (
+            ("xla", dataclasses.replace(cfg, attention="xla"), True),
+            ("bwd_kernel_off", cfg, False)):
+        var_registry.set("ops_flash_bwd_kernel", kernel)
+        before = counts(fa)
+        loss_v, grads_v = value_and_grad(cfg_v, mesh, params, tokens)
+        after = counts(fa)
+        check(after["flash_bwd_dq"] == before["flash_bwd_dq"],
+              f"{name}: the dq kernel ran")
+        rel = {k: ((grads_v[k].float() - grads_k[k].float()).norm()
+                   / grads_k[k].float().norm()).item() for k in grads_k}
+        del grads_v
+        agree[name] = {"loss": loss_v, "loss_rel_diff":
+                       abs(loss_v - loss_k) / abs(loss_k),
+                       "grad_rel_l2_max": max(rel.values()),
+                       "grad_rel_l2": rel}
+        check(agree[name]["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
+              f"{name}: first-step loss {loss_v} vs kernels {loss_k}")
+        check(agree[name]["grad_rel_l2_max"] <= TRAIN_GRAD_RL2,
+              f"{name}: gradient rel L2 {rel}")
+    var_registry.set("ops_flash_bwd_kernel", True)
+    del grads_k
+
+    # ---- the main path: a warm-up step, then an 8-step train loop ----
+    step, init_opt = make_train_step(cfg, mesh, lr=lr)
+    loop, _ = make_train_loop(cfg, mesh, lr=lr, steps=steps)
+    opt_state = init_opt(params)
+    params, opt_state, warm_loss = step(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    zero_counts(fa)
+    a.record()
+    params, opt_state, losses = loop(params, opt_state, tokens)
+    b.record()
+    b.synchronize()
+    launches = counts(fa)
+    ms = a.elapsed_time(b) / steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = losses.cpu().numpy()
+    check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == {"flash_fwd": 2 * L * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          f"launches in {steps} steps: {launches}")
+    n_tok = batch * cfg.seq
+    flops_per_token = 6 * n_params + 12 * L * cfg.d_model * cfg.seq
+    tflops = flops_per_token * n_tok / (ms / 1e3) / 1e12
+    window = profile_window(lambda: step(params, opt_state, tokens))
+    emit("train", config="flagship 468M dense, bench.py MFU widths, flash "
+         "forward and backward kernels", n_params=n_params, batch=batch,
+         seq=cfg.seq, remat=cfg.remat, ce_chunk=cfg.ce_chunk, lr=lr,
+         steps=steps, launches=launches, launches_per_step={
+             k: v // steps for k, v in launches.items()},
+         first_step_loss=loss_k, first_step_agreement=agree,
+         warmup_loss=float(warm_loss), losses=losses.tolist(),
+         step_ms=ms, tokens_per_s=n_tok / (ms / 1e3), model_tflops=tflops,
+         mfu=tflops * 1e12 / BF16_FLOPS, peak_mem_gib=peak_gib,
+         profiled_step=window, card=card)
+    del params, opt_state
+
+    # ---- the step time of the plain attention path and of the recompute
+    # backward, from the same parameters ----
+    other_ms = {}
+    for name, cfg_v, kernel in (
+            ("xla", dataclasses.replace(cfg, attention="xla"), True),
+            ("bwd_kernel_off", cfg, False)):
+        var_registry.set("ops_flash_bwd_kernel", kernel)
+        p = from_jax_params(params_np, cfg_v, DEVICE, train=True)
+        st, init = make_train_step(cfg_v, mesh, lr=lr)
+        other_ms[name] = step_ms(st, p, init(p), tokens, 3)
+        del p
+    var_registry.set("ops_flash_bwd_kernel", False)
+    emit("train_paths", step_ms={"kernels": ms, **other_ms}, card=card)
+    return launches
+
+
+def phase_train_small(fa):
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params,
+                                                   make_train_step)
+    from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    # tests/parallel/test_mesh_model.py:34-36, with the flash kernels
+    cfg = TransformerConfig(vocab=128, d_model=64, n_heads=4, n_layers=2,
+                            d_ff=128, seq=32, attention="flash",
+                            compute_dtype="float32")
+    params_np = init_params(cfg, seed=0)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(4, cfg.seq)).astype(np.int32)
+    var_registry.set("ops_flash_bwd_kernel", True)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=dev)
+        before = counts(fa)
+        loss, grads = value_and_grad(
+            cfg, mesh, from_jax_params(params_np, cfg, dev, train=True),
+            tokens)
+        ran = {k: v - before[k] for k, v in counts(fa).items()}
+        step, init_opt = make_train_step(cfg, mesh, lr=1e-2)
+        params = from_jax_params(params_np, cfg, dev, train=True)
+        opt_state = init_opt(params)
+        losses = []
+        for _ in range(3):
+            params, opt_state, l_ = step(params, opt_state, tokens)
+            losses.append(l_.item())
+        res[dev] = (loss, {k: g.cpu() for k, g in grads.items()}, losses,
+                    ran)
+    var_registry.set("ops_flash_bwd_kernel", False)
+    (l_gpu, g_gpu, s_gpu, ran_gpu), (l_cpu, g_cpu, s_cpu, ran_cpu) = (
+        res[DEVICE], res["cpu"])
+    check(all(v > 0 for v in ran_gpu.values()),
+          f"the card's step ran no kernel: {ran_gpu}")
+    check(not any(ran_cpu.values()), f"the CPU run launched: {ran_cpu}")
+    check(abs(l_gpu - l_cpu) <= SMALL_TOL * abs(l_cpu),
+          f"first-step loss {l_gpu} on the card vs {l_cpu} on the CPU")
+    worst = 0.0
+    for k in g_cpu:
+        err = (g_gpu[k] - g_cpu[k]).abs()
+        worst = max(worst, err.max().item())
+        check(bool((err <= SMALL_TOL * (g_cpu[k].abs()
+                                        + g_cpu[k].abs().max())).all()),
+              f"grad {k}: card vs CPU max err {err.max().item()}")
+    check(np.allclose(s_gpu, s_cpu, rtol=SMALL_TOL, atol=0),
+          f"three steps: card {s_gpu} vs CPU {s_cpu}")
+    check(s_gpu[-1] < s_gpu[0], f"loss did not fall: {s_gpu}")
+    emit("train_small", config="tests/parallel/test_mesh_model.py CFG, "
+         "flash, f32, bwd kernels on", loss_card=l_gpu, loss_cpu=l_cpu,
+         grad_max_abs_err=worst, losses_card=s_gpu, losses_cpu=s_cpu,
+         launches_card=ran_gpu, tol=SMALL_TOL)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -391,20 +847,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    name, count, smi = phase_device()
+    secs = {}
+
+    def run(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[phase] = time.perf_counter() - t0
+        return out
+
+    name, count, smi = run("device", phase_device)
     card = f"{name}, power limit {smi.split(',')[-1].strip()}"
-    phase_build()
-    kern = phase_kernel(fa)
-    launches = phase_decode(fa, card)
-    phase_cache(fa)
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ompi_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
-        "launches": launches, **kern, "ok": True,
-    }]
+    run("build", phase_build)
+    fwd = run("kernel", phase_kernel, fa)
+    bwd = run("kernel_bwd", phase_kernel_bwd, fa)
+    params_np = run("params", flagship_params)
+    decode_launches = run("decode", phase_decode, fa, card, params_np)
+    run("cache", phase_cache, fa)
+    train = run("train", phase_train, fa, card, params_np)
+    run("train_small", phase_train_small, fa)
+    src = "ompi_tpu_torch/ops/csrc/"
+    kernels = [
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
+         "launches": decode_launches + train["flash_fwd"],
+         "launches_by_path": {"decode": decode_launches,
+                              "train": train["flash_fwd"]},
+         **fwd, "ok": True},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": src + "flash_bwd.cu",
+         "replaces": "ompi_tpu/ops/flash_attention.py:173 (_bwd_dq_kernel)",
+         "launches": train["flash_bwd_dq"], **bwd["dq"], "ok": True},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": src + "flash_bwd.cu",
+         "replaces": "ompi_tpu/ops/flash_attention.py:215 (_bwd_dkv_kernel)",
+         "launches": train["flash_bwd_dkv"], **bwd["dkv"], "ok": True},
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
-    emit("done", seconds=time.perf_counter() - t_start, card=card)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=secs,
+         card=card)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

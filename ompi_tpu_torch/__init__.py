@@ -34,8 +34,17 @@ _LAZY = {
                           "TransformerConfig"),
     "init_params": ("ompi_tpu_torch.models.transformer", "init_params"),
     "make_forward": ("ompi_tpu_torch.models.transformer", "make_forward"),
+    "make_loss_fn": ("ompi_tpu_torch.models.transformer", "make_loss_fn"),
+    "make_train_step": ("ompi_tpu_torch.models.transformer",
+                        "make_train_step"),
+    "make_train_loop": ("ompi_tpu_torch.models.transformer",
+                        "make_train_loop"),
     "make_decoder": ("ompi_tpu_torch.models.decode", "make_decoder"),
+    "ArraySource": ("ompi_tpu_torch.models.data", "ArraySource"),
+    "MemmapSource": ("ompi_tpu_torch.models.data", "MemmapSource"),
+    "train_stream": ("ompi_tpu_torch.models.data", "train_stream"),
     "from_jax_params": ("ompi_tpu_torch.models.weights", "from_jax_params"),
+    "to_numpy_params": ("ompi_tpu_torch.models.weights", "to_numpy_params"),
 }
 
 __all__ = sorted(_LAZY)

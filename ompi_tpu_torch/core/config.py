@@ -6,11 +6,13 @@ registered, typed variable with one namespace and a fixed precedence
     default  <  file ($OMPI_TPU_PARAM_FILE, then ./ompi-tpu-params.conf)
              <  environment (OMPI_TPU_MCA_<framework>_<name>)
 
-The environment prefix and the file format are the JAX package's, so one
-``OMPI_TPU_MCA_ops_flash_block_q`` setting reads the same in both.  The
-port keeps only what its slices read: integer variables from the file
-and environment sources (no synonyms, info levels, read-only vars,
-command-line source or programmatic overrides).
+The environment prefix, the file format and the value parsers are the
+JAX package's, so one ``OMPI_TPU_MCA_ops_flash_block_q`` or
+``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
+The port keeps only what its slices read: integer and boolean variables
+from the file and environment sources, and the programmatic override
+``VarRegistry.set`` (no synonyms, info levels, read-only vars or
+command-line source).
 """
 
 from __future__ import annotations
@@ -29,9 +31,19 @@ ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
 
 class VarType(enum.Enum):
     INT = "int"
+    BOOL = "bool"
 
 
-_PARSERS = {VarType.INT: int}
+def _parse_bool(s: str) -> bool:
+    s = s.strip().lower()
+    if s in ("1", "true", "yes", "on", "enabled"):
+        return True
+    if s in ("0", "false", "no", "off", "disabled"):
+        return False
+    raise ValueError(f"cannot parse {s!r} as bool")
+
+
+_PARSERS = {VarType.INT: int, VarType.BOOL: _parse_bool}
 
 
 @dataclasses.dataclass
@@ -106,6 +118,13 @@ class VarRegistry:
     def get(self, full_name: str) -> Any:
         with self._lock:
             return self._vars[full_name].value
+
+    def set(self, full_name: str, value: Any) -> None:
+        """Programmatic override, above every other source; a string is
+        parsed as the environment's would be."""
+        with self._lock:
+            var = self._vars[full_name]
+            var.value = var.parse(value) if isinstance(value, str) else value
 
 
 var_registry = VarRegistry()

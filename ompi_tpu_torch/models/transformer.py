@@ -1,4 +1,4 @@
-"""Flagship model: the dense transformer LM of the JAX package, forward only.
+"""Flagship model: the dense transformer LM of the JAX package.
 
 The port of ``ompi_tpu.models.transformer``: the same config, the same
 parameter dict (layers stacked along a leading L axis) made by the same
@@ -6,24 +6,30 @@ numpy draws, and the same layer math, run eagerly in PyTorch as a Python
 loop over the L stacked layers.  Compute dtype is bfloat16 by default,
 with float32 accumulation; norms and rotary angles run in float32.
 
-This slice serves (``make_forward`` and ``models.decode``); training, its
-options (``remat``, ``ce_chunk``, ``grad_accum``, ``zero1_axis``,
-``adam_mu_dtype``, carried on the config and not read by the forward) and
-the MoE family come in later slices (ROADMAP.md).
+Serving: ``make_forward`` and ``models.decode``.  Training, on one
+device (dp = sp = tp = 1): ``make_loss_fn``, ``make_train_step`` and
+``make_train_loop`` with their options ``remat``, ``ce_chunk``,
+``grad_accum``, ``param_dtype`` and ``adam_mu_dtype``.  ``zero1_axis``,
+the multi-rank layouts and the MoE family come in later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ompi_tpu_torch.parallel.layers import column_parallel, row_parallel
 
-__all__ = ["TransformerConfig", "init_params", "make_forward"]
+__all__ = ["TransformerConfig", "init_params", "make_forward",
+           "make_loss_fn", "make_train_step", "make_train_loop"]
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1", "ln2")
 
@@ -63,12 +69,12 @@ def torch_dtype(name) -> torch.dtype:
 def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     """Global parameter dict of float32 numpy arrays, layers stacked; the
     same draws in the same order as the JAX package, so one seed gives
-    bit-identical arrays (load them with ``models.weights``)."""
-    if cfg.param_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            "param_dtype (bf16 storage with an f32 master) is a training "
-            "option; it comes with the training slice (ROADMAP.md, port "
-            "slice 1)")
+    bit-identical arrays (load them with ``models.weights``).
+
+    With ``cfg.param_dtype = "bfloat16"`` the arrays stay float32 here:
+    the rounding to the storage dtype (nearest even, as the JAX package's
+    ``astype``) happens in ``from_jax_params(..., train=True)``, because
+    numpy has no bfloat16 without ml_dtypes."""
     rng = np.random.default_rng(seed)
     L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
 
@@ -100,7 +106,7 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts:
         raise NotImplementedError(
             "MoE configs need the ep all_to_all; they come with the MoE "
-            "slice (ROADMAP.md, port slice 3)")
+            "slice (ROADMAP.md, port slice 4)")
 
 
 def full_f32_matmuls() -> None:
@@ -153,6 +159,34 @@ def _attend(cfg, comm, q, k, v):
     return attn.gathered_attention(comm, q, k, v, axis="sp")
 
 
+#: ops whose outputs the "dots" remat policy saves: the matmuls without
+#: batch dims (projections, FFN, unembed), as the JAX package's
+#: ``dots_with_no_batch_dims_saveable``; everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """``fn`` under the config's activation-checkpoint policy, the
+    counterpart of the JAX package's ``jax.checkpoint`` per layer:
+    True/"full" recomputes the whole layer in the backward, "dots" saves
+    the matmul outputs and recomputes the rest, anything else saves all.
+    All three give the same numbers.  The recompute reruns the layer's
+    Python forward, kernels included, so they must be pure."""
+    if cfg.remat in (True, "full"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    return fn
+
+
 def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
                     collect_kv: bool = False):
     """Forward through the final rmsnorm (everything but the unembed).
@@ -160,7 +194,8 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
     tokens: (B, S) int64.  Returns (h (B, S, D) compute dtype, aux), aux
     the (zero) MoE balance loss.  With ``collect_kv`` returns
     (h, (aux, k, v)) where k/v are the post-rope per-layer attention
-    inputs stacked (L, B, S, H, hd), the KV-cache prefill.
+    inputs stacked (L, B, S, H, hd), the KV-cache prefill.  Under autograd
+    each layer runs under ``cfg.remat``.
     """
     check_supported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
@@ -170,10 +205,7 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
     T = tokens.shape[1]
     positions = torch.arange(T, device=tokens.device)  # sp == 1: offset 0
 
-    h = params["emb"][tokens].to(cdt)  # (b, t, D)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = {key: params[key][i] for key in LAYER_KEYS}
+    def layer(h, lp):
         x = _rmsnorm(h, lp["ln1"])
         B, t = x.shape[0], x.shape[1]
         q = column_parallel(x, lp["wq"].to(cdt)).reshape(B, t, h_local, hd)
@@ -183,7 +215,20 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
         k = _rope(k, positions)
         o = _attend(cfg, comm, q, k, v).reshape(B, t, h_local * hd)
         h = h + row_parallel(o, lp["wo"].to(cdt), comm, axis="tp")
-        h = _dense_ffn_tail(h, lp, comm, cdt)
+        return _dense_ffn_tail(h, lp, comm, cdt), k, v
+
+    if torch.is_grad_enabled() and not collect_kv:
+        layer_fn = _remat(cfg, layer)
+    else:
+        layer_fn = layer
+    h = params["emb"][tokens].to(cdt)  # (b, t, D)
+    # one unbind per stacked leaf: its backward stacks the L layers'
+    # gradients at once (indexing would add L full-size zero-padded ones)
+    stacked = {key: params[key].unbind(0) for key in LAYER_KEYS}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = {key: stacked[key][i] for key in LAYER_KEYS}
+        h, k, v = layer_fn(h, lp)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -219,15 +264,10 @@ def as_tokens(tokens, device: torch.device) -> torch.Tensor:
 def make_forward(cfg: TransformerConfig, mesh):
     """(params, tokens (B, S)) → logits (B, S, V) float32, for serving.
     ``params`` come from ``models.weights.from_jax_params``."""
-    from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
     from ompi_tpu_torch.parallel.mesh import resolve_device
 
-    check_supported(cfg)
     dev = resolve_device(mesh.device)
-    full_f32_matmuls()
-    axes = tuple(a for a in ("dp", "sp", "tp", "ep")
-                 if a in mesh.axis_names)
-    comm = DeviceCommunicator(mesh, axes)
+    comm = _comm_for(cfg, mesh)
 
     def forward(params, tokens):
         with torch.no_grad():
@@ -235,3 +275,207 @@ def make_forward(cfg: TransformerConfig, mesh):
                                   as_tokens(tokens, dev))[0]
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# training (one device: dp = sp = tp = 1)
+# ---------------------------------------------------------------------------
+
+_MULTI_RANK = "the multi-rank training slice (ROADMAP.md, port slice 3)"
+
+
+def _nll_chunk(h_c, emb_c, lab_c, w_c):
+    """Σ weight·nll of one sequence chunk; its (B, c, V) logits live only
+    inside this call (recomputed in the backward)."""
+    logits = unembed(h_c, emb_c, emb_c.dtype)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab_logit = logits.gather(-1, lab_c[..., None])[..., 0]
+    return ((lse - lab_logit) * w_c).sum()
+
+
+def _chunked_nll_sum(cfg: TransformerConfig, h, emb, labels, weight):
+    """Σ weight·nll WITHOUT materializing the full (B, T, V) logits: a loop
+    over sequence chunks of ``cfg.ce_chunk``, each chunk's logits
+    recomputed in the backward (``torch.utils.checkpoint``), as the JAX
+    package's ``jax.checkpoint`` around its scanned chunk body.
+
+    h: (B, T, D) compute dtype; emb: (V, D) f32; labels: (B, T) int64;
+    weight: (B, T) f32.  Returns a f32 scalar.
+    """
+    T = h.shape[1]
+    c = cfg.ce_chunk
+    emb_c = emb.to(h.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(T // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_nll_chunk, h[:, sl], emb_c, labels[:, sl],
+                                   weight[:, sl], use_reentrant=False)
+    return total
+
+
+def _local_loss(cfg: TransformerConfig, comm, params, tokens):
+    """Next-token cross entropy at sp = 1: labels are the tokens shifted
+    left by one, the first token wrapping round to label the last
+    position, whose weight is 0 (the weight mask is built from
+    ``cfg.seq``, not T, as in the JAX package)."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    positions = torch.arange(T, device=tokens.device)
+    weight = (positions < cfg.seq - 1).to(torch.float32)[None, :]
+    if cfg.ce_chunk and T % cfg.ce_chunk == 0:
+        h, _aux = _local_backbone(cfg, comm, params, tokens)
+        local_sum = _chunked_nll_sum(cfg, h, params["emb"], labels,
+                                     weight.expand(B, T))
+    else:
+        logits, _aux = _local_forward(cfg, comm, params, tokens)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        nll = -logprobs.gather(-1, labels[..., None])[..., 0]
+        local_sum = (nll * weight).sum()
+    return local_sum / (weight.sum() * B)
+
+
+def _comm_for(cfg: TransformerConfig, mesh):
+    from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
+
+    check_supported(cfg)
+    full_f32_matmuls()
+    axes = tuple(a for a in ("dp", "sp", "tp", "ep")
+                 if a in mesh.axis_names)
+    return DeviceCommunicator(mesh, axes)
+
+
+def make_loss_fn(cfg: TransformerConfig, mesh):
+    """(params, tokens (B, S)) → scalar f32 loss, differentiable in the
+    params (leaf tensors from ``from_jax_params(..., train=True)``)."""
+    from ompi_tpu_torch.parallel.mesh import resolve_device
+
+    dev = resolve_device(mesh.device)
+    comm = _comm_for(cfg, mesh)
+
+    def loss_fn(params, tokens):
+        return _local_loss(cfg, comm, params, as_tokens(tokens, dev))
+
+    return loss_fn
+
+
+def _store_dtype(cfg: TransformerConfig):
+    if cfg.param_dtype in (None, "float32", torch.float32):
+        return None
+    return torch_dtype(cfg.param_dtype)
+
+
+def _make_step_body(cfg: TransformerConfig, mesh, lr):
+    """The optimizer-step body both entry points run: (params, opt_state,
+    tokens) → (params, opt_state, loss).  AdamW as the JAX package's
+    ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
+    mu_dtype=cfg.adam_mu_dtype)``; with ``param_dtype="bfloat16"`` the
+    optimizer runs on an f32 master copy and the live params are
+    re-derived from it each step.
+
+    The params are updated in place (the counterpart of the JAX package's
+    donated buffers: no second copy of the model) and returned."""
+    from ompi_tpu_torch.models.optim import adamw
+
+    if cfg.zero1_axis:
+        raise NotImplementedError(f"zero1_axis (a ZeRO-1 sharded optimizer "
+                                  f"state) comes with {_MULTI_RANK}")
+    loss_fn = make_loss_fn(cfg, mesh)
+    opt = adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
+                mu_dtype=cfg.adam_mu_dtype)
+    accum = int(cfg.grad_accum)
+    if accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
+    store = _store_dtype(cfg)
+    f32 = torch.float32
+
+    def value_and_grad(params, tokens):
+        loss = loss_fn(params, tokens)
+        keys = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        return loss.detach(), dict(zip(keys, grads))
+
+    def loss_and_grads(params, tokens):
+        """(mean loss, mean grads): one pass, or ``grad_accum``
+        microbatches in turn, grads summed in f32."""
+        if accum == 1:
+            return value_and_grad(params, tokens)
+        B = tokens.shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} not divisible by "
+                             f"grad_accum {accum}")
+        micro = tokens.reshape(accum, B // accum, *tokens.shape[1:])
+        total = torch.zeros((), dtype=f32, device=mesh.device)
+        g_sum = {k: torch.zeros(p.shape, dtype=f32, device=p.device)
+                 for k, p in params.items()}
+        for toks in micro:
+            loss, g = value_and_grad(params, toks)
+            total = total + loss
+            for k in g_sum:
+                g_sum[k] += g[k].to(f32)
+            del g
+        inv = 1.0 / accum
+        return total * inv, {k: g * inv for k, g in g_sum.items()}
+
+    if store is None:
+        def body(params, opt_state, tokens):
+            loss, grads = loss_and_grads(params, tokens)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            with torch.no_grad():
+                for k, u in updates.items():
+                    params[k].add_(u)
+            return params, opt_state, loss
+
+        return body, opt.init
+
+    def master_init(params):
+        master = {k: p.detach().to(f32).clone() for k, p in params.items()}
+        return {"opt": opt.init(master), "master": master}
+
+    def body(params, opt_state, tokens):
+        loss, grads = loss_and_grads(params, tokens)
+        g32 = {k: g.to(f32) for k, g in grads.items()}
+        del grads
+        master = opt_state["master"]
+        updates, inner = opt.update(g32, opt_state["opt"], master)
+        with torch.no_grad():
+            for k, u in updates.items():
+                master[k].add_(u)
+                params[k].copy_(master[k])      # rounds to the storage dtype
+        return params, {"opt": inner, "master": master}, loss
+
+    return body, master_init
+
+
+def make_train_step(cfg: TransformerConfig, mesh, lr=3e-4):
+    """(params, opt_state, tokens) → (params, opt_state, loss), and the
+    optimizer-state initializer: ``step, init_opt = make_train_step(...)``.
+
+    ``params`` come from ``models.weights.from_jax_params(..., train=True)``
+    on ``mesh.device`` and are updated in place; ``tokens`` is a (B, S)
+    int array (numpy or tensor).  ``lr`` is a float or a callable of the
+    step count."""
+    body, init = _make_step_body(cfg, mesh, lr)
+    dev = mesh.device
+
+    def step(params, opt_state, tokens):
+        return body(params, opt_state, as_tokens(tokens, dev))
+
+    return step, init
+
+
+def make_train_loop(cfg: TransformerConfig, mesh, lr=3e-4, steps: int = 8):
+    """(params, opt_state, tokens) → (params, opt_state, losses): ``steps``
+    optimizer steps on the same tokens, losses a (steps,) f32 tensor."""
+    body, init = _make_step_body(cfg, mesh, lr)
+    dev = mesh.device
+
+    def run(params, opt_state, tokens):
+        tokens = as_tokens(tokens, dev)
+        losses = []
+        for _ in range(steps):
+            params, opt_state, loss = body(params, opt_state, tokens)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses).to(torch.float32)
+
+    return run, init

@@ -5,8 +5,8 @@ This slice carries the shape API the model reads (``mesh``, ``axes``,
 the JAX package's ``DeviceCommunicator``.  A communicator is a set of
 mesh axes; its rank is the row-major flat index over them.  The
 collectives (over ``torch.distributed``: NCCL on the card, gloo on the
-CPU) come with the training slice (ROADMAP.md, port slice 1); until then
-a communicator that spans more than one device raises.
+CPU) come with the multi-rank slices (ROADMAP.md, port slices 2-3);
+until then a communicator that spans more than one device raises.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Optional, Sequence
 __all__ = ["DeviceCommunicator"]
 
 _LATER = ("device collectives over torch.distributed come with the "
-          "training slice (ROADMAP.md, port slice 1)")
+          "multi-rank device plane and training slice (ROADMAP.md, port "
+          "slices 2-3)")
 
 
 class DeviceCommunicator:

@@ -33,8 +33,11 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 _lock = threading.Lock()
+#: one lock per source, so different sources build concurrently
+_source_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
-#: ``-Xptxas -v`` lines of each source built in this process
+#: ``-Xptxas -v`` lines of each source built in this process (with the
+#: stack-frame/spill line of each kernel)
 ptxas_info: dict[str, list[str]] = {}
 
 
@@ -79,13 +82,17 @@ def build(source: str) -> Path:
         os.replace(tmp, lib)
     if log.exists():
         ptxas_info[source] = [ln.strip() for ln in
-                              log.read_text().splitlines() if "ptxas" in ln]
+                              log.read_text().splitlines()
+                              if "ptxas" in ln or "spill" in ln]
     return lib
 
 
 def load(source: str) -> ctypes.CDLL:
-    """Build (once) and load the library of ``csrc/<source>``."""
+    """Build (once) and load the library of ``csrc/<source>``; calls for
+    different sources build in parallel."""
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         if source not in _loaded:
             _loaded[source] = ctypes.CDLL(str(build(source)))
         return _loaded[source]

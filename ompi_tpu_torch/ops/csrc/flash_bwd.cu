@@ -1,0 +1,870 @@
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: two kernels.
+//
+// Replaces: ompi_tpu/ops/flash_attention.py `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` (the Pallas kernels launched by `_flash_bwd_raw`).
+// Same functions.  For one batch*head, with s = q k^T * scale and the
+// causal mask on GLOBAL positions q_offset + i >= k_offset + j (runtime
+// ints, as in the forward):
+//   p  = exp(s - lse), from the SAVED f32 lse, not renormalised;
+//   dp = g v^T in f32;
+//   ds = p * (dp - dm) * scale, rounded to q's dtype;
+//   dq = ds k           (one block per q tile, K/V streamed: `dq` kernel);
+//   dv = sum pc^T g     with pc = p rounded to g's dtype, and
+//   dk = sum ds^T q     (one block per k tile, Q/G streamed: `dkv` kernel).
+// dm = rowsum(g * out) - g_lse comes in precomputed (B*H, Tq) f32, beside
+// lse; outputs are in the storage dtype.  The TPU's (BH, nq, 8, block_q)
+// sublane layout of lse/dm is not carried over.
+//
+// Kept exactly as in the reference: masked scores are -1e30 and the mask
+// is applied twice.  A fully masked row has lse ~ -1e30, so its masked
+// s - lse is 0 and p would be 1; the second mask makes it 0.  Here both
+// masks are one test: p = live ? exp(s * scale - lse) : 0.
+//
+// What bounds them on this card.  At the training shape (B*H = 256,
+// T = 1024, D = 128, bf16, causal: 524,800 live pairs a head) dq does
+// 6 * pairs * D = 103 GFLOP and moves ~337 MB (q, k, v, g read, dq
+// written, lse/dm); dk/dv does 8 * pairs * D = 138 GFLOP and moves
+// ~405 MB.  At H100 SXM peaks that is 104 us of tensor-core math against
+// 101 us of HBM traffic for dq, 139 against 121 us for dk/dv: both sit
+// on the line between the two bounds, with FLOPs slightly ahead.
+//
+// What the design does about it.  The two-kernel split of the reference
+// stays: it is deterministic and needs no atomics on dq.  Each streamed
+// K/V (or Q/G) element is read from HBM once per 64-row tile and scores,
+// weights and ds never leave the SM; tiles that the causal mask empties
+// are skipped (K tiles above the diagonal in dq, Q tiles wholly before
+// the k tile in dk/dv).  Streamed tiles are copied with 16-byte cp.async
+// into two shared-memory stages, so the next tile's copy runs under this
+// tile's math.
+//
+//   - bf16 (the training path): mma.sync m16n8k16 tensor-core tiles
+//     (bf16 in, f32 accumulate), 4 warps of 16 rows each.  In dq a warp
+//     owns 16 query rows; S = Q K^T and dP = G V^T come out in the
+//     accumulator layout, which, rounded to bf16, is the A operand of
+//     dS K, so ds never goes to shared memory; K's B fragments come out
+//     transposed through ldmatrix.  In dk/dv a warp owns 16 key rows and
+//     computes the transposed products S^T = K Q^T and dP^T = V G^T, so
+//     P^T and dS^T are again A operands in registers for P^T G and
+//     dS^T Q.  The streamed tile is worked through 32 (dq) or 16 (dk/dv)
+//     columns at a time and Q/G (dq) and K/V (dk/dv) A fragments are read
+//     from shared memory, which keeps the two f32 (16 x D) accumulators
+//     of dk/dv in registers without spills at D = 128.  wgmma with
+//     TMA-fed tiles is the later step towards the bound.
+//   - f32: products on the f32 CUDA cores (tensor cores would round f32
+//     inputs to TF32 and break float32 parity).  256 threads as 32 row
+//     groups x 8 column lanes, as the forward; ds (and p for dv) go
+//     through shared memory between the two products.
+//
+// All kernels allocate nothing, launch on the caller's stream and do not
+// synchronise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+
+constexpr int TILE = 64;   // rows of a block's own tile and of a streamed tile
+// streamed columns a bf16 warp works on at a time: 32 keys in dq, 16
+// queries in dk/dv, whose two (16 x D) f32 accumulators already take 128
+// registers a thread at D = 128
+constexpr int DQ_SUB = 32;
+constexpr int DKV_SUB = 16;
+
+// K/V tiles a dq block must visit: with a causal mask, tiles past the
+// last key any of its rows may see are wholly masked and skipped.
+__device__ __forceinline__ int dq_tiles(int q0, int tq, int tk, int causal,
+                                        int q_offset, int k_offset) {
+  const int n = (tk + TILE - 1) / TILE;
+  if (!causal) return n;
+  const int span = q_offset + min(q0 + TILE, tq) - 1 - k_offset;
+  return span < 0 ? 0 : min(n, span / TILE + 1);
+}
+
+// First Q tile a dk/dv block must visit: with a causal mask, tiles whose
+// queries all come before the block's first key are skipped.  Returns the
+// number of q tiles when none is live.
+__device__ __forceinline__ int dkv_first_tile(int k0, int tq, int causal,
+                                              int q_offset, int k_offset) {
+  if (!causal) return 0;
+  const int first_q = k_offset + k0 - q_offset;  // first query to see k0
+  if (first_q >= tq) return (tq + TILE - 1) / TILE;
+  return first_q <= 0 ? 0 : first_q / TILE;
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr int NT32 = 256;   // 32 row groups x 8 lanes; 2 rows a thread
+
+// Stage rows [row0, row0 + TILE) of a (rows_total, D) matrix into shared
+// memory with row stride D + 1; rows past the end are zero.
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               int row0, int rows_total) {
+  constexpr int LD = D + 1;
+  for (int e = threadIdx.x; e < TILE * D; e += NT32) {
+    const int r = e / D;
+    const int c = e % D;
+    const int g = row0 + r;
+    dst[r * LD + c] = g < rows_total ? src[(size_t)g * D + c] : 0.0f;
+  }
+}
+
+template <int D>
+constexpr size_t dq_f32_smem() {
+  return sizeof(float) * (size_t)(4 * TILE * (D + 1) + TILE * (TILE + 1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT32)
+    bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dm, float* __restrict__ dq,
+                      int tq, int tk, float scale, int causal, int q_offset,
+                      int k_offset) {
+  constexpr int LD = D + 1;
+  constexpr int LP = TILE + 1;
+  constexpr int DPT = D / 8;
+  extern __shared__ float smem[];
+  float* qs = smem;              // TILE x LD
+  float* gs = qs + TILE * LD;    // TILE x LD
+  float* ks = gs + TILE * LD;    // TILE x LD
+  float* vs = ks + TILE * LD;    // TILE x LD
+  float* dss = vs + TILE * LD;   // TILE x LP: ds of this K tile
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * TILE;
+  const int lane = threadIdx.x & 7;
+  const int row = (threadIdx.x >> 3) * 2;   // first local row of mine
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+
+  stage_rows_f32<D>(qs, q + (size_t)bh * tq * D, q0, tq);
+  stage_rows_f32<D>(gs, g + (size_t)bh * tq * D, q0, tq);
+
+  float lse_r[2], dm_r[2], acc[2][DPT];
+  int qpos[2];
+  bool qin[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row + i;
+    qin[i] = r < tq;
+    lse_r[i] = qin[i] ? lse[(size_t)bh * tq + r] : 0.0f;
+    dm_r[i] = qin[i] ? dm[(size_t)bh * tq + r] : 0.0f;
+    qpos[i] = q_offset + r;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
+  }
+
+  const int n_tiles = dq_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * TILE;
+    __syncthreads();  // previous tile's K/V/ds reads are done
+    stage_rows_f32<D>(ks, kb, k0, tk);
+    stage_rows_f32<D>(vs, vb, k0, tk);
+    __syncthreads();
+
+    float s[2][8], dp[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[2], gv[2], kv[8], vv[8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qv[i] = qs[(row + i) * LD + d];
+        gv[i] = gs[(row + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        kv[j] = ks[(lane + 8 * j) * LD + d];
+        vv[j] = vs[(lane + 8 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + lane + 8 * j;
+        const bool live = qin[i] && key < tk &&
+                          (!causal || qpos[i] >= k_offset + key);
+        const float p = live ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
+        dss[(row + i) * LP + lane + 8 * j] = p * (dp[i][j] - dm_r[i]) * scale;
+      }
+    __syncthreads();  // ds tile complete
+
+    const int kn = min(TILE, tk - k0);
+    for (int c = 0; c < kn; ++c) {
+      float dsv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dsv[i] = dss[(row + i) * LP + c];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const float kval = ks[c * LD + lane + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) acc[i][j] = fmaf(dsv[i], kval, acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!qin[i]) continue;
+    float* orow = dq + ((size_t)bh * tq + q0 + row + i) * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) orow[lane + 8 * j] = acc[i][j];
+  }
+}
+
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  return sizeof(float) *
+         (size_t)(4 * TILE * (D + 1) + 2 * TILE * (TILE + 1) + 2 * TILE);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT32)
+    bwd_dkv_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dm, float* __restrict__ dk,
+                       float* __restrict__ dv, int tq, int tk, float scale,
+                       int causal, int q_offset, int k_offset) {
+  constexpr int LD = D + 1;
+  constexpr int LP = TILE + 1;
+  constexpr int DPT = D / 8;
+  extern __shared__ float smem[];
+  float* ks = smem;              // TILE x LD, this block's keys
+  float* vs = ks + TILE * LD;    // TILE x LD
+  float* qs = vs + TILE * LD;    // TILE x LD, streamed
+  float* gs = qs + TILE * LD;    // TILE x LD, streamed
+  float* ps = gs + TILE * LD;    // TILE x LP: p^T (keys x queries)
+  float* dss = ps + TILE * LP;   // TILE x LP: ds^T
+  float* ls = dss + TILE * LP;   // TILE: lse of the streamed queries
+  float* dms = ls + TILE;        // TILE: dm of the streamed queries
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * TILE;
+  const int lane = threadIdx.x & 7;
+  const int row = (threadIdx.x >> 3) * 2;   // first local key row of mine
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* gb = g + (size_t)bh * tq * D;
+
+  stage_rows_f32<D>(ks, k + (size_t)bh * tk * D, k0, tk);
+  stage_rows_f32<D>(vs, v + (size_t)bh * tk * D, k0, tk);
+
+  float dk_[2][DPT], dv_[2][DPT];
+  int kpos[2];
+  bool kin[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kin[i] = k0 + row + i < tk;
+    kpos[i] = k_offset + k0 + row + i;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dk_[i][j] = dv_[i][j] = 0.0f;
+  }
+
+  const int n_qt = (tq + TILE - 1) / TILE;
+  for (int t = dkv_first_tile(k0, tq, causal, q_offset, k_offset); t < n_qt;
+       ++t) {
+    const int qq0 = t * TILE;
+    __syncthreads();  // previous tile's reads are done
+    stage_rows_f32<D>(qs, qb, qq0, tq);
+    stage_rows_f32<D>(gs, gb, qq0, tq);
+    if (threadIdx.x < TILE) {
+      const int r = qq0 + threadIdx.x;
+      ls[threadIdx.x] = r < tq ? lse[(size_t)bh * tq + r] : 0.0f;
+      dms[threadIdx.x] = r < tq ? dm[(size_t)bh * tq + r] : 0.0f;
+    }
+    __syncthreads();
+
+    // s^T, dp^T: my 2 key rows x the 8 query columns lane + 8j
+    float s[2][8], dp[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float kv[2], vv[2], qv[8], gv[8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        kv[i] = ks[(row + i) * LD + d];
+        vv[i] = vs[(row + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        qv[j] = qs[(lane + 8 * j) * LD + d];
+        gv[j] = gs[(lane + 8 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+          dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = lane + 8 * j;
+        const int qi = qq0 + c;
+        const bool live = kin[i] && qi < tq &&
+                          (!causal || q_offset + qi >= kpos[i]);
+        const float p = live ? expf(s[i][j] * scale - ls[c]) : 0.0f;
+        ps[(row + i) * LP + c] = p;
+        dss[(row + i) * LP + c] = p * (dp[i][j] - dms[c]) * scale;
+      }
+    __syncthreads();  // p^T and ds^T complete
+
+    const int qn = min(TILE, tq - qq0);
+    for (int c = 0; c < qn; ++c) {
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        pv[i] = ps[(row + i) * LP + c];
+        dsv[i] = dss[(row + i) * LP + c];
+      }
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const float gval = gs[c * LD + lane + 8 * j];
+        const float qval = qs[c * LD + lane + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          dv_[i][j] = fmaf(pv[i], gval, dv_[i][j]);
+          dk_[i][j] = fmaf(dsv[i], qval, dk_[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!kin[i]) continue;
+    const size_t off = ((size_t)bh * tk + k0 + row + i) * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      dk[off + lane + 8 * j] = dk_[i][j];
+      dv[off + lane + 8 * j] = dv_[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernels (mma.sync m16n8k16, f32 accumulate)
+// ---------------------------------------------------------------------------
+
+constexpr int NT16 = 128;   // 4 warps x 16 rows
+
+// Start the copy of rows [row0, row0 + TILE) of a (rows_total, D) matrix
+// into shared memory (row stride D + 8 elements: a warp's fragment loads
+// hit 32 distinct banks, and rows stay 16-byte aligned for ldmatrix);
+// rows past the end are zero-filled.  The caller commits the group.
+template <int D>
+__device__ __forceinline__ void stage_rows_bf16(bf16* dst, const bf16* src,
+                                                int row0, int rows_total) {
+  constexpr int LD = D + 8;
+  constexpr int C8 = D / 8;         // 16-byte chunks a row
+  for (int e = threadIdx.x; e < TILE * C8; e += NT16) {
+    const int r = e / C8, c = (e % C8) * 8;
+    const bool in = row0 + r < rows_total;
+    cp_async16(dst + r * LD + c, src + (size_t)(in ? row0 + r : 0) * D + c,
+               in ? 16 : 0);
+  }
+}
+
+// A fragment of rows [r, r + 16) x cols [c, c + 16) of a staged tile
+// (row stride LD) through ldmatrix; `tile` points at (r, c).  Reloaded for
+// every sub-step rather than held: the block's own K/V (or Q/G) fragments
+// over the whole head dim would take 64 registers at D = 128.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + (lane & 15) * LD + (lane >> 4) * 8);
+}
+
+template <int D>
+constexpr size_t dq_bf16_smem() {
+  return sizeof(bf16) * (size_t)(2 * TILE * (D + 8)       // Q, G
+                                 + 2 * 2 * TILE * (D + 8));  // 2 x (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT16)
+    bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dm, bf16* __restrict__ dq,
+                       int tq, int tk, float scale, int causal, int q_offset,
+                       int k_offset) {
+  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int NDQ_SUB = DQ_SUB / 8;   // 8-key column tiles a sub-step
+  constexpr int NO = D / 8;         // 8-wide column tiles of dq
+  constexpr int LD = D + 8;
+  constexpr int STAGE = 2 * TILE * LD;  // one stage: K tile then V tile
+  extern __shared__ __align__(16) uint16_t smem16[];
+  bf16* qs = reinterpret_cast<bf16*>(smem16);
+  bf16* gs = qs + TILE * LD;
+  bf16* stages = gs + TILE * LD;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;         // fragment row group
+  const int c2 = (lane & 3) * 2;    // fragment column pair
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * TILE;
+  const int wr = warp * 16;         // my first local row
+  const int r0 = q0 + wr + gq;      // my rows: r0 and r0 + 8
+  const bf16* kb = k + (size_t)bh * tk * D;
+  const bf16* vb = v + (size_t)bh * tk * D;
+
+  const int n_tiles = dq_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  if (n_tiles > 0) {
+    stage_rows_bf16<D>(qs, q + (size_t)bh * tq * D, q0, tq);
+    stage_rows_bf16<D>(gs, g + (size_t)bh * tq * D, q0, tq);
+    cp_async_commit();
+    stage_rows_bf16<D>(stages, kb, 0, tk);
+    stage_rows_bf16<D>(stages + TILE * LD, vb, 0, tk);
+    cp_async_commit();
+  }
+
+  float lse_r[2], dm_r[2];
+  int qpos[2];
+  bool qin[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    qin[h] = r < tq;
+    lse_r[h] = qin[h] ? lse[(size_t)bh * tq + r] : 0.0f;
+    dm_r[h] = qin[h] ? dm[(size_t)bh * tq + r] : 0.0f;
+    qpos[h] = q_offset + r;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * TILE;
+    // everyone is done with the stage tile t+1 will overwrite (tile t-1)
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      bf16* nxt = stages + ((t + 1) & 1) * STAGE;
+      stage_rows_bf16<D>(nxt, kb, k0 + TILE, tk);
+      stage_rows_bf16<D>(nxt + TILE * LD, vb, k0 + TILE, tk);
+      cp_async_commit();
+      cp_async_wait<1>();           // Q/G and tile t have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = stages + (t & 1) * STAGE;
+    const bf16* vs = ks + TILE * LD;
+
+#pragma unroll
+    for (int sub = 0; sub < TILE / DQ_SUB; ++sub) {
+      const int kc0 = sub * DQ_SUB;  // first local key of this sub-step
+      // S = Q K^T and dP = G V^T for my 16 rows x DQ_SUB keys, in the
+      // accumulator layout: [n][0..1] row r0, keys kc0 + n*8 + c2 + {0,1};
+      // [n][2..3] row r0 + 8
+      float s[NDQ_SUB][4], dp[NDQ_SUB][4];
+#pragma unroll
+      for (int n = 0; n < NDQ_SUB; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] =
+            dp[n][2] = dp[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], ga[4];
+        load_a<LD>(qa, qs + wr * LD + kk * 16);
+        load_a<LD>(ga, gs + wr * LD + kk * 16);
+#pragma unroll
+        for (int n = 0; n < NDQ_SUB; ++n) {
+          const int off = (kc0 + n * 8 + gq) * LD + kk * 16 + c2;
+          mma_16816(s[n], qa, ld32(ks + off), ld32(ks + off + 8));
+          mma_16816(dp[n], ga, ld32(vs + off), ld32(vs + off + 8));
+        }
+      }
+      // ds = p (dp - dm) scale, in place of s
+#pragma unroll
+      for (int n = 0; n < NDQ_SUB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + kc0 + n * 8 + c2 + (e & 1);
+          const int h = e >> 1;
+          const bool live = qin[h] && key < tk &&
+                            (!causal || qpos[h] >= k_offset + key);
+          const float p = live ? expf(s[n][e] * scale - lse_r[h]) : 0.0f;
+          s[n][e] = p * (dp[n][e] - dm_r[h]) * scale;
+        }
+      // dq += ds K: the ds accumulators of key tiles 2c, 2c+1, rounded to
+      // bf16, are the A fragment of key chunk c; K's B fragments come
+      // from the row-major tile through ldmatrix.trans
+#pragma unroll
+      for (int c = 0; c < DQ_SUB / 16; ++c) {
+        const uint32_t da[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
+                                pack_bf16(s[2 * c][2], s[2 * c][3]),
+                                pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
+                                pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+        const bf16* krow =
+            ks + (kc0 + c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, krow + j * 8);
+          mma_16816(acc[j], da, b[0], b[1]);
+          mma_16816(acc[j + 1], da, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!qin[h]) continue;
+    bf16* orow = dq + ((size_t)bh * tq + r0 + 8 * h) * D + c2;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_bf16_smem() {
+  return sizeof(bf16) * (size_t)(2 * TILE * (D + 8)          // K, V
+                                 + 2 * 2 * TILE * (D + 8))   // 2 x (Q, G)
+         + sizeof(float) * 2 * 2 * TILE;                     // 2 x (lse, dm)
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT16)
+    bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dm, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int tq, int tk, float scale,
+                        int causal, int q_offset, int k_offset) {
+  constexpr int KS = D / 16;
+  constexpr int NDKV_SUB = DKV_SUB / 8;  // 8-query column tiles a sub-step
+  constexpr int NO = D / 8;
+  constexpr int LD = D + 8;
+  constexpr int STAGE = 2 * TILE * LD;  // one stage: Q tile then G tile
+  extern __shared__ __align__(16) uint16_t smem16[];
+  bf16* ks = reinterpret_cast<bf16*>(smem16);
+  bf16* vs = ks + TILE * LD;
+  bf16* stages = vs + TILE * LD;
+  float* ls = reinterpret_cast<float*>(stages + 2 * STAGE);  // 2 x TILE
+  float* dms = ls + 2 * TILE;                                // 2 x TILE
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gk = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * TILE;
+  const int wk = warp * 16;         // my first local key row
+  const int kr0 = k0 + wk + gk;     // my keys: kr0 and kr0 + 8
+  const bf16* qb = q + (size_t)bh * tq * D;
+  const bf16* gb = g + (size_t)bh * tq * D;
+  const float* lb = lse + (size_t)bh * tq;
+  const float* mb = dm + (size_t)bh * tq;
+
+  const int n_qt = (tq + TILE - 1) / TILE;
+  const int t0 = dkv_first_tile(k0, tq, causal, q_offset, k_offset);
+  const int n_live = n_qt - t0;
+
+  // Q/G tile `t` into stage `st` (cp.async, committed); its lse and dm by
+  // plain loads, visible after the next __syncthreads
+  auto stage_q = [&](int t, int st) {
+    bf16* dst = stages + st * STAGE;
+    stage_rows_bf16<D>(dst, qb, t * TILE, tq);
+    stage_rows_bf16<D>(dst + TILE * LD, gb, t * TILE, tq);
+    cp_async_commit();
+    if (threadIdx.x < TILE) {
+      const int r = t * TILE + threadIdx.x;
+      ls[st * TILE + threadIdx.x] = r < tq ? lb[r] : 0.0f;
+      dms[st * TILE + threadIdx.x] = r < tq ? mb[r] : 0.0f;
+    }
+  };
+  if (n_live > 0) {
+    stage_rows_bf16<D>(ks, k + (size_t)bh * tk * D, k0, tk);
+    stage_rows_bf16<D>(vs, v + (size_t)bh * tk * D, k0, tk);
+    cp_async_commit();
+    stage_q(t0, 0);
+  }
+
+  int kpos[2];
+  bool kin[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kin[h] = kr0 + 8 * h < tk;
+    kpos[h] = k_offset + kr0 + 8 * h;
+  }
+  float dk_[NO][4], dv_[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_[j][e] = dv_[j][e] = 0.0f;
+
+  for (int it = 0; it < n_live; ++it) {
+    const int qq0 = (t0 + it) * TILE;
+    __syncthreads();  // everyone is done with the stage about to refill
+    if (it + 1 < n_live) {
+      stage_q(t0 + it + 1, (it + 1) & 1);
+      cp_async_wait<1>();           // K/V and this tile have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qs = stages + (it & 1) * STAGE;
+    const bf16* gs = qs + TILE * LD;
+    const float* lt = ls + (it & 1) * TILE;
+    const float* mt = dms + (it & 1) * TILE;
+
+#pragma unroll
+    for (int sub = 0; sub < TILE / DKV_SUB; ++sub) {
+      const int qc0 = sub * DKV_SUB;  // first local query of the sub-step
+      // S^T = K Q^T and dP^T = V G^T for my 16 keys x DKV_SUB queries:
+      // [n][0..1] key kr0, queries qc0 + n*8 + c2 + {0,1}; [n][2..3] key
+      // kr0 + 8
+      float s[NDKV_SUB][4], dp[NDKV_SUB][4];
+#pragma unroll
+      for (int n = 0; n < NDKV_SUB; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] =
+            dp[n][2] = dp[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a<LD>(ka, ks + wk * LD + kk * 16);
+        load_a<LD>(va, vs + wk * LD + kk * 16);
+#pragma unroll
+        for (int n = 0; n < NDKV_SUB; ++n) {
+          const int off = (qc0 + n * 8 + gk) * LD + kk * 16 + c2;
+          mma_16816(s[n], ka, ld32(qs + off), ld32(qs + off + 8));
+          mma_16816(dp[n], va, ld32(gs + off), ld32(gs + off + 8));
+        }
+      }
+      // p^T in s, ds^T in dp
+#pragma unroll
+      for (int n = 0; n < NDKV_SUB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = qc0 + n * 8 + c2 + (e & 1);
+          const int qi = qq0 + c;
+          const int h = e >> 1;
+          const bool live = kin[h] && qi < tq &&
+                            (!causal || q_offset + qi >= kpos[h]);
+          const float p = live ? expf(s[n][e] * scale - lt[c]) : 0.0f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - mt[c]) * scale;
+        }
+      // dv += P^T G and dk += dS^T Q over query chunks of 16: P^T and dS^T
+      // rounded to bf16 are the A fragments; G's and Q's B fragments come
+      // from the row-major tiles through ldmatrix.trans
+#pragma unroll
+      for (int c = 0; c < DKV_SUB / 16; ++c) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
+                                pack_bf16(s[2 * c][2], s[2 * c][3]),
+                                pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
+                                pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+        const uint32_t da[4] = {pack_bf16(dp[2 * c][0], dp[2 * c][1]),
+                                pack_bf16(dp[2 * c][2], dp[2 * c][3]),
+                                pack_bf16(dp[2 * c + 1][0], dp[2 * c + 1][1]),
+                                pack_bf16(dp[2 * c + 1][2], dp[2 * c + 1][3])};
+        const int trow =
+            (qc0 + c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, gs + trow + j * 8);
+          mma_16816(dv_[j], pa, b[0], b[1]);
+          mma_16816(dv_[j + 1], pa, b[2], b[3]);
+          ldmatrix_x4_trans(b, qs + trow + j * 8);
+          mma_16816(dk_[j], da, b[0], b[1]);
+          mma_16816(dk_[j + 1], da, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!kin[h]) continue;
+    const size_t off = ((size_t)bh * tk + kr0 + 8 * h) * D + c2;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
+          pack_bf16(dk_[j][2 * h], dk_[j][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + j * 8) =
+          pack_bf16(dv_[j][2 * h], dv_[j][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *g, *lse, *dm;
+  int bh, tq, tk;
+  float scale;
+  int causal, q_offset, k_offset;
+};
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D>
+cudaError_t dq_f32(const Args& a, void* dq, cudaStream_t st) {
+  const size_t smem = dq_f32_smem<D>();
+  cudaError_t err = prepare(bwd_dq_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + TILE - 1) / TILE, a.bh);
+  bwd_dq_f32_kernel<D><<<grid, NT32, smem, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.g, (const float*)a.lse, (const float*)a.dm,
+      (float*)dq, a.tq, a.tk, a.scale, a.causal, a.q_offset, a.k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dq_bf16(const Args& a, void* dq, cudaStream_t st) {
+  const size_t smem = dq_bf16_smem<D>();
+  cudaError_t err = prepare(bwd_dq_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + TILE - 1) / TILE, a.bh);
+  bwd_dq_bf16_kernel<D><<<grid, NT16, smem, st>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+      (const float*)a.lse, (const float*)a.dm, (bf16*)dq, a.tq, a.tk,
+      a.scale, a.causal, a.q_offset, a.k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv_f32(const Args& a, void* dk, void* dv, cudaStream_t st) {
+  const size_t smem = dkv_f32_smem<D>();
+  cudaError_t err = prepare(bwd_dkv_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tk + TILE - 1) / TILE, a.bh);
+  bwd_dkv_f32_kernel<D><<<grid, NT32, smem, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.g, (const float*)a.lse, (const float*)a.dm,
+      (float*)dk, (float*)dv, a.tq, a.tk, a.scale, a.causal, a.q_offset,
+      a.k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv_bf16(const Args& a, void* dk, void* dv, cudaStream_t st) {
+  const size_t smem = dkv_bf16_smem<D>();
+  cudaError_t err = prepare(bwd_dkv_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tk + TILE - 1) / TILE, a.bh);
+  bwd_dkv_bf16_kernel<D><<<grid, NT16, smem, st>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+      (const float*)a.lse, (const float*)a.dm, (bf16*)dk, (bf16*)dv, a.tq,
+      a.tk, a.scale, a.causal, a.q_offset, a.k_offset);
+  return cudaGetLastError();
+}
+
+using dq_fn = cudaError_t (*)(const Args&, void*, cudaStream_t);
+using dkv_fn = cudaError_t (*)(const Args&, void*, void*, cudaStream_t);
+
+dq_fn pick_dq(int dtype, int d) {
+  switch (dtype * 1000 + d) {
+    case 16: return dq_f32<16>;
+    case 32: return dq_f32<32>;
+    case 64: return dq_f32<64>;
+    case 128: return dq_f32<128>;
+    case 1016: return dq_bf16<16>;
+    case 1032: return dq_bf16<32>;
+    case 1064: return dq_bf16<64>;
+    case 1128: return dq_bf16<128>;
+  }
+  return nullptr;
+}
+
+dkv_fn pick_dkv(int dtype, int d) {
+  switch (dtype * 1000 + d) {
+    case 16: return dkv_f32<16>;
+    case 32: return dkv_f32<32>;
+    case 64: return dkv_f32<64>;
+    case 128: return dkv_f32<128>;
+    case 1016: return dkv_bf16<16>;
+    case 1032: return dkv_bf16<32>;
+    case 1064: return dkv_bf16<64>;
+    case 1128: return dkv_bf16<128>;
+  }
+  return nullptr;
+}
+
+bool valid(int bh, int tq, int tk, int dtype) {
+  return bh > 0 && bh <= 65535 && tq > 0 && tk > 0 &&
+         (dtype == 0 || dtype == 1);
+}
+
+}  // namespace
+
+// q, g: (bh, tq, d); k, v: (bh, tk, d); all contiguous in the storage
+// dtype (0 = float32, 1 = bfloat16); lse, dm: (bh, tq) float32.  dq is
+// (bh, tq, d), dk/dv (bh, tk, d), in the storage dtype.  Each returns
+// cudaGetLastError() after its launch (0 on success).
+extern "C" int ompi_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* dm, void* dq, int bh, int tq,
+                                 int tk, int d, int dtype, float scale,
+                                 int causal, int q_offset, int k_offset,
+                                 void* stream) {
+  const dq_fn fn = pick_dq(dtype, d);
+  if (fn == nullptr || !valid(bh, tq, tk, dtype))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, g, lse, dm, bh, tq, tk, scale, causal, q_offset,
+               k_offset};
+  return (int)fn(a, dq, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ompi_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* g, const void* lse,
+                                  const void* dm, void* dk, void* dv, int bh,
+                                  int tq, int tk, int d, int dtype,
+                                  float scale, int causal, int q_offset,
+                                  int k_offset, void* stream) {
+  const dkv_fn fn = pick_dkv(dtype, d);
+  if (fn == nullptr || !valid(bh, tq, tk, dtype))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, g, lse, dm, bh, tq, tk, scale, causal, q_offset,
+               k_offset};
+  return (int)fn(a, dk, dv, static_cast<cudaStream_t>(stream));
+}

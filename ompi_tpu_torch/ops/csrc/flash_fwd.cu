@@ -53,13 +53,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per streamed tile
-constexpr float NEG = -1e30f;
-
-using bf16 = __nv_bfloat16;
 
 // Number of K/V tiles a block must visit: with a causal mask, tiles past
 // the last key any of its rows may see are wholly masked and skipped.
@@ -220,56 +221,6 @@ __global__ void __launch_bounds__(NT32)
 // ---------------------------------------------------------------------------
 
 constexpr int NT16 = 128;           // 4 warps x 16 query rows
-
-// c += a * b for one 16x8 tile; a: 16x16 bf16 (row), b: 16x8 bf16 (col).
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed on the way (thread
-// t gives the address of row t % 8 of matrix t / 8).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// 16 bytes global -> shared without passing through registers; bytes = 0
-// writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Two f32 values rounded to nearest-even bf16, the lower column in the
-// low half (the fragment order).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Start the copy of K/V rows [k0, k0 + 64) into one stage (row stride
 // D + 8 elements); rows past tk are zero-filled.

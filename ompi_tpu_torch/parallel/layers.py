@@ -4,7 +4,7 @@ A column-parallel matmul keeps its activation sharded over ``tp`` (no
 communication); the row-parallel matmul contracts the sharded dimension
 and would finish with one sum over ``tp``.  At tp == 1 that sum is the
 identity and is elided, as in the JAX package; tp > 1 needs the device
-collectives of the training slice.
+collectives of the multi-rank slices (ROADMAP.md, port slices 2-3).
 """
 
 from __future__ import annotations
@@ -31,5 +31,6 @@ def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor, comm,
     if int(comm.mesh.shape[ax]) != 1:
         raise NotImplementedError(
             "row_parallel over tp > 1 needs the device collectives of the "
-            "training slice (ROADMAP.md, port slice 1)")
+            "multi-rank device plane and training slice (ROADMAP.md, port "
+            "slices 2-3)")
     return partial

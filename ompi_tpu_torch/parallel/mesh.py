@@ -4,8 +4,8 @@ The JAX package addresses chips as a ``jax.sharding.Mesh`` whose axes
 carry parallelism roles (dp/sp/tp/...).  The port's :class:`Mesh` keeps
 that surface (``.shape`` axis → size, ``.axis_names``) and adds the
 ``torch.device`` its tensors live on.  This slice runs one process on one
-device, so every axis has size 1; the multi-process NCCL mesh is the
-training slice (ROADMAP.md, port slice 1).
+device, so every axis has size 1; the multi-process NCCL mesh comes with
+the multi-rank slices (ROADMAP.md, port slices 2-3).
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ class Mesh:
         if total != 1:
             raise NotImplementedError(
                 f"mesh {self.shape} spans {total} devices; the port's "
-                "multi-process NCCL mesh comes with the training slice "
-                "(ROADMAP.md, port slice 1)")
+                "multi-process NCCL mesh comes with the multi-rank device "
+                "plane and training slice (ROADMAP.md, port slices 2-3)")
         self.device = resolve_device(device)
 
     def __repr__(self) -> str:

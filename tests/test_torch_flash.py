@@ -99,12 +99,16 @@ def test_untileable_shapes_raise_in_both():
 
 
 def test_requires_grad_raises_until_the_training_slice():
+    """The op is differentiable: a leaf that requires grad gets a gradient
+    (the backward's parity is in test_torch_flash_bwd.py), and
+    forward-only use stays graph-free."""
     (_, (tq, tk, tv)) = _both(_qkv(), "float32")
     tq.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(tq, tk, tv)
-    with torch.no_grad():  # forward-only use of a leaf is fine
-        tfa.flash_attention(tq, tk, tv)
+    tfa.flash_attention(tq, tk, tv).sum().backward()
+    assert tq.grad is not None and tq.grad.shape == tq.shape
+    assert torch.isfinite(tq.grad).all() and tk.grad is None
+    with torch.no_grad():
+        assert tfa.flash_attention(tq, tk, tv).grad_fn is None
 
 
 def test_cpu_path_launches_no_kernel():

@@ -1,5 +1,6 @@
-"""The port stands alone: importing ompi_tpu_torch loads neither JAX nor
-the JAX package, its sources import neither, and its entry points refuse
+"""The port stands alone: importing ompi_tpu_torch loads neither JAX, nor
+the JAX package, nor what the JAX package trains with (optax,
+ml_dtypes); its sources import none of them, and its entry points refuse
 to drop quietly to the CPU when no CUDA is present."""
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ for n in ompi_tpu_torch.__all__:
     getattr(ompi_tpu_torch, n)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k in ("optax", "ml_dtypes")
+             or k.startswith(("optax.", "ml_dtypes."))
              or k == "ompi_tpu" or k.startswith("ompi_tpu."))
 print(json.dumps({"imported": names, "bad": bad}))
 """
@@ -42,12 +45,15 @@ def test_import_loads_no_jax_and_no_jax_package():
     for mod in ("ompi_tpu_torch.ops.flash_attention",
                 "ompi_tpu_torch.models.decode",
                 "ompi_tpu_torch.models.weights",
+                "ompi_tpu_torch.models.transformer",
+                "ompi_tpu_torch.models.optim",
+                "ompi_tpu_torch.models.data",
                 "ompi_tpu_torch.core.config"):
         assert mod in res["imported"]
 
 
-_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|ompi_tpu\b(?!_))",
-                     re.M)
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"
+                     r"ml_dtypes\b|ompi_tpu\b(?!_))", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -63,9 +69,13 @@ def test_sources_import_no_jax(path):
 def test_entry_points_refuse_the_cpu_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks a machine without CUDA")
+    from ompi_tpu_torch.models.data import prefetch
     from ompi_tpu_torch.models.decode import make_decoder
     from ompi_tpu_torch.models.transformer import (TransformerConfig,
-                                                   init_params, make_forward)
+                                                   init_params, make_forward,
+                                                   make_loss_fn,
+                                                   make_train_loop,
+                                                   make_train_step)
     from ompi_tpu_torch.models.weights import from_jax_params
     from ompi_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -75,7 +85,9 @@ def test_entry_points_refuse_the_cpu_without_cuda():
                  lambda: make_mesh({"dp": 1, "sp": 1, "tp": 1}),
                  lambda: make_decoder(cfg, Mesh({"dp": 1, "sp": 1, "tp": 1}),
                                       max_new=2),
-                 lambda: from_jax_params(init_params(cfg), cfg)):
+                 lambda: from_jax_params(init_params(cfg), cfg),
+                 lambda: from_jax_params(init_params(cfg), cfg, train=True),
+                 lambda: prefetch(iter([]))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -85,7 +97,10 @@ def test_entry_points_refuse_the_cpu_without_cuda():
         device = torch.device("cuda")
 
     for call in (lambda: make_decoder(cfg, _CudaMesh(), max_new=2),
-                 lambda: make_forward(cfg, _CudaMesh())):
+                 lambda: make_forward(cfg, _CudaMesh()),
+                 lambda: make_loss_fn(cfg, _CudaMesh()),
+                 lambda: make_train_step(cfg, _CudaMesh()),
+                 lambda: make_train_loop(cfg, _CudaMesh())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -149,7 +149,8 @@ def test_unsupported_options_raise():
         T.make_forward(T.TransformerConfig(**FIELDS, moe_experts=4),
                        _tmesh())
     with pytest.raises(NotImplementedError, match="training slice"):
-        T.init_params(T.TransformerConfig(**FIELDS, param_dtype="bfloat16"))
+        T.make_train_step(T.TransformerConfig(**FIELDS, zero1_axis="dp"),
+                          _tmesh())
 
 
 def test_training_only_options_do_not_change_the_forward():
