@@ -42,8 +42,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. train_small — on the small f32 config of the model tests, the first
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
-9. the ``kernels`` line, then the card's nvidia-smi line, then the result
-   line ``{"ok": true, "device": {...}}``.
+9. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
+   and a root's push to 3 peers) at kernel level in this process, on
+   local buffers with their flag words, bitwise against ``copy_plain``
+   over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
+   a ragged (7, 129) float32 shard and byte offsets that 16 does not
+   divide; each kernel timed at 64 MiB (the main path's window) and
+   256 MiB beside its byte bound, its plain version and ``Tensor.copy_``,
+   and at 4 KiB;
+10. rma_ranks (after rma_kernel) — 4 rank processes on the one card
+   (tcp init on a free port, each mapping its peers' 64 MiB windows):
+   ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
+   self-put, ``fetch_bcast`` from every root, ``DeviceWindow`` and the
+   heap's put/quiet/get, every rank's window gathered over the host group
+   and compared bitwise with the numpy expectation; the launch counts
+   summed over ranks and the wall latency of a 4 KiB and a 64 MiB put;
+   a device collective over the ranks (which share the card) must raise;
+11. collectives (last) — ``make_mesh`` on the card with NCCL at world
+   size 1: every device collective on CUDA tensors equals the same call
+   on the one-process CPU communicator;
+12. the ``kernels`` line (6 entries), then the card's nvidia-smi line,
+   then the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +98,13 @@ FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
 TRAIN = dict(batch=16, seq=1024, ce_chunk=256)
 #: sequence lengths of the backward kernels' checks
 BWD_LENGTHS = (96, 256, 512, 1024)
+#: one-sided copies: the sizes checked, the size of the main path's window
+#: (timed beside 4 KiB and 256 MiB), the ranks and their window
+RMA_SIZES = (4 << 10, 1 << 20, 64 << 20, 256 << 20)
+RMA_TIMED = 64 << 20
+RMA_RANKS = 4
+RMA_WINDOW = (16384, 1024)     # float32, 64 MiB a rank
+COLL_TOL = 1e-6                # a collective on the card vs its one-rank result
 #: where the phases put their tensors (a rehearsal on the CPU changes it)
 DEVICE = "cuda"
 
@@ -825,6 +851,439 @@ def phase_train_small(fa):
          launches_card=ran_gpu, tol=SMALL_TOL)
 
 
+# ---------------------------------------------------------------------------
+# one-sided RMA (kernels #4-#6) and the device collectives
+# ---------------------------------------------------------------------------
+
+def rma_bound_ms(kind: str, nbytes: int, n: int = RMA_RANKS) -> float:
+    """Least time of one copy on one card: put and get read and write B
+    bytes of the same HBM (2B), a root's push reads B and writes (n-1)B."""
+    moved = 2 * nbytes if kind != "bcast" else n * nbytes
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def same_bytes(a, b) -> bool:
+    """Bitwise equality (NaN bit patterns included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_rma_kernel(rd, card):
+    """The three copy kernels at kernel level in one process, on local
+    buffers with their flag words (ready released beforehand), against
+    copy_plain, bitwise; times at 64 and 256 MiB and at 4 KiB."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    flags = torch.zeros(4, dtype=torch.int64, device=dev)
+    ready, done, status, counter = (flags[i:i + 1] for i in range(4))
+    ready.fill_(1 << 62)            # every wait passes at once
+    sync = rd.Sync(wait=[ready], release=[done], counter=counter,
+                   status=status)
+    calls = {"put": lambda ls, s: rd.put_kernel(ls[0], s, sync),
+             "get": lambda ls, s: rd.get_kernel(ls[0], s, sync),
+             "bcast": lambda ls, s: rd.bcast_kernel(ls, s, sync)}
+    n_land = {"put": 1, "get": 1, "bcast": RMA_RANKS - 1}
+
+    def check_case(kind, src, lands, what) -> float:
+        """Run the kernel once, hold it bitwise against copy_plain; the
+        max abs difference (0 when equal; NaN-free inputs only)."""
+        sync.seq += 1
+        calls[kind](lands, src)
+        want = [torch.empty_like(t) for t in lands]
+        rd.copy_plain(want, src)
+        torch.cuda.synchronize()
+        check(all(same_bytes(a, b) for a, b in zip(lands, want)),
+              f"{kind} kernel disagrees with copy_plain: {what}")
+        check(int(done.item()) == sync.seq and int(status.item()) == 0,
+              f"{kind} kernel flags: done {int(done.item())} want "
+              f"{sync.seq}, status {int(status.item())}")
+        return max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(lands, want))
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for nbytes in RMA_SIZES:
+            numel = nbytes // torch.empty((), dtype=dtype).element_size()
+            src = torch.randint(-2**31, 2**31 - 1, (nbytes // 4,),
+                                dtype=torch.int32, generator=g,
+                                device=dev).view(dtype)[:numel]
+            for kind in calls:
+                lands = [torch.empty_like(src) for _ in range(n_land[kind])]
+                check_case(kind, src, lands, f"{dtype} {nbytes} bytes")
+                cases += 1
+                del lands
+            del src
+    # a ragged (7, 129) f32 shard, and byte offsets 16 bytes do not divide
+    ragged = torch.randn((7, 129), generator=g, device=dev)
+    base = torch.randint(0, 256, ((1 << 20) + 64,), dtype=torch.uint8,
+                         generator=g, device=dev)
+    for kind in calls:
+        lands = [torch.empty_like(ragged) for _ in range(n_land[kind])]
+        check_case(kind, ragged, lands, "ragged (7, 129) f32")
+        for s_off, l_off, nbytes in ((3, 5, 1 << 20), (4, 8, 4096 + 7),
+                                     (1, 0, 12345)):
+            src = base[s_off:s_off + nbytes]
+            lands = [torch.zeros(nbytes + 64, dtype=torch.uint8,
+                                 device=dev)[l_off:l_off + nbytes]
+                     for _ in range(n_land[kind])]
+            check_case(kind, src, lands,
+                       f"offsets {s_off}/{l_off}, {nbytes} bytes")
+        cases += 4
+
+    timed = {}
+    for nbytes in (RMA_SIZES[0], RMA_TIMED, RMA_SIZES[-1]):
+        src = torch.randn((nbytes // 4,), generator=g, device=dev)
+        for kind in calls:
+            lands = [torch.empty_like(src) for _ in range(n_land[kind])]
+            ms = cuda_ms(lambda: calls[kind](lands, src))
+            plain_ms = cuda_ms(lambda: rd.copy_plain(lands, src))
+            library_ms = cuda_ms(lambda: [t.copy_(src) for t in lands])
+            err = check_case(kind, src, lands, f"timed f32 {nbytes} bytes")
+            bound = rma_bound_ms(kind, nbytes)
+            timed.setdefault(kind, {})[nbytes] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound, "bound_by": "bytes",
+                "gbps": n_land[kind] * nbytes / ms / 1e6,
+                "bound_share": bound / ms}
+            del lands
+        del src
+    out = {}
+    for kind in calls:
+        at = timed[kind]
+        out[kind] = {**at[RMA_TIMED],
+                     "bytes": RMA_TIMED,
+                     "at_256MiB": at[RMA_SIZES[-1]],
+                     "latency_4KiB_ms": at[RMA_SIZES[0]]["ms"]}
+    emit("rma_kernel", cases=cases, sizes=list(RMA_SIZES),
+         dtypes=["float32", "bfloat16", "int32"], bitwise_equal=True,
+         bcast_peers=RMA_RANKS - 1, timed=timed,
+         library_note="Tensor.copy_ (cudaMemcpyAsync) for the same bytes, "
+         "n-1 of them for bcast; the plain version is the same call",
+         card=card)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rma_rank_main(rank: int, world: int, init: str, device: str,
+                  shape: tuple, results) -> None:
+    """One rank of the rma_ranks phase (a spawned process)."""
+    import traceback
+
+    try:
+        results.put((rank, "ok", rma_rank_body(rank, world, init, device,
+                                                shape)))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, "err", traceback.format_exc()))
+
+
+def rma_rank_body(rank, world, init, device, shape):
+    """Drive DeviceCommunicator.put/get, fetch_bcast, DeviceWindow and the
+    heap on this rank; rank 0 holds every rank's window, gathered over the
+    host group, against the numpy expectation, bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.mpi.osc import DeviceWindow
+    from ompi_tpu_torch.ops import remote_dma as rd
+    from ompi_tpu_torch.ops import symmetric
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+    from ompi_tpu_torch.shmem.device import DeviceSymmetricHeap
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(device=device, rank=rank, world_size=world,
+                     init_method=init)
+    comm = device_world(mesh)
+    host = mesh.host_group(mesh.axis_names)
+    dev = mesh.device
+    refused = None
+    if mesh.shares_card:
+        try:
+            comm.allreduce(torch.zeros(4, device=dev))
+        except NotImplementedError as e:
+            refused = str(e)
+        check(refused is not None, "a collective over ranks sharing a card "
+              "did not raise")
+    base_np = np.random.default_rng(0).standard_normal(shape).astype(
+        np.float32)
+    base = torch.from_numpy(base_np).to(dev)
+    n_checks = 0
+
+    def gathered(t):
+        """Every rank's ``t`` on rank 0 (None elsewhere), over gloo."""
+        t = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)] if rank == 0 \
+            else None
+        dist.gather(t, parts, dst=0, group=host)
+        return None if parts is None else [p.numpy() for p in parts]
+
+    def expect(t, want, what):
+        nonlocal n_checks
+        parts = gathered(t)
+        if rank == 0:
+            for r in range(world):
+                check(parts[r].tobytes() == np.ascontiguousarray(
+                    want[r]).tobytes(), f"{what}: rank {r} differs")
+        n_checks += 1
+
+    win = comm.window(shape, torch.float32)
+    small = comm.window((1024,), torch.float32)       # 4 KiB
+    state = [np.zeros(shape, np.float32) for _ in range(world)]
+    comm.barrier()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    rd.put_launch_count = rd.get_launch_count = rd.bcast_launch_count = 0
+    t0 = time.perf_counter()
+    pairs = 0
+    # puts: round j, every src puts into (src + j) mod n (distinct dsts),
+    # then one self-put
+    for j in (1, 2, 3, 0):
+        srcs = range(world) if j else (1,)
+        for src in srcs:
+            dst = (src + j) % world
+            tag = np.float32(100 * j + src)
+            win = comm.put(win, base + tag, src, dst)
+            state[dst] = base_np + tag
+            pairs += 1
+        expect(win, state, f"put round {j}")
+    # gets: round j, every dst fetches (dst + j) mod n
+    for j in (1, 2, 3):
+        mine = None
+        for dst in range(world):
+            src = (dst + j) % world
+            out = comm.get(win, src, dst)
+            if rank == dst:
+                mine = out.clone()
+        expect(mine, [state[(r + j) % world] for r in range(world)],
+               f"get round {j}")
+        expect(win, state, f"windows after get round {j}")
+    # fetch_bcast from every root, each rank's window made distinct first
+    for root in range(world):
+        win.copy_(base + np.float32(1000 * root + rank))
+        rd.fetch_bcast(win, root, comm)
+        state = [base_np + np.float32(1000 * root + root)] * world
+        expect(win, state, f"fetch_bcast root {root}")
+    # DeviceWindow put/fence/get/local, on a 1/64 part of the window
+    part = (shape[0] // 64, shape[1])
+    dwin = DeviceWindow(comm, part, np.float32)
+    data = base_np[:part[0]] + np.float32(7)
+    dwin.put(data, origin=2, target=3)
+    dwin.fence()
+    zero = np.zeros(part, np.float32)
+    expect(torch.from_numpy(dwin.local(rank)),
+           [data if r == 3 else zero for r in range(world)],
+           "DeviceWindow put/fence/local")
+    fetched = dwin.get(origin=1, target=3)
+    expect(torch.from_numpy(fetched),
+           [data if r in (1, 3) else zero for r in range(world)],
+           "DeviceWindow get")
+    dwin.fence()
+    try:
+        dwin.local((rank + 1) % world)
+        check(False, "DeviceWindow.local(other rank) did not raise")
+    except Exception as e:  # noqa: BLE001 — the expected refusal
+        check("own part" in str(e), f"DeviceWindow.local: {e}")
+    # the heap's put/quiet/get
+    heap = DeviceSymmetricHeap(comm)
+    sym = heap.array(part, np.float32)
+    blk = heap.put(sym, torch.full(part, 9.0, device=dev), 0, 3)
+    blk = heap.quiet(blk)
+    out = heap.get(blk, 3, 1)
+    nine = np.full(part, 9.0, np.float32)
+    expect(out, [nine if r in (1, 3) else zero for r in range(world)],
+           "heap put/quiet/get")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    main_s = time.perf_counter() - t0
+    launches = {"put": rd.put_launch_count, "get": rd.get_launch_count,
+                "bcast": rd.bcast_launch_count}
+
+    # ---- wall latency of a put 0 -> 1 (the src's clock) ----
+    lat = {}
+    for name, w, reps in (("4KiB", small, 50), ("64MiB", win, 10)):
+        v = torch.ones_like(w)
+        comm.barrier()
+        times = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            w = comm.put(w, v, 0, 1)
+            times.append(time.perf_counter() - t1)
+        lat[name] = {"median_ms": float(np.median(times)) * 1e3,
+                     "min_ms": float(np.min(times)) * 1e3, "reps": reps,
+                     "bytes": w.numel() * 4}
+    comm.barrier()
+    heap.free(sym)
+    dwin.free()
+    for t in (small, win):
+        symmetric.free(mesh, t)
+    dist.destroy_process_group()
+    return {"launches": launches, "pairs": pairs, "checks": n_checks,
+            "main_path_s": main_s, "put_latency": lat,
+            "shares_card": mesh.shares_card, "collective_refused": refused,
+            "device": str(dev)}
+
+
+def phase_rma_ranks(card, world: int = RMA_RANKS, shape=RMA_WINDOW,
+                    timeout: float = 150.0):
+    """4 rank processes on the one card, each mapping its peers' windows;
+    their results, and the launch counts summed over ranks."""
+    import multiprocessing as mp
+    import queue
+
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=rma_rank_main,
+                         args=(r, world, init, DEVICE, shape, results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, failed = {}, None
+    try:
+        while len(got) < world and failed is None:
+            left = timeout - (time.perf_counter() - t0)
+            try:
+                r, status, value = results.get(timeout=max(1.0, left))
+            except queue.Empty:
+                failed = (f"ranks {sorted(set(range(world)) - set(got))} "
+                          f"did not finish in {timeout} s")
+                break
+            if status != "ok":
+                failed = f"rank {r} failed:\n{value}"
+            got[r] = value
+    finally:
+        for p in procs:
+            if failed is not None and p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(failed is None, f"rma_ranks: {failed}")
+    secs = time.perf_counter() - t0
+    launches = {k: sum(got[r]["launches"][k] for r in range(world))
+                for k in ("put", "get", "bcast")}
+    lat = got[0]["put_latency"]
+    emit("rma_ranks", ranks=world, window_shape=list(shape),
+         window_bytes=int(np.prod(shape)) * 4, init=init.split(":")[0],
+         devices=[got[r]["device"] for r in range(world)],
+         shares_card=got[0]["shares_card"],
+         collective_refused=got[0]["collective_refused"],
+         pairs=got[0]["pairs"], checks=got[0]["checks"],
+         bitwise_equal=True, launches=launches,
+         launches_by_rank=[got[r]["launches"] for r in range(world)],
+         main_path_s=[got[r]["main_path_s"] for r in range(world)],
+         put_latency=lat,
+         put_64MiB_gbps=lat["64MiB"]["bytes"] / lat["64MiB"]["median_ms"]
+         / 1e6, seconds=secs,
+         note="wall time on the src rank; 4 processes on one card are "
+         "time-sliced (no MPS), so a cross-process put costs scheduler "
+         "slices, not copy time", card=card)
+    return launches
+
+
+def phase_collectives(card):
+    """make_mesh on the card with NCCL at world size 1: every device
+    collective on CUDA tensors equals the same call on the one-process
+    CPU communicator."""
+    import torch
+    import torch.distributed as dist
+
+    from ompi_tpu_torch.mpi import op as op_mod
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.ops import symmetric
+    from ompi_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    # the reference: the one-process CPU mesh, made before the process
+    # group exists, so it has no groups
+    ref = device_world(Mesh({"world": 1}, device="cpu"))
+    mesh = make_mesh(device=DEVICE, rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{free_port()}")
+    comm = device_world(mesh)
+    backend = dist.get_backend(comm._group())
+    rng = np.random.default_rng(5)
+    x_np = rng.standard_normal((8, 256)).astype(np.float32)
+    mats_np = (np.eye(2)[None] + 0.1 * rng.standard_normal((1, 2, 2))
+               ).astype(np.float32)[0]
+    matmul = op_mod.create_op(lambda a, b: a @ b, commutative=False,
+                              device_fn=torch.matmul)
+    calls = {
+        "allreduce_sum": lambda c, x, m: c.allreduce(x),
+        "allreduce_max": lambda c, x, m: c.allreduce(x, op_mod.MAX),
+        "allreduce_min": lambda c, x, m: c.allreduce(x, op_mod.MIN),
+        "allreduce_prod": lambda c, x, m: c.allreduce(x, op_mod.PROD),
+        "allreduce_matmul": lambda c, x, m: c.allreduce(m, matmul),
+        "reduce": lambda c, x, m: c.reduce(x, root=0),
+        "bcast": lambda c, x, m: c.bcast(x, 0),
+        "reduce_scatter": lambda c, x, m: c.reduce_scatter(x),
+        "allgather": lambda c, x, m: c.allgather(x, axis=1),
+        "alltoall": lambda c, x, m: c.alltoall(x),
+        "alltoall_stacked": lambda c, x, m: c.alltoall_stacked(x[:1]),
+        "gather": lambda c, x, m: c.gather(x),
+        "scatter": lambda c, x, m: c.scatter(x),
+        "scan": lambda c, x, m: c.scan(x),
+        "exscan": lambda c, x, m: c.exscan(x),
+        "scan_matmul": lambda c, x, m: c.scan(m, matmul),
+        "allreduce_rs_ag": lambda c, x, m: c.allreduce_rs_ag(x),
+        "allreduce_qint8": lambda c, x, m: c.allreduce_qint8(x),
+        "allreduce_segmented": lambda c, x, m: c.allreduce_segmented(
+            x, segment_elems=512),
+        "allgather_ring": lambda c, x, m: c.allgather_ring(x),
+        "bcast_ring": lambda c, x, m: c.bcast_ring(x, 0),
+        "allgatherv": lambda c, x, m: c.allgatherv(x, (5,)),
+        "gatherv": lambda c, x, m: c.gatherv(x, (5,)),
+        "scatterv": lambda c, x, m: c.scatterv(x, (8,)),
+        "alltoallv": lambda c, x, m: c.alltoallv(x[:1], [[1]]),
+        "shift": lambda c, x, m: c.shift(x, 1),
+        "permute": lambda c, x, m: c.permute(x, [(0, 0)]),
+        "sendrecv": lambda c, x, m: c.sendrecv(x, 1),
+    }
+    x, m = torch.from_numpy(x_np).to(mesh.device), torch.from_numpy(
+        mats_np).to(mesh.device)
+    worst = 0.0
+    for name, fn in calls.items():
+        got = fn(comm, x, m)
+        want = fn(ref, x.cpu(), m.cpu())
+        torch.cuda.synchronize()
+        check(got.device.type == mesh.device.type
+              and tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{name}: {got.device} "
+              f"{tuple(got.shape)} {got.dtype}")
+        err = (got.cpu().double() - want.double()).abs().max().item()
+        worst = max(worst, err)
+        check(err <= COLL_TOL * (1 + want.abs().max().item()),
+              f"collective {name} on the card differs from its one-rank "
+              f"result by {err}")
+    comm.barrier()
+    # a one-sided self-put through the window at world size 1
+    win = comm.window((1024,), torch.float32)
+    win = comm.put(win, x.reshape(-1)[:1024], 0, 0)
+    got = comm.get(win, 0, 0)
+    torch.cuda.synchronize()
+    check(same_bytes(got, x.reshape(-1)[:1024]), "self put/get at world 1")
+    symmetric.free(mesh, win)
+    dist.destroy_process_group()
+    emit("collectives", backend=backend, world_size=1,
+         collectives=sorted(calls), max_abs_err=worst, tol=COLL_TOL,
+         card=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -843,6 +1302,7 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 2
     fa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
+    rd = importlib.import_module("ompi_tpu_torch.ops.remote_dma")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -860,11 +1320,17 @@ def main() -> int:
     run("build", phase_build)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)
+    rma = run("rma_kernel", phase_rma_kernel, rd, card)
+    rma_launches = run("rma_ranks", phase_rma_ranks, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)
     train = run("train", phase_train, fa, card, params_np)
     run("train_small", phase_train_small, fa)
+    run("collectives", phase_collectives, card)
+    check(all(v > 0 for v in rma_launches.values()),
+          f"a one-sided kernel never ran on the rma_ranks path: "
+          f"{rma_launches}")
     src = "ompi_tpu_torch/ops/csrc/"
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
@@ -881,6 +1347,12 @@ def main() -> int:
          "replaces": "ompi_tpu/ops/flash_attention.py:215 (_bwd_dkv_kernel)",
          "launches": train["flash_bwd_dkv"], **bwd["dkv"], "ok": True},
     ]
+    for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
+        kernels.append({
+            "name": f"remote_dma_{kind}", "route": "cuda",
+            "source": src + "remote_dma.cu",
+            "replaces": f"ompi_tpu/ops/remote_dma.py:{line} (_{kind}_kernel)",
+            "launches": rma_launches[kind], **rma[kind], "ok": True})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=secs,
          card=card)

@@ -24,6 +24,13 @@ _LAZY = {
     "register_var": ("ompi_tpu_torch.core.config", "register_var"),
     "DeviceCommunicator": ("ompi_tpu_torch.mpi.device_comm",
                            "DeviceCommunicator"),
+    "device_world": ("ompi_tpu_torch.mpi.device_comm", "device_world"),
+    "DeviceWindow": ("ompi_tpu_torch.mpi.osc", "DeviceWindow"),
+    "DeviceSymmetricHeap": ("ompi_tpu_torch.shmem.device",
+                            "DeviceSymmetricHeap"),
+    "window_put": ("ompi_tpu_torch.ops.remote_dma", "window_put"),
+    "window_get": ("ompi_tpu_torch.ops.remote_dma", "window_get"),
+    "fetch_bcast": ("ompi_tpu_torch.ops.remote_dma", "fetch_bcast"),
     "Mesh": ("ompi_tpu_torch.parallel.mesh", "Mesh"),
     "make_mesh": ("ompi_tpu_torch.parallel.mesh", "make_mesh"),
     "flash_attention": ("ompi_tpu_torch.ops.flash_attention",

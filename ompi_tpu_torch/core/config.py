@@ -9,8 +9,8 @@ registered, typed variable with one namespace and a fixed precedence
 The environment prefix, the file format and the value parsers are the
 JAX package's, so one ``OMPI_TPU_MCA_ops_flash_block_q`` or
 ``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
-The port keeps only what its slices read: integer and boolean variables
-from the file and environment sources, and the programmatic override
+The port keeps only what its slices read: integer, size and boolean
+variables from the file and environment sources, and the programmatic override
 ``VarRegistry.set`` (no synonyms, info levels, read-only vars or
 command-line source).
 """
@@ -31,7 +31,21 @@ ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
 
 class VarType(enum.Enum):
     INT = "int"
+    SIZE = "size"
     BOOL = "bool"
+
+
+def _parse_size(s: str) -> int:
+    """Sizes with an optional K/M/G suffix (binary units), e.g. '64K'."""
+    s = s.strip()
+    mult = 1
+    if s and s[-1].upper() in "KMG":
+        mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}[s[-1].upper()]
+        s = s[:-1]
+    n = int(float(s) * mult)
+    if n < 0:
+        raise ValueError(f"size must be >= 0, got {n}")
+    return n
 
 
 def _parse_bool(s: str) -> bool:
@@ -43,7 +57,8 @@ def _parse_bool(s: str) -> bool:
     raise ValueError(f"cannot parse {s!r} as bool")
 
 
-_PARSERS = {VarType.INT: int, VarType.BOOL: _parse_bool}
+_PARSERS = {VarType.INT: int, VarType.SIZE: _parse_size,
+            VarType.BOOL: _parse_bool}
 
 
 @dataclasses.dataclass

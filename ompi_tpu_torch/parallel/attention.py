@@ -6,8 +6,8 @@ materialized plain path; ``ring_attention``, ``ulysses_attention`` and
 ``gathered_attention`` keep their signatures and, at sp == 1, reduce to
 ``local_attention`` exactly as the JAX package's degenerate-axis paths
 do.  Their sp > 1 forms (K/V rotation, all_to_all resharding, all_gather)
-need the device collectives of the multi-rank slices (ROADMAP.md, port
-slices 2-3) and raise until then.  Every path is differentiable: the
+come with the multi-rank training slice (ROADMAP.md queue 1 item 3) and
+raise until then.  Every path is differentiable: the
 flash path through the kernels' ``torch.autograd.Function``, the
 materialized path through plain autograd.
 """
@@ -21,9 +21,8 @@ import torch
 __all__ = ["local_attention", "local_attention_lse", "ring_attention",
            "ulysses_attention", "gathered_attention"]
 
-_LATER = ("sequence-parallel attention at sp > 1 needs the device "
-          "collectives of the multi-rank device plane and training slice "
-          "(ROADMAP.md, port slices 2-3)")
+_LATER = ("sequence-parallel attention at sp > 1 comes with the "
+          "multi-rank training slice (ROADMAP.md queue 1 item 3)")
 
 
 def _flash_blocks(t_q: int, t_k: int) -> tuple[int, int]:

@@ -3,8 +3,8 @@
 A column-parallel matmul keeps its activation sharded over ``tp`` (no
 communication); the row-parallel matmul contracts the sharded dimension
 and would finish with one sum over ``tp``.  At tp == 1 that sum is the
-identity and is elided, as in the JAX package; tp > 1 needs the device
-collectives of the multi-rank slices (ROADMAP.md, port slices 2-3).
+identity and is elided, as in the JAX package; tp > 1 comes with the
+multi-rank training slice (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor, comm,
     ax = axis or comm.axes[-1]
     if int(comm.mesh.shape[ax]) != 1:
         raise NotImplementedError(
-            "row_parallel over tp > 1 needs the device collectives of the "
-            "multi-rank device plane and training slice (ROADMAP.md, port "
-            "slices 2-3)")
+            "row_parallel over tp > 1 comes with the multi-rank training "
+            "slice (ROADMAP.md queue 1 item 3)")
     return partial

@@ -138,7 +138,8 @@ def test_make_mesh_forms():
     assert m.device == torch.device("cpu")
     assert TM.make_mesh(["dp", "tp"], device="cpu").shape == {"dp": 1,
                                                               "tp": 1}
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs 2 ranks, the process "
+                       "group has 1"):
         TM.make_mesh({"dp": 2, "tp": 1}, device="cpu")
 
 
@@ -151,8 +152,8 @@ def test_device_communicator_shape_api():
     assert sub.axes == ("tp",) and sub.mesh is mesh and sub.size == 1
     with pytest.raises(ValueError, match="not in mesh"):
         DeviceCommunicator(mesh, ("ep",))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        DeviceCommunicator(_FakeMesh())
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        TM.Mesh(_FakeMesh.shape, device="cpu")
 
 
 def test_column_and_row_parallel_match_jax():

@@ -43,6 +43,14 @@ def test_import_loads_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("ompi_tpu_torch.ops.flash_attention",
+                "ompi_tpu_torch.ops.remote_dma",
+                "ompi_tpu_torch.ops.symmetric",
+                "ompi_tpu_torch.mpi.constants",
+                "ompi_tpu_torch.mpi.op",
+                "ompi_tpu_torch.mpi.device_comm",
+                "ompi_tpu_torch.mpi.osc",
+                "ompi_tpu_torch.shmem.device",
+                "ompi_tpu_torch.parallel.mesh",
                 "ompi_tpu_torch.models.decode",
                 "ompi_tpu_torch.models.weights",
                 "ompi_tpu_torch.models.transformer",
@@ -58,7 +66,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tests/torch_ranks.py"]))
 def test_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _IMPORT.search(src), path
@@ -81,8 +89,13 @@ def test_entry_points_refuse_the_cpu_without_cuda():
 
     cfg = TransformerConfig(vocab=97, d_model=64, n_heads=4, n_layers=2,
                             d_ff=128, seq=64)
+    from ompi_tpu_torch.mpi.device_comm import device_world
+
     for call in (lambda: make_mesh(),
                  lambda: make_mesh({"dp": 1, "sp": 1, "tp": 1}),
+                 lambda: make_mesh(rank=0, world_size=1,
+                                   init_method="tcp://127.0.0.1:1"),
+                 lambda: device_world(),
                  lambda: make_decoder(cfg, Mesh({"dp": 1, "sp": 1, "tp": 1}),
                                       max_new=2),
                  lambda: from_jax_params(init_params(cfg), cfg),
