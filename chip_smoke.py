@@ -12,10 +12,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``-Xptxas -v`` register and shared-memory lines and fails on a spill;
 3. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
-   dims and lengths, and at the decode prefill shape (B=16, T=512, H=16,
-   D=128, bf16, causal), where it is timed beside the plain version, the
-   byte/FLOP bound and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls), in bf16 and in f32;
+   dims and lengths, bf16 without a mask at t = 1024, and at the decode
+   prefill shape (B=16, T=512, H=16, D=128, bf16, causal), where it is
+   timed beside the plain version, the byte/FLOP bound and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls),
+   in bf16 and in f32; and timed at the training shape (B·H=256, T=1024,
+   D=128, bf16, causal) beside its bound and SDPA;
 4. kernel_bwd — the dq and dk/dv backward kernels against their plain
    versions over causal/full, offsets, f32/bf16, head dims, lengths and
    with or without an lse cotangent; the autograd backward with the
@@ -89,7 +91,10 @@ BWD_BF16_TOL = 3e-2            # of max|ref|: a ds or p on a bf16 boundary
 TRAIN_LOSS_RTOL = 5e-3         # kernel vs plain paths, flagship first step
 TRAIN_GRAD_RL2 = 2e-2          # per-leaf relative L2, flagship first step
 SMALL_TOL = 1e-4               # small f32 model, card vs CPU
-OFFSETS = ((0, 0), (128, 0), (0, 128))
+#: (q_offset, k_offset) of the kernel checks; the last three are not
+#: multiples of the kernels' 64- and 128-row tiles, so the diagonal
+#: crosses tiles off their edges
+OFFSETS = ((0, 0), (128, 0), (0, 128), (64, 0), (0, 64), (100, 36))
 #: the flagship dense model's widths (bench.py:478-484, 468M parameters)
 FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
                 d_ff=8192)
@@ -228,7 +233,7 @@ def phase_kernel(fa):
                 q, k, v = (torch.randn(shape, generator=g, device="cuda")
                            .to(dtype) for _ in range(3))
                 for causal in (True, False):
-                    for q_off, k_off in ((0, 0), (128, 0), (0, 128)):
+                    for q_off, k_off in OFFSETS:
                         o, lse = fa.flash_attention_lse(
                             q, k, v, causal=causal, q_offset=q_off,
                             k_offset=k_off)
@@ -253,6 +258,21 @@ def phase_kernel(fa):
                                          (o.float() - ro.float()).abs()
                                          .max().item())
                         n_cases += 1
+
+    # bf16 without a mask at t = 1024: every tile takes the full-tile path
+    for d in (64, 128):
+        q, k, v = (torch.randn((2, 1024, 2, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        o, lse = fa.flash_attention_lse(q, k, v, causal=False)
+        ro, rlse = fa.flash_attention_lse_reference(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        for got, want in ((o.float(), ro.float()), (lse, rlse)):
+            check(torch.allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL),
+                  f"flash kernel disagrees: bfloat16 d={d} t=1024 full, "
+                  f"max err {(got - want).abs().max().item()}")
+        worst["bfloat16"] = max(worst["bfloat16"],
+                                (o.float() - ro.float()).abs().max().item())
+        n_cases += 1
 
     # the decode prefill shape: B=16, T=512, H=16, D=128, bf16, causal
     B, T, H, D = 16, 512, 16, 128
@@ -291,15 +311,42 @@ def phase_kernel(fa):
     qf, kf, vf = (x.view(B, H, T, D) for x in (q3f, k3f, v3f))
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     f32["library_ms"] = cuda_ms(lambda: sdpa(qf, kf, vf, is_causal=True))
+    del q3f, k3f, v3f, qf, kf, vf
+
+    # the training shape: (B·H=256, T=1024, D=128) bf16, causal, 16
+    # launches a train step (forward and the remat rerun)
+    bt, tt = TRAIN["batch"], TRAIN["seq"]
+    qt, kt, vt = (torch.randn((bt * H, tt, D), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    ot, lt = fa.flash_fwd_3d(qt, kt, vt, 0, 0, scale, True)
+    rot, rlt = fa.flash_attention_lse_reference(
+        *(x.unsqueeze(2) for x in (qt, kt, vt)), causal=True, scale=scale)
+    torch.cuda.synchronize()
+    err_t = (ot.float() - rot.squeeze(2).float()).abs().max().item()
+    check(torch.allclose(ot.float(), rot.squeeze(2).float(), atol=BF16_TOL,
+                         rtol=BF16_TOL)
+          and torch.allclose(lt, rlt.reshape(lt.shape), atol=BF16_TOL,
+                             rtol=BF16_TOL),
+          f"train-shape forward err {err_t}")
+    del rot, rlt
+    tb_ms, tb_by = attention_bound_ms(bt, H, tt, tt, D, 2, True, 0, 0)[:2]
+    train_shape = {
+        "shape": [bt * H, tt, D], "max_abs_err": err_t,
+        "ms": cuda_ms(lambda: fa.flash_fwd_3d(qt, kt, vt, 0, 0, scale,
+                                              True)),
+        "library_ms": cuda_ms(lambda: sdpa(
+            *(x.view(bt, H, tt, D) for x in (qt, kt, vt)), is_causal=True)),
+        "bound_ms": tb_ms, "bound_by": tb_by}
+    del qt, kt, vt, ot, lt
     emit("kernel", cases=n_cases, max_abs_err_o=worst, float32=f32,
          prefill_shape=[B, T, H, D], prefill_dtype="bfloat16",
          prefill_max_abs_err_o=err_o, prefill_max_abs_err_lse=err_lse,
          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-         tflops=flops / ms / 1e9)
+         tflops=flops / ms / 1e9, train_shape=train_shape)
     return {"max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "train_shape": train_shape}
 
 
 def bwd_err(got, want, dtype):

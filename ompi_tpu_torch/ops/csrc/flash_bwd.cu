@@ -30,39 +30,67 @@
 //
 // What the design does about it.  The two-kernel split of the reference
 // stays: it is deterministic and needs no atomics on dq.  Each streamed
-// K/V (or Q/G) element is read from HBM once per 64-row tile and scores,
-// weights and ds never leave the SM; tiles that the causal mask empties
-// are skipped (K tiles above the diagonal in dq, Q tiles wholly before
-// the k tile in dk/dv).  Streamed tiles are copied with 16-byte cp.async
-// into two shared-memory stages, so the next tile's copy runs under this
-// tile's math.
+// K/V (or Q/G) element is read from HBM once per tile of the block's own
+// rows and scores, weights and ds never leave the SM; tiles that the
+// causal mask empties are skipped (K tiles above the diagonal in dq, Q
+// tiles wholly before the k tile in dk/dv).
 //
-//   - bf16 (the training path): mma.sync m16n8k16 tensor-core tiles
-//     (bf16 in, f32 accumulate), 4 warps of 16 rows each.  In dq a warp
-//     owns 16 query rows; S = Q K^T and dP = G V^T come out in the
-//     accumulator layout, which, rounded to bf16, is the A operand of
-//     dS K, so ds never goes to shared memory; K's B fragments come out
-//     transposed through ldmatrix.  In dk/dv a warp owns 16 key rows and
-//     computes the transposed products S^T = K Q^T and dP^T = V G^T, so
-//     P^T and dS^T are again A operands in registers for P^T G and
-//     dS^T Q.  The streamed tile is worked through 32 (dq) or 16 (dk/dv)
-//     columns at a time and Q/G (dq) and K/V (dk/dv) A fragments are read
-//     from shared memory, which keeps the two f32 (16 x D) accumulators
-//     of dk/dv in registers without spills at D = 128.  wgmma with
-//     TMA-fed tiles is the later step towards the bound.
+//   - dk/dv, bf16, D = 64 and 128 (the training path): Hopper's tensor
+//     cores through wgmma, fed by TMA.  A block owns 128 keys, two
+//     warpgroups of 64 key rows each.  Warp 0 loads the block's K and V
+//     once (64 KB at D = 128) and the first two 64-query Q and G tiles of
+//     a ring of 2 stages (32 KB each), 3-D TMA boxes of the (D, T, B*H)
+//     tensors, 128-byte swizzled, completing on the stage's "full"
+//     mbarrier (expect_tx); the warp's 32 lanes put the tile's lse (times
+//     log2 e) and dm beside it and arrive on the same barrier.  A stage is
+//     refilled the same way by the last of the 8 warps to finish with it
+//     (a shared counter): no producer warpgroup, for the register reason
+//     the forward's note gives.  A warpgroup computes S^T = K Q^T and
+//     dP^T = V G^T (64 keys x 64 queries each) with wgmma m64n64k16 from
+//     shared memory, K/V and Q/G all K-major; p = exp2(s * scale * log2 e
+//     - lse * log2 e) and ds = p (dp - dm) scale run on the accumulator
+//     registers, with the position test only on tiles that the diagonal
+//     or the T edge crosses; then dV += P^T G and dK += dS^T Q with wgmma
+//     m64nDk16, P^T and dS^T rounded to bf16 as register A operands and
+//     the same staged G and Q tiles read MN-major (transpose bit): one
+//     staged tile serves two products through two descriptors.  dK and dV
+//     (64 f32 registers each a thread at D = 128), S^T and dP^T (32 each)
+//     stay in registers (256 threads: up to 255 a thread).  The epilogue
+//     rounds dK and dV into the warpgroup's own K and V tiles and stores
+//     them with TMA; keys past T are dropped.  Shared memory: 128 KB at
+//     D = 128, one block an SM.  A head's k tiles run side by side (Q and
+//     G come from HBM about once, then from L2), the one with the most
+//     live q tiles (the smallest k0) first.
+//   - dq, and dk/dv at D = 16 and 32 (test sizes only), bf16: mma.sync
+//     m16n8k16 tensor-core tiles (bf16 in, f32 accumulate), 4 warps of 16
+//     rows each, streamed tiles copied with 16-byte cp.async into two
+//     shared-memory stages.  In dq a warp owns 16 query rows; S = Q K^T
+//     and dP = G V^T come out in the accumulator layout, which, rounded to
+//     bf16, is the A operand of dS K, so ds never goes to shared memory;
+//     K's B fragments come out transposed through ldmatrix.  In the small
+//     dk/dv a warp owns 16 key rows and computes the transposed products
+//     S^T = K Q^T and dP^T = V G^T, so P^T and dS^T are again A operands
+//     in registers for P^T G and dS^T Q.  The streamed tile is worked
+//     through 32 (dq) or 16 (dk/dv) columns at a time and Q/G (dq) and
+//     K/V (dk/dv) A fragments are read from shared memory, which keeps
+//     dq's accumulator and its score tiles in registers without spills at
+//     D = 128.
 //   - f32: products on the f32 CUDA cores (tensor cores would round f32
 //     inputs to TF32 and break float32 parity).  256 threads as 32 row
 //     groups x 8 column lanes, as the forward; ds (and p for dv) go
 //     through shared memory between the two products.
 //
 // All kernels allocate nothing, launch on the caller's stream and do not
-// synchronise.
+// synchronise; the Hopper dk/dv launch builds its six tensor maps on the
+// host first (cuTensorMapEncodeTiled through the runtime: no -lcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -373,7 +401,7 @@ __global__ void __launch_bounds__(NT32)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels (mma.sync m16n8k16, f32 accumulate)
+// bfloat16, dq and the small dk/dv: mma.sync m16n8k16 tensor-core kernels
 // ---------------------------------------------------------------------------
 
 constexpr int NT16 = 128;   // 4 warps x 16 rows
@@ -562,7 +590,7 @@ constexpr size_t dkv_bf16_smem() {
 
 template <int D>
 __global__ void __launch_bounds__(NT16)
-    bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+    bwd_dkv_bf16_small_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ g,
@@ -730,6 +758,242 @@ __global__ void __launch_bounds__(NT16)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 dk/dv, D = 64 and 128: warp-specialised wgmma kernel fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace hp = hopper;
+
+constexpr int WG = 128;               // threads a warpgroup
+// two warpgroups and no producer warp, for the register reason in
+// flash_fwd.cu
+constexpr int HOP_THREADS = 2 * WG;
+constexpr int HKEYS = 128;            // keys a block, 64 a warpgroup
+constexpr int HSTAGES = 2;            // Q/G stages in the ring
+
+// Shared memory of the Hopper dk/dv kernel, in bytes from a 1024-aligned
+// base: K and V of the block (each two 64-row halves, one a warpgroup),
+// then the ring of Q tiles, of G tiles, of lse and of dm rows.
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t SUB = 64 * 128;    // 64 rows x 64 columns
+  static constexpr uint32_t T64 = 64 * D * 2;  // a 64-row tile
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = K + 2 * T64;
+  static constexpr uint32_t Q = V + 2 * T64;
+  static constexpr uint32_t G = Q + HSTAGES * T64;
+  static constexpr uint32_t L = G + HSTAGES * T64;   // f32 [HSTAGES][64]
+  static constexpr uint32_t M = L + HSTAGES * 64 * 4;
+  static constexpr uint32_t BARS = M + HSTAGES * 64 * 4;
+  // kv_full, full[HSTAGES]; released[HSTAGES] (int); 1024 bytes of
+  // alignment slack
+  static constexpr uint32_t RELEASED = BARS + 8 * (1 + HSTAGES);
+  static constexpr uint32_t BYTES = RELEASED + 4 * HSTAGES + 1024;
+};
+
+// Q/G tile `t` (64 queries) into ring stage `st`, by one whole warp:
+// lane 0 issues the TMA copies, the 32 lanes put the tile's lse (times
+// log2 e) and dm beside them; all complete on full[st] (1 + 32 arrivals)
+template <int D>
+__device__ __forceinline__ void load_qg(uint8_t* smem, uint64_t* full,
+                                        const CUtensorMap* qmap,
+                                        const CUtensorMap* gmap,
+                                        const float* lb, const float* mb,
+                                        int t, int st, int bh, int tq) {
+  using S = DkvSmem<D>;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    hp::mbar_expect_tx(&full[st], 2 * S::T64);
+#pragma unroll
+    for (int s = 0; s < D / 64; ++s) {
+      hp::tma_load_3d(smem + S::Q + st * S::T64 + s * S::SUB, qmap,
+                      &full[st], 64 * s, t * TILE, bh);
+      hp::tma_load_3d(smem + S::G + st * S::T64 + s * S::SUB, gmap,
+                      &full[st], 64 * s, t * TILE, bh);
+    }
+  }
+  float* ls = reinterpret_cast<float*>(smem + S::L) + st * TILE;
+  float* ms = reinterpret_cast<float*>(smem + S::M) + st * TILE;
+  for (int i = lane; i < TILE; i += 32) {
+    const int r = t * TILE + i;
+    ls[i] = r < tq ? lb[r] * hp::LOG2E : 0.0f;
+    ms[i] = r < tq ? mb[r] : 0.0f;
+  }
+  hp::mbar_arrive(&full[st]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+    bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap gmap,
+                        const __grid_constant__ CUtensorMap dkmap,
+                        const __grid_constant__ CUtensorMap dvmap,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dm, int tq, int tk,
+                        float scale, int causal, int q_offset, int k_offset) {
+  using S = DkvSmem<D>;
+  constexpr int NSUB = D / 64;        // 64-column sub-tiles a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::smem_aligned_1024(smem_raw);
+  const float* ls = reinterpret_cast<const float*>(smem + S::L);
+  const float* ms = reinterpret_cast<const float*>(smem + S::M);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = kv_full + 1;
+  int* released = reinterpret_cast<int*>(smem + S::RELEASED);
+
+  // a head's k tiles run side by side, so its Q and G stay in L2 between
+  // them; the heaviest (smallest k0: the most live q tiles) first
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * HKEYS;
+  const int t0 = dkv_first_tile(k0, tq, causal, q_offset, k_offset);
+  const int n_live = (tq + TILE - 1) / TILE - t0;
+  const int wg = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG;
+  const int lane = tid & 31;
+  const float* lb = lse + (size_t)bh * tq;
+  const float* mb = dm + (size_t)bh * tq;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int s = 0; s < HSTAGES; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);  // expect_tx, then the 32 lanes
+      released[s] = 0;
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // the block's K and V, and the first Q/G tiles, by warp 0; later tiles
+  // are loaded by the last warp to release a stage (below), so no thread
+  // ever waits for a free stage
+  if (threadIdx.x < 32 && n_live > 0) {
+    if (lane == 0) {
+      hp::mbar_expect_tx(kv_full, 4 * S::T64);
+      for (int w = 0; w < 2; ++w)
+        for (int s = 0; s < NSUB; ++s) {
+          hp::tma_load_3d(smem + S::K + w * S::T64 + s * S::SUB, &kmap,
+                          kv_full, 64 * s, k0 + 64 * w, bh);
+          hp::tma_load_3d(smem + S::V + w * S::T64 + s * S::SUB, &vmap,
+                          kv_full, 64 * s, k0 + 64 * w, bh);
+        }
+    }
+    for (int it = 0; it < min(n_live, HSTAGES); ++it)
+      load_qg<D>(smem, full, &qmap, &gmap, lb, mb, t0 + it, it, bh, tq);
+  }
+
+  // warpgroup `wg`: 64 key rows
+  const int row = (tid >> 5) * 16 + (lane >> 2);  // my keys: row, row + 8
+  const int c2 = (lane & 3) * 2;
+  const int kw0 = k0 + 64 * wg;                  // my warpgroup's first key
+  uint8_t* k_wg = smem + S::K + wg * S::T64;
+  uint8_t* v_wg = smem + S::V + wg * S::T64;
+  const int kpos[2] = {k_offset + kw0 + row, k_offset + kw0 + row + 8};
+  const float c_log2 = scale * hp::LOG2E;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+  if (n_live > 0) hp::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_live; ++it) {
+    const int st = it % HSTAGES;
+    const int qq0 = (t0 + it) * TILE;
+    hp::mbar_wait(&full[st], (it / HSTAGES) & 1);
+    const uint8_t* qs = smem + S::Q + st * S::T64;
+    const uint8_t* gs = smem + S::G + st * S::T64;
+    const float* lt = ls + st * TILE;
+    const float* mt = ms + st * TILE;
+
+    // S^T = K Q^T and dP^T = V G^T, 64 keys x 64 queries each, in the
+    // accumulator layout: [4j + e] = (key row + 8 * (e / 2), query
+    // qq0 + 8j + c2 + e % 2)
+    float s[32], dp[32];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::Wgmma<64>::ss(s, hp::desc_k(k_wg, kk, S::SUB),
+                        hp::desc_k(qs, kk, S::SUB), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::Wgmma<64>::ss(dp, hp::desc_k(v_wg, kk, S::SUB),
+                        hp::desc_k(gs, kk, S::SUB), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+    hp::fence_regs(dp);
+
+    // p^T in s, ds^T in dp; the position test (both masks of the
+    // reference, as one) only where the T edge or the diagonal crosses
+    // the tile for some of my keys
+    const bool edge = qq0 + TILE > tq ||
+                      (causal && q_offset + qq0 < k_offset + kw0 + 63);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + c2 + (i & 1);
+      float p = hp::ex2(fmaf(s[i], c_log2, -lt[col]));
+      if (edge) {
+        const int qi = qq0 + col;
+        if (qi >= tq || (causal && q_offset + qi < kpos[(i >> 1) & 1]))
+          p = 0.0f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - mt[col]) * scale;
+    }
+
+    // dV += P^T G and dK += dS^T Q: P^T and dS^T rounded to bf16 are
+    // register A operands, 16 queries a k-step; the staged G and Q tiles
+    // (queries x D, D contiguous) are read MN-major
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      hp::acc_to_a(pa[c], s, c);
+      hp::acc_to_a(da[c], dp, c);
+    }
+    hp::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      hp::Wgmma<D>::rs(dv, pa[c], hp::desc_mn(gs, c, S::SUB), 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      hp::Wgmma<D>::rs(dk, da[c], hp::desc_mn(qs, c, S::SUB), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv);
+    hp::fence_regs(dk);
+    hp::fence_regs(pa);
+    hp::fence_regs(da);
+
+    // the last of the 8 warps done with the stage refills it (the whole
+    // warp: TMA copies, lse and dm)
+    if (hp::last_to_release(&released[st], HOP_THREADS / 32) &&
+        it + HSTAGES < n_live)
+      load_qg<D>(smem, full, &qmap, &gmap, lb, mb, t0 + it + HSTAGES, st, bh,
+                 tq);
+  }
+
+  // epilogue: dK and dV in bf16 into my K and V tiles (their last reader
+  // was my last wgmma), then TMA stores; keys past tk are dropped
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      hp::st_swizzled(k_wg, row + 8 * h, 8 * j + c2, S::SUB,
+                      pack_bf16(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]));
+      hp::st_swizzled(v_wg, row + 8 * h, 8 * j + c2, S::SUB,
+                      pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]));
+    }
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, WG);
+  if (tid == 0) {
+    for (int s = 0; s < NSUB; ++s) {
+      hp::tma_store_3d(&dkmap, k_wg + s * S::SUB, 64 * s, kw0, bh);
+      hp::tma_store_3d(&dvmap, v_wg + s * S::SUB, 64 * s, kw0, bh);
+    }
+    hp::tma_store_drain();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -787,15 +1051,37 @@ cudaError_t dkv_f32(const Args& a, void* dk, void* dv, cudaStream_t st) {
 }
 
 template <int D>
-cudaError_t dkv_bf16(const Args& a, void* dk, void* dv, cudaStream_t st) {
+cudaError_t dkv_bf16_small(const Args& a, void* dk, void* dv, cudaStream_t st) {
   const size_t smem = dkv_bf16_smem<D>();
-  cudaError_t err = prepare(bwd_dkv_bf16_kernel<D>, smem);
+  cudaError_t err = prepare(bwd_dkv_bf16_small_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.tk + TILE - 1) / TILE, a.bh);
-  bwd_dkv_bf16_kernel<D><<<grid, NT16, smem, st>>>(
+  bwd_dkv_bf16_small_kernel<D><<<grid, NT16, smem, st>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
       (const float*)a.lse, (const float*)a.dm, (bf16*)dk, (bf16*)dv, a.tq,
       a.tk, a.scale, a.causal, a.q_offset, a.k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv_bf16_hopper(const Args& a, void* dk, void* dv,
+                            cudaStream_t st) {
+  CUtensorMap qm, km, vm, gm, dkm, dvm;
+  cudaError_t err;
+  if ((err = hp::make_map(&qm, a.q, a.bh, a.tq, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&km, a.k, a.bh, a.tk, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&vm, a.v, a.bh, a.tk, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&gm, a.g, a.bh, a.tq, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&dkm, dk, a.bh, a.tk, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&dvm, dv, a.bh, a.tk, D, 64)) != cudaSuccess)
+    return err;
+  const size_t smem = DkvSmem<D>::BYTES;
+  err = prepare(bwd_dkv_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tk + HKEYS - 1) / HKEYS, a.bh);
+  bwd_dkv_bf16_kernel<D><<<grid, HOP_THREADS, smem, st>>>(
+      qm, km, vm, gm, dkm, dvm, (const float*)a.lse, (const float*)a.dm,
+      a.tq, a.tk, a.scale, a.causal, a.q_offset, a.k_offset);
   return cudaGetLastError();
 }
 
@@ -822,10 +1108,10 @@ dkv_fn pick_dkv(int dtype, int d) {
     case 32: return dkv_f32<32>;
     case 64: return dkv_f32<64>;
     case 128: return dkv_f32<128>;
-    case 1016: return dkv_bf16<16>;
-    case 1032: return dkv_bf16<32>;
-    case 1064: return dkv_bf16<64>;
-    case 1128: return dkv_bf16<128>;
+    case 1016: return dkv_bf16_small<16>;
+    case 1032: return dkv_bf16_small<32>;
+    case 1064: return dkv_bf16_hopper<64>;
+    case 1128: return dkv_bf16_hopper<128>;
   }
   return nullptr;
 }

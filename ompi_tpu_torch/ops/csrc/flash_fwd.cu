@@ -18,27 +18,61 @@
 //   - in bf16, p is rounded to the storage dtype before P*V, while l sums
 //     the unrounded p.
 //
-// What bounds it on this card.  At the decode prefill shape (B=16, H=16,
-// T=512, D=128, bf16, causal) the function moves ~135 MB (q, k, v, o, lse)
-// and does ~17 GFLOP: at H100 SXM peaks that is ~40 us of HBM traffic
-// against ~17 us of tensor-core math, so the card's bound is bytes.
+// What bounds it on this card.  At the decode prefill shape (B*H = 256,
+// T = 512, D = 128, bf16, causal) the function moves 134.7 MB (q, k, v
+// read, o and lse written) and does 17.2 GFLOP on its 131,328 live pairs
+// a head: 40.2 us of HBM traffic at 3.35 TB/s against 17.4 us of bf16
+// tensor-core math at 989 TFLOP/s, so bytes bound it.  At the training
+// shape (T = 1024) it is 269.5 MB and 68.8 GFLOP: 80.4 against 69.6 us,
+// bytes again, with the two close.
 //
 // What the design does about it.  Each K/V element is read from HBM once
-// per 64-row q tile, scores and weights never leave the SM, tiles wholly
+// per 128-row q tile, scores and weights never leave the SM, tiles wholly
 // above the causal diagonal are skipped (their contribution is exactly
-// zero), and m, l and the O accumulator stay in registers.  Two kernels:
+// zero), and m, l and the O accumulator stay in registers.  Three kernels,
+// chosen by dtype and head dim (a dispatch by shape, not a fallback):
 //
-//   - bf16 (the serving path): tensor cores through mma.sync m16n8k16
-//     (bf16 in, f32 accumulate).  4 warps, each owning 16 query rows whose
-//     Q fragments stay in registers for the whole K/V stream.  S = Q K^T
-//     comes out in the accumulator layout, which is also the A-operand
-//     layout of P V, so P is rounded to bf16 and fed back from registers
-//     without touching shared memory.  K/V tiles are copied 16 bytes at a
-//     time with cp.async into two shared-memory stages, so the next
-//     tile's copy runs under this tile's math; both stay row-major, padded
-//     by 8 elements a row so that a warp's fragment loads hit 32 distinct
-//     banks, and V's B fragments come out transposed through ldmatrix.
-//     wgmma with TMA-fed tiles is the later step towards the byte bound.
+//   - bf16, D = 64 and 128 (the serving and training paths): Hopper's
+//     tensor cores through wgmma, fed by TMA.  A block owns 128 query
+//     rows, two warpgroups of 64 rows each.  Thread 0 loads the block's Q
+//     once and the first two 128-key K/V tiles into a ring of 2 stages,
+//     each a 3-D TMA box (64 columns, rows, 1 head) of the (D, T, B*H)
+//     tensor, 128-byte swizzled, completing on the stage's "full"
+//     mbarrier (expect_tx).  Rows past T come in as zeros and are dropped
+//     on the store, so no tile reaches into the next head.  A stage is
+//     refilled by the last of the 8 warps to finish with it (a shared
+//     counter), so no thread ever waits for a free stage and no warp is
+//     spent on a producer: with wgmma in the kernel, ptxas budgets
+//     registers for whole warpgroups, and a third (producer) warpgroup
+//     would cut every thread to 168 registers, which serialises the
+//     wgmmas; 256 threads get 255 (setmaxnreg did not lift that budget).
+//     A warpgroup computes S = Q K^T (64 x 128) with wgmma m64n128k16,
+//     both operands K-major in shared memory; the softmax runs on the
+//     accumulator registers (row max and sum across the 4 threads of a
+//     row by shuffles, exp2 with scale*log2(e) folded into one FMA, masked
+//     entries set to -inf so exp2 gives the second mask's 0 by itself) and
+//     tests positions only on tiles that the diagonal or the T edge
+//     crosses; P rounded to bf16 is the register A operand of O += P V
+//     (wgmma m64nDk16, V read MN-major with the transpose bit).  Within a
+//     warpgroup the two products and the softmax run in turn, and the two
+//     warpgroups interleave on the tensor cores (a version that ran tile
+//     t's P V under tile t + 1's softmax was slower: ptxas serialised its
+//     wgmmas, as the P fragments are written by ordinary instructions).
+//     The epilogue scales O by 1/max(l, 1e-30), rounds it into the
+//     warpgroup's own (now unused) Q tile in the swizzled layout and
+//     stores it with TMA; lse goes out with plain stores.  Shared memory:
+//     Q 2 x 64 x D + 2 stages x (K, V) 128 x D, bf16 = 160 KB at D = 128
+//     (80 KB at D = 64): one block an SM.  The grid runs a head's q
+//     tiles side by side, so its K and V come from HBM about once and
+//     from L2 for the rest (ordered head by head, the causal q tiles'
+//     re-reads of K and V would make the traffic at the prefill shape
+//     about 1.75x its minimum), the heaviest causal q tile (the largest
+//     q0) of a head first.
+//   - bf16, D = 16 and 32 (test sizes only): mma.sync m16n8k16, 4 warps
+//     each owning 16 query rows whose Q fragments stay in registers; S in
+//     the accumulator layout is, rounded to bf16, P's A fragment; K/V
+//     tiles of 64 keys through two cp.async stages, V's B fragments
+//     through ldmatrix.trans.
 //   - f32: products on the f32 CUDA cores (the tensor cores would round
 //     f32 inputs to TF32, which breaks float32 parity).  256 threads as 32
 //     row groups x 8 column lanes; a thread owns 2 query rows, the 8 key
@@ -46,14 +80,19 @@
 //     O; Q, K, V and P are staged in shared memory as f32, rows padded by
 //     one word against bank conflicts.
 //
-// Both allocate nothing, launch on the caller's stream and do not
-// synchronise.
+// All allocate nothing, launch on the caller's stream and do not
+// synchronise; the bf16 D = 64/128 launch builds its four tensor maps on
+// the host first (cuTensorMapEncodeTiled, looked up through the CUDA
+// runtime's entry-point query: no -lcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,14 +101,16 @@ using namespace flash;
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per streamed tile
 
-// Number of K/V tiles a block must visit: with a causal mask, tiles past
-// the last key any of its rows may see are wholly masked and skipped.
-__device__ __forceinline__ int live_tiles(int q0, int tq, int tk, int causal,
-                                          int q_offset, int k_offset) {
-  const int n_tiles = (tk + BK - 1) / BK;
+// Number of K/V tiles of `bk` keys a block of `bq` query rows from q0 must
+// visit: with a causal mask, tiles past the last key any of its rows may
+// see are wholly masked and skipped.
+__device__ __forceinline__ int live_tiles(int q0, int bq, int bk, int tq,
+                                          int tk, int causal, int q_offset,
+                                          int k_offset) {
+  const int n_tiles = (tk + bk - 1) / bk;
   if (!causal) return n_tiles;
-  const int span = q_offset + min(q0 + BQ, tq) - 1 - k_offset;
-  return span < 0 ? 0 : min(n_tiles, span / BK + 1);
+  const int span = q_offset + min(q0 + bq, tq) - 1 - k_offset;
+  return span < 0 ? 0 : min(n_tiles, span / bk + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -131,7 +172,8 @@ __global__ void __launch_bounds__(NT32)
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
   }
 
-  const int n_tiles = live_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  const int n_tiles =
+      live_tiles(q0, BQ, BK, tq, tk, causal, q_offset, k_offset);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // previous tile's K/V/P reads are done
@@ -217,7 +259,7 @@ __global__ void __launch_bounds__(NT32)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernel (mma.sync m16n8k16, f32 accumulate)
+// bfloat16, D = 16 and 32: mma.sync m16n8k16 tensor-core kernel
 // ---------------------------------------------------------------------------
 
 constexpr int NT16 = 128;           // 4 warps x 16 query rows
@@ -246,7 +288,7 @@ constexpr size_t bf16_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(NT16)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+    flash_fwd_bf16_small_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           float* __restrict__ lse, int tq, int tk,
@@ -271,7 +313,8 @@ __global__ void __launch_bounds__(NT16)
   const bf16* kb = k + (size_t)bh * tk * D;
   const bf16* vb = v + (size_t)bh * tk * D;
 
-  const int n_tiles = live_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  const int n_tiles =
+      live_tiles(q0, BQ, BK, tq, tk, causal, q_offset, k_offset);
   if (n_tiles > 0) stage_kv<D>(stages, stages + BK * LD, kb, vb, 0, tk);
 
   // Q as A fragments, held for the whole stream
@@ -401,6 +444,233 @@ __global__ void __launch_bounds__(NT16)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, D = 64 and 128: warp-specialised wgmma kernel fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace hp = hopper;
+
+constexpr int WG = 128;               // threads a warpgroup
+// two consumer warpgroups and no producer warp: with wgmma in the kernel
+// ptxas budgets registers for whole warpgroups (a 288-thread block gets
+// 168 a thread, too few for the accumulators, and serialises the
+// wgmmas), while 256 threads get the full 255
+constexpr int HOP_THREADS = 2 * WG;
+constexpr int HQ = 128;               // query rows a block, 64 a warpgroup
+constexpr int HK = 128;               // keys a K/V tile
+constexpr int HSTAGES = 2;            // K/V stages in the ring
+
+// Shared memory of the Hopper kernel, in bytes from a 1024-aligned base.
+template <int D>
+struct FwdSmem {
+  static constexpr uint32_t Q_SUB = 64 * 128;    // 64 rows x 64 columns
+  static constexpr uint32_t Q_WG = 64 * D * 2;   // a warpgroup's Q rows
+  static constexpr uint32_t KV_SUB = HK * 128;   // 128 keys x 64 columns
+  static constexpr uint32_t KV = HK * D * 2;     // a K (or V) tile
+  static constexpr uint32_t STAGE = 2 * KV;      // K tile, then V tile
+  static constexpr uint32_t RING = 2 * Q_WG;     // offset of the ring
+  static constexpr uint32_t BARS = RING + HSTAGES * STAGE;
+  // q_full, full[HSTAGES]; released[HSTAGES] (int); 1024 bytes of
+  // alignment slack
+  static constexpr uint32_t RELEASED = BARS + 8 * (1 + HSTAGES);
+  static constexpr uint32_t BYTES = RELEASED + 4 * HSTAGES + 1024;
+};
+
+// K/V tile `t` into ring stage `st`, completing on full[st]
+template <int D>
+__device__ __forceinline__ void load_kv(uint8_t* smem, uint64_t* full,
+                                        const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, int t,
+                                        int st, int bh) {
+  using S = FwdSmem<D>;
+  uint8_t* ks = smem + S::RING + st * S::STAGE;
+  hp::mbar_expect_tx(&full[st], S::STAGE);
+#pragma unroll
+  for (int s = 0; s < D / 64; ++s) {
+    hp::tma_load_3d(ks + s * S::KV_SUB, kmap, &full[st], 64 * s, t * HK, bh);
+    hp::tma_load_3d(ks + S::KV + s * S::KV_SUB, vmap, &full[st], 64 * s,
+                    t * HK, bh);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          float* __restrict__ lse, int tq, int tk,
+                          float scale, int causal, int q_offset,
+                          int k_offset) {
+  using S = FwdSmem<D>;
+  constexpr int NSUB = D / 64;        // 64-column sub-tiles a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::smem_aligned_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = q_full + 1;
+  int* released = reinterpret_cast<int*>(smem + S::RELEASED);
+
+  // a head's q tiles run side by side, so its K/V stays in L2 between
+  // them; the heaviest (largest q0) first
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * HQ;
+  const int n_tiles =
+      live_tiles(q0, HQ, HK, tq, tk, causal, q_offset, k_offset);
+  const int wg = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG;
+  const int lane = tid & 31;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < HSTAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // Q and the first K/V tiles; later tiles are issued by the last warp to
+  // release a stage (below), so no thread ever waits for a free stage
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hp::mbar_expect_tx(q_full, 2 * S::Q_WG);
+    for (int w = 0; w < 2; ++w)
+      for (int s = 0; s < NSUB; ++s)
+        hp::tma_load_3d(smem + w * S::Q_WG + s * S::Q_SUB, &qmap, q_full,
+                        64 * s, q0 + 64 * w, bh);
+    for (int t = 0; t < min(n_tiles, HSTAGES); ++t)
+      load_kv<D>(smem, full, &kmap, &vmap, t, t, bh);
+  }
+
+  // warpgroup `wg`: 64 query rows
+  const int row = (tid >> 5) * 16 + (lane >> 2);  // my rows: row, row + 8
+  const int c2 = (lane & 3) * 2;
+  const int wq0 = q0 + 64 * wg;                  // my warpgroup's first row
+  uint8_t* q_wg = smem + wg * S::Q_WG;
+  const int qpos[2] = {q_offset + wq0 + row, q_offset + wq0 + row + 8};
+  const float c_log2 = scale * hp::LOG2E;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+
+  if (n_tiles > 0) hp::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % HSTAGES;
+    const int k0 = t * HK;
+    hp::mbar_wait(&full[st], (t / HSTAGES) & 1);
+    const uint8_t* ks = smem + S::RING + st * S::STAGE;
+    const uint8_t* vs = ks + S::KV;
+
+    // S = Q K^T, 64 rows x 128 keys, f32 in the accumulator layout:
+    // s[4j + e] = (row + 8 * (e / 2), key k0 + 8j + c2 + e % 2)
+    float s[HK / 2];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::Wgmma<HK>::ss(s, hp::desc_k(q_wg, kk, S::Q_SUB),
+                        hp::desc_k(ks, kk, S::KV_SUB), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+
+    // the position test only where the T edge or the diagonal crosses
+    // the tile for some of my rows; a masked score becomes -inf, so its
+    // exp2 below is exactly 0 (the reference's second mask) and it never
+    // raises the max (the reference's masked -1e30 never exceeds m,
+    // which starts at -1e30)
+    if (k0 + HK > tk || (causal && q_offset + wq0 < k_offset + k0 + HK - 1)) {
+#pragma unroll
+      for (int i = 0; i < HK / 2; ++i) {
+        const int key = k0 + (i >> 2) * 8 + c2 + (i & 1);
+        if (key >= tk || (causal && qpos[(i >> 1) & 1] < k_offset + key))
+          s[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float corr[2], mlog[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * scale);
+      corr[h] = hp::ex2((m[h] - m_new) * hp::LOG2E);
+      m[h] = m_new;
+      mlog[h] = m_new * hp::LOG2E;
+    }
+    // p = exp(s * scale - m) = 2^(s * scale * log2 e - m * log2 e)
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      s[i] = hp::ex2(fmaf(s[i], c_log2, -mlog[h]));
+      rs[h] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      l[h] = l[h] * corr[h] + rs[h];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: P rounded to bf16 is the register A operand, 16 keys a
+    // k-step; V (keys x D, D contiguous) is read MN-major
+    uint32_t pa[HK / 16][4];
+#pragma unroll
+    for (int c = 0; c < HK / 16; ++c) hp::acc_to_a(pa[c], s, c);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < HK / 16; ++c)
+      hp::Wgmma<D>::rs(o, pa[c], hp::desc_mn(vs, c, S::KV_SUB), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+    hp::fence_regs(pa);
+
+    // the last of the 8 warps done with the stage refills it
+    if (hp::last_to_release(&released[st], HOP_THREADS / 32) && lane == 0 &&
+        t + HSTAGES < n_tiles)
+      load_kv<D>(smem, full, &kmap, &vmap, t + HSTAGES, st, bh);
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 into my Q tile (its last reader
+  // was my last wgmma), then one TMA store a sub-tile; rows past tq are
+  // dropped by the store
+  float inv[2], lse_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float safe_l = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.0f / safe_l;
+    lse_r[h] = m[h] + logf(safe_l);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      hp::st_swizzled(q_wg, row + 8 * h, 8 * j + c2, S::Q_SUB,
+                      pack_bf16(o[4 * j + 2 * h] * inv[h],
+                                    o[4 * j + 2 * h + 1] * inv[h]));
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, WG);
+  if (tid == 0) {
+    for (int s = 0; s < NSUB; ++s)
+      hp::tma_store_3d(&omap, q_wg + s * S::Q_SUB, 64 * s, wq0, bh);
+    hp::tma_store_drain();
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wq0 + row + 8 * h;
+      if (r < tq) lse[(size_t)bh * tq + r] = lse_r[h];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -425,20 +695,44 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int bh, int tq, int tk, float scale,
-                        int causal, int q_offset, int k_offset,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16_small(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int bh, int tq, int tk,
+                              float scale, int causal, int q_offset,
+                              int k_offset, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_bf16_small_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_fwd_bf16_kernel<D><<<grid, NT16, smem, stream>>>(
+  flash_fwd_bf16_small_kernel<D><<<grid, NT16, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), tq, tk, scale, causal, q_offset, k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16_hopper(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int bh, int tq, int tk,
+                               float scale, int causal, int q_offset,
+                               int k_offset, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  cudaError_t err;
+  if ((err = hp::make_map(&qm, q, bh, tq, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&km, k, bh, tk, D, HK)) != cudaSuccess ||
+      (err = hp::make_map(&vm, v, bh, tk, D, HK)) != cudaSuccess ||
+      (err = hp::make_map(&om, o, bh, tq, D, 64)) != cudaSuccess)
+    return err;
+  const uint32_t smem = FwdSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + HQ - 1) / HQ, bh);
+  flash_fwd_bf16_kernel<D><<<grid, HOP_THREADS, smem, stream>>>(
+      qm, km, vm, om, static_cast<float*>(lse), tq, tk, scale, causal,
+      q_offset, k_offset);
   return cudaGetLastError();
 }
 
@@ -456,10 +750,10 @@ launch_fn pick(int dtype, int d) {
     }
   } else if (dtype == 1) {
     switch (d) {
-      case 16: return launch_bf16<16>;
-      case 32: return launch_bf16<32>;
-      case 64: return launch_bf16<64>;
-      case 128: return launch_bf16<128>;
+      case 16: return launch_bf16_small<16>;
+      case 32: return launch_bf16_small<32>;
+      case 64: return launch_bf16_hopper<64>;
+      case 128: return launch_bf16_hopper<128>;
     }
   }
   return nullptr;

@@ -23,6 +23,7 @@ package), the materialized recompute in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -226,7 +227,9 @@ def flash_bwd_recompute(q, k, v, out, g, g_lse, q_offset: int,
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 
 
+@functools.cache
 def _fwd_fn():
+    """The forward's C entry point, built, loaded and bound once."""
     from ompi_tpu_torch.ops import _build
 
     fn = _build.load("flash_fwd.cu").ompi_flash_fwd
@@ -235,7 +238,9 @@ def _fwd_fn():
     return fn
 
 
+@functools.cache
 def _bwd_fns():
+    """The dq and dk/dv C entry points, built, loaded and bound once."""
     from ompi_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd.cu")

@@ -22,7 +22,9 @@ tfa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
-OFFSETS = [(0, 0), (128, 0), (0, 128)]
+#: (q_offset, k_offset); the last three are not multiples of the kernels'
+#: 64- and 128-row tiles, so the diagonal crosses tiles off their edges
+OFFSETS = [(0, 0), (128, 0), (0, 128), (64, 0), (0, 64), (100, 36)]
 
 
 def _qkv(b=2, t=96, h=2, d=32, seed=0):

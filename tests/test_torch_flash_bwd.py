@@ -31,7 +31,9 @@ F32_TOL = 1e-4
 BF16_TOL = 3e-2
 GRAD_TOL = 2e-4
 KERNEL_GRAD_TOL = 2e-3
-OFFSETS = [(0, 0), (128, 0), (0, 128)]
+#: (q_offset, k_offset); the last three are not multiples of the kernels'
+#: 64- and 128-row tiles, so the diagonal crosses tiles off their edges
+OFFSETS = [(0, 0), (128, 0), (0, 128), (64, 0), (0, 64), (100, 36)]
 
 
 def _arrays(n, shape, seed=0):
