@@ -48,10 +48,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and a root's push to 3 peers) at kernel level in this process, on
    local buffers with their flag words, bitwise against ``copy_plain``
    over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
-   a ragged (7, 129) float32 shard and byte offsets that 16 does not
-   divide; each kernel timed at 64 MiB (the main path's window) and
+   a ragged (7, 129) float32 shard, byte offsets that 16 does not divide,
+   16-byte-aligned offsets that 128 does not divide at sizes that fill no
+   ring stage evenly (64 MiB + 48, 33 KiB + 16, 4096 + 7) and an empty
+   copy; each kernel timed at 64 MiB (the main path's window) and
    256 MiB beside its byte bound, its plain version and ``Tensor.copy_``,
-   and at 4 KiB;
+   and at 4 KiB (200 calls), where the call rate is the host's and the
+   profiler gives the device time of one launch; put and get at 64 MiB also without the
+   handshake;
 10. rma_ranks (after rma_kernel) — 4 rank processes on the one card
    (tcp init on a free port, each mapping its peers' 64 MiB windows):
    ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
@@ -59,7 +63,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    heap's put/quiet/get, every rank's window gathered over the host group
    and compared bitwise with the numpy expectation; the launch counts
    summed over ranks and the wall latency of a 4 KiB and a 64 MiB put;
-   a device collective over the ranks (which share the card) must raise;
+   an ordering stress of 200 back-to-back 1 MiB puts 0 → 1 and 200 gets
+   1 ← 2, each of a new value, compared on the card after every call
+   (0 mismatches); a device collective over the ranks (which share the
+   card) must raise;
 11. collectives (last) — ``make_mesh`` on the card with NCCL at world
    size 1: every device collective on CUDA tensors equals the same call
    on the one-process CPU communicator;
@@ -107,8 +114,16 @@ BWD_LENGTHS = (96, 256, 512, 1024)
 #: (timed beside 4 KiB and 256 MiB), the ranks and their window
 RMA_SIZES = (4 << 10, 1 << 20, 64 << 20, 256 << 20)
 RMA_TIMED = 64 << 20
+#: (source offset, landing offset, bytes) of the unaligned and boundary
+#: copies: the first three take the byte path, the rest the bulk ring
+RMA_OFFSET_CASES = ((3, 5, 1 << 20), (4, 8, 4096 + 7), (1, 0, 12345),
+                    (16, 48, (64 << 20) + 48), (48, 16, (33 << 10) + 16),
+                    (16, 0, 4096 + 7), (0, 0, 0))
 RMA_RANKS = 4
 RMA_WINDOW = (16384, 1024)     # float32, 64 MiB a rank
+#: the ordering stress: back-to-back calls of 1 MiB float32, each of a
+#: new value
+RMA_STRESS = dict(calls=200, elems=1 << 18)
 COLL_TOL = 1e-6                # a collective on the card vs its one-rank result
 #: where the phases put their tensors (a rehearsal on the CPU changes it)
 DEVICE = "cuda"
@@ -621,6 +636,30 @@ def profile_window(fn):
                              "calls": e.count} for e in top]}
 
 
+def kernel_device_ms(fn, tag: str, n: int = 50) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``tag``, from torch.profiler over ``n`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and tag in e.key]
+    # the profiler may miss a launch at the window's edge
+    launches = sum(e.count for e in hits)
+    check(n // 2 <= launches <= n, f"the profiler saw {launches} launches "
+          f"of {tag}, want {n}")
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in hits) / launches / 1e3
+
+
 def kernel_kind(name: str) -> str:
     """The port's flash kernels, float32 matrix products (cuBLAS/CUTLASS
     f32 GEMMs on the CUDA cores), other matrix products, or the rest
@@ -930,9 +969,9 @@ def phase_rma_kernel(rd, card):
     ready.fill_(1 << 62)            # every wait passes at once
     sync = rd.Sync(wait=[ready], release=[done], counter=counter,
                    status=status)
-    calls = {"put": lambda ls, s: rd.put_kernel(ls[0], s, sync),
-             "get": lambda ls, s: rd.get_kernel(ls[0], s, sync),
-             "bcast": lambda ls, s: rd.bcast_kernel(ls, s, sync)}
+    calls = {"put": lambda ls, s, y=sync: rd.put_kernel(ls[0], s, y),
+             "get": lambda ls, s, y=sync: rd.get_kernel(ls[0], s, y),
+             "bcast": lambda ls, s, y=sync: rd.bcast_kernel(ls, s, y)}
     n_land = {"put": 1, "get": 1, "bcast": RMA_RANKS - 1}
 
     def check_case(kind, src, lands, what) -> float:
@@ -948,8 +987,8 @@ def phase_rma_kernel(rd, card):
         check(int(done.item()) == sync.seq and int(status.item()) == 0,
               f"{kind} kernel flags: done {int(done.item())} want "
               f"{sync.seq}, status {int(status.item())}")
-        return max((a.double() - b.double()).abs().max().item()
-                   for a, b in zip(lands, want))
+        return max(((a.double() - b.double()).abs().max().item()
+                    if a.numel() else 0.0) for a, b in zip(lands, want))
 
     cases = 0
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
@@ -964,38 +1003,55 @@ def phase_rma_kernel(rd, card):
                 cases += 1
                 del lands
             del src
-    # a ragged (7, 129) f32 shard, and byte offsets 16 bytes do not divide
+    # a ragged (7, 129) f32 shard, byte offsets 16 bytes do not divide (the
+    # byte path), 16-byte-aligned offsets 128 does not divide with sizes
+    # that fill no ring stage or block range evenly (the bulk ring and its
+    # tail), and an empty copy
     ragged = torch.randn((7, 129), generator=g, device=dev)
-    base = torch.randint(0, 256, ((1 << 20) + 64,), dtype=torch.uint8,
+    base = torch.randint(0, 256, ((64 << 20) + 128,), dtype=torch.uint8,
                          generator=g, device=dev)
     for kind in calls:
         lands = [torch.empty_like(ragged) for _ in range(n_land[kind])]
         check_case(kind, ragged, lands, "ragged (7, 129) f32")
-        for s_off, l_off, nbytes in ((3, 5, 1 << 20), (4, 8, 4096 + 7),
-                                     (1, 0, 12345)):
+        cases += 1
+        for s_off, l_off, nbytes in RMA_OFFSET_CASES:
             src = base[s_off:s_off + nbytes]
             lands = [torch.zeros(nbytes + 64, dtype=torch.uint8,
                                  device=dev)[l_off:l_off + nbytes]
                      for _ in range(n_land[kind])]
             check_case(kind, src, lands,
                        f"offsets {s_off}/{l_off}, {nbytes} bytes")
-        cases += 4
+            cases += 1
+            del lands
+    del base
 
     timed = {}
     for nbytes in (RMA_SIZES[0], RMA_TIMED, RMA_SIZES[-1]):
         src = torch.randn((nbytes // 4,), generator=g, device=dev)
         for kind in calls:
             lands = [torch.empty_like(src) for _ in range(n_land[kind])]
-            ms = cuda_ms(lambda: calls[kind](lands, src))
-            plain_ms = cuda_ms(lambda: rd.copy_plain(lands, src))
-            library_ms = cuda_ms(lambda: [t.copy_(src) for t in lands])
+            # 4 KiB calls are host-bound: more of them steady the rate
+            reps = (dict(iters=200, warmup=20) if nbytes == RMA_SIZES[0]
+                    else {})
+            ms = cuda_ms(lambda: calls[kind](lands, src), **reps)
+            plain_ms = cuda_ms(lambda: rd.copy_plain(lands, src), **reps)
+            library_ms = cuda_ms(lambda: [t.copy_(src) for t in lands],
+                                 **reps)
             err = check_case(kind, src, lands, f"timed f32 {nbytes} bytes")
             bound = rma_bound_ms(kind, nbytes)
-            timed.setdefault(kind, {})[nbytes] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound, "bound_by": "bytes",
-                "gbps": n_land[kind] * nbytes / ms / 1e6,
-                "bound_share": bound / ms}
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound,
+                   "bound_by": "bytes",
+                   "gbps": n_land[kind] * nbytes / ms / 1e6,
+                   "bound_share": bound / ms}
+            if nbytes == RMA_SIZES[0]:
+                # the call rate above is the host's; this is the card's
+                row["device_ms"] = kernel_device_ms(
+                    lambda: calls[kind](lands, src), f"rma_{kind}_kernel")
+            elif nbytes == RMA_TIMED and kind != "bcast":
+                row["no_handshake_ms"] = cuda_ms(
+                    lambda: calls[kind](lands, src, rd.Sync()))
+            timed.setdefault(kind, {})[nbytes] = row
             del lands
         del src
     out = {}
@@ -1004,7 +1060,8 @@ def phase_rma_kernel(rd, card):
         out[kind] = {**at[RMA_TIMED],
                      "bytes": RMA_TIMED,
                      "at_256MiB": at[RMA_SIZES[-1]],
-                     "latency_4KiB_ms": at[RMA_SIZES[0]]["ms"]}
+                     "latency_4KiB_ms": at[RMA_SIZES[0]]["ms"],
+                     "device_4KiB_ms": at[RMA_SIZES[0]]["device_ms"]}
     emit("rma_kernel", cases=cases, sizes=list(RMA_SIZES),
          dtypes=["float32", "bfloat16", "int32"], bitwise_equal=True,
          bcast_peers=RMA_RANKS - 1, timed=timed,
@@ -1169,14 +1226,38 @@ def rma_rank_body(rank, world, init, device, shape):
         lat[name] = {"median_ms": float(np.median(times)) * 1e3,
                      "min_ms": float(np.min(times)) * 1e3, "reps": reps,
                      "bytes": w.numel() * 4}
+
+    # ---- ordering stress: back-to-back puts 0 -> 1 and gets 1 <- 2, each
+    # of a new value; after each call returns on rank 1 a comparison on
+    # the card adds the elements that differ to a count read once at the end
+    # (a done flag released before the landing is written shows here) ----
+    calls, elems = RMA_STRESS["calls"], RMA_STRESS["elems"]
+    stress = comm.window((elems,), torch.float32)
+    val = torch.zeros(elems, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    comm.barrier()
+    for k in range(1, calls + 1):
+        if rank == 0:
+            val.fill_(float(k))
+        stress = comm.put(stress, val, 0, 1)
+        if rank == 1:
+            bad += (stress != float(k)).sum()
+    for k in range(1, calls + 1):
+        if rank == 2:
+            stress.fill_(float(-k))
+        got = comm.get(stress, 2, 1)
+        if rank == 1:
+            bad += (got != float(-k)).sum()
+    ordering = {"puts": calls, "gets": calls, "bytes": elems * 4,
+                "mismatches": int(bad.item())}
     comm.barrier()
     heap.free(sym)
     dwin.free()
-    for t in (small, win):
+    for t in (small, win, stress):
         symmetric.free(mesh, t)
     dist.destroy_process_group()
     return {"launches": launches, "pairs": pairs, "checks": n_checks,
-            "main_path_s": main_s, "put_latency": lat,
+            "main_path_s": main_s, "put_latency": lat, "ordering": ordering,
             "shares_card": mesh.shares_card, "collective_refused": refused,
             "device": str(dev)}
 
@@ -1227,6 +1308,9 @@ def phase_rma_ranks(card, world: int = RMA_RANKS, shape=RMA_WINDOW,
     launches = {k: sum(got[r]["launches"][k] for r in range(world))
                 for k in ("put", "get", "bcast")}
     lat = got[0]["put_latency"]
+    ordering = got[1]["ordering"]
+    check(ordering["mismatches"] == 0,
+          f"rma_ranks ordering stress: {ordering}")
     emit("rma_ranks", ranks=world, window_shape=list(shape),
          window_bytes=int(np.prod(shape)) * 4, init=init.split(":")[0],
          devices=[got[r]["device"] for r in range(world)],
@@ -1236,7 +1320,7 @@ def phase_rma_ranks(card, world: int = RMA_RANKS, shape=RMA_WINDOW,
          bitwise_equal=True, launches=launches,
          launches_by_rank=[got[r]["launches"] for r in range(world)],
          main_path_s=[got[r]["main_path_s"] for r in range(world)],
-         put_latency=lat,
+         put_latency=lat, ordering_stress=ordering,
          put_64MiB_gbps=lat["64MiB"]["bytes"] / lat["64MiB"]["median_ms"]
          / 1e6, seconds=secs,
          note="wall time on the src rank; 4 processes on one card are "

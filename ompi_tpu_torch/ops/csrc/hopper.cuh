@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA loads and stores through 3-D tensor maps, and wgmma
-// descriptors, instructions and fragment conversion.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// and the one-sided copies: mbarriers, TMA loads and stores through 3-D
+// tensor maps, 1-D bulk copies, and wgmma descriptors, instructions and
+// fragment conversion.
 //
 // Layouts.  Every bf16 tile in shared memory is a stack of 128-byte
 // swizzled atoms as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: a
@@ -164,6 +165,57 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
 __device__ __forceinline__ void tma_store_drain() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1-D bulk copies (no tensor map): `bytes` a multiple of 16, both
+// addresses 16-byte aligned
+// ---------------------------------------------------------------------------
+
+// global -> shared; completes on `bar` (announce the bytes with
+// mbar_expect_tx first)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared -> global, into this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// close this thread's current bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's bulk groups still read shared memory: the
+// stages of the older ones may be refilled
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// every bulk group of this thread is complete: its writes to global
+// memory are performed (`.read` promises only that the source was read)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// order this thread's generic-proxy accesses of global memory with its
+// async-proxy (bulk copy) accesses, both ways; fence_proxy_async covers
+// shared memory only
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -122,10 +122,23 @@ class SymmetricWindow:
                       f"cudaIpcOpenMemHandle of rank {r}'s window")
             self._opened.append(peer.value)
             ptrs.append(peer.value)
+        #: every rank's data, as addresses in this process and as tensors
+        self.ptrs = ptrs
         self.data = [_bytes_at(p, self.nbytes, dev).view(dtype).view(shape)
                      for p in ptrs]
         self.flags = [_bytes_at(p + self.flag_offset, 8 * n_words, dev)
                       .view(torch.int64) for p in ptrs]
+        # the flag words' addresses, fixed here so a put or get makes no
+        # tensor view: ready_ptrs[r][p] is ready[p] in rank r's window
+        flag_ptrs = [p + self.flag_offset for p in ptrs]
+        self.ready_ptrs = [[f + 8 * p for p in range(n)] for f in flag_ptrs]
+        self.done_ptrs = [[f + 8 * (n + p) for p in range(n)]
+                          for f in flag_ptrs]
+        self.status_ptr = flag_ptrs[me] + 8 * 2 * n
+        self.counter_ptr = flag_ptrs[me] + 8 * (2 * n + 1)
+        #: this rank's status and counter words (1-element int64 views)
+        self.status = self._word(me, 2 * n)
+        self.counter = self._word(me, 2 * n + 1)
         self.tensor = self.data[me]
         self.tensor.fill_(fill)
         torch.cuda.current_stream(dev).synchronize()
@@ -149,14 +162,6 @@ class SymmetricWindow:
         n = self.mesh.world_size
         return self._word(self.mesh.rank if at is None else at, n + peer)
 
-    @property
-    def status(self) -> torch.Tensor:
-        return self._word(self.mesh.rank, 2 * self.mesh.world_size)
-
-    @property
-    def counter(self) -> torch.Tensor:
-        return self._word(self.mesh.rank, 2 * self.mesh.world_size + 1)
-
     def next_seq(self) -> int:
         self.seq += 1
         return self.seq
@@ -166,6 +171,7 @@ class SymmetricWindow:
         torch.cuda.current_stream(self.mesh.device).synchronize()
         self.mesh.host_barrier()
         self.data = self.flags = self.tensor = None
+        self.status = self.counter = None
         for p in self._opened:
             _raise_on(self._lib.ompi_win_close(self.device_index, p),
                       "cudaIpcCloseMemHandle")

@@ -283,8 +283,56 @@ def test_kernel_level_calls_refuse_cpu_tensors():
         R.put_kernel(a, b)
     R.copy_plain([a], b)
     assert torch.equal(a, b)
-    assert [R.grid_for(n) for n in (1, 4096, 4097, 1 << 30)] == [
-        1, 1, 2, R.MAX_BLOCKS]
+    plans = [R.copy_plan(n, 0, 0, SMS) for n in (1, 4096, 4097, 1 << 30)]
+    assert [p.grid for p in plans] == [1, 1, 1, SMS]
+    assert [p.stages for p in plans] == [1, 1, 1, R.STAGES]
+    assert all(p.bulk for p in plans)
+    assert not R.copy_plan(4096, 4, 0, SMS).bulk
+
+
+SMS = 132                                  # an H100 SXM's SMs
+PLAN_SIZES = (1, 15, 16, 4096, 4096 + 7, (33 << 10) + 16, (64 << 20) + 48,
+              256 << 20)
+
+
+@pytest.mark.parametrize("src_off,dst_off", [(0, 0), (4, 0), (0, 8)])
+@pytest.mark.parametrize("nbytes", PLAN_SIZES)
+def test_copy_plan_covers_every_byte_once(nbytes, src_off, dst_off):
+    """The put/get launch plan: every byte covered exactly once, bulk
+    ranges 16-byte aligned and whole multiples of 16, at most one block
+    an SM, each stage inside the shared memory the launch asks for, and
+    any pair that is not 16-byte aligned on the byte path."""
+    base = 1 << 20                          # a 16-byte-aligned address
+    p = R.copy_plan(nbytes, base + src_off, base + dst_off, SMS)
+    assert p.nbytes == nbytes and 1 <= p.grid <= SMS
+    if src_off or dst_off:
+        assert not p.bulk and p.body == 0 and p.smem == 0
+        assert p.threads == R.THREADS      # a grid-stride loop over all
+        return
+    assert p.bulk and p.threads >= 16
+    # chunk g of the body goes to block g mod grid; every block has one
+    chunks = -(-p.body // p.stage)
+    ranges = sorted((g * p.stage, min((g + 1) * p.stage, p.body))
+                    for g in range(chunks))
+    assert {g % p.grid for g in range(chunks)} == set(range(p.grid)) \
+        or chunks == 0 and p.grid == 1
+    ranges.append((p.body, nbytes))         # the tail, by threads
+    ends = [0]
+    for lo, hi in ranges:
+        assert lo == ends[-1]
+        ends.append(hi)
+    assert ends[-1] == nbytes
+    assert nbytes - p.body < 16 <= p.threads
+    for lo, hi in ranges[:-1]:
+        assert lo % 16 == 0 and (hi - lo) % 16 == 0 and hi > lo
+    # chunks of STAGE_BYTES (one below that); a block's chunks fill its
+    # ring at most once over; every stage fits the shared memory the
+    # launch asks for and one mbarrier transaction
+    assert p.stage == min(R.STAGE_BYTES, max(16, p.body))
+    assert p.stages <= max(1, -(-chunks // p.grid))
+    assert p.stage % 16 == 0 and 16 <= p.stage < 1 << 20
+    assert 1 <= p.ahead <= p.stages <= R.MAX_STAGES
+    assert p.stages * p.stage <= p.smem <= R.MAX_RING_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -305,15 +353,21 @@ def test_kernels_match_plain_on_the_card():
     status, counter = flags[2:3], flags[3:4]
     ready.fill_(1 << 40)                       # every wait passes at once
     arrived, seq = 0, 0
-    for nbytes, off in ((4096, 0), (1 << 20, 0), (7 * 129 * 4, 0),
-                        (4096 + 3, 1), (1 << 20, 5)):
+    # (bytes, source offset, landing offset): landings off by one take the
+    # byte path; 16-byte-aligned pairs (16, 48, 80: not 128-aligned) the
+    # bulk ring, with sizes that fill no stage or block range evenly
+    for nbytes, off, l_off in ((4096, 0, 1), (1 << 20, 0, 1),
+                               (7 * 129 * 4, 0, 1), (4096 + 3, 1, 2),
+                               (1 << 20, 5, 6), (0, 0, 0), (4096, 0, 0),
+                               (4096 + 7, 16, 0), ((33 << 10) + 16, 16, 48),
+                               (1 << 20, 48, 80), ((64 << 20) + 48, 0, 16)):
         src = torch.randint(0, 256, (nbytes + off,), dtype=torch.uint8,
                             device=dev)[off:]
         for kind, fn in (("put", R.put_kernel), ("get", R.get_kernel),
                          ("bcast", None)):
             seq += 1
-            lands = [torch.zeros(nbytes + off + 1, dtype=torch.uint8,
-                                 device=dev)[off + 1:] for _ in range(3)]
+            lands = [torch.zeros(nbytes + l_off, dtype=torch.uint8,
+                                 device=dev)[l_off:] for _ in range(3)]
             sync = R.Sync(wait=[ready], release=[done], counter=counter,
                           status=status, seq=seq, arrived=arrived)
             before = (R.put_launch_count, R.get_launch_count,
@@ -331,9 +385,31 @@ def test_kernels_match_plain_on_the_card():
             want = [torch.empty_like(t) for t in lands]
             R.copy_plain(want, src)
             for got, exp in zip(lands, want):
-                assert torch.equal(got, exp), (kind, nbytes, off)
+                assert torch.equal(got, exp), (kind, nbytes, off, l_off)
             assert int(done.item()) == seq and int(status.item()) == 0
     assert int(counter.item()) == arrived
+
+
+@pytest.mark.gpu
+def test_back_to_back_puts_land_before_done_on_the_card():
+    """100 puts of 1 MiB, each of a new value with the handshake: each
+    landing holds its value once the call's done flag is read."""
+    _card()
+    dev = torch.device("cuda", 0)
+    flags = torch.zeros(4, dtype=torch.int64, device=dev)
+    ready, done, status, counter = (flags[i:i + 1] for i in range(4))
+    ready.fill_(1 << 40)
+    sync = R.Sync(wait=[ready], release=[done], counter=counter,
+                  status=status)
+    src = torch.empty(1 << 18, dtype=torch.float32, device=dev)
+    land = torch.empty_like(src)
+    for k in range(1, 101):
+        src.fill_(float(k))
+        sync.seq = k
+        R.put_kernel(land, src, sync)
+        assert int(done.item()) == k and int(status.item()) == 0
+        assert bool((land == float(k)).all()), k
+    assert int(counter.item()) == sync.arrived
 
 
 @pytest.mark.gpu
