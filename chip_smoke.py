@@ -9,7 +9,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    nvidia-smi gives them (also printed alone on a line);
 2. build — nvcc builds every kernel from ``ompi_tpu_torch/ops/csrc`` for
    sm_90a, one nvcc per source, all started together; prints the
-   ``-Xptxas -v`` register and shared-memory lines and fails on a spill;
+   ``-Xptxas -v`` register and shared-memory lines and fails on a spill
+   or a wgmma-serialisation warning (ptxas's C751x);
 3. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, bf16 without a mask at t = 1024, and at the decode
@@ -23,7 +24,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with or without an lse cotangent; the autograd backward with the
    kernels against the recompute backward; and, at the training shape
    (B·H=256, T=1024, D=128, bf16, causal), each kernel's time beside its
-   plain version, its bound, the recompute backward and SDPA's backward;
+   plain version, its bound, the recompute backward and SDPA's backward,
+   and ptxas's register and spill lines (and any wgmma-serialisation
+   warning) of each D of the Hopper dq and dk/dv kernels;
 5. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
    tokens, the launch counts of that one call, the same prompt through the
@@ -98,6 +101,8 @@ BWD_BF16_TOL = 3e-2            # of max|ref|: a ds or p on a bf16 boundary
 TRAIN_LOSS_RTOL = 5e-3         # kernel vs plain paths, flagship first step
 TRAIN_GRAD_RL2 = 2e-2          # per-leaf relative L2, flagship first step
 SMALL_TOL = 1e-4               # small f32 model, card vs CPU
+UNEMBED_LOSS_RTOL = 1e-4       # tensor-core unembed vs the f32 product
+UNEMBED_GRAD_RL2 = 1e-2        # its h and emb gradients, relative L2
 #: (q_offset, k_offset) of the kernel checks; the last three are not
 #: multiples of the kernels' 64- and 128-row tiles, so the diagonal
 #: crosses tiles off their edges
@@ -227,12 +232,15 @@ def phase_build():
     spills = [f"{s}: {ln}" for s, lines in ptxas.items() for ln in lines
               if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
+    serialised = [f"{s}: {ln}" for s in sources
+                  for ln in _build.ptxas_info.get(s, []) if "(C751" in ln]
     emit("build", sources=sources, seconds=round(secs, 3),
          arch="sm_90a", libs=[str(lib._name) for lib in libs],
-         ptxas=ptxas, spills=spills)
+         ptxas=ptxas, spills=spills, wgmma_serialised=serialised)
     check(all(any("spill" in ln for ln in lines) for lines in ptxas.values()),
           "no -Xptxas -v spill lines in the build log")
     check(not spills, f"kernels spill registers: {spills}")
+    check(not serialised, f"ptxas serialised wgmmas: {serialised}")
 
 
 def phase_kernel(fa):
@@ -482,6 +490,8 @@ def phase_kernel_bwd(fa):
 
     sdpa_fwd_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True))
     sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    ptxas = {"dq": kernel_ptxas("bwd_dq_bf16_kernel"),
+             "dkv": kernel_ptxas("bwd_dkv_bf16_kernel")}
     out = {}
     for name, ms, plain_ms in (("dq", dq_ms, dq_plain_ms),
                                ("dkv", dkv_ms, dkv_plain_ms)):
@@ -492,7 +502,7 @@ def phase_kernel_bwd(fa):
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                     "tflops": flops / ms / 1e9}
+                     "tflops": flops / ms / 1e9, "ptxas": ptxas[name]}
     emit("kernel_bwd", cases=n_cases, max_abs_err=worst,
          autograd_kernel_vs_recompute_max_abs_err=autograd_err,
          train_shape=[B * H, T, D], train_dtype="bfloat16",
@@ -500,6 +510,31 @@ def phase_kernel_bwd(fa):
          recompute_bwd_ms=recompute_ms, sdpa_fwd_ms=sdpa_fwd_ms,
          sdpa_bwd_ms=sdpa_bwd_ms,
          library_note="SDPA backward computes dq, dk and dv together")
+    return out
+
+
+def kernel_ptxas(kernel):
+    """``flash_bwd.cu``'s ``-Xptxas -v`` register and spill lines, and any
+    C751x warning, of each instance ``kernel<D>`` of a kernel template,
+    found by its mangled name (``...kernelILi<D>E...``); phase build has
+    already failed on a spill or a warning."""
+    import re
+
+    from ompi_tpu_torch.ops import _build
+
+    name = re.compile(rf"\d{kernel}ILi(\d+)E")
+    out, cur = {}, None
+    for ln in _build.ptxas_info.get("flash_bwd.cu", []):
+        m = name.search(ln)
+        if "(C751" in ln:
+            if m:
+                out.setdefault(f"{kernel}<{m.group(1)}>", []).append(ln)
+        elif "Compiling entry function" in ln:
+            cur = f"{kernel}<{m.group(1)}>" if m else None
+        elif cur and ("Used" in ln or "spill" in ln):
+            out.setdefault(cur, []).append(ln)
+    check(any("Used" in ln for ln in out.get(f"{kernel}<128>", [])),
+          f"no ptxas register line of {kernel}<128>: {out}")
     return out
 
 
@@ -621,17 +656,19 @@ def profile_window(fn):
                if e.device_type.name == "CUDA" and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    by_kind = dict.fromkeys(("flash", "gemm_f32", "gemm_other", "other"),
-                            0.0)
+    by_kind = dict.fromkeys(("flash", "gemm_f32", "gemm_tf32", "gemm_bf16",
+                             "gemm_unknown", "other"), 0.0)
     for e in kernels:
         by_kind[kernel_kind(e.key)] += dev_us(e) / 1e3
+    unknown = sorted({e.key for e in kernels
+                      if kernel_kind(e.key) == "gemm_unknown"})
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "flash_kernel_ms": {
                 name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e3
                 for name, tag in (("fwd", "flash_fwd_"),
                                   ("dq", "bwd_dq_"), ("dkv", "bwd_dkv_"))},
-            "device_ms_by_kind": by_kind,
+            "device_ms_by_kind": by_kind, "gemm_unknown_names": unknown,
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in top]}
 
@@ -661,16 +698,30 @@ def kernel_device_ms(fn, tag: str, n: int = 50) -> float:
 
 
 def kernel_kind(name: str) -> str:
-    """The port's flash kernels, float32 matrix products (cuBLAS/CUTLASS
-    f32 GEMMs on the CUDA cores), other matrix products, or the rest
-    (elementwise work, reductions, copies), by kernel name."""
+    """The port's flash kernels, the matrix products by operand type, or
+    the rest (elementwise work, reductions, copies), by kernel name.
+
+    A GEMM or GEMV is f32 on the CUDA cores when cuBLAS names it
+    ``..._f32f32_f32f32_...``, ``sgemm``, ``nvjet_s...`` (nvjet names
+    open with their operand types: s f32, t bf16, h fp16) or templates it
+    on ``<int, int, float, ...`` (its gemv kernels); TF32 with ``tf32``
+    in the name; bf16 or fp16 on the tensor cores with ``bf16``,
+    ``bfloat16``, ``f16``, ``half``, ``nvjet_t`` or ``nvjet_h``; any other
+    is ``gemm_unknown``, listed by name in the profile record."""
     if "flash_fwd_" in name or "bwd_dq_" in name or "bwd_dkv_" in name:
         return "flash"
-    if "f32f32_f32f32" in name or "sgemm" in name:
+    if not any(tag in name for tag in ("gemm", "gemv", "nvjet", "xmma")):
+        return "other"
+    if (any(tag in name for tag in ("f32f32_f32f32", "sgemm",
+                                    "<int, int, float,"))
+            or name.startswith("nvjet_s")):
         return "gemm_f32"
-    if any(tag in name for tag in ("gemm", "gemv", "nvjet", "xmma")):
-        return "gemm_other"
-    return "other"
+    if "tf32" in name:
+        return "gemm_tf32"
+    if (any(tag in name for tag in ("bf16", "bfloat16", "f16", "half"))
+            or name.startswith(("nvjet_t", "nvjet_h"))):
+        return "gemm_bf16"
+    return "gemm_unknown"
 
 
 def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
@@ -760,6 +811,88 @@ def step_ms(step, params, opt_state, tokens, n):
     return a.elapsed_time(b) / n
 
 
+def unembed_check(cfg, mesh, params, tokens):
+    """The unembed of the train batch's final hidden states (the model's
+    backbone under the initial parameters): ``unembed`` (bf16 operands on
+    the tensor cores, f32 accumulation, the cotangent rounded to bf16)
+    against ``unembed_reference`` (the bf16-rounded operands upcast, a
+    full f32 product, an f32 cotangent).  Each gives the next-token
+    cross-entropy sum over ``ce_chunk`` chunks and its gradients in h and
+    emb; the losses agree to UNEMBED_LOSS_RTOL, the gradients to
+    UNEMBED_GRAD_RL2 relative L2, and the argmax tokens are equal in
+    every row whose top-two gap in the f32 logits exceeds the largest
+    logit difference (rows nearer a tie are counted)."""
+    import torch
+
+    from ompi_tpu_torch.models import transformer as tfm
+
+    cdt = torch.bfloat16
+    with torch.no_grad():
+        h, _ = tfm._local_backbone(cfg, tfm._comm_for(cfg, mesh), params,
+                                   tokens)
+    labels = torch.roll(tokens, -1, dims=1)
+    c = cfg.ce_chunk
+    chunks = [slice(i * c, (i + 1) * c) for i in range(cfg.seq // c)]
+    leaves = {name: (h.detach().clone().requires_grad_(True),
+                     params["emb"].detach().clone().requires_grad_(True))
+              for name in ("unembed", "reference")}
+    fns = {"unembed": tfm.unembed, "reference": tfm.unembed_reference}
+    total = dict.fromkeys(fns, 0.0)
+    max_diff, near_tie, mismatch = 0.0, 0, 0
+    for sl in chunks:
+        logits = {}
+        for name, fn in fns.items():
+            hl, el = leaves[name]
+            lg = fn(hl[:, sl], el, cdt)
+            lab = labels[:, sl, None]
+            total[name] = total[name] + (torch.logsumexp(lg, -1)
+                                         - lg.gather(-1, lab)[..., 0]).sum()
+            logits[name] = lg.detach()
+        diff = (logits["unembed"] - logits["reference"]).abs().max().item()
+        max_diff = max(max_diff, diff)
+        top2 = logits["reference"].topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > diff
+        same = (logits["unembed"].argmax(-1)
+                == logits["reference"].argmax(-1))
+        near_tie += int((~clear).sum().item())
+        mismatch += int((clear & ~same).sum().item())
+        del logits, top2
+    grads = {name: torch.autograd.grad(total[name], leaves[name])
+             for name in fns}
+    torch.cuda.synchronize()
+    loss = {k: v.item() for k, v in total.items()}
+    rel = {leaf: ((grads["unembed"][i].float() - grads["reference"][i]
+                   .float()).norm() / grads["reference"][i].float().norm())
+           .item() for i, leaf in enumerate(("h", "emb"))}
+    loss_rel = abs(loss["unembed"] - loss["reference"]) / abs(
+        loss["reference"])
+    check(loss_rel <= UNEMBED_LOSS_RTOL,
+          f"unembed loss {loss['unembed']} vs f32 {loss['reference']}")
+    check(max(rel.values()) <= UNEMBED_GRAD_RL2,
+          f"unembed gradients vs f32: relative L2 {rel}")
+    check(mismatch == 0, f"unembed argmax differs from the f32 product in "
+          f"{mismatch} rows clear of a tie")
+    check(grads["unembed"][0].dtype == cdt, "grad h is not bf16")
+    del grads, leaves
+
+    # one chunk forward and backward, each way
+    def one_chunk(fn):
+        hl = h[:, :c].detach().requires_grad_(True)
+        el = params["emb"].detach().requires_grad_(True)
+        lg = fn(hl, el, cdt)
+        lse = torch.logsumexp(lg, -1).sum()
+        torch.autograd.grad(lse, (hl, el))
+
+    ms = {name: cuda_ms(lambda f=fn: one_chunk(f), iters=10, warmup=2)
+          for name, fn in fns.items()}
+    return {"loss": loss, "loss_rel_diff": loss_rel, "grad_rel_l2": rel,
+            "logits_max_abs_diff": max_diff, "argmax_rows": h.shape[0]
+            * cfg.seq, "argmax_mismatch": mismatch,
+            "argmax_near_tie_rows": near_tie,
+            "chunk_fwd_bwd_ms": ms, "chunk": [h.shape[0], c],
+            "loss_rtol": UNEMBED_LOSS_RTOL, "grad_rl2": UNEMBED_GRAD_RL2}
+
+
 def phase_train(fa, card, params_np):
     import torch
 
@@ -820,6 +953,7 @@ def phase_train(fa, card, params_np):
               f"{name}: gradient rel L2 {rel}")
     var_registry.set("ops_flash_bwd_kernel", True)
     del grads_k
+    unembed = unembed_check(cfg, mesh, params, tokens)
 
     # ---- the main path: a warm-up step, then an 8-step train loop ----
     step, init_opt = make_train_step(cfg, mesh, lr=lr)
@@ -856,6 +990,7 @@ def phase_train(fa, card, params_np):
          steps=steps, launches=launches, launches_per_step={
              k: v // steps for k, v in launches.items()},
          first_step_loss=loss_k, first_step_agreement=agree,
+         unembed_vs_f32=unembed,
          warmup_loss=float(warm_loss), losses=losses.tolist(),
          step_ms=ms, tokens_per_s=n_tok / (ms / 1e3), model_tflops=tflops,
          mfu=tflops * 1e12 / BF16_FLOPS, peak_mem_gib=peak_gib,

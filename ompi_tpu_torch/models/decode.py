@@ -122,9 +122,9 @@ def make_decoder(cfg: TransformerConfig, mesh, max_new: int,
         kc[:, :, :Tp] = ks
         vc[:, :, :Tp] = vs
         del ks, vs
-        # the bf16-rounded unembed matrix in f32, made once per call
-        emb_f32 = params["emb"].to(cdt).to(torch.float32)
-        tok = pick(tfm.unembed(h[:, -1, :], emb_f32, torch.float32), gen)
+        # the unembed matrix in the compute dtype, made once per call
+        emb_c = params["emb"].to(cdt)
+        tok = pick(tfm.unembed(h[:, -1, :], emb_c, cdt), gen)
         out = [tok]
 
         # emit the PRODUCED token and run max_new-1 steps: tok0 is known
@@ -136,7 +136,7 @@ def make_decoder(cfg: TransformerConfig, mesh, max_new: int,
                 h = _step_layer(cfg, comm, lp, h, kc[i], vc[i], pos,
                                 positions)
             h = _rmsnorm(h, params["lnf"])
-            tok = pick(tfm.unembed(h[:, 0, :], emb_f32, torch.float32), gen)
+            tok = pick(tfm.unembed(h[:, 0, :], emb_c, cdt), gen)
             out.append(tok)
         return torch.cat([prompt, torch.stack(out, dim=1)],
                          dim=1).to(torch.int32)

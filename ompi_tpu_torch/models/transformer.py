@@ -106,7 +106,7 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts:
         raise NotImplementedError(
             "MoE configs need the ep all_to_all; they come with the MoE "
-            "slice (ROADMAP.md, port slice 4)")
+            "slice (ROADMAP.md queue 1 item 4)")
 
 
 def full_f32_matmuls() -> None:
@@ -239,12 +239,63 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
     return h, aux
 
 
+def _mm_f32(a, b):
+    """a @ b with f32 accumulation and an f32 result.  bf16 operands on the
+    card go to the tensor cores (``aten::mm.dtype``: bf16 products are
+    exact in the f32 accumulator); anywhere else the operands are upcast
+    and multiplied in full f32 (TF32 stays off), which is the same
+    arithmetic up to the order of the sums."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _Unembed(torch.autograd.Function):
+    """logits (N, V) f32 = h (N, D) @ emb (V, D)ᵀ, both in the compute
+    dtype, f32 accumulation: the JAX package's ``einsum(...,
+    preferred_element_type=f32)``.
+
+    The backward rounds the f32 cotangent to the compute dtype and
+    accumulates in f32 (the reference's arithmetic at default precision
+    on its TPU), so on the card both gradient products run on the tensor
+    cores too; the gradients come back in h's and emb's dtype.  In an f32
+    config the rounding is the identity and every product is full f32.
+    A Function, not a scoped flag around a matmul: the autograd of a
+    plain matmul would run after any context manager had exited."""
+
+    @staticmethod
+    def forward(ctx, h, emb):
+        ctx.save_for_backward(h, emb)
+        return _mm_f32(h, emb.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        h, emb = ctx.saved_tensors
+        g = g.to(emb.dtype)
+        grad_h = grad_emb = None
+        if ctx.needs_input_grad[0]:
+            grad_h = _mm_f32(g, emb).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_emb = _mm_f32(g.t(), h).to(emb.dtype)
+        return grad_h, grad_emb
+
+
 def unembed(h, emb, cdt):
-    """Logits in f32 from compute-dtype operands: the bf16-rounded h and
-    emb are upcast and multiplied in full f32 (exact products, f32
-    accumulation), as the JAX package's preferred_element_type=f32
-    einsum; bf16 logits would change argmax tokens."""
-    return torch.matmul(h.to(torch.float32),
+    """Logits (..., V) in f32 from compute-dtype operands: h and emb
+    rounded to ``cdt``, exact products, f32 accumulation, as the JAX
+    package's preferred_element_type=f32 einsum (bf16 logits would change
+    argmax tokens).  On the card a bf16 config runs it, forward and
+    backward, on the tensor cores (``_Unembed``)."""
+    d = h.shape[-1]
+    logits = _Unembed.apply(h.to(cdt).reshape(-1, d), emb.to(cdt))
+    return logits.reshape(*h.shape[:-1], emb.shape[0])
+
+
+def unembed_reference(h, emb, cdt):
+    """The plain version of :func:`unembed`: the cdt-rounded operands
+    upcast and multiplied in full f32, differentiated by autograd (an f32
+    cotangent), on any device."""
+    return torch.matmul(h.to(cdt).to(torch.float32),
                         emb.to(cdt).to(torch.float32).t())
 
 
@@ -281,7 +332,8 @@ def make_forward(cfg: TransformerConfig, mesh):
 # training (one device: dp = sp = tp = 1)
 # ---------------------------------------------------------------------------
 
-_MULTI_RANK = "the multi-rank training slice (ROADMAP.md, port slice 3)"
+_MULTI_RANK = ("the multi-rank training slice (ROADMAP.md queue 1 "
+               "item 3)")
 
 
 def _nll_chunk(h_c, emb_c, lab_c, w_c):

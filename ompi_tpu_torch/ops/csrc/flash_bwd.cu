@@ -61,7 +61,29 @@
 //     D = 128, one block an SM.  A head's k tiles run side by side (Q and
 //     G come from HBM about once, then from L2), the one with the most
 //     live q tiles (the smallest k0) first.
-//   - dq, and dk/dv at D = 16 and 32 (test sizes only), bf16: mma.sync
+//   - dq, bf16, D = 64 and 128: the same design turned round.  A block
+//     owns 128 queries, two warpgroups of 64 query rows.  Thread 0 loads
+//     the block's Q and G once (64 KB at D = 128) by 3-D TMA, 128-byte
+//     swizzled, on one mbarrier, and the first two 128-key K/V tiles of a
+//     ring of 2 stages (64 KB each); a stage is refilled by the last of
+//     the 8 warps to release it.  Each thread keeps its two rows' lse
+//     (times log2 e) and dm in registers.  A warpgroup computes S = Q K^T
+//     and dP = G V^T (64 queries x 128 keys, wgmma m64n128k16, all
+//     operands K-major), p and ds on the accumulators (the position test
+//     only on tiles the diagonal or the T edge crosses), then dQ += dS K
+//     with wgmma m64nDk16: dS rounded to bf16 as the register A operand,
+//     the staged K tile read MN-major, the same tile S read K-major.  dQ
+//     (64 f32 registers a thread at D = 128), S and dP (64 each) stay in
+//     registers (220 a thread, no spill).  A block visits K tiles up to
+//     its last live key; a warpgroup whose own last tile came earlier
+//     skips the wgmmas but still waits for each stage, so its releases
+//     never run a ring round ahead.  The epilogue rounds dQ into the
+//     warpgroup's own Q tile and stores it with TMA; rows past T are
+//     dropped.  Shared memory 192 KB at D = 128, one block an SM; a
+//     head's q tiles run side by side (K and V from L2 after the first),
+//     the heaviest (largest q0) first.  No atomics: dq stays
+//     deterministic.
+//   - dq and dk/dv at D = 16 and 32 (test sizes only), bf16: mma.sync
 //     m16n8k16 tensor-core tiles (bf16 in, f32 accumulate), 4 warps of 16
 //     rows each, streamed tiles copied with 16-byte cp.async into two
 //     shared-memory stages.  In dq a warp owns 16 query rows; S = Q K^T
@@ -71,18 +93,16 @@
 //     dk/dv a warp owns 16 key rows and computes the transposed products
 //     S^T = K Q^T and dP^T = V G^T, so P^T and dS^T are again A operands
 //     in registers for P^T G and dS^T Q.  The streamed tile is worked
-//     through 32 (dq) or 16 (dk/dv) columns at a time and Q/G (dq) and
-//     K/V (dk/dv) A fragments are read from shared memory, which keeps
-//     dq's accumulator and its score tiles in registers without spills at
-//     D = 128.
+//     through 32 (dq) or 16 (dk/dv) columns at a time.
 //   - f32: products on the f32 CUDA cores (tensor cores would round f32
 //     inputs to TF32 and break float32 parity).  256 threads as 32 row
 //     groups x 8 column lanes, as the forward; ds (and p for dv) go
 //     through shared memory between the two products.
 //
 // All kernels allocate nothing, launch on the caller's stream and do not
-// synchronise; the Hopper dk/dv launch builds its six tensor maps on the
-// host first (cuTensorMapEncodeTiled through the runtime: no -lcuda).
+// synchronise; the Hopper dq and dk/dv launches build their five and six
+// tensor maps on the host first (cuTensorMapEncodeTiled through the
+// runtime: no -lcuda), and return any error of the encoding or launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,16 +122,6 @@ constexpr int TILE = 64;   // rows of a block's own tile and of a streamed tile
 // registers a thread at D = 128
 constexpr int DQ_SUB = 32;
 constexpr int DKV_SUB = 16;
-
-// K/V tiles a dq block must visit: with a causal mask, tiles past the
-// last key any of its rows may see are wholly masked and skipped.
-__device__ __forceinline__ int dq_tiles(int q0, int tq, int tk, int causal,
-                                        int q_offset, int k_offset) {
-  const int n = (tk + TILE - 1) / TILE;
-  if (!causal) return n;
-  const int span = q_offset + min(q0 + TILE, tq) - 1 - k_offset;
-  return span < 0 ? 0 : min(n, span / TILE + 1);
-}
 
 // First Q tile a dk/dv block must visit: with a causal mask, tiles whose
 // queries all come before the block's first key are skipped.  Returns the
@@ -191,7 +201,8 @@ __global__ void __launch_bounds__(NT32)
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
   }
 
-  const int n_tiles = dq_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  const int n_tiles = live_tiles(q0, TILE, TILE, tq, tk, causal, q_offset,
+                                 k_offset);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * TILE;
     __syncthreads();  // previous tile's K/V/ds reads are done
@@ -401,7 +412,8 @@ __global__ void __launch_bounds__(NT32)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, dq and the small dk/dv: mma.sync m16n8k16 tensor-core kernels
+// bfloat16 at D = 16 and 32, dq and dk/dv: mma.sync m16n8k16 tensor-core
+// kernels
 // ---------------------------------------------------------------------------
 
 constexpr int NT16 = 128;   // 4 warps x 16 rows
@@ -434,19 +446,22 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile) {
 }
 
 template <int D>
-constexpr size_t dq_bf16_smem() {
+constexpr size_t dq_bf16_small_smem() {
   return sizeof(bf16) * (size_t)(2 * TILE * (D + 8)       // Q, G
                                  + 2 * 2 * TILE * (D + 8));  // 2 x (K, V)
 }
 
 template <int D>
 __global__ void __launch_bounds__(NT16)
-    bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ g,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dm, bf16* __restrict__ dq,
-                       int tq, int tk, float scale, int causal, int q_offset,
-                       int k_offset) {
+    bwd_dq_bf16_small_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dm,
+                             bf16* __restrict__ dq, int tq, int tk,
+                             float scale, int causal, int q_offset,
+                             int k_offset) {
   constexpr int KS = D / 16;        // k-steps over the head dim
   constexpr int NDQ_SUB = DQ_SUB / 8;   // 8-key column tiles a sub-step
   constexpr int NO = D / 8;         // 8-wide column tiles of dq
@@ -468,7 +483,8 @@ __global__ void __launch_bounds__(NT16)
   const bf16* kb = k + (size_t)bh * tk * D;
   const bf16* vb = v + (size_t)bh * tk * D;
 
-  const int n_tiles = dq_tiles(q0, tq, tk, causal, q_offset, k_offset);
+  const int n_tiles = live_tiles(q0, TILE, TILE, tq, tk, causal, q_offset,
+                                 k_offset);
   if (n_tiles > 0) {
     stage_rows_bf16<D>(qs, q + (size_t)bh * tq * D, q0, tq);
     stage_rows_bf16<D>(gs, g + (size_t)bh * tq * D, q0, tq);
@@ -994,6 +1010,220 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 dq, D = 64 and 128: wgmma kernel fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_ROWS = 128;          // queries a block, 64 a warpgroup
+// keys a K/V ring stage and stages in the ring (on an H100 SXM 64-key
+// stages were slower, two or three of them; three 128-key stages do not
+// fit in shared memory)
+constexpr int DQ_BK = 128;
+constexpr int DQ_STAGES = 2;
+
+// Shared memory of the Hopper dq kernel, in bytes from a 1024-aligned
+// base: Q and G of the block (each two 64-row halves, one a warpgroup),
+// then the ring of K/V stages.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t SUB = 64 * 128;        // 64 rows x 64 columns
+  static constexpr uint32_t T64 = 64 * D * 2;      // a warpgroup's rows
+  static constexpr uint32_t KV_SUB = DQ_BK * 128;  // DQ_BK keys x 64 cols
+  static constexpr uint32_t KV = DQ_BK * D * 2;    // a K (or V) tile
+  static constexpr uint32_t STAGE = 2 * KV;        // K tile, then V tile
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t G = Q + 2 * T64;
+  static constexpr uint32_t RING = G + 2 * T64;
+  static constexpr uint32_t BARS = RING + DQ_STAGES * STAGE;
+  // qg_full, full[DQ_STAGES]; released[DQ_STAGES] (int); 1024 bytes of
+  // alignment slack
+  static constexpr uint32_t RELEASED = BARS + 8 * (1 + DQ_STAGES);
+  static constexpr uint32_t BYTES = RELEASED + 4 * DQ_STAGES + 1024;
+};
+
+// K/V tile `t` into ring stage `st`, completing on full[st] (one thread)
+template <int D>
+__device__ __forceinline__ void load_dq_kv(uint8_t* smem, uint64_t* full,
+                                           const CUtensorMap* kmap,
+                                           const CUtensorMap* vmap, int t,
+                                           int st, int bh) {
+  using S = DqSmem<D>;
+  uint8_t* ks = smem + S::RING + st * S::STAGE;
+  hp::mbar_expect_tx(&full[st], S::STAGE);
+#pragma unroll
+  for (int s = 0; s < D / 64; ++s) {
+    hp::tma_load_3d(ks + s * S::KV_SUB, kmap, &full[st], 64 * s, t * DQ_BK,
+                    bh);
+    hp::tma_load_3d(ks + S::KV + s * S::KV_SUB, vmap, &full[st], 64 * s,
+                    t * DQ_BK, bh);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+    bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap gmap,
+                       const __grid_constant__ CUtensorMap dqmap,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dm, int tq, int tk,
+                       float scale, int causal, int q_offset, int k_offset) {
+  using S = DqSmem<D>;
+  constexpr int NSUB = D / 64;        // 64-column sub-tiles a row
+  constexpr int NS = DQ_BK / 2;       // S (and dP) accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::smem_aligned_1024(smem_raw);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = qg_full + 1;
+  int* released = reinterpret_cast<int*>(smem + S::RELEASED);
+
+  // a head's q tiles run side by side, so its K/V stays in L2 between
+  // them; the heaviest (largest q0) first
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;
+  const int n_tiles = live_tiles(q0, DQ_ROWS, DQ_BK, tq, tk, causal,
+                                 q_offset, k_offset);
+  const int wg = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG;
+  const int lane = tid & 31;
+  const int wq0 = q0 + 64 * wg;                  // my warpgroup's first row
+  // my warpgroup's live tiles: the lower one may end a tile earlier
+  const int n_mine = wq0 < tq ? live_tiles(wq0, 64, DQ_BK, tq, tk, causal,
+                                           q_offset, k_offset)
+                              : 0;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(qg_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // Q and G of the block and the first K/V tiles; later tiles are issued
+  // by the last warp to release a stage (below), so no thread ever waits
+  // for a free stage
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hp::mbar_expect_tx(qg_full, 4 * S::T64);
+    for (int w = 0; w < 2; ++w)
+      for (int s = 0; s < NSUB; ++s) {
+        hp::tma_load_3d(smem + S::Q + w * S::T64 + s * S::SUB, &qmap,
+                        qg_full, 64 * s, q0 + 64 * w, bh);
+        hp::tma_load_3d(smem + S::G + w * S::T64 + s * S::SUB, &gmap,
+                        qg_full, 64 * s, q0 + 64 * w, bh);
+      }
+    for (int t = 0; t < min(n_tiles, DQ_STAGES); ++t)
+      load_dq_kv<D>(smem, full, &kmap, &vmap, t, t, bh);
+  }
+
+  // warpgroup `wg`: 64 query rows; lse (times log2 e) and dm of my two
+  // rows in registers (rows past tq read 0: their dq is dropped)
+  const int row = (tid >> 5) * 16 + (lane >> 2);  // my rows: row, row + 8
+  const int c2 = (lane & 3) * 2;
+  uint8_t* q_wg = smem + S::Q + wg * S::T64;
+  const uint8_t* g_wg = smem + S::G + wg * S::T64;
+  const int qpos[2] = {q_offset + wq0 + row, q_offset + wq0 + row + 8};
+  float lse2[2], dmr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wq0 + row + 8 * h;
+    lse2[h] = r < tq ? lse[(size_t)bh * tq + r] * hp::LOG2E : 0.0f;
+    dmr[h] = r < tq ? dm[(size_t)bh * tq + r] : 0.0f;
+  }
+  const float c_log2 = scale * hp::LOG2E;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+
+  if (n_tiles > 0) hp::mbar_wait(qg_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % DQ_STAGES;
+    const int k0 = t * DQ_BK;
+    // a warpgroup past its last live tile still waits for the stage, so
+    // its releases never run a ring round ahead of the other's
+    hp::mbar_wait(&full[st], (t / DQ_STAGES) & 1);
+    const uint8_t* ks = smem + S::RING + st * S::STAGE;
+    const uint8_t* vs = ks + S::KV;
+
+    if (t < n_mine) {
+      // S = Q K^T and dP = G V^T, 64 rows x DQ_BK keys each, in the
+      // accumulator layout: [4j + e] = (row + 8 * (e / 2), key
+      // k0 + 8j + c2 + e % 2)
+      float s[NS], dp[NS];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::Wgmma<DQ_BK>::ss(s, hp::desc_k(q_wg, kk, S::SUB),
+                             hp::desc_k(ks, kk, S::KV_SUB), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::Wgmma<DQ_BK>::ss(dp, hp::desc_k(g_wg, kk, S::SUB),
+                             hp::desc_k(vs, kk, S::KV_SUB), kk > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+
+      // ds = p (dp - dm) scale in place of s, p = 2^(s scale log2 e -
+      // lse log2 e); the position test (both masks of the reference, as
+      // one) only where the T edge or the diagonal crosses the tile for
+      // some of my rows
+      const bool edge = k0 + DQ_BK > tk ||
+                        (causal && q_offset + wq0 < k_offset + k0 + DQ_BK - 1);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = hp::ex2(fmaf(s[i], c_log2, -lse2[h]));
+        if (edge) {
+          const int key = k0 + (i >> 2) * 8 + c2 + (i & 1);
+          if (key >= tk || (causal && qpos[h] < k_offset + key)) p = 0.0f;
+        }
+        s[i] = p * (dp[i] - dmr[h]) * scale;
+      }
+
+      // dQ += dS K: dS rounded to bf16 is the register A operand, 16 keys
+      // a k-step; the staged K tile (keys x D, D contiguous) is read
+      // MN-major, the same tile S read K-major
+      uint32_t da[DQ_BK / 16][4];
+#pragma unroll
+      for (int c = 0; c < DQ_BK / 16; ++c) hp::acc_to_a(da[c], s, c);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DQ_BK / 16; ++c)
+        hp::Wgmma<D>::rs(dq, da[c], hp::desc_mn(ks, c, S::KV_SUB), 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dq);
+      hp::fence_regs(da);
+    }
+
+    // the last of the 8 warps done with the stage refills it
+    if (hp::last_to_release(&released[st], HOP_THREADS / 32) && lane == 0 &&
+        t + DQ_STAGES < n_tiles)
+      load_dq_kv<D>(smem, full, &kmap, &vmap, t + DQ_STAGES, st, bh);
+  }
+
+  // epilogue: dQ in bf16 into my Q tile (its last reader was my last S
+  // wgmma, and its TMA load has landed), then one TMA store a sub-tile;
+  // rows past tq are dropped by the store
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      hp::st_swizzled(q_wg, row + 8 * h, 8 * j + c2, S::SUB,
+                      pack_bf16(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]));
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, WG);
+  if (tid == 0) {
+    for (int s = 0; s < NSUB; ++s)
+      hp::tma_store_3d(&dqmap, q_wg + s * S::SUB, 64 * s, wq0, bh);
+    hp::tma_store_drain();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1024,15 +1254,35 @@ cudaError_t dq_f32(const Args& a, void* dq, cudaStream_t st) {
 }
 
 template <int D>
-cudaError_t dq_bf16(const Args& a, void* dq, cudaStream_t st) {
-  const size_t smem = dq_bf16_smem<D>();
-  cudaError_t err = prepare(bwd_dq_bf16_kernel<D>, smem);
+cudaError_t dq_bf16_small(const Args& a, void* dq, cudaStream_t st) {
+  const size_t smem = dq_bf16_small_smem<D>();
+  cudaError_t err = prepare(bwd_dq_bf16_small_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.tq + TILE - 1) / TILE, a.bh);
-  bwd_dq_bf16_kernel<D><<<grid, NT16, smem, st>>>(
+  bwd_dq_bf16_small_kernel<D><<<grid, NT16, smem, st>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
       (const float*)a.lse, (const float*)a.dm, (bf16*)dq, a.tq, a.tk,
       a.scale, a.causal, a.q_offset, a.k_offset);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dq_bf16_hopper(const Args& a, void* dq, cudaStream_t st) {
+  CUtensorMap qm, km, vm, gm, dqm;
+  cudaError_t err;
+  if ((err = hp::make_map(&qm, a.q, a.bh, a.tq, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&km, a.k, a.bh, a.tk, D, DQ_BK)) != cudaSuccess ||
+      (err = hp::make_map(&vm, a.v, a.bh, a.tk, D, DQ_BK)) != cudaSuccess ||
+      (err = hp::make_map(&gm, a.g, a.bh, a.tq, D, 64)) != cudaSuccess ||
+      (err = hp::make_map(&dqm, dq, a.bh, a.tq, D, 64)) != cudaSuccess)
+    return err;
+  const size_t smem = DqSmem<D>::BYTES;
+  err = prepare(bwd_dq_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + DQ_ROWS - 1) / DQ_ROWS, a.bh);
+  bwd_dq_bf16_kernel<D><<<grid, HOP_THREADS, smem, st>>>(
+      qm, km, vm, gm, dqm, (const float*)a.lse, (const float*)a.dm, a.tq,
+      a.tk, a.scale, a.causal, a.q_offset, a.k_offset);
   return cudaGetLastError();
 }
 
@@ -1094,10 +1344,10 @@ dq_fn pick_dq(int dtype, int d) {
     case 32: return dq_f32<32>;
     case 64: return dq_f32<64>;
     case 128: return dq_f32<128>;
-    case 1016: return dq_bf16<16>;
-    case 1032: return dq_bf16<32>;
-    case 1064: return dq_bf16<64>;
-    case 1128: return dq_bf16<128>;
+    case 1016: return dq_bf16_small<16>;
+    case 1032: return dq_bf16_small<32>;
+    case 1064: return dq_bf16_hopper<64>;
+    case 1128: return dq_bf16_hopper<128>;
   }
   return nullptr;
 }

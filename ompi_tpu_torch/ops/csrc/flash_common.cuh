@@ -78,6 +78,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Number of K/V tiles of `bk` keys `bq` query rows from q0 must
+// visit: with a causal mask, tiles past the last key any of its rows may
+// see are wholly masked and skipped.
+__device__ __forceinline__ int live_tiles(int q0, int bq, int bk, int tq,
+                                          int tk, int causal, int q_offset,
+                                          int k_offset) {
+  const int n_tiles = (tk + bk - 1) / bk;
+  if (!causal) return n_tiles;
+  const int span = q_offset + min(q0 + bq, tq) - 1 - k_offset;
+  return span < 0 ? 0 : min(n_tiles, span / bk + 1);
+}
+
 // Two f32 values rounded to nearest-even bf16, the lower column in the
 // low half (the fragment order).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -101,18 +101,6 @@ using namespace flash;
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per streamed tile
 
-// Number of K/V tiles of `bk` keys a block of `bq` query rows from q0 must
-// visit: with a causal mask, tiles past the last key any of its rows may
-// see are wholly masked and skipped.
-__device__ __forceinline__ int live_tiles(int q0, int bq, int bk, int tq,
-                                          int tk, int causal, int q_offset,
-                                          int k_offset) {
-  const int n_tiles = (tk + bk - 1) / bk;
-  if (!causal) return n_tiles;
-  const int span = q_offset + min(q0 + bq, tq) - 1 - k_offset;
-  return span < 0 ? 0 : min(n_tiles, span / bk + 1);
-}
-
 // ---------------------------------------------------------------------------
 // float32: CUDA-core kernel
 // ---------------------------------------------------------------------------

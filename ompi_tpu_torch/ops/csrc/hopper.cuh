@@ -11,14 +11,15 @@
 // then 64-127), each rows x 128 bytes.
 //
 //   - K-major operand (the reduction dim is the contiguous one: Q and K in
-//     S = Q K^T, K and Q in S^T = K Q^T): SBO = 1024 bytes (the next 8
-//     rows), LBO unused; a k-step of 16 elements advances the start
-//     address by 32 bytes inside the atom, and a new sub-tile every 4.
+//     S = Q K^T, G and V in dP = G V^T, K and Q in S^T = K Q^T): SBO =
+//     1024 bytes (the next 8 rows), LBO unused; a k-step of 16 elements
+//     advances the start address by 32 bytes inside the atom, and a new
+//     sub-tile every 4.
 //   - MN-major operand (the output dim is the contiguous one: V in
-//     O += P V, G and Q in dV += P^T G, dK += dS^T Q), read with the
-//     transpose bit: SBO = 1024 bytes (the next 8 reduction rows), LBO =
-//     the sub-tile size (the next 64 output columns); a k-step of 16 rows
-//     advances the start address by 16 * 128 bytes.
+//     O += P V, K in dQ += dS K, G and Q in dV += P^T G, dK += dS^T Q),
+//     read with the transpose bit: SBO = 1024 bytes (the next 8 reduction
+//     rows), LBO = the sub-tile size (the next 64 output columns); a
+//     k-step of 16 rows advances the start address by 16 * 128 bytes.
 //
 // Fragments.  The f32 accumulator of wgmma m64nNk16 gives warp w of the
 // warpgroup rows 16w..16w+15; in it lane l holds, for each 8-column tile

@@ -145,12 +145,69 @@ def test_bf16_forward_is_finite_and_close_to_f32():
 
 
 def test_unsupported_options_raise():
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+    with pytest.raises(NotImplementedError,
+                       match=r"MoE slice \(ROADMAP.md queue 1 item 4\)"):
         T.make_forward(T.TransformerConfig(**FIELDS, moe_experts=4),
                        _tmesh())
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match=r"training slice "
+                       r"\(ROADMAP.md queue 1 item 3\)"):
         T.make_train_step(T.TransformerConfig(**FIELDS, zero1_axis="dp"),
                           _tmesh())
+
+
+def _unembed_inputs(seed=4, b=2, t=5):
+    """A bf16 config's emb (init_params, numpy seed) and a hidden state
+    (b, t, d_model) drawn with numpy, both f32 arrays."""
+    cfg = T.TransformerConfig(**{**FIELDS, "compute_dtype": "bfloat16"})
+    emb = T.init_params(cfg, seed=seed)["emb"]
+    h = np.random.default_rng(seed).normal(
+        size=(b, t, cfg.d_model)).astype(np.float32)
+    return h, emb
+
+
+def test_unembed_logits_match_jax_bf16_einsum():
+    """bf16 operands, f32 accumulation, f32 logits on both sides: equal
+    up to the order of f32 sums, rel 1e-5 of the largest logit."""
+    h, emb = _unembed_inputs()
+    want = np.asarray(jnp.einsum(
+        "btd,vd->btv", jnp.asarray(h).astype(jnp.bfloat16),
+        jnp.asarray(emb).astype(jnp.bfloat16),
+        preferred_element_type=jnp.float32))
+    got = T.unembed(torch.from_numpy(h), torch.from_numpy(emb),
+                    torch.bfloat16)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    ref = T.unembed_reference(torch.from_numpy(h), torch.from_numpy(emb),
+                              torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_f32_unembed_runs_full_f32_with_tf32_off(monkeypatch):
+    """An f32 config multiplies f32 operands in full f32, TF32 off, in the
+    forward and both backward products."""
+    seen = []
+    orig = T._mm_f32
+
+    def spy(a, b):
+        seen.append((a.dtype, b.dtype, torch.backends.cuda.matmul.allow_tf32))
+        return orig(a, b)
+
+    monkeypatch.setattr(T, "_mm_f32", spy)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = T.TransformerConfig(**FIELDS)
+    params = from_jax_params(T.init_params(cfg, seed=1), cfg, "cpu",
+                             train=True)
+    tokens = np.arange(16, dtype=np.int32).reshape(2, 8)
+    loss = T.make_loss_fn(cfg, _tmesh())(params, tokens)
+    loss.backward()
+    assert seen == [(torch.float32, torch.float32, False)] * 3
+    h = torch.from_numpy(_unembed_inputs()[0][0])
+    emb = params["emb"].detach()
+    got = T.unembed(h, emb, torch.float32)
+    want = (h.double() @ emb.double().t()).float()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_training_only_options_do_not_change_the_forward():

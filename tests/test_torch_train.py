@@ -281,10 +281,46 @@ def test_lr_schedule_matches_jax():
 
 def test_zero1_raises_naming_the_multi_rank_slice():
     cfg = T.TransformerConfig(**{**FIELDS, "zero1_axis": "dp"})
-    with pytest.raises(NotImplementedError, match="multi-rank training"):
+    msg = r"multi-rank training slice \(ROADMAP.md queue 1 item 3\)"
+    with pytest.raises(NotImplementedError, match=msg):
         T.make_train_step(cfg, _tmesh())
-    with pytest.raises(NotImplementedError, match="multi-rank training"):
+    with pytest.raises(NotImplementedError, match=msg):
         T.make_train_loop(cfg, _tmesh())
+
+
+def test_unembed_grads_match_jax_vjp_in_bf16():
+    """grad_h and grad_emb of the bf16 unembed against JAX's VJP of its
+    preferred_element_type=f32 einsum.  The port rounds the f32 cotangent
+    to bf16 before its f32-accumulated products (the TPU's default
+    precision) and both round the gradient to bf16, so each element may
+    differ by 2^-8 of (|g| @ |operand| + |want|): half a bf16 ulp of every
+    cotangent term and one ulp of the result."""
+    rng = np.random.default_rng(7)
+    cfg = T.TransformerConfig(**{**FIELDS, "compute_dtype": "bfloat16"})
+    emb = np.array(jnp.asarray(T.init_params(cfg, seed=3)["emb"])
+                   .astype(jnp.bfloat16).astype(jnp.float32))
+    h = np.array(jnp.asarray(rng.normal(size=(2, 6, cfg.d_model)))
+                 .astype(jnp.bfloat16).astype(jnp.float32))
+    g = rng.normal(size=(2, 6, cfg.vocab)).astype(np.float32)
+
+    def f(hh, ee):
+        return jnp.einsum("btd,vd->btv", hh, ee,
+                          preferred_element_type=jnp.float32)
+
+    _, vjp = jax.vjp(f, jnp.asarray(h, jnp.bfloat16),
+                     jnp.asarray(emb, jnp.bfloat16))
+    jh, je = (np.asarray(x.astype(jnp.float32)) for x in vjp(jnp.asarray(g)))
+    th = torch.from_numpy(h).to(torch.bfloat16).requires_grad_(True)
+    te = torch.from_numpy(emb).to(torch.bfloat16).requires_grad_(True)
+    T.unembed(th, te, torch.bfloat16).backward(torch.from_numpy(g))
+    assert th.grad.dtype == te.grad.dtype == torch.bfloat16
+    ag = np.abs(g)
+    for got, want, mag in (
+            (th.grad, jh, np.einsum("btv,vd->btd", ag, np.abs(emb))),
+            (te.grad, je, np.einsum("btv,btd->vd", ag, np.abs(h)))):
+        got = got.float().numpy()
+        tol = 2.0 ** -8 * (mag + np.abs(want))
+        assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
 def test_train_entry_points_turn_tf32_off():
