@@ -27,27 +27,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain version, its bound, the recompute backward and SDPA's backward,
    and ptxas's register and spill lines (and any wgmma-serialisation
    warning) of each D of the Hopper dq and dk/dv kernels;
-5. decode — the flagship 468M dense model (bench.py's decode widths) with
+5. ring (after kernel_bwd) — ring attention's hop and merge at full
+   width in one process: a causal bf16 sequence of 4 × 1024 tokens
+   (batch 4, 16 heads of 128) as 4 sequence-parallel ranks hold it; for
+   each virtual rank, ``parallel.attention._ring_step`` over its 4 hops
+   with the other ranks' K/V blocks in turn (16 forward launches at
+   global offsets, 6 of them fully masked hops), then the backward
+   through every merge (16 dq and 16 dk/dv launches, each with an lse
+   cotangent); the output against one full-sequence flash forward (bf16
+   tolerance of max|ref|), the q, k and v gradients against its kernel
+   backward (relative L2), no NaN or Inf, the masked hops' O = 0 and
+   lse ≈ -1e30, and the ring's forward + backward device time beside the
+   full-sequence kernels', with a profiled ring by kernel kind;
+6. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
    tokens, the launch counts of that one call, the same prompt through the
    plain attention path, the prefill time (max_new=1), the per-token time
    by the two-max_new slope, tokens/s and peak memory; then torch.profiler
    windows over the prefill and a 16-token decode: device busy and idle
    share, and the kernels that take the time;
-6. cache — on the small f32 config of the decode tests, the cached greedy
+7. cache — on the small f32 config of the decode tests, the cached greedy
    decode through the kernel equals a token-by-token full-forward greedy
    exactly;
-7. train — the flagship model training at bench.py's MFU widths (batch
-   16 × seq 1024, bf16, remat "dots", ce_chunk 256) with the flash
+8. train — the flagship model training at bench.py's MFU widths (batch
+   16 × seq 1024, bf16, remat "dots", ce_chunk 256), through the
+   multi-rank training code at world size 1 (every collective elided;
+   the token shard is the whole batch), with the flash
    kernels forward and backward: the first step's loss and gradients
    against the plain attention path and the recompute backward, then a
    warm-up step and an 8-step ``make_train_loop`` whose launch counts are
    read around it; step time, tokens/s, MFU, peak memory and a profiled
    step;
-8. train_small — on the small f32 config of the model tests, the first
+9. train_small — on the small f32 config of the model tests, the first
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
-9. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
+10. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
    and a root's push to 3 peers) at kernel level in this process, on
    local buffers with their flag words, bitwise against ``copy_plain``
    over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
@@ -59,7 +73,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and at 4 KiB (200 calls), where the call rate is the host's and the
    profiler gives the device time of one launch; put and get at 64 MiB also without the
    handshake;
-10. rma_ranks (after rma_kernel) — 4 rank processes on the one card
+11. rma_ranks (after rma_kernel) — 4 rank processes on the one card
    (tcp init on a free port, each mapping its peers' 64 MiB windows):
    ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
    self-put, ``fetch_bcast`` from every root, ``DeviceWindow`` and the
@@ -70,10 +84,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
-11. collectives (last) — ``make_mesh`` on the card with NCCL at world
+12. collectives (last) — ``make_mesh`` on the card with NCCL at world
    size 1: every device collective on CUDA tensors equals the same call
    on the one-process CPU communicator;
-12. the ``kernels`` line (6 entries), then the card's nvidia-smi line,
+13. the ``kernels`` line (6 entries; the flash kernels' launches by
+   path: decode, train, ring), then the card's nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -100,6 +115,7 @@ BWD_F32_TOL = 2e-3             # tests/parallel/test_flash.py:147-149
 BWD_BF16_TOL = 3e-2            # of max|ref|: a ds or p on a bf16 boundary
 TRAIN_LOSS_RTOL = 5e-3         # kernel vs plain paths, flagship first step
 TRAIN_GRAD_RL2 = 2e-2          # per-leaf relative L2, flagship first step
+RING_ROW_RL2 = 2e-2            # ring output vs plain, relative L2 a row
 SMALL_TOL = 1e-4               # small f32 model, card vs CPU
 UNEMBED_LOSS_RTOL = 1e-4       # tensor-core unembed vs the f32 product
 UNEMBED_GRAD_RL2 = 1e-2        # its h and emb gradients, relative L2
@@ -115,6 +131,9 @@ FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
 TRAIN = dict(batch=16, seq=1024, ce_chunk=256)
 #: sequence lengths of the backward kernels' checks
 BWD_LENGTHS = (96, 256, 512, 1024)
+#: the ring phase: a causal bf16 sequence of sp × block tokens, the
+#: flagship's 16 heads of 128, as 4 sequence-parallel ranks would hold it
+RING = dict(batch=4, sp=4, block=1024, heads=16, head_dim=128)
 #: one-sided copies: the sizes checked, the size of the main path's window
 #: (timed beside 4 KiB and 256 MiB), the ranks and their window
 RMA_SIZES = (4 << 10, 1 << 20, 64 << 20, 256 << 20)
@@ -919,7 +938,7 @@ def phase_train(fa, card, params_np):
     check(tokens.device.type == DEVICE and tuple(tokens.shape)
           == (batch, cfg.seq), f"batch {tokens.device} {tokens.shape}")
     var_registry.set("ops_flash_bwd_kernel", True)
-    params = from_jax_params(params_np, cfg, DEVICE, train=True)
+    params = from_jax_params(params_np, cfg, DEVICE, train=True, mesh=mesh)
     n_params = sum(p.numel() for p in params.values())
 
     # ---- the first step's loss and gradients: kernels vs plain paths ----
@@ -1010,6 +1029,197 @@ def phase_train(fa, card, params_np):
         del p
     var_registry.set("ops_flash_bwd_kernel", False)
     emit("train_paths", step_ms={"kernels": ms, **other_ms}, card=card)
+    return launches
+
+
+def ring_fwd_bwd(attn, q, k, v, g, sp):
+    """Ring attention over the sp blocks of a (B, sp·T, H, D) sequence in
+    one process: for each virtual rank ``my``, ``_ring_step`` over its sp
+    hops with the other ranks' K/V blocks in turn (src = (my − i) mod
+    sp, offsets my·T and src·T, the flash kernels), then the backward
+    through every merge with cotangent ``g``.  Each rank's q, k and v
+    block is a leaf of its own, as on a rank (a slice of one big leaf
+    would add a full-size zero gradient a use).  → (out, dq, dk, dv)."""
+    import torch
+
+    T = q.shape[1] // sp
+    qs, ks, vs = ([b.detach().clone().requires_grad_(True)
+                   for b in x.split(T, dim=1)] for x in (q, k, v))
+    outs = []
+    for my in range(sp):
+        out = lse = None
+        for i in range(sp):
+            src = (my - i) % sp
+            out, lse = attn._ring_step(qs[my], ks[src], vs[src], out, lse,
+                                       my * T, src * T, causal=True,
+                                       impl="flash")
+        outs.append(out.to(q.dtype))
+    grads = torch.autograd.grad(outs, qs + ks + vs, g.split(T, dim=1))
+    return (torch.cat(outs, dim=1).detach(),
+            *(torch.cat(grads[j * sp:(j + 1) * sp], dim=1)
+              for j in range(3)))
+
+
+def ring_plain(fa, q, k, v, g):
+    """The plain versions over the full causal sequence on the ring's bf16
+    inputs, one sequence at a time: ``attention_plain``'s f32 output and
+    ``flash_bwd_recompute``'s dq, dk and dv for cotangent ``g``."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    outs, grads = [], []
+    for b in range(q.shape[0]):
+        qb, kb, vb, gb = (x[b:b + 1] for x in (q, k, v, g))
+        o, _ = fa.attention_plain(qb, kb, vb, True, 0, 0, scale)
+        outs.append(o)
+        grads.append(fa.flash_bwd_recompute(qb, kb, vb, o, gb, None, 0, 0,
+                                            scale, True))
+    return (torch.cat(outs), *(torch.cat([d[j] for d in grads])
+                               for j in range(3)))
+
+
+def row_rel_l2(got, want) -> float:
+    """The largest relative L2 error over the rows (sequence, position,
+    head) of a (B, T, H, D) output: each row held to its own size, so a
+    hop dropped from the late, small rows shows."""
+    a, b = got.float(), want.float()
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+
+def ring_hop_checks(fa, q, k, v, sp, gen):
+    """Each of the ring's sp × sp hops through the three kernels at its
+    own shape and offsets (my·T, src·T), against their plain versions:
+    the forward at BF16_TOL, dq/dk/dv with a random lse cotangent at
+    BWD_BF16_TOL of max|ref|.  A fully masked hop (src > my) must give
+    O = 0, lse ≤ -1e29 and zero gradients.  → (worst errors, masked)."""
+    import torch
+
+    T, D = q.shape[1] // sp, q.shape[-1]
+    scale = D ** -0.5
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    masked = 0
+    for my in range(sp):
+        qb = q[:, my * T:(my + 1) * T]
+        for src in range(sp):
+            kb, vb = (x[:, src * T:(src + 1) * T] for x in (k, v))
+            offs = (my * T, src * T)
+            o, lse = fa.flash_attention_lse(qb, kb, vb, causal=True,
+                                            q_offset=offs[0],
+                                            k_offset=offs[1])
+            ro, rlse = fa.flash_attention_lse_reference(
+                qb, kb, vb, causal=True, q_offset=offs[0],
+                k_offset=offs[1])
+            torch.cuda.synchronize()
+            for key, got, want in (("o", o.float(), ro.float()),
+                                   ("lse", lse, rlse)):
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, atol=BF16_TOL,
+                                     rtol=BF16_TOL),
+                      f"ring hop my={my} src={src}: forward {key} vs plain "
+                      f"max err {err}")
+                worst[key] = max(worst[key], err)
+            if src > my:
+                check(bool((o == 0).all()) and bool((lse <= -1e29).all()),
+                      f"fully masked hop my={my} src={src}: |O| max "
+                      f"{o.abs().max().item()}, lse max {lse.max().item()}")
+                masked += 1
+            q3, k3, v3, o3 = (fa._to3(x) for x in (qb, kb, vb, o))
+            g3 = torch.randn(q3.shape, generator=gen,
+                             device=DEVICE).to(q3.dtype)
+            g_lse = torch.randn(lse.reshape(-1, T).shape, generator=gen,
+                                device=DEVICE)
+            dm = (g3.float() * o3.float()).sum(-1) - g_lse
+            args = (q3, k3, v3, g3, lse.reshape(-1, T), dm, *offs, scale,
+                    True)
+            got = fa.flash_bwd_3d(*args)
+            want = fa.flash_bwd_reference(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                ok, err = bwd_err(a, b, torch.bfloat16)
+                check(ok and bool(torch.isfinite(a).all()),
+                      f"ring hop my={my} src={src}: {name} vs plain max "
+                      f"err {err}")
+                worst[name] = max(worst[name], err)
+    check(masked == sp * (sp - 1) // 2, f"{masked} masked hops")
+    return worst, masked
+
+
+def phase_ring(fa, card):
+    """Ring attention's hop-and-merge at full width on the card: the
+    forward kernel at q/k offsets it does not see at sp = 1 (6 of the 16
+    hops fully masked), the lse merge in f32, and the dq and dk/dv
+    kernels with an lse cotangent at every hop.  Each hop's kernels are
+    held against their plain versions at the hop's shape and offsets;
+    the ring's output and gradients against the plain versions over the
+    full sequence (and against one full-sequence flash forward and
+    backward, which is timed beside it)."""
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.parallel import attention as attn
+
+    B, sp, T = RING["batch"], RING["sp"], RING["block"]
+    H, D = RING["heads"], RING["head_dim"]
+    S = sp * T
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device=DEVICE)
+                  .to(torch.bfloat16) for _ in range(4))
+    var_registry.set("ops_flash_bwd_kernel", True)
+    zero_counts(fa)
+    got = ring_fwd_bwd(attn, q, k, v, g, sp)
+    torch.cuda.synchronize()
+    launches = counts(fa)
+    check(launches == {"flash_fwd": sp * sp, "flash_bwd_dq": sp * sp,
+                       "flash_bwd_dkv": sp * sp},
+          f"launches on the ring path: {launches}")
+
+    def full_fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out, _ = fa.flash_attention_lse(*leaves, causal=True)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    want = full_fwd_bwd()
+    plain = ring_plain(fa, q, k, v, g)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    check(finite, "ring attention gave a NaN or Inf")
+    ok, out_err = bwd_err(got[0], want[0], torch.bfloat16)
+    check(ok, f"ring output vs the full-sequence kernel: max err {out_err}")
+    rel = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:])}
+    check(max(rel.values()) <= TRAIN_GRAD_RL2,
+          f"ring gradients vs the full-sequence kernels: rel L2 {rel}")
+    vs_plain = {}
+    for who, res in (("ring", got), ("full_sequence", want)):
+        row = row_rel_l2(res[0], plain[0])
+        check(row <= RING_ROW_RL2,
+              f"{who} output vs plain: row relative L2 {row}")
+        grel = {name: ((a.float() - b.float()).norm()
+                       / b.float().norm()).item()
+                for name, a, b in zip(("dq", "dk", "dv"), res[1:],
+                                      plain[1:])}
+        check(max(grel.values()) <= TRAIN_GRAD_RL2,
+              f"{who} gradients vs plain: rel L2 {grel}")
+        vs_plain[who] = {"out_row_rel_l2_max": row, "grad_rel_l2": grel}
+    del plain
+    hop_err, masked = ring_hop_checks(fa, q, k, v, sp, gen)
+    ring_ms = cuda_ms(lambda: ring_fwd_bwd(attn, q, k, v, g, sp), iters=5,
+                      warmup=1)
+    full_ms = cuda_ms(full_fwd_bwd, iters=5, warmup=1)
+    window = profile_window(lambda: ring_fwd_bwd(attn, q, k, v, g, sp))
+    var_registry.set("ops_flash_bwd_kernel", False)
+    emit("ring", shape=[B, S, H, D], sp=sp, block=T, dtype="bfloat16",
+         causal=True, launches=launches, masked_hops=masked,
+         out_max_abs_err=out_err, out_tol=BWD_BF16_TOL,
+         grad_rel_l2=rel, grad_rl2=TRAIN_GRAD_RL2, finite=finite,
+         vs_plain=vs_plain, row_rl2=RING_ROW_RL2,
+         hop_vs_plain_max_abs_err=hop_err, hop_fwd_tol=BF16_TOL,
+         hop_bwd_tol=BWD_BF16_TOL,
+         ring_fwd_bwd_ms=ring_ms, full_sequence_fwd_bwd_ms=full_ms,
+         profiled_ring=window,
+         note="one process drives all sp virtual ranks' hops in turn, so "
+         "the time is the sum over the ranks; no exchange is timed",
+         card=card)
     return launches
 
 
@@ -1586,6 +1796,7 @@ def main() -> int:
     run("build", phase_build)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)
+    ring = run("ring", phase_ring, fa, card)
     rma = run("rma_kernel", phase_rma_kernel, rd, card)
     rma_launches = run("rma_ranks", phase_rma_ranks, card)
     params_np = run("params", flagship_params)
@@ -1601,18 +1812,22 @@ def main() -> int:
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
-         "launches": decode_launches + train["flash_fwd"],
+         "launches": decode_launches + train["flash_fwd"]
+         + ring["flash_fwd"],
          "launches_by_path": {"decode": decode_launches,
-                              "train": train["flash_fwd"]},
+                              "train": train["flash_fwd"],
+                              "ring": ring["flash_fwd"]},
          **fwd, "ok": True},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": src + "flash_bwd.cu",
-         "replaces": "ompi_tpu/ops/flash_attention.py:173 (_bwd_dq_kernel)",
-         "launches": train["flash_bwd_dq"], **bwd["dq"], "ok": True},
-        {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": src + "flash_bwd.cu",
-         "replaces": "ompi_tpu/ops/flash_attention.py:215 (_bwd_dkv_kernel)",
-         "launches": train["flash_bwd_dkv"], **bwd["dkv"], "ok": True},
     ]
+    for part, line in (("dq", 173), ("dkv", 215)):
+        key = f"flash_bwd_{part}"
+        kernels.append({
+            "name": key, "route": "cuda", "source": src + "flash_bwd.cu",
+            "replaces": f"ompi_tpu/ops/flash_attention.py:{line} "
+                        f"(_bwd_{part}_kernel)",
+            "launches": train[key] + ring[key],
+            "launches_by_path": {"train": train[key], "ring": ring[key]},
+            **bwd[part], "ok": True})
     for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
         kernels.append({
             "name": f"remote_dma_{kind}", "route": "cuda",

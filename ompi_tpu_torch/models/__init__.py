@@ -15,6 +15,8 @@ _LAZY = {
                         "make_train_step"),
     "make_train_loop": ("ompi_tpu_torch.models.transformer",
                         "make_train_loop"),
+    "param_specs": ("ompi_tpu_torch.models.transformer", "param_specs"),
+    "shard_tokens": ("ompi_tpu_torch.models.transformer", "shard_tokens"),
     "make_decoder": ("ompi_tpu_torch.models.decode", "make_decoder"),
     "ArraySource": ("ompi_tpu_torch.models.data", "ArraySource"),
     "MemmapSource": ("ompi_tpu_torch.models.data", "MemmapSource"),

@@ -13,7 +13,11 @@ The port of ``ompi_tpu.models.data``:
   raised at the consumer, and ``close`` (also before the first ``next``)
   releases the thread and drops the buffered batches.
 
-This slice runs one device (dp = 1), so a batch is not split over ranks.
+Over a mesh of ranks every rank slices the same deterministic global
+batch and keeps its block, with no coordination: rank (d, s) takes rows
+[d·b/dp, (d+1)·b/dp) and columns [s·S/sp, (s+1)·S/sp), the (B/dp, S/sp)
+token shard the training entry points take (``transformer.shard_tokens``,
+the JAX package's ``P("dp", "sp")`` block).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from ompi_tpu_torch.models.transformer import shard_tokens
 
 __all__ = ["TokenSource", "ArraySource", "MemmapSource", "prefetch",
            "batches", "train_stream"]
@@ -163,7 +169,9 @@ def prefetch(it: Iterator[np.ndarray], mesh=None, depth: int = 2):
 
 def train_stream(source: TokenSource, mesh, batch: int, seq: int,
                  start_step: int = 0, depth: int = 2):
-    """Deterministic batches → device prefetch, in one call (resume by
-    passing the checkpointed step)."""
-    return prefetch(batches(source, batch, seq, start_step), mesh,
-                    depth=depth)
+    """Deterministic global batches → this rank's (batch/dp, seq/sp)
+    shard → device prefetch, in one call (resume by passing the
+    checkpointed step)."""
+    shards = (shard_tokens(b, mesh)
+              for b in batches(source, batch, seq, start_step))
+    return prefetch(shards, mesh, depth=depth)

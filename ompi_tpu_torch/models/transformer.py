@@ -6,11 +6,17 @@ numpy draws, and the same layer math, run eagerly in PyTorch as a Python
 loop over the L stacked layers.  Compute dtype is bfloat16 by default,
 with float32 accumulation; norms and rotary angles run in float32.
 
-Serving: ``make_forward`` and ``models.decode``.  Training, on one
-device (dp = sp = tp = 1): ``make_loss_fn``, ``make_train_step`` and
-``make_train_loop`` with their options ``remat``, ``ce_chunk``,
-``grad_accum``, ``param_dtype`` and ``adam_mu_dtype``.  ``zero1_axis``,
-the multi-rank layouts and the MoE family come in later slices
+Serving: ``make_forward`` and ``models.decode``.  Training:
+``make_loss_fn``, ``make_train_step`` and ``make_train_loop`` with their
+options ``remat``, ``ce_chunk``, ``grad_accum``, ``param_dtype``,
+``adam_mu_dtype`` and ``zero1_axis``, on one rank or on a dp × sp × tp
+mesh of ranks, one process each: a rank passes its (B/dp, S/sp) token
+shard (``shard_tokens``) and its tp blocks of the parameters
+(``param_specs``; ``models.weights.from_jax_params(..., mesh=)``).
+Sequence parallelism runs ring, Ulysses or gathered attention, tensor
+parallelism Megatron's column/row pair, and the gradients are summed
+over dp × sp in the step, so the loss, the gradients and the step equal
+the one-device run's.  The MoE family comes in a later slice
 (ROADMAP.md).
 """
 
@@ -26,10 +32,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ompi_tpu_torch.parallel.layers import column_parallel, row_parallel
+from ompi_tpu_torch.parallel.collectives import group_size, sum_forward
+from ompi_tpu_torch.parallel.layers import (column_parallel, row_parallel,
+                                            tp_input)
+from ompi_tpu_torch.parallel.mesh import local_block
 
-__all__ = ["TransformerConfig", "init_params", "make_forward",
-           "make_loss_fn", "make_train_step", "make_train_loop"]
+__all__ = ["TransformerConfig", "init_params", "param_specs",
+           "shard_tokens", "make_forward", "make_loss_fn",
+           "make_train_step", "make_train_loop"]
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1", "ln2")
 
@@ -102,6 +112,26 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     return params
 
 
+def param_specs() -> dict:
+    """Each leaf's ``PartitionSpec``-like tuple, as the JAX package's
+    ``param_specs``: the attention and FFN weights tp-sharded Megatron
+    style (wq/wk/wv/w1 along their last dimension, wo/w2 along the
+    middle one), everything else replicated (``()``).  A rank holds the
+    block of each leaf at its tp coordinate (``parallel.mesh.local_block``).
+    """
+    col, row = (None, None, "tp"), (None, "tp", None)
+    return {"emb": (), "lnf": (), "ln1": (), "ln2": (),
+            "wq": col, "wk": col, "wv": col, "wo": row,
+            "w1": col, "w2": row}
+
+
+def shard_tokens(tokens, mesh):
+    """This rank's (B/dp, S/sp) block of a global (B, S) token batch: the
+    JAX package's ``P("dp", "sp")`` shard at this rank's coordinates,
+    what each rank passes to the training and loss entry points."""
+    return local_block(tokens, mesh, ("dp", "sp"))
+
+
 def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts:
         raise NotImplementedError(
@@ -140,7 +170,7 @@ def _dense_ffn_tail(h, lp, comm, cdt):
     """Post-attention half of the dense layer: ln2 → gelu MLP → residual
     (shared by the backbone and the cached decode step).  jax.nn.gelu is
     the tanh approximation; torch's default is erf."""
-    x = _rmsnorm(h, lp["ln2"])
+    x = tp_input(_rmsnorm(h, lp["ln2"]), comm, axis="tp")
     y = F.gelu(column_parallel(x, lp["w1"].to(cdt)), approximate="tanh")
     return h + row_parallel(y, lp["w2"].to(cdt), comm, axis="tp")
 
@@ -191,11 +221,13 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
                     collect_kv: bool = False):
     """Forward through the final rmsnorm (everything but the unembed).
 
-    tokens: (B, S) int64.  Returns (h (B, S, D) compute dtype, aux), aux
-    the (zero) MoE balance loss.  With ``collect_kv`` returns
-    (h, (aux, k, v)) where k/v are the post-rope per-layer attention
-    inputs stacked (L, B, S, H, hd), the KV-cache prefill.  Under autograd
-    each layer runs under ``cfg.remat``.
+    tokens: (B/dp, S/sp) int64, this rank's shard.  Returns (h (B/dp,
+    S/sp, D) compute dtype, aux), aux the (zero) MoE balance loss.  With
+    ``collect_kv`` returns (h, (aux, k, v)) where k/v are the post-rope
+    per-layer attention inputs stacked (L, B, T, H/tp, hd), the KV-cache
+    prefill.  Rope takes the global positions sp_idx·T + t.  Under
+    autograd each layer runs under ``cfg.remat``; its recompute reruns
+    the layer's collectives, in the same order on every rank.
     """
     check_supported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
@@ -203,10 +235,11 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
     h_local = cfg.n_heads // tp
     hd = cfg.head_dim
     T = tokens.shape[1]
-    positions = torch.arange(T, device=tokens.device)  # sp == 1: offset 0
+    positions = comm.mesh.coord("sp") * T + torch.arange(
+        T, device=tokens.device)
 
     def layer(h, lp):
-        x = _rmsnorm(h, lp["ln1"])
+        x = tp_input(_rmsnorm(h, lp["ln1"]), comm, axis="tp")
         B, t = x.shape[0], x.shape[1]
         q = column_parallel(x, lp["wq"].to(cdt)).reshape(B, t, h_local, hd)
         k = column_parallel(x, lp["wk"].to(cdt)).reshape(B, t, h_local, hd)
@@ -329,11 +362,8 @@ def make_forward(cfg: TransformerConfig, mesh):
 
 
 # ---------------------------------------------------------------------------
-# training (one device: dp = sp = tp = 1)
+# training
 # ---------------------------------------------------------------------------
-
-_MULTI_RANK = ("the multi-rank training slice (ROADMAP.md queue 1 "
-               "item 3)")
 
 
 def _nll_chunk(h_c, emb_c, lab_c, w_c):
@@ -366,14 +396,25 @@ def _chunked_nll_sum(cfg: TransformerConfig, h, emb, labels, weight):
 
 
 def _local_loss(cfg: TransformerConfig, comm, params, tokens):
-    """Next-token cross entropy at sp = 1: labels are the tokens shifted
-    left by one, the first token wrapping round to label the last
-    position, whose weight is 0 (the weight mask is built from
-    ``cfg.seq``, not T, as in the JAX package)."""
+    """Next-token cross entropy of the global batch, from this rank's
+    (B/dp, S/sp) shard.  Labels are the tokens shifted left by one
+    global position: my last position's label is my right neighbour's
+    first token (r receives from r+1 round the sp ring; at sp = 1 my own
+    first token), and the final global position has weight 0 (the mask
+    is built from ``cfg.seq``, not the length, as in the JAX package).
+
+    loss = Σ_{dp,sp} local_sum / Σ_{dp,sp} count.  The numerator's sum
+    is the identity in the backward, so each rank differentiates its own
+    contribution and the step sums the gradients over dp × sp; the count
+    is known on the host (every shard has the same shape)."""
     check_supported(cfg)
     B, T = tokens.shape
-    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    positions = torch.arange(T, device=tokens.device)
+    sp, dp = int(comm.mesh.shape["sp"]), int(comm.mesh.shape["dp"])
+    first = tokens[:, :1]
+    from_right = first if sp == 1 else comm.shift(first, -1, "sp")
+    labels = torch.cat([tokens[:, 1:], from_right], dim=1)
+    positions = comm.mesh.coord("sp") * T + torch.arange(
+        T, device=tokens.device)
     weight = (positions < cfg.seq - 1).to(torch.float32)[None, :]
     if cfg.ce_chunk and T % cfg.ce_chunk == 0:
         h, _aux = _local_backbone(cfg, comm, params, tokens)
@@ -384,7 +425,8 @@ def _local_loss(cfg: TransformerConfig, comm, params, tokens):
         logprobs = torch.log_softmax(logits, dim=-1)
         nll = -logprobs.gather(-1, labels[..., None])[..., 0]
         local_sum = (nll * weight).sum()
-    return local_sum / (weight.sum() * B)
+    count = B * dp * max(0, min(sp * T, cfg.seq - 1))
+    return sum_forward(comm, local_sum, ("dp", "sp")) / count
 
 
 def _comm_for(cfg: TransformerConfig, mesh):
@@ -398,8 +440,12 @@ def _comm_for(cfg: TransformerConfig, mesh):
 
 
 def make_loss_fn(cfg: TransformerConfig, mesh):
-    """(params, tokens (B, S)) → scalar f32 loss, differentiable in the
-    params (leaf tensors from ``from_jax_params(..., train=True)``)."""
+    """(params, tokens) → the global batch's scalar f32 loss (equal on
+    every rank), differentiable in this rank's params (leaf tensors from
+    ``from_jax_params(..., train=True, mesh=)``).  ``tokens`` is this
+    rank's (B/dp, S/sp) shard (:func:`shard_tokens`); every rank of the
+    mesh makes the call.  Each rank's gradient is its own contribution:
+    the step sums them over dp × sp."""
     from ompi_tpu_torch.parallel.mesh import resolve_device
 
     dev = resolve_device(mesh.device)
@@ -417,29 +463,20 @@ def _store_dtype(cfg: TransformerConfig):
     return torch_dtype(cfg.param_dtype)
 
 
-def _make_step_body(cfg: TransformerConfig, mesh, lr):
-    """The optimizer-step body both entry points run: (params, opt_state,
-    tokens) → (params, opt_state, loss).  AdamW as the JAX package's
-    ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
-    mu_dtype=cfg.adam_mu_dtype)``; with ``param_dtype="bfloat16"`` the
-    optimizer runs on an f32 master copy and the live params are
-    re-derived from it each step.
-
-    The params are updated in place (the counterpart of the JAX package's
-    donated buffers: no second copy of the model) and returned."""
-    from ompi_tpu_torch.models.optim import adamw
-
-    if cfg.zero1_axis:
-        raise NotImplementedError(f"zero1_axis (a ZeRO-1 sharded optimizer "
-                                  f"state) comes with {_MULTI_RANK}")
+def _make_loss_and_grads(cfg: TransformerConfig, mesh):
+    """(params, tokens) → (mean loss, grads) as the step takes them: one
+    pass, or ``grad_accum`` microbatches in turn with the grads summed in
+    f32, then every leaf's gradient summed over dp × sp once
+    (:func:`_sum_grads`, the counterpart of the JAX package's AD
+    transpose of the replicated in_specs); tp-sharded leaves keep their
+    local block."""
     loss_fn = make_loss_fn(cfg, mesh)
-    opt = adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
-                mu_dtype=cfg.adam_mu_dtype)
+    comm = _comm_for(cfg, mesh)
     accum = int(cfg.grad_accum)
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
-    store = _store_dtype(cfg)
     f32 = torch.float32
+    dp = int(mesh.shape["dp"])
 
     def value_and_grad(params, tokens):
         loss = loss_fn(params, tokens)
@@ -447,15 +484,16 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
         return loss.detach(), dict(zip(keys, grads))
 
-    def loss_and_grads(params, tokens):
-        """(mean loss, mean grads): one pass, or ``grad_accum``
-        microbatches in turn, grads summed in f32."""
+    def local_loss_and_grads(params, tokens):
+        """(mean loss, this rank's mean grads)."""
         if accum == 1:
             return value_and_grad(params, tokens)
         B = tokens.shape[0]
         if B % accum:
-            raise ValueError(f"batch {B} not divisible by "
-                             f"grad_accum {accum}")
+            # the global batch B·dp: each of its microbatches must still
+            # split over dp, (B·dp / accum) % dp == 0
+            raise ValueError(f"batch {B * dp} not divisible by "
+                             f"grad_accum {accum} with dp {dp}")
         micro = tokens.reshape(accum, B // accum, *tokens.shape[1:])
         total = torch.zeros((), dtype=f32, device=mesh.device)
         g_sum = {k: torch.zeros(p.shape, dtype=f32, device=p.device)
@@ -468,6 +506,48 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
             del g
         inv = 1.0 / accum
         return total * inv, {k: g * inv for k, g in g_sum.items()}
+
+    def loss_and_grads(params, tokens):
+        loss, grads = local_loss_and_grads(params, tokens)
+        return loss, _sum_grads(comm, grads)
+
+    return loss_and_grads
+
+
+def _make_step_body(cfg: TransformerConfig, mesh, lr):
+    """The optimizer-step body both entry points run: (params, opt_state,
+    tokens) → (params, opt_state, loss).  AdamW as the JAX package's
+    ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
+    mu_dtype=cfg.adam_mu_dtype)``; with ``param_dtype="bfloat16"`` the
+    optimizer runs on an f32 master copy and the live params are
+    re-derived from it each step.
+
+    The gradients are those of :func:`_make_loss_and_grads`, summed over
+    dp × sp once a step after any accumulation.  With ``zero1_axis`` the
+    optimizer state is sharded over that axis (``parallel.zero``).
+
+    The params are updated in place (the counterpart of the JAX package's
+    donated buffers: no second copy of the model) and returned."""
+    from ompi_tpu_torch.models.optim import adamw
+
+    loss_and_grads = _make_loss_and_grads(cfg, mesh)
+    opt = adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
+                mu_dtype=cfg.adam_mu_dtype)
+    store = _store_dtype(cfg)
+    f32 = torch.float32
+
+    if cfg.zero1_axis:
+        from ompi_tpu_torch.parallel.zero import zero1_wrap
+
+        z_init, z_update = zero1_wrap(opt, mesh, cfg.zero1_axis,
+                                      param_specs())
+
+        def body(params, opt_state, tokens):
+            loss, grads = loss_and_grads(params, tokens)
+            opt_state = z_update(grads, opt_state, params)
+            return params, opt_state, loss
+
+        return body, z_init
 
     if store is None:
         def body(params, opt_state, tokens):
@@ -499,14 +579,37 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
     return body, master_init
 
 
+def _sum_grads(comm, grads: dict) -> dict:
+    """Every leaf's gradient summed over dp × sp: one all-reduce a dtype
+    over the leaves flattened into one buffer, none on a one-rank
+    group."""
+    from torch._utils import (_flatten_dense_tensors,
+                              _unflatten_dense_tensors)
+
+    if group_size(comm, ("dp", "sp")) == 1:
+        return grads
+    out = dict(grads)
+    by_dtype: dict = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = sum_forward(comm, _flatten_dense_tensors(
+            [grads[k] for k in keys]), ("dp", "sp"))
+        out.update(zip(keys, _unflatten_dense_tensors(
+            flat, [grads[k] for k in keys])))
+    return out
+
+
 def make_train_step(cfg: TransformerConfig, mesh, lr=3e-4):
     """(params, opt_state, tokens) → (params, opt_state, loss), and the
     optimizer-state initializer: ``step, init_opt = make_train_step(...)``.
 
-    ``params`` come from ``models.weights.from_jax_params(..., train=True)``
-    on ``mesh.device`` and are updated in place; ``tokens`` is a (B, S)
-    int array (numpy or tensor).  ``lr`` is a float or a callable of the
-    step count."""
+    ``params`` come from ``models.weights.from_jax_params(..., train=True,
+    mesh=)`` on ``mesh.device`` and are updated in place; ``tokens`` is
+    this rank's (B/dp, S/sp) shard of the global batch, an int array
+    (numpy or tensor; :func:`shard_tokens`).  Every rank of the mesh
+    makes the call.  ``lr`` is a float or a callable of the step
+    count."""
     body, init = _make_step_body(cfg, mesh, lr)
     dev = mesh.device
 

@@ -11,6 +11,11 @@ it).  For training (``train=True``), every leaf is a leaf tensor with
 float32, or bfloat16 under ``cfg.param_dtype = "bfloat16"`` (rounded to
 nearest even, as ``ml_dtypes`` does).  ``to_numpy_params`` gives the f32
 numpy dict back, to compare with the JAX package's.
+
+On a mesh with tp > 1 (``mesh=``), a rank keeps the block of each
+tp-sharded leaf at its tp coordinate (``transformer.param_specs``), and
+``to_numpy_params(..., mesh=)`` gathers the blocks back over the tp
+ranks (a ``DeviceCommunicator`` allgather) into whole leaves.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ompi_tpu_torch.models.transformer import TransformerConfig, torch_dtype
-from ompi_tpu_torch.parallel.mesh import resolve_device
+from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                               param_specs, torch_dtype)
+from ompi_tpu_torch.parallel.mesh import local_block, resolve_device
 
 __all__ = ["from_jax_params", "to_numpy_params"]
 
@@ -35,10 +41,16 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def from_jax_params(params: dict, cfg: TransformerConfig, device="cuda",
-                    train: bool = False) -> dict:
+                    train: bool = False, mesh=None) -> dict:
     """numpy parameter dict → the port's dict of tensors on ``device``
-    (serving dtypes, or trainable storage-dtype leaves with ``train``)."""
+    (serving dtypes, or trainable storage-dtype leaves with ``train``);
+    with ``mesh``, each leaf cut to this rank's tp block."""
     dev = resolve_device(device)
+    if mesh is not None:
+        specs = param_specs()
+        params = {name: local_block(np.asarray(arr), mesh,
+                                    specs.get(name, ()))
+                  for name, arr in params.items()}
     if train:
         store = torch_dtype(cfg.param_dtype or "float32")
         # a copy: the step updates these in place
@@ -53,7 +65,18 @@ def from_jax_params(params: dict, cfg: TransformerConfig, device="cuda",
     return out
 
 
-def to_numpy_params(params: dict) -> dict:
-    """The port's tensors → a dict of float32 numpy arrays on the host."""
+def to_numpy_params(params: dict, mesh=None) -> dict:
+    """The port's tensors → a dict of float32 numpy arrays on the host;
+    with ``mesh``, the tp blocks gathered over the tp ranks into whole
+    leaves (every rank of the tp group makes the call)."""
+    params = dict(params)
+    if mesh is not None and int(mesh.shape.get("tp", 1)) > 1:
+        from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
+
+        comm = DeviceCommunicator(mesh, ("tp",), name="weights.tp")
+        for name, spec in param_specs().items():
+            if name in params and "tp" in spec:
+                params[name] = comm.allgather(params[name].detach(),
+                                              axis=spec.index("tp"))
     return {name: t.detach().to(torch.float32).cpu().numpy()
             for name, t in params.items()}

@@ -59,10 +59,9 @@ register_var("coll", "device_generic_large_bytes", VarType.SIZE, 1 << 20,
 _SHARED_CARD = (
     "device collectives over more than one rank need one card per rank "
     "(NCCL refuses two ranks of one communicator on the same card), and "
-    "ranks of {name} share a card; they run on 4 cards with the "
-    "multi-rank training slice (ROADMAP.md queue 1 item 3). barrier and "
-    "the one-sided put/get, DeviceWindow and DeviceSymmetricHeap.put/get "
-    "run here")
+    "ranks of {name} share a card: start one process per card. barrier "
+    "and the one-sided put/get, DeviceWindow and DeviceSymmetricHeap."
+    "put/get run here")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -191,7 +190,7 @@ class DeviceCommunicator:
             raise MPIException(f"permute: {perm} is not a permutation of "
                                f"axis {ax!r} (size {n})")
         self._group((ax,))
-        me = self.mesh.coords()[self.mesh.axis_names.index(ax)]
+        me = self.mesh.coord(ax)
         x = self._own(x)
         out = torch.zeros_like(x)
         sends = [(x, d) for s, d in perm if s == me and d != me]

@@ -1,5 +1,5 @@
-"""Parallelism layer of the port: mesh, tensor-parallel layers and
-attention (sequence-parallel entry points at sp == 1 in this slice)."""
+"""Parallelism layer of the port: mesh, differentiable collectives,
+tensor-parallel layers, sequence-parallel attention and ZeRO-1."""
 
 from ompi_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape_for
 

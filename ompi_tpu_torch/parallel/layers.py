@@ -2,9 +2,13 @@
 
 A column-parallel matmul keeps its activation sharded over ``tp`` (no
 communication); the row-parallel matmul contracts the sharded dimension
-and would finish with one sum over ``tp``.  At tp == 1 that sum is the
-identity and is elided, as in the JAX package; tp > 1 comes with the
-multi-rank training slice (ROADMAP.md queue 1 item 3).
+and finishes with one sum over ``tp``.  At tp == 1 that sum is the
+identity and is elided, as in the JAX package.
+
+Gradients: the row-parallel sum is an all-reduce forward and the
+identity backward, and the replicated activation that enters the
+column-parallel matmuls goes through :func:`tp_input`, the identity
+forward and a tp all-reduce backward (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -13,7 +17,17 @@ from typing import Optional
 
 import torch
 
-__all__ = ["column_parallel", "row_parallel"]
+from ompi_tpu_torch.parallel.collectives import sum_backward, sum_forward
+
+__all__ = ["column_parallel", "row_parallel", "tp_input"]
+
+
+def tp_input(x: torch.Tensor, comm, axis: Optional[str] = None
+             ) -> torch.Tensor:
+    """x: (..., D) replicated over tp, about to enter column-parallel
+    matmuls.  The identity; its backward sums the partial input
+    gradients of those matmuls over tp (once, however many consume x)."""
+    return sum_backward(comm, x, (axis or comm.axes[-1],))
 
 
 def column_parallel(x: torch.Tensor, w_shard: torch.Tensor) -> torch.Tensor:
@@ -25,11 +39,7 @@ def column_parallel(x: torch.Tensor, w_shard: torch.Tensor) -> torch.Tensor:
 def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor, comm,
                  axis: Optional[str] = None) -> torch.Tensor:
     """x_shard: (..., F/tp); w_shard: (F/tp, D).  Contracts the sharded
-    dimension; the sum over tp is the identity at tp == 1."""
+    dimension and sums the partial products over tp → replicated
+    (..., D)."""
     partial = torch.matmul(x_shard, w_shard)
-    ax = axis or comm.axes[-1]
-    if int(comm.mesh.shape[ax]) != 1:
-        raise NotImplementedError(
-            "row_parallel over tp > 1 comes with the multi-rank training "
-            "slice (ROADMAP.md queue 1 item 3)")
-    return partial
+    return sum_forward(comm, partial, (axis or comm.axes[-1],))

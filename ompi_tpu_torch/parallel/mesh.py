@@ -40,7 +40,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "mesh_shape_for", "resolve_device"]
+__all__ = ["Mesh", "make_mesh", "mesh_shape_for", "resolve_device",
+           "local_block"]
 
 
 def resolve_device(device) -> torch.device:
@@ -156,6 +157,10 @@ class Mesh:
         return tuple(int(c) for c in np.unravel_index(
             r, tuple(self.shape.values())))
 
+    def coord(self, axis: str) -> int:
+        """My coordinate along ``axis``."""
+        return self.coords()[self.axis_names.index(axis)]
+
     def _members_at(self, axes: Sequence[str], fixed: dict) -> list[int]:
         """Ranks row-major over ``axes`` (in that order) whose other
         coordinates are ``fixed``."""
@@ -252,3 +257,28 @@ def make_mesh(axes: Optional[dict[str, int] | Sequence[str]] = None,
         known = math.prod(s for s in sizes.values() if s != -1)
         sizes[unknown[0]] = max(1, n // known)
     return Mesh(sizes, device=device)
+
+
+def local_block(x, mesh: Mesh, spec: Sequence[Optional[str]]):
+    """This rank's block of the global array ``x`` (numpy or torch) under
+    ``spec``, a ``PartitionSpec``-like tuple: dimension i is split evenly
+    over the mesh axis ``spec[i]`` and the block at my coordinate along
+    it is kept; None, an axis the mesh lacks, or a missing entry keeps
+    the dimension whole.  ``local_block(tokens, mesh, ("dp", "sp"))`` is
+    the (B/dp, S/sp) token shard a rank passes to the training entry
+    points: the JAX package's ``P("dp", "sp")`` block at its
+    coordinates."""
+    mine = dict(zip(mesh.axis_names, mesh.coords()))
+    index = []
+    for dim, ax in enumerate(spec):
+        n = int(mesh.shape.get(ax, 1)) if ax is not None else 1
+        if n == 1:
+            index.append(slice(None))
+            continue
+        size = x.shape[dim]
+        if size % n:
+            raise ValueError(f"dimension {dim} ({size}) is not divisible "
+                             f"by mesh axis {ax!r} ({n})")
+        b = size // n
+        index.append(slice(mine[ax] * b, (mine[ax] + 1) * b))
+    return x[tuple(index)]

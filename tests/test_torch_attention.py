@@ -98,7 +98,7 @@ def test_sequence_parallel_entry_points_reduce_at_sp1(fn):
 
 
 class _FakeMesh:
-    """A mesh surface with sp > 1, which this slice cannot build."""
+    """A mesh surface with sp > 1, which one process cannot build."""
 
     shape = {"dp": 1, "sp": 2, "tp": 1}
     axis_names = ("dp", "sp", "tp")
@@ -107,14 +107,6 @@ class _FakeMesh:
 class _FakeComm:
     mesh = _FakeMesh()
     axes = ("dp", "sp", "tp")
-
-
-@pytest.mark.parametrize("fn", ["ring_attention", "ulysses_attention",
-                                "gathered_attention"])
-def test_sequence_parallel_at_sp2_raises_until_the_training_slice(fn):
-    q, k, v = map(torch.from_numpy, _qkv())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        getattr(TA, fn)(_FakeComm(), q, k, v, axis="sp")
 
 
 def test_ulysses_checks_head_divisibility_first():

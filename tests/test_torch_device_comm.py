@@ -3,7 +3,7 @@ against the JAX package's ``DeviceCommunicator``.
 
 Counterparts of ``tests/mpi/test_device_comm.py``,
 ``tests/mpi/test_device_vcoll.py`` (all but its two decision-layer tests:
-``mpi/coll/xla.py`` comes with the multi-rank training slice) and
+``mpi/coll/xla.py`` comes with ROADMAP.md queue 1 item 5) and
 ``tests/mpi/test_device_large_prefix.py`` (with
 ``coll_device_generic_large_bytes`` forced low).  The same numpy inputs
 go through the JAX package on a 4-device sub-mesh of the suite's virtual
@@ -418,7 +418,7 @@ class _SharedCardMesh:
 def test_device_collective_over_ranks_sharing_a_card_raises(call):
     comm = DeviceCommunicator(_SharedCardMesh())
     with pytest.raises(NotImplementedError,
-                       match="one card per rank.*queue 1 item 3"):
+                       match="one card per rank.*one process per card"):
         call(comm)
 
 

@@ -149,10 +149,6 @@ def test_unsupported_options_raise():
                        match=r"MoE slice \(ROADMAP.md queue 1 item 4\)"):
         T.make_forward(T.TransformerConfig(**FIELDS, moe_experts=4),
                        _tmesh())
-    with pytest.raises(NotImplementedError, match=r"training slice "
-                       r"\(ROADMAP.md queue 1 item 3\)"):
-        T.make_train_step(T.TransformerConfig(**FIELDS, zero1_axis="dp"),
-                          _tmesh())
 
 
 def _unembed_inputs(seed=4, b=2, t=5):

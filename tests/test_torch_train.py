@@ -279,15 +279,6 @@ def test_lr_schedule_matches_jax():
     assert got[0] == got[1]    # lr(0) = 0: the first step moves nothing
 
 
-def test_zero1_raises_naming_the_multi_rank_slice():
-    cfg = T.TransformerConfig(**{**FIELDS, "zero1_axis": "dp"})
-    msg = r"multi-rank training slice \(ROADMAP.md queue 1 item 3\)"
-    with pytest.raises(NotImplementedError, match=msg):
-        T.make_train_step(cfg, _tmesh())
-    with pytest.raises(NotImplementedError, match=msg):
-        T.make_train_loop(cfg, _tmesh())
-
-
 def test_unembed_grads_match_jax_vjp_in_bf16():
     """grad_h and grad_emb of the bf16 unembed against JAX's VJP of its
     preferred_element_type=f32 einsum.  The port rounds the f32 cotangent

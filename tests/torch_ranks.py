@@ -343,3 +343,99 @@ def heap_op(shard, body, fill=None, shape=None):
         "barrier_all": lambda c, x: x + (heap.barrier_all() or 0),
     }
     return to_numpy(heap.run(fns[body], b))[None]
+
+
+# ---------------------------------------------------------------------------
+# rank side of the multi-rank training tests (tests/test_torch_mesh_*.py)
+# ---------------------------------------------------------------------------
+
+def sp_attention(kind, q, k, v, g, axes, causal=True, impl="jnp",
+                 bwd_kernel=False):
+    """``<kind>_attention`` on this rank's blocks over the mesh ``axes``
+    and its VJP with cotangent ``g``: (out, dq, dk, dv)."""
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.ops import flash_attention  # noqa: F401 — its var
+    from ompi_tpu_torch.parallel import attention as A
+
+    c = comm(axes)
+    qt, kt, vt = (to_torch(a).requires_grad_(True) for a in (q, k, v))
+    kw = {} if kind == "gathered" else {"impl": impl}
+    var_registry.set("ops_flash_bwd_kernel", bwd_kernel)
+    try:
+        out = getattr(A, f"{kind}_attention")(c, qt, kt, vt, axis="sp",
+                                              causal=causal, **kw)
+        out.backward(to_torch(g))
+    finally:
+        var_registry.set("ops_flash_bwd_kernel", False)
+    return tuple(to_numpy(t) for t in (out, qt.grad, kt.grad, vt.grad))
+
+
+def _model(fields, axes, params, train=True):
+    from ompi_tpu_torch.models import transformer as T
+    from ompi_tpu_torch.models.weights import from_jax_params
+
+    cfg = T.TransformerConfig(**fields)
+    m = mesh(axes)
+    return cfg, m, from_jax_params(params, cfg, "cpu", train=train, mesh=m)
+
+
+def model_grads(fields, axes, params, tokens):
+    """The flagship's loss and gradients on this rank as the step takes
+    them (any ``grad_accum`` microbatches accumulated, the gradients
+    summed over dp × sp), gathered over tp into whole leaves:
+    (loss, {leaf: grad})."""
+    from ompi_tpu_torch.models import transformer as T
+    from ompi_tpu_torch.models.weights import to_numpy_params
+
+    cfg, m, p = _model(fields, axes, params)
+    loss, grads = T._make_loss_and_grads(cfg, m)(p, T.shard_tokens(tokens,
+                                                                   m))
+    return loss.item(), to_numpy_params(grads, mesh=m)
+
+
+def model_forward(fields, axes, params, tokens):
+    """``make_forward``'s logits for this rank's token shard."""
+    from ompi_tpu_torch.models import transformer as T
+
+    cfg, m, p = _model(fields, axes, params, train=False)
+    return to_numpy(T.make_forward(cfg, m)(p, T.shard_tokens(tokens, m)))
+
+
+def train_steps(fields, axes, params, tokens, steps=3, lr=1e-2,
+                loop=False):
+    """``steps`` optimizer steps (single steps, or one ``make_train_loop``
+    call) on this rank's shard: (losses, whole params after, optimizer
+    facts)."""
+    from ompi_tpu_torch.models import transformer as T
+    from ompi_tpu_torch.models.weights import to_numpy_params
+
+    cfg, m, p = _model(fields, axes, params)
+    toks = T.shard_tokens(tokens, m)
+    if loop:
+        run, init = T.make_train_loop(cfg, m, lr=lr, steps=steps)
+        p, state, losses = run(p, init(p), toks)
+        losses = losses.tolist()
+    else:
+        step, init = T.make_train_step(cfg, m, lr=lr)
+        state, losses = init(p), []
+        for _ in range(steps):
+            p, state, loss = step(p, state, toks)
+            losses.append(loss.item())
+    facts = {"shapes": {k: tuple(t.shape) for k, t in p.items()}}
+    if cfg.zero1_axis:
+        facts["master"] = {k: t.numel() for k, t in state["master"].items()}
+        facts["mu"] = {k: t.numel() for k, t in state["opt"].mu.items()}
+        facts["nu"] = {k: t.numel() for k, t in state["opt"].nu.items()}
+    return losses, to_numpy_params(p, mesh=m), facts
+
+
+def stream_batches(corpus, seed, axes, batch, seq, n=2, start_step=0):
+    """The first ``n`` batches of ``train_stream`` on this rank."""
+    from ompi_tpu_torch.models import data as D
+
+    stream = D.train_stream(D.ArraySource(corpus, seed=seed), mesh(axes),
+                            batch, seq, start_step=start_step)
+    try:
+        return [to_numpy(next(stream)) for _ in range(n)]
+    finally:
+        stream.close()
