@@ -61,7 +61,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 9. train_small — on the small f32 config of the model tests, the first
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
-10. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
+10. moe_layer — the MoE family (every FFN a switch of 8 experts,
+   capacity factor 1.25, at the flagship's widths; its parameters drawn
+   once by ``init_params``, 2.35B, and shared by the MoE phases): one
+   full-width bf16 layer input (16 × 1024 tokens of 2048), the index
+   dispatch and combine against the one-hot einsum plain version,
+   output, aux and every gradient bit for bit, the same routing, and
+   each part timed (route, dispatch, combine, expert FFN, the layer
+   forward and backward in both forms) beside its byte bound;
+11. moe_decode — phase decode's metrics and checks for the MoE model
+   (8 forward launches a call), with the prefill's routing: the share
+   of tokens dropped and the tokens routed to each expert, per layer;
+12. moe_train — phase train for the MoE model at world size 1 (the ep
+   exchange elided): the first step's loss and every gradient leaf
+   against the plain attention path, an 8-step loop's launch counts
+   (16 / 8 / 8 a step), step time, tokens/s, MFU by the ACTIVE
+   parameters (468M), peak memory, the loss falling, and a profiled
+   step split into the flash kernels, the expert GEMMs, the index ops
+   and the rest;
+13. moe_small — phase train_small on the MoE tests' small f32 config
+   (8 experts);
+14. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
    and a root's push to 3 peers) at kernel level in this process, on
    local buffers with their flag words, bitwise against ``copy_plain``
    over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
@@ -73,7 +93,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and at 4 KiB (200 calls), where the call rate is the host's and the
    profiler gives the device time of one launch; put and get at 64 MiB also without the
    handshake;
-11. rma_ranks (after rma_kernel) — 4 rank processes on the one card
+15. rma_ranks (after rma_kernel) — 4 rank processes on the one card
    (tcp init on a free port, each mapping its peers' 64 MiB windows):
    ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
    self-put, ``fetch_bcast`` from every root, ``DeviceWindow`` and the
@@ -84,11 +104,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
-12. collectives (last) — ``make_mesh`` on the card with NCCL at world
+16. collectives (last) — ``make_mesh`` on the card with NCCL at world
    size 1: every device collective on CUDA tensors equals the same call
    on the one-process CPU communicator;
-13. the ``kernels`` line (6 entries; the flash kernels' launches by
-   path: decode, train, ring), then the card's nvidia-smi line,
+17. the ``kernels`` line (6 entries; the flash kernels' launches by
+   path: decode, train, ring, moe_decode, moe_train), then the card's
+   nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,6 +150,10 @@ FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
 #: its training batch (bench.py's MFU row): 16 sequences of 1024 tokens,
 #: the loss in chunks of 256 positions
 TRAIN = dict(batch=16, seq=1024, ce_chunk=256)
+#: the MoE family at the flagship's widths: every FFN a switch of 8
+#: experts (the reference's MoE tests' count), capacity factor 1.25 and
+#: balance-loss weight 0.01 (the config's defaults, Switch Transformer's)
+MOE = dict(moe_experts=8, moe_capacity_factor=1.25, moe_aux_weight=0.01)
 #: sequence lengths of the backward kernels' checks
 BWD_LENGTHS = (96, 256, 512, 1024)
 #: the ring phase: a causal bf16 sequence of sp × block tokens, the
@@ -557,31 +582,79 @@ def kernel_ptxas(kernel):
     return out
 
 
-def flagship_params():
-    """The flagship 468M model's parameters (init_params, seed 0) as numpy:
-    decode and train share them (init_params does not read ``seq``)."""
+def flagship_params(moe: bool = False):
+    """The flagship 468M model's parameters (init_params, seed 0) as numpy,
+    or with ``moe`` its switch-MoE family's (2.35B): decode and train
+    share them (init_params does not read ``seq``)."""
     from ompi_tpu_torch.models.transformer import TransformerConfig, init_params
 
-    return init_params(TransformerConfig(**FLAGSHIP), seed=0)
+    return init_params(TransformerConfig(**FLAGSHIP, **(MOE if moe else {})),
+                       seed=0)
 
 
-def phase_decode(fa, card, params_np):
+def routing_stats(records):
+    """Per layer, the share of tokens dropped over capacity, and the
+    tokens routed to each expert, from ``parallel.moe.recording()``."""
+    import torch
+
+    load = torch.stack([r["load"] for r in records]).cpu().numpy()
+    dropped = [int(r["dropped"]) / r["tokens"] for r in records]
+    return {"dropped_share_per_layer": dropped,
+            "expert_load_per_layer": load.tolist(),
+            "tokens_per_layer": records[0]["tokens"] if records else 0}
+
+
+def routing_agreement(routes, routes_x):
+    """Where the plain attention path, running free, routes the MoE
+    prefill otherwise than the flash path, layer by layer: the decisions
+    (expert or kept) that differ and the flash path's top-two gate
+    margins of those.  A top-1 switch is discrete, so a token within the
+    two paths' bf16 difference of a tie goes to another expert on each,
+    and from there its hidden state, and through attention its
+    sequence's later positions, differ by O(1): the logits check runs
+    with the flash path's routing replayed instead
+    (``parallel.moe.replaying``)."""
+    import torch
+
+    check(len(routes) == len(routes_x) > 0, "no routing recorded")
+    per_layer, margins, moved = [], [], None
+    for a, b in zip(routes, routes_x):
+        diff = (a["expert"] != b["expert"]) | (a["keep"] != b["keep"])
+        per_layer.append(int(diff.sum()))
+        margins.append(a["margin"][diff])
+        moved = diff if moved is None else moved | diff
+    # layer 0's inputs differ by the attention alone: its differing
+    # decisions are the near ties themselves
+    return {"positions": moved.numel(),
+            "positions_routed_differently": int(moved.sum()),
+            "decisions_differing_per_layer": per_layer,
+            "gate_margin_of_those_layer0_max": (
+                margins[0].max().item() if per_layer[0] else None),
+            "gate_margin_of_those_median": (
+                torch.cat(margins).median().item() if any(per_layer)
+                else None)}
+
+
+def phase_decode(fa, card, params_np, moe: bool = False):
     import torch
 
     from ompi_tpu_torch.models.decode import make_decoder
     from ompi_tpu_torch.models.transformer import (TransformerConfig,
                                                    make_forward)
     from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.parallel import moe as moe_mod
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
-    # bench.py matrix_decode_throughput flagship widths (468M params)
-    cfg = TransformerConfig(**FLAGSHIP, seq=512 + 256, attention="flash",
+    # bench.py matrix_decode_throughput flagship widths (468M params; its
+    # MoE family, 2.35B, 468M active a token)
+    cfg = TransformerConfig(**FLAGSHIP, **(MOE if moe else {}),
+                            seq=512 + 256, attention="flash",
                             compute_dtype="bfloat16")
     cfg_x = dataclasses.replace(cfg, attention="xla")
     batch, prompt_len, lo, hi = 16, 512, 32, 96
-    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1})
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
     t0 = time.perf_counter()
-    params = from_jax_params(params_np, cfg, "cuda")
+    params = from_jax_params(params_np, cfg, DEVICE)
     load_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.values())
     prompt = np.random.default_rng(0).integers(
@@ -610,8 +683,20 @@ def phase_decode(fa, card, params_np):
     out_x = out_x.cpu().numpy()
     agree = float((out[:, prompt_len:] == out_x[:, prompt_len:]).mean())
     first_agree = float((out[:, prompt_len] == out_x[:, prompt_len]).mean())
-    logits = make_forward(cfg, mesh)(params, prompt)
-    logits_x = make_forward(cfg_x, mesh)(params, prompt)
+    extra = {}
+    if moe:
+        # the plain path once free (how its routing differs), then with
+        # the flash path's routing replayed for the logits check
+        with moe_mod.recording() as routes:
+            logits = make_forward(cfg, mesh)(params, prompt)
+        with moe_mod.recording() as routes_x:
+            make_forward(cfg_x, mesh)(params, prompt)
+        extra["routing_of_plain_path"] = routing_agreement(routes, routes_x)
+        with moe_mod.replaying(routes):
+            logits_x = make_forward(cfg_x, mesh)(params, prompt)
+    else:
+        logits = make_forward(cfg, mesh)(params, prompt)
+        logits_x = make_forward(cfg_x, mesh)(params, prompt)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     logit_err = (logits - logits_x).abs().max().item()
@@ -640,7 +725,17 @@ def phase_decode(fa, card, params_np):
     # step, with the prefill and the call overhead cancelled
     t_1, t_lo, t_hi = timed(1), timed(lo), timed(hi)
     step_s = (t_hi - t_lo) / (hi - lo)
-    emit("decode", config="flagship 468M dense (bench.py decode widths)",
+    if moe:
+        # the prefill alone, its routing recorded layer by layer
+        with moe_mod.recording() as records:
+            make_decoder(cfg, mesh, max_new=1)(params, prompt)
+        check(len(records) == cfg.n_layers,
+              f"{len(records)} switch calls in a prefill")
+        extra["prefill_routing"] = routing_stats(records)
+    name = "moe_decode" if moe else "decode"
+    emit(name, config=("flagship MoE 8 experts, 2.35B (468M active), "
+                       "bench.py decode widths" if moe else
+                       "flagship 468M dense (bench.py decode widths)"),
          n_params=n_params, batch=batch, prompt=prompt_len,
          max_new=[lo, hi], load_s=load_s, flash_launches=launches,
          generated_agree_with_plain=agree,
@@ -650,20 +745,24 @@ def phase_decode(fa, card, params_np):
          wall_1_s=t_1, wall_lo_s=t_lo, wall_hi_s=t_hi,
          prefill_ms=t_1 * 1e3, ms_per_token=step_s * 1e3,
          ms_per_token_from_prefill=(t_hi - t_1) / (hi - 1) * 1e3,
-         tokens_per_s=batch / step_s, peak_mem_gib=peak_gib, card=card)
-    phase_profile(make_decoder, cfg, mesh, params, prompt, card)
+         tokens_per_s=batch / step_s, peak_mem_gib=peak_gib, **extra,
+         card=card)
+    phase_profile(make_decoder, cfg, mesh, params, prompt, card,
+                  "moe_profile" if moe else "profile")
     return launches
 
 
-def profile_window(fn):
+def dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_window(fn, moe: bool = False):
     """Device busy time and the kernels that take it, from torch.profiler,
-    over one call of ``fn`` that ends in a synchronize."""
+    over one call of ``fn`` that ends in a synchronize; with ``moe`` also
+    the MoE layer's split (:func:`moe_split`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -681,7 +780,8 @@ def profile_window(fn):
         by_kind[kernel_kind(e.key)] += dev_us(e) / 1e3
     unknown = sorted({e.key for e in kernels
                       if kernel_kind(e.key) == "gemm_unknown"})
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+    extra = {"moe_split_ms": moe_split(prof, busy_ms)} if moe else {}
+    return {**extra, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "flash_kernel_ms": {
                 name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e3
@@ -690,6 +790,40 @@ def profile_window(fn):
             "device_ms_by_kind": by_kind, "gemm_unknown_names": unknown,
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in top]}
+
+
+#: kernel names of the index ops: the MoE dispatch (index_copy) and
+#: combine (index_select) and their backwards (index_select, index_add),
+#: and the embedding's gather and its scatter-add
+INDEX_KERNELS = ("indexSelect", "indexFunc", "index_elementwise",
+                 "indexing_backward", "index_copy")
+
+
+def moe_split(prof, busy_ms):
+    """An MoE step's device ms by part: the flash kernels; the expert
+    GEMMs (the kernels ``aten::bmm`` launches: the expert FFN is the
+    only batched product on the flash path, forward, recompute and
+    backward); the index ops (dispatch, combine, their backwards and the
+    embedding's, by kernel name); the other GEMMs; and the rest."""
+    split = dict.fromkeys(("flash", "expert_gemm", "index_ops", "other_gemm",
+                           "rest"), 0.0)
+    for e in prof.events():
+        if e.device_type.name != "CPU" or e.name != "aten::bmm":
+            continue
+        split["expert_gemm"] += sum(k.duration for k in e.kernels) / 1e3
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or dev_us(e) <= 0:
+            continue
+        kind = kernel_kind(e.key)
+        if kind == "flash":
+            split["flash"] += dev_us(e) / 1e3
+        elif any(tag in e.key for tag in INDEX_KERNELS):
+            split["index_ops"] += dev_us(e) / 1e3
+        elif kind.startswith("gemm"):
+            split["other_gemm"] += dev_us(e) / 1e3
+    split["other_gemm"] -= split["expert_gemm"]
+    split["rest"] = busy_ms - sum(split.values())
+    return split
 
 
 def kernel_device_ms(fn, tag: str, n: int = 50) -> float:
@@ -743,7 +877,8 @@ def kernel_kind(name: str) -> str:
     return "gemm_unknown"
 
 
-def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
+def phase_profile(make_decoder, cfg, mesh, params, prompt, card,
+                  name="profile"):
     """The prefill alone (max_new=1) and a decode of 16 tokens, profiled."""
     import torch
 
@@ -751,7 +886,7 @@ def phase_profile(make_decoder, cfg, mesh, params, prompt, card):
         d = make_decoder(cfg, mesh, max_new=max_new)
         d(params, prompt)
         torch.cuda.synchronize()
-        emit("profile", max_new=max_new,
+        emit(name, max_new=max_new,
              **profile_window(lambda: d(params, prompt)), card=card)
 
 
@@ -1223,7 +1358,7 @@ def phase_ring(fa, card):
     return launches
 
 
-def phase_train_small(fa):
+def phase_train_small(fa, moe: bool = False):
     import torch
 
     from ompi_tpu_torch.core.config import var_registry
@@ -1233,10 +1368,13 @@ def phase_train_small(fa):
     from ompi_tpu_torch.models.weights import from_jax_params
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
-    # tests/parallel/test_mesh_model.py:34-36, with the flash kernels
+    # tests/parallel/test_mesh_model.py:34-36 (the MoE family's:
+    # test_moe_model.py:15-17, 8 experts), with the flash kernels
     cfg = TransformerConfig(vocab=128, d_model=64, n_heads=4, n_layers=2,
                             d_ff=128, seq=32, attention="flash",
-                            compute_dtype="float32")
+                            compute_dtype="float32",
+                            **(dict(moe_experts=8, remat=False) if moe
+                               else {}))
     params_np = init_params(cfg, seed=0)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab, size=(4, cfg.seq)).astype(np.int32)
@@ -1276,10 +1414,212 @@ def phase_train_small(fa):
     check(np.allclose(s_gpu, s_cpu, rtol=SMALL_TOL, atol=0),
           f"three steps: card {s_gpu} vs CPU {s_cpu}")
     check(s_gpu[-1] < s_gpu[0], f"loss did not fall: {s_gpu}")
-    emit("train_small", config="tests/parallel/test_mesh_model.py CFG, "
-         "flash, f32, bwd kernels on", loss_card=l_gpu, loss_cpu=l_cpu,
+    emit("moe_small" if moe else "train_small",
+         config=("tests/parallel/test_moe_model.py CFG" if moe else
+                 "tests/parallel/test_mesh_model.py CFG")
+         + ", flash, f32, bwd kernels on", loss_card=l_gpu, loss_cpu=l_cpu,
          grad_max_abs_err=worst, losses_card=s_gpu, losses_cpu=s_cpu,
          launches_card=ran_gpu, tol=SMALL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family
+# ---------------------------------------------------------------------------
+
+def phase_moe_layer(card, moe_np):
+    """One full-width bf16 MoE layer (the training batch's 16 × 1024
+    tokens of 2048, layer 0's gate and 8 experts in f32 as training holds
+    them): the index dispatch and combine against the one-hot einsum
+    plain version, forward and backward, bit for bit, with the routing
+    of both recorded; then each part timed."""
+    import torch
+
+    from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
+    from ompi_tpu_torch.parallel import moe as M
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    B, T, D = TRAIN["batch"], TRAIN["seq"], FLAGSHIP["d_model"]
+    E, F = MOE["moe_experts"], FLAGSHIP["d_ff"]
+    comm = DeviceCommunicator(make_mesh({"ep": 1}, device=DEVICE), ("ep",))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    x = torch.randn((B, T, D), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    g = torch.randn((B, T, D), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    p = {k: torch.from_numpy(moe_np[k][0]).to(DEVICE) for k in
+         ("wg", "w1", "w2")}
+    n_tok = B * T
+    C = M.capacity_for(n_tok, E, MOE["moe_capacity_factor"])
+
+    def layer(onehot):
+        xl = x.detach().requires_grad_(True)
+        pl = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        with M.recording() as rec:
+            y, aux = M.switch_moe(comm, xl, pl, with_aux=True,
+                                  onehot=onehot)
+        grads = torch.autograd.grad((y * g).sum() + aux,
+                                    [xl, pl["wg"], pl["w1"], pl["w2"]])
+        return y.detach(), aux.detach(), grads, rec[0]
+
+    y_i, aux_i, g_i, rec_i = layer(False)
+    y_o, aux_o, g_o, rec_o = layer(True)
+    torch.cuda.synchronize()
+    check(torch.equal(rec_i["load"], rec_o["load"]),
+          "the two forms routed differently")
+    check(bool(torch.isfinite(y_i.float()).all()), "non-finite MoE output")
+    same = {"y": torch.equal(y_i, y_o), "aux": torch.equal(aux_i, aux_o)}
+    for name, a, b in zip(("x", "wg", "w1", "w2"), g_i, g_o):
+        same[f"grad_{name}"] = torch.equal(a, b)
+    check(all(same.values()), f"index vs one-hot differ: {same}")
+    routing = routing_stats([rec_i])
+    del y_o, g_o, g_i
+
+    # each part alone, then the layer, in both forms
+    xf = x.reshape(n_tok, D)
+    r = M.route(xf, p["wg"], C)
+    send = M.dispatch(xf, r)
+    recv = send.reshape(1, E, C, D)
+    w1, w2 = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
+    out = M.expert_ffn(recv, w1, w2).reshape(E, C, D)
+    ms = {
+        "route": cuda_ms(lambda: M.route(xf, p["wg"], C)),
+        "dispatch_index": cuda_ms(lambda: M.dispatch(xf, r)),
+        "dispatch_onehot": cuda_ms(lambda: M.dispatch_onehot(xf, r),
+                                   iters=5),
+        "combine_index": cuda_ms(lambda: M.combine(out, r)),
+        "combine_onehot": cuda_ms(lambda: M.combine_onehot(out, r),
+                                  iters=5),
+        "expert_ffn": cuda_ms(lambda: M.expert_ffn(recv, w1, w2), iters=5),
+        "layer_fwd_bwd_index": cuda_ms(lambda: layer(False), iters=3,
+                                       warmup=1),
+        "layer_fwd_bwd_onehot": cuda_ms(lambda: layer(True), iters=3,
+                                        warmup=1),
+    }
+    # least times: dispatch and combine move n_tok + E·C rows of D bf16
+    # (each read once, each written once); the expert FFN's two products
+    # over the E·C slots, capacity padding included
+    moved = (n_tok + E * C) * D * 2
+    ffn_flops = 2 * 2 * E * C * D * F
+    emit("moe_layer", shape=[B, T, D], experts=E, capacity=C,
+         dtype="bfloat16", bitwise_equal=same, routing=routing,
+         aux=aux_i.item(), ms=ms,
+         bound_ms={"dispatch": bound(moved, 0, BF16_FLOPS)[0],
+                   "combine": bound(moved, 0, BF16_FLOPS)[0],
+                   "expert_ffn": bound(
+                       (E * C * D * 2 + 2 * E * D * F) * 2, ffn_flops,
+                       BF16_FLOPS)[0]},
+         card=card)
+
+
+def phase_moe_train(fa, card, moe_np):
+    """The MoE family at the flagship's widths training 8 steps at world
+    size 1 (the ep exchange elided), as phase train: the first step's
+    loss and every gradient leaf against the plain-attention path, the
+    launch counts of an 8-step loop, step time, tokens/s, MFU by the
+    ACTIVE parameters, peak memory and a profiled step split by part."""
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.models.data import ArraySource, train_stream
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   make_train_loop,
+                                                   make_train_step)
+    from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.parallel import moe as moe_mod
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = TransformerConfig(**FLAGSHIP, **MOE, seq=TRAIN["seq"],
+                            attention="flash", compute_dtype="bfloat16",
+                            remat="dots", ce_chunk=TRAIN["ce_chunk"])
+    batch, steps, lr = TRAIN["batch"], 8, 1e-3
+    L, D, E = cfg.n_layers, cfg.d_model, cfg.moe_experts
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
+    corpus = (np.arange(32_768) * 2654435761 % cfg.vocab).astype(np.int32)
+    stream = train_stream(ArraySource(corpus, seed=0), mesh, batch, cfg.seq)
+    tokens = next(stream)
+    stream.close()
+    var_registry.set("ops_flash_bwd_kernel", True)
+    torch.cuda.empty_cache()
+    params = from_jax_params(moe_np, cfg, DEVICE, train=True, mesh=mesh)
+    n_params = sum(p.numel() for p in params.values())
+    n_expert = params["w1"].numel() + params["w2"].numel()
+    n_active = n_params - n_expert + n_expert // E
+
+    # ---- the first step's loss and gradients: kernels vs plain path,
+    # the plain path routed as the kernels' (its recompute calls too) ----
+    zero_counts(fa)
+    with moe_mod.recording() as routes:
+        loss_k, grads_k = value_and_grad(cfg, mesh, params, tokens)
+    torch.cuda.synchronize()
+    first = counts(fa)
+    check(first == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L},
+          f"launches in one value_and_grad: {first}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+          "non-finite first-step gradient")
+    routing = routing_stats(routes[:L])
+    with moe_mod.replaying(routes):
+        loss_x, grads_x = value_and_grad(
+            dataclasses.replace(cfg, attention="xla"), mesh, params, tokens)
+    del routes
+    rel = {k: ((grads_x[k].float() - grads_k[k].float()).norm()
+               / grads_k[k].float().norm()).item() for k in grads_k}
+    del grads_x, grads_k
+    agree = {"loss": loss_x, "loss_rel_diff": abs(loss_x - loss_k)
+             / abs(loss_k), "grad_rel_l2_max": max(rel.values()),
+             "grad_rel_l2": rel, "routing": "replayed from the kernels' path"}
+    check(agree["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
+          f"xla: first-step loss {loss_x} vs kernels {loss_k}")
+    check(agree["grad_rel_l2_max"] <= TRAIN_GRAD_RL2,
+          f"xla: gradient rel L2 {rel}")
+
+    # ---- the main path: a warm-up step, then an 8-step train loop ----
+    step, init_opt = make_train_step(cfg, mesh, lr=lr)
+    loop, _ = make_train_loop(cfg, mesh, lr=lr, steps=steps)
+    opt_state = init_opt(params)
+    params, opt_state, warm_loss = step(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    zero_counts(fa)
+    a.record()
+    params, opt_state, losses = loop(params, opt_state, tokens)
+    b.record()
+    b.synchronize()
+    launches = counts(fa)
+    ms = a.elapsed_time(b) / steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = losses.cpu().numpy()
+    check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == {"flash_fwd": 2 * L * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          f"launches in {steps} steps: {launches}")
+    n_tok = batch * cfg.seq
+    flops_per_token = 6 * n_active + 12 * L * D * cfg.seq
+    tflops = flops_per_token * n_tok / (ms / 1e3) / 1e12
+    window = profile_window(lambda: step(params, opt_state, tokens),
+                            moe=True)
+    var_registry.set("ops_flash_bwd_kernel", False)
+    emit("moe_train", config="flagship MoE 8 experts (2.35B, 468M active), "
+         "bench.py MFU widths, flash forward and backward kernels",
+         n_params=n_params, n_active=n_active, batch=batch, seq=cfg.seq,
+         remat=cfg.remat, ce_chunk=cfg.ce_chunk, lr=lr, steps=steps,
+         launches=launches, launches_per_step={
+             k: v // steps for k, v in launches.items()},
+         first_step_loss=loss_k, first_step_agreement={"xla": agree},
+         first_step_routing=routing,
+         warmup_loss=float(warm_loss), losses=losses.tolist(),
+         step_ms=ms, tokens_per_s=n_tok / (ms / 1e3), model_tflops=tflops,
+         mfu_active=tflops * 1e12 / BF16_FLOPS, peak_mem_gib=peak_gib,
+         profiled_step=window, card=card)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1804,6 +2144,13 @@ def main() -> int:
     run("cache", phase_cache, fa)
     train = run("train", phase_train, fa, card, params_np)
     run("train_small", phase_train_small, fa)
+    del params_np
+    moe_np = run("moe_params", flagship_params, True)
+    run("moe_layer", phase_moe_layer, card, moe_np)
+    moe_decode = run("moe_decode", phase_decode, fa, card, moe_np, True)
+    moe_train = run("moe_train", phase_moe_train, fa, card, moe_np)
+    del moe_np
+    run("moe_small", phase_train_small, fa, True)
     run("collectives", phase_collectives, card)
     check(all(v > 0 for v in rma_launches.values()),
           f"a one-sided kernel never ran on the rma_ranks path: "
@@ -1813,10 +2160,12 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
          "launches": decode_launches + train["flash_fwd"]
-         + ring["flash_fwd"],
+         + ring["flash_fwd"] + moe_decode + moe_train["flash_fwd"],
          "launches_by_path": {"decode": decode_launches,
                               "train": train["flash_fwd"],
-                              "ring": ring["flash_fwd"]},
+                              "ring": ring["flash_fwd"],
+                              "moe_decode": moe_decode,
+                              "moe_train": moe_train["flash_fwd"]},
          **fwd, "ok": True},
     ]
     for part, line in (("dq", 173), ("dkv", 215)):
@@ -1825,8 +2174,9 @@ def main() -> int:
             "name": key, "route": "cuda", "source": src + "flash_bwd.cu",
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line} "
                         f"(_bwd_{part}_kernel)",
-            "launches": train[key] + ring[key],
-            "launches_by_path": {"train": train[key], "ring": ring[key]},
+            "launches": train[key] + ring[key] + moe_train[key],
+            "launches_by_path": {"train": train[key], "ring": ring[key],
+                                 "moe_train": moe_train[key]},
             **bwd[part], "ok": True})
     for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
         kernels.append({

@@ -54,6 +54,8 @@ _LAZY = {
     "train_stream": ("ompi_tpu_torch.models.data", "train_stream"),
     "from_jax_params": ("ompi_tpu_torch.models.weights", "from_jax_params"),
     "to_numpy_params": ("ompi_tpu_torch.models.weights", "to_numpy_params"),
+    "switch_moe": ("ompi_tpu_torch.parallel.moe", "switch_moe"),
+    "moe_params": ("ompi_tpu_torch.parallel.moe", "moe_params"),
 }
 
 __all__ = sorted(_LAZY)

@@ -6,6 +6,12 @@ the card), the first new token comes from the prefill logits, then
 ``max_new - 1`` single-token steps run against the cache.  Greedy argmax
 over the full vocab by default; ``temperature > 0`` samples, optionally
 truncated to the ``top_k`` highest logits.  Decode requires sp == 1.
+
+MoE configs route each generated token through the same ep-sharded
+switch as training.  The switch's capacity is computed per call, so a
+cached step computes it from its B tokens: under a binding capacity the
+drop pattern can differ from a full forward's, as in the JAX package;
+the two agree exactly when capacity does not bind.
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ import torch
 
 from ompi_tpu_torch.models import transformer as tfm
 from ompi_tpu_torch.models.transformer import (TransformerConfig,
-                                               _dense_ffn_tail, _rmsnorm,
+                                               _dense_ffn_tail,
+                                               _moe_ffn_tail, _rmsnorm,
                                                _rope)
 from ompi_tpu_torch.parallel.layers import column_parallel, row_parallel
 
@@ -49,6 +56,8 @@ def _step_layer(cfg: TransformerConfig, comm, lp, h, kc, vc, pos: int,
     o = torch.einsum("bhqk,bkhd->bqhd", w, vc.to(f32))
     o = o.to(cdt).reshape(B, 1, hl * hd)
     h = h + row_parallel(o, lp["wo"].to(cdt), comm, axis="tp")
+    if cfg.moe_experts:
+        return _moe_ffn_tail(cfg, h, lp, comm)[0]  # aux: training only
     return _dense_ffn_tail(h, lp, comm, cdt)
 
 
@@ -80,13 +89,14 @@ def make_decoder(cfg: TransformerConfig, mesh, max_new: int,
                          f"got {top_k}")
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
-    tfm.check_supported(cfg)
+    tfm.check_mesh(cfg, mesh)
     dev = resolve_device(mesh.device)
     tfm.full_f32_matmuls()
     axes = tuple(a for a in ("dp", "sp", "tp", "ep")
                  if a in mesh.axis_names)
     comm = DeviceCommunicator(mesh, axes)
     cdt = tfm.torch_dtype(cfg.compute_dtype)
+    keys = tfm.layer_keys(cfg)
 
     def pick(logits, gen):
         """Next token from (B, V) f32 logits."""
@@ -132,7 +142,7 @@ def make_decoder(cfg: TransformerConfig, mesh, max_new: int,
         for pos in range(Tp, Tmax - 1):
             h = params["emb"][tok].to(cdt)[:, None, :]        # (B, 1, D)
             for i in range(cfg.n_layers):
-                lp = {key: params[key][i] for key in tfm.LAYER_KEYS}
+                lp = {key: params[key][i] for key in keys}
                 h = _step_layer(cfg, comm, lp, h, kc[i], vc[i], pos,
                                 positions)
             h = _rmsnorm(h, params["lnf"])

@@ -17,7 +17,10 @@ the port keeps its own copy of those semantics, on dicts of tensors:
   before the increment, as ``scale_by_schedule`` does.
 
 ``count`` lives on the CPU, so a schedule reads it without a device
-sync; the moments live beside the parameters.
+sync; the moments live beside the parameters.  ``update`` returns a new
+state, as optax does; ``update_`` writes the new moments into the
+state's own tensors instead (the counterpart of the JAX package's
+donated buffers), so a training step holds one set of moments, not two.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ class AdamWState:
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """``init(params) → AdamWState``; ``update(grads, state, params) →
-    (updates, state)``, updates to be added to the parameters."""
+    (updates, state)``, updates to be added to the parameters; ``update_``
+    the same with the state updated in place."""
 
     lr: Union[float, Callable[[int], Any]]
     b1: float = 0.9
@@ -67,6 +71,12 @@ class AdamW:
             nu={k: torch.zeros_like(p) for k, p in params.items()})
 
     def update(self, grads: dict, state: AdamWState, params: dict):
+        fresh = AdamWState(count=state.count.clone(),
+                           mu={k: t.clone() for k, t in state.mu.items()},
+                           nu={k: t.clone() for k, t in state.nu.items()})
+        return self.update_(grads, fresh, params)
+
+    def update_(self, grads: dict, state: AdamWState, params: dict):
         b1, b2 = self.b1, self.b2
         n = int(state.count) + 1
         # 1 - decay**count in f32, as optax's bias correction
@@ -74,25 +84,28 @@ class AdamW:
         bc2 = float(1 - np.float32(b2) ** np.float32(n))
         lr = self.lr(int(state.count)) if callable(self.lr) else self.lr
         step = -float(lr)
-        updates, mu, nu = {}, {}, {}
+        updates = {}
         with torch.no_grad():
             for k, g in grads.items():
                 # optax's ``b1 * mu`` takes the Python float in mu's stored
                 # dtype (JAX weak typing: b1 = 0.8984375 for a bf16 mu);
                 # the product itself stays f32, as XLA fuses it in the
-                # jitted step
-                mu_k = state.mu[k]
+                # jitted step.  In place, each product and sum rounds as
+                # in ``(1 - b1) * g + b1_k * mu`` (a sum commutes exactly)
+                mu_k, nu_k = state.mu[k], state.nu[k]
                 b1_k = float(torch.tensor(b1, dtype=mu_k.dtype))
-                m = (1 - b1) * g + b1_k * mu_k.to(g.dtype)
-                v = (1 - b2) * (g * g) + b2 * state.nu[k]
+                if mu_k.dtype == g.dtype:
+                    m = mu_k.mul_(b1_k).add_(g * (1 - b1))
+                else:
+                    m = (1 - b1) * g + b1_k * mu_k.to(g.dtype)
+                    mu_k.copy_(m)               # rounds to mu's dtype
+                v = nu_k.mul_(b2).add_((g * g).mul_(1 - b2))
                 u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
                 u = u + self.weight_decay * params[k]
                 updates[k] = step * u
-                mu[k] = m.to(self._mu_dtype(params[k]))
-                nu[k] = v
-        count = torch.tensor(min(n, np.iinfo(np.int32).max),
-                             dtype=torch.int32)
-        return updates, AdamWState(count=count, mu=mu, nu=nu)
+        state.count = torch.tensor(min(n, np.iinfo(np.int32).max),
+                                   dtype=torch.int32)
+        return updates, state
 
 
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,

@@ -16,8 +16,13 @@ shard (``shard_tokens``) and its tp blocks of the parameters
 Sequence parallelism runs ring, Ulysses or gathered attention, tensor
 parallelism Megatron's column/row pair, and the gradients are summed
 over dp × sp in the step, so the loss, the gradients and the step equal
-the one-device run's.  The MoE family comes in a later slice
-(ROADMAP.md).
+the one-device run's.
+
+The MoE family (``moe_experts > 0``) replaces every layer's dense FFN
+with the switch MoE of ``parallel.moe``, its experts sharded over the
+mesh's ``ep`` axis (replicated when there is none; tp ranks replicate
+the expert compute), and adds ``moe_aux_weight`` times the mean balance
+loss to the training loss.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ompi_tpu_torch.parallel.collectives import group_size, sum_forward
 from ompi_tpu_torch.parallel.layers import (column_parallel, row_parallel,
                                             tp_input)
 from ompi_tpu_torch.parallel.mesh import local_block
+from ompi_tpu_torch.parallel.moe import EXPERT_KEYS, switch_moe
 
 __all__ = ["TransformerConfig", "init_params", "param_specs",
            "shard_tokens", "make_forward", "make_loss_fn",
@@ -112,17 +118,30 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     return params
 
 
-def param_specs() -> dict:
+def layer_keys(cfg: TransformerConfig) -> tuple:
+    """The stacked per-layer leaves: the MoE family adds its gate."""
+    return LAYER_KEYS + ("wg",) if cfg.moe_experts else LAYER_KEYS
+
+
+def param_specs(cfg: TransformerConfig = None, mesh=None) -> dict:
     """Each leaf's ``PartitionSpec``-like tuple, as the JAX package's
-    ``param_specs``: the attention and FFN weights tp-sharded Megatron
-    style (wq/wk/wv/w1 along their last dimension, wo/w2 along the
-    middle one), everything else replicated (``()``).  A rank holds the
-    block of each leaf at its tp coordinate (``parallel.mesh.local_block``).
-    """
+    ``param_specs``: the attention weights tp-sharded Megatron style
+    (wq/wk/wv along their last dimension, wo along the middle one), the
+    dense FFN likewise (w1 as wq, w2 as wo), the MoE experts (w1/w2 of
+    shape (L, E, ., .)) sharded over ``ep`` along E when the mesh has an
+    ``ep`` axis and replicated otherwise (never over tp), everything else
+    replicated (``()``).  A rank holds the block of each leaf at its
+    coordinates (``parallel.mesh.local_block``)."""
     col, row = (None, None, "tp"), (None, "tp", None)
-    return {"emb": (), "lnf": (), "ln1": (), "ln2": (),
-            "wq": col, "wk": col, "wv": col, "wo": row,
-            "w1": col, "w2": row}
+    specs = {"emb": (), "lnf": (), "ln1": (), "ln2": (),
+             "wq": col, "wk": col, "wv": col, "wo": row}
+    if cfg is not None and cfg.moe_experts:
+        has_ep = mesh is not None and "ep" in mesh.axis_names
+        experts = (None, "ep", None, None) if has_ep else ()
+        specs.update(wg=(), w1=experts, w2=experts)
+    else:
+        specs.update(w1=col, w2=row)
+    return specs
 
 
 def shard_tokens(tokens, mesh):
@@ -132,11 +151,12 @@ def shard_tokens(tokens, mesh):
     return local_block(tokens, mesh, ("dp", "sp"))
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE configs need the ep all_to_all; they come with the MoE "
-            "slice (ROADMAP.md queue 1 item 4)")
+def check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """An MoE config's experts must split evenly over the ``ep`` axis."""
+    ep = int(mesh.shape.get("ep", 1))
+    if cfg.moe_experts and cfg.moe_experts % ep:
+        raise ValueError(f"moe_experts {cfg.moe_experts} is not divisible "
+                         f"by the mesh's ep axis ({ep})")
 
 
 def full_f32_matmuls() -> None:
@@ -173,6 +193,19 @@ def _dense_ffn_tail(h, lp, comm, cdt):
     x = tp_input(_rmsnorm(h, lp["ln2"]), comm, axis="tp")
     y = F.gelu(column_parallel(x, lp["w1"].to(cdt)), approximate="tanh")
     return h + row_parallel(y, lp["w2"].to(cdt), comm, axis="tp")
+
+
+def _moe_ffn_tail(cfg, h, lp, comm):
+    """Post-attention half of the MoE layer: ln2 → the ep-sharded switch
+    → residual (shared by the backbone and the cached decode step).
+    Returns (h, aux).  h is replicated over tp after the row-parallel
+    sum and every tp rank runs the whole switch on it, so no tp_input:
+    each rank's gradient of h is already the whole one."""
+    x = _rmsnorm(h, lp["ln2"])
+    mo, aux = switch_moe(comm, x, {k: lp[k] for k in ("wg", "w1", "w2")},
+                         axis="ep", capacity_factor=cfg.moe_capacity_factor,
+                         with_aux=True)
+    return h + mo, aux
 
 
 def _attend(cfg, comm, q, k, v):
@@ -222,14 +255,14 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
     """Forward through the final rmsnorm (everything but the unembed).
 
     tokens: (B/dp, S/sp) int64, this rank's shard.  Returns (h (B/dp,
-    S/sp, D) compute dtype, aux), aux the (zero) MoE balance loss.  With
-    ``collect_kv`` returns (h, (aux, k, v)) where k/v are the post-rope
-    per-layer attention inputs stacked (L, B, T, H/tp, hd), the KV-cache
-    prefill.  Rope takes the global positions sp_idx·T + t.  Under
-    autograd each layer runs under ``cfg.remat``; its recompute reruns
-    the layer's collectives, in the same order on every rank.
+    S/sp, D) compute dtype, aux), aux the MoE balance loss summed over
+    the layers (zero for a dense config).  With ``collect_kv`` returns
+    (h, (aux, k, v)) where k/v are the post-rope per-layer attention
+    inputs stacked (L, B, T, H/tp, hd), the KV-cache prefill.  Rope takes
+    the global positions sp_idx·T + t.  Under autograd each layer runs
+    under ``cfg.remat``; its recompute reruns the layer's collectives, in
+    the same order on every rank.
     """
-    check_supported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     tp = int(comm.mesh.shape["tp"])
     h_local = cfg.n_heads // tp
@@ -248,25 +281,31 @@ def _local_backbone(cfg: TransformerConfig, comm, params, tokens,
         k = _rope(k, positions)
         o = _attend(cfg, comm, q, k, v).reshape(B, t, h_local * hd)
         h = h + row_parallel(o, lp["wo"].to(cdt), comm, axis="tp")
-        return _dense_ffn_tail(h, lp, comm, cdt), k, v
+        if cfg.moe_experts:
+            h, aux = _moe_ffn_tail(cfg, h, lp, comm)
+            return h, k, v, aux
+        return _dense_ffn_tail(h, lp, comm, cdt), k, v, None
 
     if torch.is_grad_enabled() and not collect_kv:
         layer_fn = _remat(cfg, layer)
     else:
         layer_fn = layer
     h = params["emb"][tokens].to(cdt)  # (b, t, D)
+    keys = layer_keys(cfg)
     # one unbind per stacked leaf: its backward stacks the L layers'
     # gradients at once (indexing would add L full-size zero-padded ones)
-    stacked = {key: params[key].unbind(0) for key in LAYER_KEYS}
+    stacked = {key: params[key].unbind(0) for key in keys}
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        lp = {key: stacked[key][i] for key in LAYER_KEYS}
-        h, k, v = layer_fn(h, lp)
+        lp = {key: stacked[key][i] for key in keys}
+        h, k, v, layer_aux = layer_fn(h, lp)
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if collect_kv:
             ks.append(k)
             vs.append(v)
     h = _rmsnorm(h, params["lnf"])
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if collect_kv:
         return h, (aux, torch.stack(ks), torch.stack(vs))
     return h, aux
@@ -406,8 +445,14 @@ def _local_loss(cfg: TransformerConfig, comm, params, tokens):
     loss = Σ_{dp,sp} local_sum / Σ_{dp,sp} count.  The numerator's sum
     is the identity in the backward, so each rank differentiates its own
     contribution and the step sums the gradients over dp × sp; the count
-    is known on the host (every shard has the same shape)."""
-    check_supported(cfg)
+    is known on the host (every shard has the same shape).
+
+    An MoE config adds ``moe_aux_weight`` times the balance loss averaged
+    over the ranks, as the JAX package's ``psum(aux, axes) / size``.  The
+    tp and ep ranks of a (dp, sp) coordinate hold the same tokens and so
+    the same aux, so that mean is the mean over dp × sp, whose sum is the
+    identity in the backward as the numerator's: summed over dp × sp,
+    each rank's share of the gradient gives the mean's."""
     B, T = tokens.shape
     sp, dp = int(comm.mesh.shape["sp"]), int(comm.mesh.shape["dp"])
     first = tokens[:, :1]
@@ -417,22 +462,25 @@ def _local_loss(cfg: TransformerConfig, comm, params, tokens):
         T, device=tokens.device)
     weight = (positions < cfg.seq - 1).to(torch.float32)[None, :]
     if cfg.ce_chunk and T % cfg.ce_chunk == 0:
-        h, _aux = _local_backbone(cfg, comm, params, tokens)
+        h, aux = _local_backbone(cfg, comm, params, tokens)
         local_sum = _chunked_nll_sum(cfg, h, params["emb"], labels,
                                      weight.expand(B, T))
     else:
-        logits, _aux = _local_forward(cfg, comm, params, tokens)
+        logits, aux = _local_forward(cfg, comm, params, tokens)
         logprobs = torch.log_softmax(logits, dim=-1)
         nll = -logprobs.gather(-1, labels[..., None])[..., 0]
         local_sum = (nll * weight).sum()
     count = B * dp * max(0, min(sp * T, cfg.seq - 1))
-    return sum_forward(comm, local_sum, ("dp", "sp")) / count
+    if not cfg.moe_experts:
+        return sum_forward(comm, local_sum, ("dp", "sp")) / count
+    both = sum_forward(comm, torch.stack([local_sum, aux]), ("dp", "sp"))
+    return both[0] / count + cfg.moe_aux_weight * (both[1] / (dp * sp))
 
 
 def _comm_for(cfg: TransformerConfig, mesh):
     from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
 
-    check_supported(cfg)
+    check_mesh(cfg, mesh)
     full_f32_matmuls()
     axes = tuple(a for a in ("dp", "sp", "tp", "ep")
                  if a in mesh.axis_names)
@@ -468,8 +516,8 @@ def _make_loss_and_grads(cfg: TransformerConfig, mesh):
     pass, or ``grad_accum`` microbatches in turn with the grads summed in
     f32, then every leaf's gradient summed over dp × sp once
     (:func:`_sum_grads`, the counterpart of the JAX package's AD
-    transpose of the replicated in_specs); tp-sharded leaves keep their
-    local block."""
+    transpose of the replicated in_specs); tp- and ep-sharded leaves keep
+    their local block."""
     loss_fn = make_loss_fn(cfg, mesh)
     comm = _comm_for(cfg, mesh)
     accum = int(cfg.grad_accum)
@@ -509,7 +557,7 @@ def _make_loss_and_grads(cfg: TransformerConfig, mesh):
 
     def loss_and_grads(params, tokens):
         loss, grads = local_loss_and_grads(params, tokens)
-        return loss, _sum_grads(comm, grads)
+        return loss, _sum_grads(comm, _count_experts_once(cfg, comm, grads))
 
     return loss_and_grads
 
@@ -526,8 +574,9 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
     dp × sp once a step after any accumulation.  With ``zero1_axis`` the
     optimizer state is sharded over that axis (``parallel.zero``).
 
-    The params are updated in place (the counterpart of the JAX package's
-    donated buffers: no second copy of the model) and returned."""
+    The params and the optimizer's moments are updated in place (the
+    counterpart of the JAX package's donated buffers: no second copy of
+    the model or of its Adam state) and returned."""
     from ompi_tpu_torch.models.optim import adamw
 
     loss_and_grads = _make_loss_and_grads(cfg, mesh)
@@ -540,7 +589,7 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
         from ompi_tpu_torch.parallel.zero import zero1_wrap
 
         z_init, z_update = zero1_wrap(opt, mesh, cfg.zero1_axis,
-                                      param_specs())
+                                      param_specs(cfg, mesh))
 
         def body(params, opt_state, tokens):
             loss, grads = loss_and_grads(params, tokens)
@@ -552,7 +601,7 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
     if store is None:
         def body(params, opt_state, tokens):
             loss, grads = loss_and_grads(params, tokens)
-            updates, opt_state = opt.update(grads, opt_state, params)
+            updates, opt_state = opt.update_(grads, opt_state, params)
             with torch.no_grad():
                 for k, u in updates.items():
                     params[k].add_(u)
@@ -569,7 +618,7 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
         g32 = {k: g.to(f32) for k, g in grads.items()}
         del grads
         master = opt_state["master"]
-        updates, inner = opt.update(g32, opt_state["opt"], master)
+        updates, inner = opt.update_(g32, opt_state["opt"], master)
         with torch.no_grad():
             for k, u in updates.items():
                 master[k].add_(u)
@@ -577,6 +626,18 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
         return params, {"opt": inner, "master": master}, loss
 
     return body, master_init
+
+
+def _count_experts_once(cfg: TransformerConfig, comm, grads: dict) -> dict:
+    """The expert leaves' gradients divided by the ep size.  The ep ranks
+    of a (dp, sp) coordinate hold the same tokens and each differentiates
+    the whole loss, so in the backward every rank sends each expert's
+    owner the same cotangent block: the owner's w1/w2 gradient sums ep
+    equal copies.  The other leaves see their tokens once on every rank."""
+    ep = group_size(comm, ("ep",))
+    if not cfg.moe_experts or ep == 1:
+        return grads
+    return {k: g / ep if k in EXPERT_KEYS else g for k, g in grads.items()}
 
 
 def _sum_grads(comm, grads: dict) -> dict:

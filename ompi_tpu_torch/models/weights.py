@@ -12,10 +12,11 @@ float32, or bfloat16 under ``cfg.param_dtype = "bfloat16"`` (rounded to
 nearest even, as ``ml_dtypes`` does).  ``to_numpy_params`` gives the f32
 numpy dict back, to compare with the JAX package's.
 
-On a mesh with tp > 1 (``mesh=``), a rank keeps the block of each
-tp-sharded leaf at its tp coordinate (``transformer.param_specs``), and
-``to_numpy_params(..., mesh=)`` gathers the blocks back over the tp
-ranks (a ``DeviceCommunicator`` allgather) into whole leaves.
+On a mesh (``mesh=``), a rank keeps the block of each sharded leaf at
+its coordinates (``transformer.param_specs``: tp blocks of the attention
+and dense FFN weights, ep blocks of the MoE experts), and
+``to_numpy_params(..., mesh=)`` gathers the blocks back over those axes
+(a ``DeviceCommunicator`` allgather) into whole leaves.
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ def from_jax_params(params: dict, cfg: TransformerConfig, device="cuda",
                     train: bool = False, mesh=None) -> dict:
     """numpy parameter dict → the port's dict of tensors on ``device``
     (serving dtypes, or trainable storage-dtype leaves with ``train``);
-    with ``mesh``, each leaf cut to this rank's tp block."""
+    with ``mesh``, each leaf cut to this rank's tp or ep block."""
     dev = resolve_device(device)
     if mesh is not None:
-        specs = param_specs()
+        specs = param_specs(cfg, mesh)
         params = {name: local_block(np.asarray(arr), mesh,
                                     specs.get(name, ()))
                   for name, arr in params.items()}
@@ -67,16 +68,21 @@ def from_jax_params(params: dict, cfg: TransformerConfig, device="cuda",
 
 def to_numpy_params(params: dict, mesh=None) -> dict:
     """The port's tensors → a dict of float32 numpy arrays on the host;
-    with ``mesh``, the tp blocks gathered over the tp ranks into whole
-    leaves (every rank of the tp group makes the call)."""
+    with ``mesh``, the tp and ep blocks gathered over their ranks into
+    whole leaves (every rank of the mesh makes the call).  A dict with
+    the gate leaf ``wg`` is the MoE family's."""
     params = dict(params)
-    if mesh is not None and int(mesh.shape.get("tp", 1)) > 1:
+    if mesh is not None:
         from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
 
-        comm = DeviceCommunicator(mesh, ("tp",), name="weights.tp")
-        for name, spec in param_specs().items():
-            if name in params and "tp" in spec:
-                params[name] = comm.allgather(params[name].detach(),
-                                              axis=spec.index("tp"))
+        moe = TransformerConfig(moe_experts=1) if "wg" in params else None
+        for ax in ("tp", "ep"):
+            if int(mesh.shape.get(ax, 1)) == 1:
+                continue
+            comm = DeviceCommunicator(mesh, (ax,), name=f"weights.{ax}")
+            for name, spec in param_specs(moe, mesh).items():
+                if name in params and ax in spec:
+                    params[name] = comm.allgather(params[name].detach(),
+                                                  axis=spec.index(ax))
     return {name: t.detach().to(torch.float32).cpu().numpy()
             for name, t in params.items()}

@@ -9,9 +9,9 @@ are all-gathered over the axis into the live parameters.
 Each leaf is flattened and padded to a multiple of n, and rank c of the
 axis owns the c-th of its n equal parts.  A leaf that the axis already
 shards (a tp block under ZeRO over tp) is kept whole: its local block is
-already 1/n of the leaf.  A tp-sharded leaf is flattened as its local tp
-block, so the live parameters keep their tp sharding, as the JAX
-package's regather to ``param_specs`` does.  The parts of all leaves
+already 1/n of the leaf.  A tp- or ep-sharded leaf is flattened as its
+local block, so the live parameters keep their tp and ep shardings, as
+the JAX package's regather to ``param_specs`` does.  The parts of all leaves
 travel in one all-gather a step.
 """
 
@@ -46,8 +46,8 @@ def zero1_wrap(opt, mesh, axis: str, specs: dict):
 
     ``grads`` are the gradients summed over the data-parallel ranks;
     ``specs`` maps every leaf to its ``PartitionSpec``-like tuple
-    (``transformer.param_specs()``; a leaf whose spec names ``axis`` is
-    kept whole).
+    (``transformer.param_specs(cfg, mesh)``; a leaf whose spec names
+    ``axis`` is kept whole).
     """
     from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator
 
@@ -75,7 +75,7 @@ def zero1_wrap(opt, mesh, axis: str, specs: dict):
     def update(grads: dict, opt_state: dict, params: dict) -> dict:
         g = {k: mine(k, grads[k]) for k in grads}
         master = opt_state["master"]
-        updates, inner = opt.update(g, opt_state["opt"], master)
+        updates, inner = opt.update_(g, opt_state["opt"], master)
         with torch.no_grad():
             for k, u in updates.items():
                 master[k].add_(u)

@@ -134,12 +134,6 @@ def test_decode_rejects_sp_and_missing_axes():
                      max_new=2)
 
 
-def test_moe_decode_raises_until_the_moe_slice():
-    cfg = dataclasses.replace(CFG, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        make_decoder(cfg, _mesh(), max_new=2)
-
-
 @pytest.mark.gpu
 def test_cached_decode_through_the_kernel_on_the_card():
     if not torch.cuda.is_available():

@@ -53,6 +53,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.parallel.mesh",
                 "ompi_tpu_torch.parallel.collectives",
                 "ompi_tpu_torch.parallel.zero",
+                "ompi_tpu_torch.parallel.moe",
                 "ompi_tpu_torch.models.decode",
                 "ompi_tpu_torch.models.weights",
                 "ompi_tpu_torch.models.transformer",

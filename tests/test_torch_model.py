@@ -144,13 +144,6 @@ def test_bf16_forward_is_finite_and_close_to_f32():
     assert (l16 - l32).abs().max() < 0.1
 
 
-def test_unsupported_options_raise():
-    with pytest.raises(NotImplementedError,
-                       match=r"MoE slice \(ROADMAP.md queue 1 item 4\)"):
-        T.make_forward(T.TransformerConfig(**FIELDS, moe_experts=4),
-                       _tmesh())
-
-
 def _unembed_inputs(seed=4, b=2, t=5):
     """A bf16 config's emb (init_params, numpy seed) and a hidden state
     (b, t, d_model) drawn with numpy, both f32 arrays."""

@@ -126,3 +126,29 @@ def test_weight_decay_reaches_every_leaf():
                       opt.init(p), p)
     assert torch.equal(u["ln1"], torch.full((3,), -0.5))
     assert torch.equal(u["emb"], torch.full((2, 2), -1.0))
+
+
+@pytest.mark.parametrize("mu_dtype", [None, "bfloat16"])
+def test_update_in_place_equals_update_bit_for_bit(mu_dtype):
+    """``update_`` (the train step's: the moments written into the
+    state's own tensors) gives the bits of ``update`` (a new state, the
+    old one untouched) over 5 updates, and returns the state passed."""
+    params, grads = _params_and_grads(seed=1)
+    opt = adamw(1e-3, b1=0.9, b2=0.95, weight_decay=0.01,
+                mu_dtype=mu_dtype)
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    fresh, own = opt.init(p), opt.init(p)
+    for g in grads:
+        g = {k: torch.from_numpy(v) for k, v in g.items()}
+        before = {k: t.clone() for k, t in fresh.mu.items()}
+        u, fresh_next = opt.update(g, fresh, p)
+        for k in before:
+            assert torch.equal(fresh.mu[k], before[k])   # untouched
+        u_, own_next = opt.update_(g, own, p)
+        assert own_next is own
+        fresh = fresh_next
+        for k in u:
+            assert torch.equal(u_[k], u[k])
+            assert torch.equal(own.mu[k], fresh.mu[k])
+            assert torch.equal(own.nu[k], fresh.nu[k])
+        assert int(own.count) == int(fresh.count)

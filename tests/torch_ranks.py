@@ -439,3 +439,38 @@ def stream_batches(corpus, seed, axes, batch, seq, n=2, start_step=0):
         return [to_numpy(next(stream)) for _ in range(n)]
     finally:
         stream.close()
+
+
+# ---------------------------------------------------------------------------
+# rank side of the MoE tests (tests/test_torch_moe*.py)
+# ---------------------------------------------------------------------------
+
+def moe_layer(x, params, g, axes, capacity=None):
+    """``switch_moe`` on this rank's tokens ``x`` with its ep block of the
+    experts, and its VJP with cotangent ``g``: (y, aux, {"x", "wg",
+    "w1", "w2": the local gradients})."""
+    from ompi_tpu_torch.parallel.mesh import local_block
+    from ompi_tpu_torch.parallel.moe import switch_moe
+
+    c = comm(axes)
+    xt = to_torch(x).requires_grad_(True)
+    p = {k: to_torch(np.ascontiguousarray(local_block(
+        params[k], c.mesh, ("ep",) if k != "wg" else ()))
+        ).requires_grad_(True) for k in ("wg", "w1", "w2")}
+    y, aux = switch_moe(c, xt, p, axis="ep", capacity=capacity,
+                        with_aux=True)
+    grads = torch.autograd.grad((y * to_torch(g)).sum(),
+                                [xt, p["wg"], p["w1"], p["w2"]])
+    return to_numpy(y), aux.item(), dict(zip(("x", "wg", "w1", "w2"),
+                                             map(to_numpy, grads)))
+
+
+def decode_tokens(fields, axes, params, prompt, max_new):
+    """Greedy ``make_decoder`` tokens for this rank's dp block of
+    ``prompt``."""
+    from ompi_tpu_torch.models.decode import make_decoder
+    from ompi_tpu_torch.parallel.mesh import local_block
+
+    cfg, m, p = _model(fields, axes, params, train=False)
+    dec = make_decoder(cfg, m, max_new=max_new)
+    return to_numpy(dec(p, local_block(prompt, m, ("dp",))))
