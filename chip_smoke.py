@@ -104,10 +104,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
-16. collectives (last) — ``make_mesh`` on the card with NCCL at world
-   size 1: every device collective on CUDA tensors equals the same call
-   on the one-process CPU communicator;
-17. the ``kernels`` line (6 entries; the flash kernels' launches by
+16. collectives (last but one) — ``make_mesh`` on the card with NCCL at
+   world size 1: every device collective on CUDA tensors equals the same
+   call on the one-process CPU communicator;
+17. mpi_coll (last, on the same NCCL group) — the MPI communicator's
+   device route: a ``Communicator`` bound to the card's
+   ``DeviceCommunicator``; each buffer collective through
+   ``comm.<slot>`` bitwise equal to the direct call at 4 KiB, 64 MiB and
+   256 MiB float32 and 64 MiB bfloat16; the same calls, and a repeated
+   datatype pack, in profiler windows of a fresh spawned process (this
+   one's profiler no longer records copies after the decode phase) that
+   must show one deliberate control copy and no other copy between host
+   and card; the provider tables; the allreduce
+   decision (fixed, forced, rules file; a lossy rules file raises); the
+   refusals (``send`` of a tensor, a CPU tensor); the CUDA support
+   probe; the datatype device pack over 64 MiB against the CPU, timed
+   beside ``index_select``; the flagship's dense gradient set (1.87 GB,
+   10 leaves) summed leaf by leaf through ``comm.allreduce``, bitwise
+   equal to the direct call, timed with its peak memory; the host cost
+   of a 4 KiB ``comm.allreduce`` beside the direct call, and psum against
+   rs_ag at 64 and 256 MiB;
+18. the ``kernels`` line (6 entries; the flash kernels' launches by
    path: decode, train, ring, moe_decode, moe_train), then the card's
    nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
@@ -2017,7 +2034,8 @@ def phase_rma_ranks(card, world: int = RMA_RANKS, shape=RMA_WINDOW,
 def phase_collectives(card):
     """make_mesh on the card with NCCL at world size 1: every device
     collective on CUDA tensors equals the same call on the one-process
-    CPU communicator."""
+    CPU communicator.  Returns the mesh; its process group stays up for
+    phase mpi_coll."""
     import torch
     import torch.distributed as dist
 
@@ -2094,9 +2112,472 @@ def phase_collectives(card):
     torch.cuda.synchronize()
     check(same_bytes(got, x.reshape(-1)[:1024]), "self put/get at world 1")
     symmetric.free(mesh, win)
-    dist.destroy_process_group()
     emit("collectives", backend=backend, world_size=1,
          collectives=sorted(calls), max_abs_err=worst, tol=COLL_TOL,
+         card=card)
+    return mesh
+
+#: phase mpi_coll: the f32 sizes of each buffer collective's check, and a
+#: bf16 one (bytes); the flagship's dense leaves are summed at full size
+MPI_COLL_SIZES = ((4 << 10, "float32"), (64 << 20, "float32"),
+                  (256 << 20, "float32"), (64 << 20, "bfloat16"))
+MPI_DISPATCH_CALLS = 200
+
+
+def flagship_leaf_shapes() -> dict:
+    """Every leaf shape of the flagship dense model (init_params' layout,
+    layers stacked), without drawing it."""
+    from ompi_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    V, D, F_, L = (FLAGSHIP[k] for k in ("vocab", "d_model", "d_ff",
+                                         "n_layers"))
+    shapes = {"emb": (V, D), "wq": (L, D, D), "wk": (L, D, D),
+              "wv": (L, D, D), "wo": (L, D, D), "ln1": (L, D), "ln2": (L, D),
+              "lnf": (D,), "w1": (L, D, F_), "w2": (L, F_, D)}
+    tiny = init_params(TransformerConfig(vocab=8, d_model=8, n_heads=2,
+                                         n_layers=1, d_ff=16))
+    check(set(tiny) == set(shapes), f"flagship leaves {sorted(tiny)}")
+    return shapes
+
+
+def profiler_copies(prof) -> dict:
+    """Device-to-host and host-to-device copies and ``aten::_to_copy``
+    calls in a torch.profiler window."""
+    out = {"dtoh": 0, "htod": 0, "to_copy": 0, "device_events": 0}
+    for e in prof.key_averages():
+        if e.key == "aten::_to_copy":
+            out["to_copy"] += e.count
+        if e.device_type.name != "CUDA":
+            continue
+        out["device_events"] += e.count
+        if "DtoH" in e.key:
+            out["dtoh"] += e.count
+        if "HtoD" in e.key:
+            out["htod"] += e.count
+    return out
+
+
+def host_us(fn, n: int) -> float:
+    """Median host µs of one call of ``fn`` over ``n`` calls, after 20."""
+    for _ in range(20):
+        fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def device_busy_ms(fn, n: int = 10) -> float:
+    """Device time (kernels and copies) of one call of ``fn``, from
+    torch.profiler over ``n`` calls: what the card works, whatever the
+    host's pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / n / 1e3
+
+
+def mpi_slots():
+    """Each buffer collective as (through the route, straight on the
+    DeviceCommunicator); non-commutative allreduce and scan by a 2×2
+    matmul op (at world size 1 it folds nothing)."""
+    import torch
+
+    from ompi_tpu_torch.mpi import op as op_mod
+
+    S = op_mod.SUM
+    matmul = op_mod.create_op(lambda a, b: a @ b, commutative=False,
+                              device_fn=torch.matmul)
+    return {
+        "bcast": (lambda c, x: c.bcast(x, 0), lambda d, x: d.bcast(x, 0)),
+        "reduce": (lambda c, x: c.reduce(x, S, 0),
+                   lambda d, x: d.reduce(x, S, 0)),
+        "allreduce": (lambda c, x: c.allreduce(x),
+                      lambda d, x: d.allreduce(x)),
+        "allreduce_matmul": (lambda c, x: c.allreduce(x, matmul),
+                             lambda d, x: d.allreduce(x, matmul)),
+        "gather": (lambda c, x: c.gather(x, 0), lambda d, x: d.gather(x, 0)),
+        "allgather": (lambda c, x: c.allgather(x),
+                      lambda d, x: d.allgather(x)),
+        "scatter": (lambda c, x: c.scatter(x, 0),
+                    lambda d, x: d.scatter(x, 0)),
+        "alltoall": (lambda c, x: c.alltoall(x), lambda d, x: d.alltoall(x)),
+        "reduce_scatter": (lambda c, x: c.reduce_scatter(x),
+                           lambda d, x: d.reduce_scatter(x, S)),
+        "reduce_scatter_block": (lambda c, x: c.reduce_scatter_block(x),
+                                 lambda d, x: d.reduce_scatter(x, S)),
+        "scan": (lambda c, x: c.scan(x), lambda d, x: d.scan(x, S)),
+        "scan_matmul": (lambda c, x: c.scan(x, matmul),
+                        lambda d, x: d.scan(x, matmul)),
+        "exscan": (lambda c, x: c.exscan(x), lambda d, x: d.exscan(x, S)),
+        "gatherv": (lambda c, x: c.gatherv(x, 0),
+                    lambda d, x: d.gatherv(x, None, 0)),
+        "scatterv": (lambda c, x: c.scatterv(x, 0),
+                     lambda d, x: d.scatterv(x, None, 0)),
+        "allgatherv": (lambda c, x: c.allgatherv(x),
+                       lambda d, x: d.allgatherv(x)),
+        "alltoallv": (lambda c, x: c.alltoallv(x[None]),
+                      lambda d, x: d.alltoallv(x[None])),
+    }
+
+
+def mpi_inputs(dev, gen) -> list:
+    """One (n, 1024) tensor of each of MPI_COLL_SIZES, drawn on ``dev``."""
+    import torch
+
+    out = []
+    for nbytes, dtype in MPI_COLL_SIZES:
+        t = getattr(torch, dtype)
+        n = nbytes // torch.tensor([], dtype=t).element_size()
+        out.append(torch.randn((max(1, n // 1024), 1024), generator=gen,
+                               device=dev).to(t))
+    return out
+
+
+def mpi_vector_type():
+    """Half of every row of a (16384, 1024) float32 tensor."""
+    from ompi_tpu_torch.mpi import datatype as dt_mod
+
+    return dt_mod.FLOAT32.vector(16384, 512, 1024).commit()
+
+
+def mpi_profile_body(port: int, device: str) -> dict:
+    """The profiler windows of phase mpi_coll, in a fresh process (a
+    process's profiler stops recording memcpys after the decode phase's
+    windows, so a zero there would prove nothing): the route's calls at
+    every size with one deliberate device-to-host copy after them, and a
+    repeated pack with one deliberate host-to-device copy; the control
+    must show and nothing else may.  Also the device time of psum and
+    rs_ag a call."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ompi_tpu_torch.mpi.comm import Communicator
+    from ompi_tpu_torch.mpi.group import Group
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+    from ompi_tpu_torch.mpi.device_comm import device_world
+
+    mesh = make_mesh(device=device, rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        dev = mesh.device
+        dc = device_world(mesh)
+        comm = Communicator(Group([0]), cid=0, my_world_rank=0)
+        comm.bind_device(dc)
+        inputs = mpi_inputs(dev, torch.Generator(device=dev).manual_seed(9))
+        slots = mpi_slots()
+        for x in inputs:                      # warm: NCCL's first calls
+            for f, _ in slots.values():
+                f(comm, x)
+        torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            inputs[0].clone()                 # a window may miss its first
+            for x in inputs:
+                for f, _ in slots.values():
+                    f(comm, x)
+            comm.barrier()
+            inputs[0][:1].cpu()               # the control: one DtoH
+            torch.cuda.synchronize()
+        route = profiler_copies(prof)
+        vec = mpi_vector_type()
+        vec.pack_device(inputs[1])
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            inputs[1][:1].clone()
+            vec.pack_device(inputs[1])
+            torch.ones(1).to(dev)             # the control: one HtoD
+            torch.cuda.synchronize()
+        pack = profiler_copies(prof)
+        busy = {label: {"psum_busy_ms": device_busy_ms(
+                            lambda: dc.allreduce(x)),
+                        "rs_ag_busy_ms": device_busy_ms(
+                            lambda: dc.allreduce_rs_ag(x))}
+                for label, x in (("64MiB", inputs[1]),
+                                 ("256MiB", inputs[2]))}
+        return {"route": route, "pack": pack, "busy": busy}
+    finally:
+        dist.destroy_process_group()
+
+
+def mpi_profile_main(port: int, device: str, results) -> None:
+    """Entry of the spawned process of phase mpi_coll."""
+    import traceback
+
+    try:
+        results.put(("ok", mpi_profile_body(port, device)))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put(("err", traceback.format_exc()))
+
+
+def mpi_profiled(timeout: float = 180.0) -> dict:
+    """mpi_profile_body in a spawned process; its result."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=mpi_profile_main,
+                       args=(free_port(), DEVICE, results))
+    proc.start()
+    try:
+        status, value = results.get(timeout=timeout)
+    except queue.Empty:
+        status, value = "err", f"no result in {timeout} s"
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    check(status == "ok", f"mpi_coll's profiled process: {value}")
+    return value
+
+
+def phase_mpi_coll(card, mesh):
+    """The MPI communicator's device route on the card, over the NCCL
+    group of phase collectives (world size 1): ``comm.<slot>`` on CUDA
+    tensors through coll/xla, never through the host."""
+    import tempfile
+
+    import torch
+
+    from ompi_tpu_torch.core.buffer import BufferLocationError, classify
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.mpi import mpiext
+    from ompi_tpu_torch.mpi.coll import COLL_FUNCTIONS, coll_framework
+    from ompi_tpu_torch.mpi.coll import xla as xla_mod
+    from ompi_tpu_torch.mpi.comm import Communicator
+    from ompi_tpu_torch.mpi.constants import MPIException
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.mpi.group import Group
+
+    dev = mesh.device
+    dc = device_world(mesh)
+    comm = Communicator(Group([0]), cid=0, my_world_rank=0).bind_device(dc)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    # the table: coll/xla serves every slot it has on tensors, coll/self
+    # the host buffers of this size-1 communicator; alltoallw has no
+    # device provider (nor in the JAX package)
+    xla_slots = [s for s in COLL_FUNCTIONS if s != "alltoallw"]
+    check(all(comm.coll.device_providers.get(s) == "xla"
+              for s in xla_slots), f"{comm.coll.device_providers}")
+    check(all(comm.coll.providers.get(s) == "self" for s in xla_slots),
+          f"{comm.coll.providers}")
+    host_out = comm.allreduce(np.arange(4, dtype=np.float32))
+    check(isinstance(host_out, np.ndarray), "numpy allreduce via self")
+    try:
+        comm.alltoallw([(torch.ones(4, device=dev), None, 4)],
+                       [(torch.ones(4, device=dev), None, 4)])
+        check(False, "alltoallw of a CUDA tensor must raise")
+    except BufferLocationError:
+        pass
+
+    # the profiler windows, in a fresh process: the route added no copy
+    # between host and card, and the controls show the profiler saw them
+    prof = mpi_profiled()
+    route, pack_win = prof["route"], prof["pack"]
+    check(route["dtoh"] == 1 and route["to_copy"] == 1,
+          f"the route's window: {route} (the control is 1 DtoH, 1 "
+          f"aten::_to_copy)")
+    check(route["device_events"] > 0, "the profiler saw no device work")
+    check(pack_win["htod"] == 1, f"a repeated pack's window: {pack_win} "
+          f"(the control is 1 HtoD)")
+
+    # each buffer collective through comm.<slot> here, on phase
+    # collectives' NCCL group, against the direct call
+    slots = mpi_slots()
+    inputs = mpi_inputs(dev, gen)
+    got = [{name: f(comm, x) for name, (f, _) in slots.items()}
+           for x in inputs]
+    comm.barrier()
+    for x, outs in zip(inputs, got):
+        for name, (_, direct) in slots.items():
+            want = direct(dc, x)
+            check(outs[name].device == dev and same_bytes(outs[name], want),
+                  f"comm.{name} differs from the direct call at "
+                  f"{tuple(x.shape)} {x.dtype}")
+    del got, outs, want
+
+    # the decision at world size 1: which DeviceCommunicator method ran
+    ran = []
+
+    def counting(meth):
+        f = getattr(dc, meth)
+
+        def wrapped(*args, **kw):
+            ran.append(meth)
+            return f(*args, **kw)
+        return wrapped
+
+    methods = ("allreduce", "allreduce_rs_ag", "allreduce_segmented")
+    for meth in methods:
+        setattr(dc, meth, counting(meth))
+
+    def decided(x) -> str:
+        ran.clear()
+        comm.allreduce(x)
+        check(len(ran) >= 1, "no allreduce method ran")
+        return ran[0]
+
+    small, big = inputs[0], inputs[1]
+    decision = {"4KiB": decided(small), "64MiB": decided(big)}
+    check(decision == {"4KiB": "allreduce", "64MiB": "allreduce_rs_ag"},
+          f"decision {decision}")
+    var_registry.set("coll_xla_allreduce_algorithm", "segmented")
+    try:
+        decision["forced_segmented_4KiB"] = decided(small)
+    finally:
+        var_registry.set("coll_xla_allreduce_algorithm", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        good, lossy = (os.path.join(tmp, f) for f in ("a.rules", "q.rules"))
+        with open(good, "w") as fh:
+            fh.write("allreduce 0 0 rs_ag\n")
+        with open(lossy, "w") as fh:
+            fh.write("allreduce 0 0 qint8\n")
+        try:
+            var_registry.set("coll_xla_dynamic_rules", good)
+            decision["rules_file_4KiB"] = decided(small)
+            var_registry.set("coll_xla_dynamic_rules", lossy)
+            try:
+                comm.allreduce(small)
+                decision["rules_file_qint8"] = "ran"
+            except MPIException:
+                decision["rules_file_qint8"] = "raises"
+        finally:
+            var_registry.set("coll_xla_dynamic_rules", "")
+    check(decision["forced_segmented_4KiB"] == "allreduce_segmented"
+          and decision["rules_file_4KiB"] == "allreduce_rs_ag"
+          and decision["rules_file_qint8"] == "raises", f"{decision}")
+    for meth in methods:
+        delattr(dc, meth)
+
+    # refusals: p2p of a tensor (the PML's), a CPU tensor on the card
+    refusals = {}
+    other = "meta" if dev.type == "cpu" else "cpu"  # "meta" in a rehearsal
+    for name, call in (("send", lambda: comm.send(small, dest=0)),
+                       ("cpu_tensor", lambda: comm.allreduce(
+                           torch.ones(4, device=other)))):
+        try:
+            call()
+            check(False, f"{name} must raise")
+        except BufferLocationError as e:
+            refusals[name] = str(e)[:160]
+    check(other in refusals["cpu_tensor"]
+          and str(dev) in refusals["cpu_tensor"], refusals["cpu_tensor"])
+    check(mpiext.query_cuda_support() is True, "query_cuda_support")
+
+    # the datatype device pack: half of every row of a 64 MiB tensor
+    vec = mpi_vector_type()
+    xp = inputs[1]
+    packed = vec.pack_device(xp)
+    unpacked = vec.unpack_device(packed)
+    xc = xp.cpu()
+    check(same_bytes(packed.cpu(), vec.pack_device(xc))
+          and same_bytes(unpacked.cpu(), vec.unpack_device(
+              vec.pack_device(xc))), "pack/unpack on the card vs the CPU")
+    idx = vec._device_index(1, dev)
+    flat = xp.reshape(-1)
+    pack = {"type": "vector(16384, 512, 1024) over (16384, 1024) float32",
+            "count": 1, "bitwise_vs_cpu": True,
+            "htod_on_repeat": pack_win["htod"] - 1,
+            "pack_ms": cuda_ms(lambda: vec.pack_device(xp), iters=50),
+            "index_select_ms": cuda_ms(
+                lambda: torch.index_select(flat, 0, idx), iters=50),
+            "unpack_ms": cuda_ms(lambda: vec.unpack_device(packed),
+                                 iters=50),
+            # 32 MiB read, the int64 index read, 32 MiB written
+            "bytes_bound_ms": (packed.numel() * 4 * 2 + idx.numel() * 8)
+            / HBM_BYTES_PER_S * 1e3}
+
+    # host cost of one 4 KiB call through the route and straight, in
+    # blocks (route, direct, direct, route, twice; the host's pace drifts),
+    # and of the route's own steps
+    x4 = inputs[0]
+    xla = coll_framework.components()["xla"]
+    paths = {"comm": lambda: comm.allreduce(x4),
+             "direct": lambda: dc.allreduce(x4),
+             "classify": lambda: classify(x4),
+             "decide": lambda: xla._decide("allreduce", comm, dc, 4096),
+             "check_device": lambda: xla_mod._check_device(comm, dc, x4)}
+    blocks = {k: [] for k in paths}
+    for name in ("comm", "direct", "direct", "comm") * 2 + (
+            "classify", "decide", "check_device"):
+        blocks[name].append(host_us(paths[name], MPI_DISPATCH_CALLS))
+    torch.cuda.synchronize()
+    dispatch = {f"{k}_us": v for k, v in blocks.items()}
+    dispatch["calls_a_block"] = MPI_DISPATCH_CALLS
+    dispatch["overhead_us"] = (float(np.median(blocks["comm"]))
+                               - float(np.median(blocks["direct"])))
+    forms = {}
+    for label, x in (("64MiB", inputs[1]), ("256MiB", inputs[2])):
+        forms[label] = {
+            **prof["busy"][label],
+            "psum_stream_ms": cuda_ms(lambda: dc.allreduce(x)),
+            "rs_ag_stream_ms": cuda_ms(lambda: dc.allreduce_rs_ag(x))}
+    del inputs, packed, unpacked, xp, xc, flat, idx, small, big, x4, x
+
+    # the real-size case: the flagship's dense gradient set, leaf by leaf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2**30
+    grads = {k: torch.randn(s, generator=gen, device=dev)
+             for k, s in flagship_leaf_shapes().items()}
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    algs = {}
+    for g in grads.values():
+        a = xla._decide("allreduce", comm, dc, g.numel() * g.element_size())
+        algs[a] = algs.get(a, 0) + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = {k: comm.allreduce(g) for k, g in grads.items()}
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for k, g in grads.items():
+        check(same_bytes(summed[k], dc.allreduce(g)),
+              f"gradient leaf {k}: comm.allreduce differs from the direct "
+              f"call")
+    del summed
+    route_ms = cuda_ms(lambda: [comm.allreduce(g) for g in grads.values()],
+                       iters=3, warmup=1)
+    direct_ms = cuda_ms(lambda: [dc.allreduce(g) for g in grads.values()],
+                        iters=3, warmup=1)
+    del grads
+    torch.cuda.empty_cache()
+    emit("mpi_coll", world_size=1, slots=sorted(slots) + ["barrier"],
+         sizes=[(f"{n >> 20} MiB" if n >= 1 << 20 else f"{n >> 10} KiB")
+                + f" {d}" for n, d in MPI_COLL_SIZES],
+         bitwise_equal_to_direct=True,
+         profiler_windows={"route": route, "pack": pack_win,
+                           "process": "a fresh spawned process; the "
+                                      "counts include one control copy "
+                                      "each"},
+         device_providers="xla for " + ", ".join(xla_slots),
+         decision=decision, refusals=refusals, cuda_support=True,
+         pack=pack, dispatch=dispatch, allreduce_forms_ms=forms,
+         forms_note="world size 1: psum and rs_ag are copies here; their "
+                    "crossover needs 2+ cards; busy = device time a call "
+                    "(profiler, the fresh process), stream = CUDA events "
+                    "over 20 calls",
+         gradients={"leaves": sum(algs.values()), "bytes": nbytes,
+                    "algorithms": algs,
+                    "route_ms": route_ms, "first_pass_wall_ms": wall_ms,
+                    "direct_ms": direct_ms, "peak_gib": peak_gib,
+                    "allocated_before_gib": start_gib,
+                    "bitwise_equal_to_direct": True},
          card=card)
 
 
@@ -2151,7 +2632,11 @@ def main() -> int:
     moe_train = run("moe_train", phase_moe_train, fa, card, moe_np)
     del moe_np
     run("moe_small", phase_train_small, fa, True)
-    run("collectives", phase_collectives, card)
+    mesh = run("collectives", phase_collectives, card)
+    run("mpi_coll", phase_mpi_coll, card, mesh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     check(all(v > 0 for v in rma_launches.values()),
           f"a one-sided kernel never ran on the rma_ranks path: "
           f"{rma_launches}")

@@ -25,6 +25,8 @@ _LAZY = {
     "DeviceCommunicator": ("ompi_tpu_torch.mpi.device_comm",
                            "DeviceCommunicator"),
     "device_world": ("ompi_tpu_torch.mpi.device_comm", "device_world"),
+    "Communicator": ("ompi_tpu_torch.mpi.comm", "Communicator"),
+    "Group": ("ompi_tpu_torch.mpi.group", "Group"),
     "DeviceWindow": ("ompi_tpu_torch.mpi.osc", "DeviceWindow"),
     "DeviceSymmetricHeap": ("ompi_tpu_torch.shmem.device",
                             "DeviceSymmetricHeap"),

@@ -1,0 +1,86 @@
+"""Buffer-location abstraction: host vs device (the port's copy of the JAX
+package's ``core/buffer.py``).
+
+The reference threads CUDA special cases through its convertor, PML, BTL
+and coll layers via the ``CONVERTOR_CUDA`` flag
+(opal/datatype/opal_convertor.h:43-59, opal_convertor.c:574-614
+``mca_cuda_convertor_init``); here device-ness is decided once, as data:
+
+- ``HOST``   — numpy arrays, scalars, python buffers, ``None``; they move
+               by the host path.
+- ``DEVICE`` — a ``torch.Tensor``, whatever its device: this rank's shard,
+               moved by the bound ``DeviceCommunicator`` (NCCL on the card,
+               gloo for a CPU tensor), never serialized.  The JAX package
+               counts a ``jax.Array`` on a CPU device as DEVICE too.
+
+The JAX package has a third kind, TRACED (a tracer inside ``shard_map``).
+A port rank is a process that owns one device and runs eagerly, so the
+tensor it passes already is its shard: DEVICE has TRACED's per-shard
+semantics and there is no TRACED kind.
+
+Every layer above (p2p, coll) dispatches on ``classify()`` instead of
+sprinkling isinstance checks.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["BufferKind", "classify", "is_device", "nbytes_of",
+           "BufferLocationError"]
+
+
+class BufferKind(enum.Enum):
+    HOST = "host"
+    DEVICE = "device"
+
+
+class BufferLocationError(TypeError):
+    pass
+
+
+def classify(buf: Any) -> BufferKind:
+    """Classify a user buffer."""
+    if isinstance(buf, torch.Tensor):
+        return BufferKind.DEVICE
+    if buf is None:  # "no data on this rank" placeholder (non-root scatter)
+        return BufferKind.HOST
+    if isinstance(buf, np.ndarray) or np.isscalar(buf):
+        return BufferKind.HOST
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        return BufferKind.HOST
+    if isinstance(buf, (list, tuple)):
+        # v-collective part lists: the parts share a location; classify the
+        # first (an empty list is a host no-op)
+        return classify(buf[0]) if buf else BufferKind.HOST
+    # any other array-like the host path accepts (array.array, objects
+    # with __array__ / the buffer protocol)
+    if hasattr(buf, "__array__") or hasattr(buf, "__array_interface__"):
+        return BufferKind.HOST
+    try:
+        memoryview(buf)
+        return BufferKind.HOST
+    except TypeError:
+        pass
+    raise BufferLocationError(
+        f"cannot classify buffer of type {type(buf).__name__}; expected "
+        f"numpy array, torch tensor, or bytes-like")
+
+
+def is_device(buf: Any) -> bool:
+    return classify(buf) is BufferKind.DEVICE
+
+
+def nbytes_of(buf: Any) -> int:
+    if isinstance(buf, torch.Tensor):
+        return buf.numel() * buf.element_size()
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        return len(buf)
+    nb = getattr(buf, "nbytes", None)
+    if nb is not None:
+        return int(nb)
+    return int(np.asarray(buf).nbytes)

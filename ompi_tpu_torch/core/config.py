@@ -9,10 +9,10 @@ registered, typed variable with one namespace and a fixed precedence
 The environment prefix, the file format and the value parsers are the
 JAX package's, so one ``OMPI_TPU_MCA_ops_flash_block_q`` or
 ``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
-The port keeps only what its slices read: integer, size and boolean
-variables from the file and environment sources, and the programmatic override
-``VarRegistry.set`` (no synonyms, info levels, read-only vars or
-command-line source).
+The port keeps only what its slices read: integer, size, boolean and
+string variables from the file and environment sources, and the
+programmatic override ``VarRegistry.set`` (no synonyms, info levels,
+read-only vars or command-line source).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ class VarType(enum.Enum):
     INT = "int"
     SIZE = "size"
     BOOL = "bool"
+    STRING = "string"
 
 
 def _parse_size(s: str) -> int:
@@ -58,7 +59,7 @@ def _parse_bool(s: str) -> bool:
 
 
 _PARSERS = {VarType.INT: int, VarType.SIZE: _parse_size,
-            VarType.BOOL: _parse_bool}
+            VarType.BOOL: _parse_bool, VarType.STRING: str}
 
 
 @dataclasses.dataclass

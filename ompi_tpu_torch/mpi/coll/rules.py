@@ -1,0 +1,101 @@
+"""Dynamic collective-selection rules file (the port's copy of the JAX
+package's ``mpi/coll/rules.py``: the format, ``RuleSet.lookup`` and
+``load_rules``; the host plane's ``decide`` ladder and coll/shm keys stay
+there).
+
+≈ ompi/mca/coll/tuned/coll_tuned_dynamic_file.c — the reference lets admins
+override the fixed decision tables with a file of measured crossover points,
+keyed by communicator size and message size.  Same idea here with a
+line-oriented format (the reference's positional integer format is tied to
+its enum numbering; ours names algorithms):
+
+    # collective  comm_size_min  msg_bytes_min  algorithm
+    allreduce     0              0              recursive_doubling
+    allreduce     0              10240          ring
+    allreduce     16             1048576        segmented_ring
+
+For a lookup (collective, comm_size, msg_bytes) the matching rule with the
+largest (comm_size_min, msg_bytes_min) wins — i.e. rules refine from generic
+to specific exactly like the reference's nested comm-size → msg-size tables.
+Returns None when no rule matches (fall through to the fixed decision).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+__all__ = ["RuleSet", "parse", "load_rules"]
+
+
+class RuleSet:
+    def __init__(self, rules: list[tuple[str, int, int, str]],
+                 meta: Optional[dict] = None) -> None:
+        # rules: (collective, comm_size_min, msg_bytes_min, algorithm)
+        # meta: provenance from "#!" lines (platform=…, n_devices=…) —
+        # lets a consumer refuse rules measured on a different backend
+        self.meta: dict[str, str] = meta or {}
+        self._by_coll: dict[str, list[tuple[int, int, str]]] = {}
+        for coll, cmin, mmin, alg in rules:
+            self._by_coll.setdefault(coll, []).append((cmin, mmin, alg))
+        for lst in self._by_coll.values():
+            lst.sort()
+
+    def lookup(self, coll: str, comm_size: int,
+               msg_bytes: int) -> Optional[str]:
+        best: Optional[tuple[int, int, str]] = None
+        for cmin, mmin, alg in self._by_coll.get(coll, ()):
+            if cmin <= comm_size and mmin <= msg_bytes:
+                if best is None or (cmin, mmin) >= best[:2]:
+                    best = (cmin, mmin, alg)
+        return best[2] if best else None
+
+    def __len__(self) -> int:
+        return sum(len(v) for v in self._by_coll.values())
+
+
+def parse(text: str, source: str = "<string>") -> RuleSet:
+    rules = []
+    meta: dict[str, str] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if line.startswith("#!"):  # provenance: "#! key=value"
+            body = line[2:].strip()
+            if "=" in body:
+                k, v = body.split("=", 1)
+                meta[k.strip()] = v.strip()
+            continue
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        fields = line.split()
+        if len(fields) != 4:
+            from ompi_tpu_torch.mpi.constants import MPIException
+
+            raise MPIException(
+                f"{source}:{lineno}: expected "
+                f"'collective comm_size_min msg_bytes_min algorithm', "
+                f"got {line!r}")
+        coll, cmin, mmin, alg = fields
+        try:
+            rules.append((coll, int(cmin), int(mmin), alg))
+        except ValueError as e:
+            from ompi_tpu_torch.mpi.constants import MPIException
+
+            raise MPIException(f"{source}:{lineno}: {e}") from e
+    return RuleSet(rules, meta)
+
+
+_cache: dict[str, tuple[float, RuleSet]] = {}
+
+
+def load_rules(path: str) -> RuleSet:
+    """Parse a rules file, cached by mtime."""
+    mtime = os.stat(path).st_mtime
+    hit = _cache.get(path)
+    if hit is not None and hit[0] == mtime:
+        return hit[1]
+    with open(path, encoding="utf-8") as f:
+        rs = parse(f.read(), source=path)
+    _cache[path] = (mtime, rs)
+    return rs
+

@@ -315,7 +315,9 @@ class DeviceCommunicator:
             return self._hillis_scan(x, op)
         stacked = self._gather(x)
         if op is SUM:
-            return torch.cumsum(torch.stack(stacked), dim=0)[self.rank()]
+            # dtype: an integer cumsum would widen to int64
+            return torch.cumsum(torch.stack(stacked), dim=0,
+                                dtype=x.dtype)[self.rank()]
         acc = stacked[0]
         for r in range(1, self.rank() + 1):
             acc = op.device(acc, stacked[r])
@@ -334,7 +336,8 @@ class DeviceCommunicator:
         stacked = self._gather(x)
         me = self.rank()
         if op is SUM:
-            incl = torch.cumsum(torch.stack(stacked), dim=0)[me]
+            incl = torch.cumsum(torch.stack(stacked), dim=0,
+                                dtype=x.dtype)[me]
             return incl - x       # exclusive = inclusive − own contribution
         if me == 0:
             return torch.zeros_like(stacked[0])

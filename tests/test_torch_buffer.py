@@ -1,0 +1,66 @@
+"""The port's buffer-location abstraction (``ompi_tpu_torch.core.buffer``),
+mirroring ``tests/core/test_buffer.py``: a torch tensor is DEVICE whatever
+its device (the JAX package counts a ``jax.Array`` on a CPU device as
+DEVICE too), and there is no TRACED kind."""
+
+from __future__ import annotations
+
+import array
+
+import numpy as np
+import pytest
+import torch
+
+from ompi_tpu_torch.core.buffer import (BufferKind, BufferLocationError,
+                                        classify, is_device, nbytes_of)
+
+
+def test_host_kinds():
+    assert classify(np.zeros(3)) == BufferKind.HOST
+    assert classify(b"abc") == BufferKind.HOST
+    assert classify(bytearray(2)) == BufferKind.HOST
+    assert classify(3.0) == BufferKind.HOST
+    assert classify(None) == BufferKind.HOST
+    assert classify(array.array("f", [1.0])) == BufferKind.HOST
+    assert not is_device(np.zeros(3))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_device_kind(device):
+    x = torch.zeros(4, device=device)
+    assert classify(x) == BufferKind.DEVICE
+    assert is_device(x)
+
+
+def test_no_traced_kind():
+    assert {k.name for k in BufferKind} == {"HOST", "DEVICE"}
+
+
+def test_part_lists_take_their_first_part():
+    assert classify([torch.zeros(2), np.zeros(2)]) == BufferKind.DEVICE
+    assert classify((np.zeros(2), torch.zeros(2))) == BufferKind.HOST
+    assert classify([]) == BufferKind.HOST
+
+
+def test_unknown_rejected():
+    with pytest.raises(BufferLocationError):
+        classify(object())
+
+
+def test_nbytes():
+    assert nbytes_of(np.zeros(4, np.float32)) == 16
+    assert nbytes_of(b"12345") == 5
+    assert nbytes_of(torch.zeros(3, dtype=torch.bfloat16)) == 6
+    assert nbytes_of(torch.zeros(8, device="meta")) == 32
+
+
+def test_same_kinds_as_the_jax_package():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from ompi_tpu.core import buffer as jbuffer
+
+    for host in (np.zeros(3), b"ab", 2, None, [np.zeros(1)]):
+        assert classify(host).value == jbuffer.classify(host).value
+    assert (classify(torch.zeros(2)).value
+            == jbuffer.classify(jnp.zeros(2)).value == "device")

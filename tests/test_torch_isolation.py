@@ -59,7 +59,17 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.models.transformer",
                 "ompi_tpu_torch.models.optim",
                 "ompi_tpu_torch.models.data",
-                "ompi_tpu_torch.core.config"):
+                "ompi_tpu_torch.core.config",
+                "ompi_tpu_torch.core.buffer",
+                "ompi_tpu_torch.core.mca",
+                "ompi_tpu_torch.mpi.group",
+                "ompi_tpu_torch.mpi.comm",
+                "ompi_tpu_torch.mpi.coll",
+                "ompi_tpu_torch.mpi.coll.rules",
+                "ompi_tpu_torch.mpi.coll.selfcoll",
+                "ompi_tpu_torch.mpi.coll.xla",
+                "ompi_tpu_torch.mpi.mpiext",
+                "ompi_tpu_torch.mpi.datatype"):
         assert mod in res["imported"]
 
 

@@ -474,3 +474,92 @@ def decode_tokens(fields, axes, params, prompt, max_new):
     cfg, m, p = _model(fields, axes, params, train=False)
     dec = make_decoder(cfg, m, max_new=max_new)
     return to_numpy(dec(p, local_block(prompt, m, ("dp",))))
+
+
+# -- the MPI communicator's device route (test_torch_coll_xla.py) -----------
+
+def mpi_comm(ranks=None, bind=True):
+    """This rank's port ``Communicator`` over ``ranks`` (default: the
+    world), bound to the world mesh's DeviceCommunicator."""
+    from ompi_tpu_torch.mpi.comm import Communicator
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.mpi.group import Group
+
+    m = mesh()
+    ranks = tuple(range(m.world_size)) if ranks is None else tuple(ranks)
+    key = ("mpi_comm", ranks, bind)
+    if key not in _STATE:
+        c = Communicator(Group(ranks), cid=0, my_world_rank=m.rank)
+        _STATE[key] = c.bind_device(device_world(m)) if bind else c
+    return _STATE[key]
+
+
+def staging_guard(fn):
+    """``fn()`` with np.asarray, torch.Tensor.numpy and torch.Tensor.cpu
+    watched: (result, the names of those called on a tensor)."""
+    hits: list = []
+    orig = np.asarray, torch.Tensor.numpy, torch.Tensor.cpu
+
+    def asarray(a, *args, **kw):
+        if isinstance(a, torch.Tensor):
+            hits.append("np.asarray")
+        return orig[0](a, *args, **kw)
+
+    def numpy_(self, *args, **kw):
+        hits.append("Tensor.numpy")
+        return orig[1](self, *args, **kw)
+
+    def cpu(self, *args, **kw):
+        hits.append("Tensor.cpu")
+        return orig[2](self, *args, **kw)
+
+    np.asarray, torch.Tensor.numpy, torch.Tensor.cpu = asarray, numpy_, cpu
+    try:
+        out = fn()
+    finally:
+        np.asarray, torch.Tensor.numpy, torch.Tensor.cpu = orig
+    return out, hits
+
+
+def mpi_coll(slot, shard=None, margs=(), guard=True):
+    """``comm.<slot>(tensor of shard, *margs)`` on the world
+    communicator, watched for host staging: (result as numpy or None,
+    staging calls)."""
+    c = mpi_comm()
+    args = [resolve(a) for a in margs]
+    if slot == "barrier":
+        fn = c.barrier
+    else:
+        x = to_torch(shard)
+        fn = lambda: getattr(c, slot)(x, *args)  # noqa: E731
+    out, hits = staging_guard(fn) if guard else (fn(), [])
+    return (None if out is None else to_numpy(out)), hits
+
+
+def mpi_errors(shard):
+    """The refusals of the route on this rank, as (type name, message):
+    an unbound communicator, a host buffer on the world communicator,
+    and, on a 2-rank communicator of ranks 0 and 1, rank 0's send and
+    rank 1's recv of a tensor and of a host buffer."""
+    x = to_torch(shard)
+
+    def err(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — the test inspects it
+            return type(e).__name__, str(e)
+        return None
+
+    out = {"unbound": err(lambda: mpi_comm(bind=False).allreduce(x)),
+           "host": err(lambda: mpi_comm().allreduce(shard))}
+    rank = mesh().rank
+    if rank < 2:
+        pair = mpi_comm((0, 1))
+        if rank == 0:
+            out["p2p_device"] = err(lambda: pair.send(x, dest=1, tag=5))
+            out["p2p_host"] = err(lambda: pair.send(shard, dest=1, tag=5))
+        else:
+            out["p2p_device"] = err(lambda: pair.recv(buf=x, source=0,
+                                                      tag=5))
+            out["p2p_host"] = err(lambda: pair.recv(source=0, tag=5))
+    return out
