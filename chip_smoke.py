@@ -11,7 +11,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    sm_90a, one nvcc per source, all started together; prints the
    ``-Xptxas -v`` register and shared-memory lines and fails on a spill
    or a wgmma-serialisation warning (ptxas's C751x);
-3. kernel — the flash-attention forward kernel against its plain
+3. host_plane (after build) — the host process mode through the port's
+   launcher (``python -m ompi_tpu_torch.tools.tpurun``), a subprocess a
+   job: ring and hello at -np 4 print the reference programs' lines;
+   ping-pong (``tools/host_bench.py``) at 8 B, 4 KiB, 1 MiB and 64 MiB
+   over tcp between ranks 0 and 1 of a -np 4 job (eager limit 4 KiB: 1
+   MiB and up go rendezvous) and over proc between two ranks on threads
+   of this process, medians over blocks of the half round trip and
+   GB/s, the data bitwise back; in the same job allreduce, bcast,
+   allgather, alltoall,
+   reduce_scatter_block and scan on 64 MiB a rank of float32 small
+   integers and of int32, bitwise against numpy, and each forced
+   ``coll_host_allreduce_algorithm``; ``tpurun -np 1 --gpu`` runs
+   ``examples/device_allreduce.py``: card 0 bound, a process group of
+   one, ``comm.allreduce`` of 64 MiB on the card bitwise equal to the
+   direct ``DeviceCommunicator.allreduce`` with no device-to-host copy
+   in a torch.profiler window around the call (whose control copy must
+   show), the numpy allreduce right; ``tpurun -np 2 --gpu`` puts both
+   ranks on card 0, where the device route raises the shared-card
+   error and the host route runs; ``init()`` at -np 4 and a hello job's
+   launch-to-exit time;
+4. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, bf16 without a mask at t = 1024, and at the decode
    prefill shape (B=16, T=512, H=16, D=128, bf16, causal), where it is
@@ -19,7 +39,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
    in bf16 and in f32; and timed at the training shape (B·H=256, T=1024,
    D=128, bf16, causal) beside its bound and SDPA;
-4. kernel_bwd — the dq and dk/dv backward kernels against their plain
+5. kernel_bwd — the dq and dk/dv backward kernels against their plain
    versions over causal/full, offsets, f32/bf16, head dims, lengths and
    with or without an lse cotangent; the autograd backward with the
    kernels against the recompute backward; and, at the training shape
@@ -27,7 +47,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain version, its bound, the recompute backward and SDPA's backward,
    and ptxas's register and spill lines (and any wgmma-serialisation
    warning) of each D of the Hopper dq and dk/dv kernels;
-5. ring (after kernel_bwd) — ring attention's hop and merge at full
+6. ring (after kernel_bwd) — ring attention's hop and merge at full
    width in one process: a causal bf16 sequence of 4 × 1024 tokens
    (batch 4, 16 heads of 128) as 4 sequence-parallel ranks hold it; for
    each virtual rank, ``parallel.attention._ring_step`` over its 4 hops
@@ -39,17 +59,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backward (relative L2), no NaN or Inf, the masked hops' O = 0 and
    lse ≈ -1e30, and the ring's forward + backward device time beside the
    full-sequence kernels', with a profiled ring by kernel kind;
-6. decode — the flagship 468M dense model (bench.py's decode widths) with
+7. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
    tokens, the launch counts of that one call, the same prompt through the
    plain attention path, the prefill time (max_new=1), the per-token time
    by the two-max_new slope, tokens/s and peak memory; then torch.profiler
    windows over the prefill and a 16-token decode: device busy and idle
    share, and the kernels that take the time;
-7. cache — on the small f32 config of the decode tests, the cached greedy
+8. cache — on the small f32 config of the decode tests, the cached greedy
    decode through the kernel equals a token-by-token full-forward greedy
    exactly;
-8. train — the flagship model training at bench.py's MFU widths (batch
+9. train — the flagship model training at bench.py's MFU widths (batch
    16 × seq 1024, bf16, remat "dots", ce_chunk 256), through the
    multi-rank training code at world size 1 (every collective elided;
    the token shard is the whole batch), with the flash
@@ -58,10 +78,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    warm-up step and an 8-step ``make_train_loop`` whose launch counts are
    read around it; step time, tokens/s, MFU, peak memory and a profiled
    step;
-9. train_small — on the small f32 config of the model tests, the first
+10. train_small — on the small f32 config of the model tests, the first
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
-10. moe_layer — the MoE family (every FFN a switch of 8 experts,
+11. moe_layer — the MoE family (every FFN a switch of 8 experts,
    capacity factor 1.25, at the flagship's widths; its parameters drawn
    once by ``init_params``, 2.35B, and shared by the MoE phases): one
    full-width bf16 layer input (16 × 1024 tokens of 2048), the index
@@ -69,19 +89,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    output, aux and every gradient bit for bit, the same routing, and
    each part timed (route, dispatch, combine, expert FFN, the layer
    forward and backward in both forms) beside its byte bound;
-11. moe_decode — phase decode's metrics and checks for the MoE model
+12. moe_decode — phase decode's metrics and checks for the MoE model
    (8 forward launches a call), with the prefill's routing: the share
    of tokens dropped and the tokens routed to each expert, per layer;
-12. moe_train — phase train for the MoE model at world size 1 (the ep
+13. moe_train — phase train for the MoE model at world size 1 (the ep
    exchange elided): the first step's loss and every gradient leaf
    against the plain attention path, an 8-step loop's launch counts
    (16 / 8 / 8 a step), step time, tokens/s, MFU by the ACTIVE
    parameters (468M), peak memory, the loss falling, and a profiled
    step split into the flash kernels, the expert GEMMs, the index ops
    and the rest;
-13. moe_small — phase train_small on the MoE tests' small f32 config
+14. moe_small — phase train_small on the MoE tests' small f32 config
    (8 experts);
-14. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
+15. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
    and a root's push to 3 peers) at kernel level in this process, on
    local buffers with their flag words, bitwise against ``copy_plain``
    over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
@@ -93,7 +113,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and at 4 KiB (200 calls), where the call rate is the host's and the
    profiler gives the device time of one launch; put and get at 64 MiB also without the
    handshake;
-15. rma_ranks (after rma_kernel) — 4 rank processes on the one card
+16. rma_ranks (after rma_kernel) — 4 rank processes on the one card
    (tcp init on a free port, each mapping its peers' 64 MiB windows):
    ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
    self-put, ``fetch_bcast`` from every root, ``DeviceWindow`` and the
@@ -104,10 +124,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
-16. collectives (last but one) — ``make_mesh`` on the card with NCCL at
+17. collectives (last but one) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
-17. mpi_coll (last, on the same NCCL group) — the MPI communicator's
+18. mpi_coll (last, on the same NCCL group) — the MPI communicator's
    device route: a ``Communicator`` bound to the card's
    ``DeviceCommunicator``; each buffer collective through
    ``comm.<slot>`` bitwise equal to the direct call at 4 KiB, 64 MiB and
@@ -124,7 +144,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    equal to the direct call, timed with its peak memory; the host cost
    of a 4 KiB ``comm.allreduce`` beside the direct call, and psum against
    rs_ag at 64 and 256 MiB;
-18. the ``kernels`` line (6 entries; the flash kernels' launches by
+19. the ``kernels`` line (6 entries; the flash kernels' launches by
    path: decode, train, ring, moe_decode, moe_train), then the card's
    nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
@@ -138,6 +158,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1773,6 +1794,199 @@ def phase_rma_kernel(rd, card):
     return out
 
 
+HOST_RING_NP = 4
+HOST_PINGPONG = (8, 4 << 10, 1 << 20, 64 << 20)
+HOST_PINGPONG_EAGER = 4096      # 1 MiB and 64 MiB go rendezvous
+HOST_COLL_MIB = 64
+
+
+def ring_lines(np_: int) -> list[str]:
+    """The lines the repo's ``examples/ring.py`` prints at ``np_`` ranks
+    (the port's ``examples/ring.py`` must print the same), tagged and
+    sorted as the launcher's output is compared."""
+    out = [(0, f"Process 0 sending 10 to 1, tag 201 ({np_} processes in "
+               "ring)"), (0, "Process 0 sent to 1")]
+    out += [(0, f"Process 0 decremented value: {v}") for v in range(9, -1, -1)]
+    out += [(r, f"Process {r} exiting") for r in range(np_)]
+    return sorted(f"[1,{r}]{line}" for r, line in out)
+
+
+HOST_JOB_TIMEOUT = 180          # tpurun --timeout of every job (exit 124)
+_HOST_JOBS: list = []
+
+
+def tpurun_start(args):
+    """Start one job of the port's launcher, as a user runs it; its own
+    ``--timeout`` kills its ranks and exits 124 if it hangs.  A thread
+    reads its output and notes when it ended, so a job that ends while
+    another is awaited keeps its own wall time."""
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "--timeout",
+         str(HOST_JOB_TIMEOUT), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    done: dict = {}
+
+    def reap():
+        done["out"], done["err"] = p.communicate()
+        done["secs"] = time.perf_counter() - t0
+
+    job = (threading.Thread(target=reap, daemon=True), p, done)
+    job[0].start()
+    _HOST_JOBS.append(job)
+    return job
+
+
+def tpurun_wait(job):
+    """(wall seconds from launch to exit, rc, stdout, stderr) of a job
+    from ``tpurun_start``."""
+    reaper, p, done = job
+    reaper.join()
+    return done["secs"], p.returncode, done["out"], done["err"]
+
+
+def tpurun(args):
+    return tpurun_wait(tpurun_start(args))
+
+
+def tagged_json(out: str, tag: str) -> list[dict]:
+    """The ``<tag> {json}`` lines of a job's output (tags stripped)."""
+    rows = []
+    for line in out.splitlines():
+        line = line.split("]", 1)[1] if line.startswith("[") else line
+        if line.startswith(tag + " "):
+            rows.append(json.loads(line[len(tag) + 1:]))
+    return rows
+
+
+def phase_host_plane(card):
+    """The host process mode through the port's launcher: (a) ring and
+    hello at -np 4 against the reference programs' lines; (b) ping-pong
+    over tcp between two launched ranks and over proc between two ranks
+    on threads of one process; (c) the host collectives at -np 4 on
+    64 MiB a rank, bitwise against numpy, each forced allreduce
+    algorithm once; (d) a --gpu rank on the card: both routes of one
+    communicator; (e) two --gpu ranks sharing the card: the device route
+    refuses, the host route runs; (f) init() and a hello job's wall
+    times."""
+    try:
+        return _host_plane_jobs(card)
+    finally:
+        # a failed check leaves no job behind: each ends by itself or at
+        # its --timeout
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+
+
+def _host_plane_jobs(card):
+    from ompi_tpu_torch.tools import host_bench
+
+    out = {"card": card}
+    jobs = {}
+    # the jobs that check results only run side by side: (a)'s ring,
+    # (d) one --gpu rank and (e) two --gpu ranks on the one card
+    ring = tpurun_start(["-np", str(HOST_RING_NP), "--", sys.executable,
+                         "-m", "ompi_tpu_torch.examples.ring"])
+    gpu1 = tpurun_start(["-np", "1", "--gpu", "--no-tag-output", "--",
+                         sys.executable, "-m",
+                         "ompi_tpu_torch.examples.device_allreduce"])
+    gpu2 = tpurun_start(["-np", "2", "--gpu", "--no-tag-output", "--",
+                         sys.executable, "-m",
+                         "ompi_tpu_torch.examples.device_allreduce",
+                         "--mib", "1"])
+    # (a) the example programs
+    secs, rc, stdout, stderr = tpurun_wait(ring)
+    check(rc == 0, f"host_plane ring: rc {rc}\n{stderr[-2000:]}")
+    got = sorted(ln for ln in stdout.splitlines() if ln.strip())
+    check(got == ring_lines(HOST_RING_NP),
+          f"host_plane ring: lines differ from the reference's: {got}")
+    jobs["ring_s"] = secs
+    # (d) one --gpu rank on the card: both routes
+    secs, rc, stdout, stderr = tpurun_wait(gpu1)
+    check(rc == 0, f"host_plane --gpu -np 1: rc {rc}\n{stderr[-2000:]}")
+    (one,) = tagged_json(stdout, "device_allreduce")
+    check(one["chip"] == "0" and one["current_device"] == 0,
+          f"host_plane --gpu: rank not bound to card 0: {one}")
+    check(one["group_size"] == 1 and one["provider"] == "xla",
+          f"host_plane --gpu: process group / route: {one}")
+    check(one["device_error"] is None and one["device_equal"]
+          and one["device_host_copies"] == 0 and one["bytes"] == 64 << 20,
+          f"host_plane --gpu: comm.allreduce vs the direct call: {one}")
+    check(one["host_equal"], f"host_plane --gpu: host allreduce: {one}")
+    jobs["gpu_np1_s"] = secs
+    out["gpu_np1"] = one
+    # (e) two --gpu ranks on the one card
+    secs, rc, stdout, stderr = tpurun_wait(gpu2)
+    check(rc == 0, f"host_plane --gpu -np 2: rc {rc}\n{stderr[-2000:]}")
+    two = tagged_json(stdout, "device_allreduce")
+    check(len(two) == 2 and {r["chip"] for r in two} == {"0"}
+          and {r["current_device"] for r in two} == {0},
+          f"host_plane --gpu -np 2: both ranks bind card 0: {two}")
+    for r in two:
+        check(r["device_error"] is not None
+              and "share a card" in r["device_error"]
+              and "NCCL refuses two ranks" in r["device_error"],
+              f"host_plane --gpu -np 2: no shared-card refusal: {r}")
+        check(r["host_equal"] and r["group_size"] == 2,
+              f"host_plane --gpu -np 2: the host route failed: {r}")
+    jobs["gpu_np2_s"] = secs
+    out["gpu_np2"] = {"chips": [r["chip"] for r in two],
+                      "device_error": two[0]["device_error"],
+                      "host_equal": True}
+    # (a, f) hello, alone: its launch-to-exit time
+    secs, rc, stdout, stderr = tpurun(["-np", "4", "--", sys.executable,
+                                       "-m", "ompi_tpu_torch.examples.hello"])
+    got = sorted(ln for ln in stdout.splitlines() if ln.strip())
+    check(rc == 0 and got == [
+        f"[1,{r}]Hello, world, I am {r} of 4" for r in range(4)],
+        f"host_plane hello: rc {rc}, lines {got}")
+    jobs["hello_launch_to_exit_s"] = secs
+    out["examples"] = {"ring_lines": len(ring_lines(HOST_RING_NP)),
+                       "hello_lines": 4, "equal": True}
+    # (b, c) one -np 4 job: ping-pong over tcp between ranks 0 and 1,
+    # then the host collectives on every rank
+    sizes = ",".join(map(str, HOST_PINGPONG))
+    secs, rc, stdout, stderr = tpurun([
+        "-np", "4", "--no-tag-output", "--mca", "pml_eager_limit",
+        str(HOST_PINGPONG_EAGER), "--", sys.executable, "-m",
+        "ompi_tpu_torch.tools.host_bench", "--sizes", sizes,
+        "--mib", str(HOST_COLL_MIB)])
+    check(rc == 0, f"host_plane host_bench: rc {rc}\n{stderr[-2000:]}")
+    bench = tagged_json(stdout, "host_bench")[0]
+    jobs["pingpong_and_coll_s"] = secs
+    # (b) ping-pong between two ranks on threads of this process
+    t0 = time.perf_counter()
+    proc = {"transport": "proc",
+            "rows": host_bench._proc_pingpong(list(HOST_PINGPONG))}
+    jobs["pingpong_proc_s"] = time.perf_counter() - t0
+    out["pingpong"] = {}
+    for res in (bench, proc):
+        for row in res["rows"]:
+            check(row["bitwise"], f"host_plane pingpong {res['transport']} "
+                  f"{row['bytes']} B: the data came back changed")
+        out["pingpong"][res["transport"]] = [
+            {k: row[k] for k in ("bytes", "protocol", "half_rtt_us", "gb_s",
+                                 "half_rtt_us_blocks", "round_trips")}
+            for row in res["rows"]]
+    check([r["protocol"] for r in out["pingpong"]["tcp"]]
+          == ["eager", "eager", "rendezvous", "rendezvous"],
+          "host_plane pingpong: pml_eager_limit did not reach the ranks")
+    # (c) the host collectives at -np 4
+    for c in bench["calls"]:
+        check(c["bitwise"], f"host_plane coll {c['coll']} {c['dtype']}: "
+              f"differs from numpy")
+    check(len(bench["calls"]) == 16, "host_plane coll: calls missing")
+    out["coll"] = {"bytes_per_rank": bench["bytes_per_rank"], "ranks": 4,
+                   "calls": bench["calls"]}
+    # (f) init() at -np 4, each rank's
+    out["init_s_np4"] = bench["init_s"]
+    out["job_wall_s"] = jobs
+    emit("host_plane", **out)
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -2615,6 +2829,7 @@ def main() -> int:
     name, count, smi = run("device", phase_device)
     card = f"{name}, power limit {smi.split(',')[-1].strip()}"
     run("build", phase_build)
+    run("host_plane", phase_host_plane, card)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)
     ring = run("ring", phase_ring, fa, card)

@@ -10,6 +10,18 @@ parity tests compare like with like.
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no CUDA they raise.  The slices ported so far are
 listed in ROADMAP.md.
+
+Two execution modes share one API, as in the JAX package:
+
+1. **Device mode** — one process per card; a communicator bound to a
+   ``DeviceCommunicator`` runs its collectives on torch tensors over
+   NCCL (gloo on the CPU), with no host copy.
+2. **Host process mode** — one OS process per rank, launched by
+   ``python -m ompi_tpu_torch.tools.tpurun``; ``init()`` returns
+   ``COMM_WORLD``, whose host buffers move over the ob1 PML (self, proc
+   and tcp BTLs) with full MPI matching semantics.  Under ``tpurun
+   --gpu`` the ranks are also bound one to a card and joined into one
+   ``torch.distributed`` group, so both modes run in one job.
 """
 
 from __future__ import annotations
@@ -20,6 +32,55 @@ from typing import Any
 __version__ = "0.1.0"
 
 _LAZY = {
+    "init": ("ompi_tpu_torch.mpi.runtime", "init"),
+    "finalize": ("ompi_tpu_torch.mpi.runtime", "finalize"),
+    "initialized": ("ompi_tpu_torch.mpi.runtime", "initialized"),
+    "wtime": ("ompi_tpu_torch.mpi.runtime", "wtime"),
+    "wtick": ("ompi_tpu_torch.mpi.runtime", "wtick"),
+    "abort": ("ompi_tpu_torch.mpi.runtime", "abort"),
+    "get_processor_name": ("ompi_tpu_torch.mpi.runtime",
+                           "get_processor_name"),
+    "get_version": ("ompi_tpu_torch.mpi.runtime", "get_version"),
+    "COMM_WORLD": ("ompi_tpu_torch.mpi.runtime", "COMM_WORLD"),
+    "COMM_SELF": ("ompi_tpu_torch.mpi.runtime", "COMM_SELF"),
+    "GeneralizedRequest": ("ompi_tpu_torch.mpi.request",
+                           "GeneralizedRequest"),
+    "grequest_start": ("ompi_tpu_torch.mpi.request", "grequest_start"),
+    "get_count": ("ompi_tpu_torch.mpi.request", "get_count"),
+    "get_elements": ("ompi_tpu_torch.mpi.request", "get_elements"),
+    "reduce_local": ("ompi_tpu_torch.mpi.op", "reduce_local"),
+    "op_commutative": ("ompi_tpu_torch.mpi.op", "op_commutative"),
+    "Datatype": ("ompi_tpu_torch.mpi.datatype", "Datatype"),
+    "Op": ("ompi_tpu_torch.mpi.op", "Op"),
+    "Request": ("ompi_tpu_torch.mpi.request", "Request"),
+    "Status": ("ompi_tpu_torch.mpi.request", "Status"),
+    "PersistentRequest": ("ompi_tpu_torch.mpi.request",
+                          "PersistentRequest"),
+    "wait_all": ("ompi_tpu_torch.mpi.request", "wait_all"),
+    "wait_any": ("ompi_tpu_torch.mpi.request", "wait_any"),
+    "wait_some": ("ompi_tpu_torch.mpi.request", "wait_some"),
+    "test_all": ("ompi_tpu_torch.mpi.request", "test_all"),
+    "test_any": ("ompi_tpu_torch.mpi.request", "test_any"),
+    "test_some": ("ompi_tpu_torch.mpi.request", "test_some"),
+    "start_all": ("ompi_tpu_torch.mpi.request", "start_all"),
+    "buffer_attach": ("ompi_tpu_torch.mpi.pml", "buffer_attach"),
+    "buffer_detach": ("ompi_tpu_torch.mpi.pml", "buffer_detach"),
+    "ANY_SOURCE": ("ompi_tpu_torch.mpi.constants", "ANY_SOURCE"),
+    "ANY_TAG": ("ompi_tpu_torch.mpi.constants", "ANY_TAG"),
+    "PROC_NULL": ("ompi_tpu_torch.mpi.constants", "PROC_NULL"),
+    "UNDEFINED": ("ompi_tpu_torch.mpi.constants", "UNDEFINED"),
+    "SUM": ("ompi_tpu_torch.mpi.op", "SUM"),
+    "PROD": ("ompi_tpu_torch.mpi.op", "PROD"),
+    "MAX": ("ompi_tpu_torch.mpi.op", "MAX"),
+    "MIN": ("ompi_tpu_torch.mpi.op", "MIN"),
+    "LAND": ("ompi_tpu_torch.mpi.op", "LAND"),
+    "LOR": ("ompi_tpu_torch.mpi.op", "LOR"),
+    "BAND": ("ompi_tpu_torch.mpi.op", "BAND"),
+    "BOR": ("ompi_tpu_torch.mpi.op", "BOR"),
+    "MAXLOC": ("ompi_tpu_torch.mpi.op", "MAXLOC"),
+    "MINLOC": ("ompi_tpu_torch.mpi.op", "MINLOC"),
+    "REPLACE": ("ompi_tpu_torch.mpi.op", "REPLACE"),
+    "NO_OP": ("ompi_tpu_torch.mpi.op", "NO_OP"),
     "var_registry": ("ompi_tpu_torch.core.config", "var_registry"),
     "register_var": ("ompi_tpu_torch.core.config", "register_var"),
     "DeviceCommunicator": ("ompi_tpu_torch.mpi.device_comm",
@@ -62,6 +123,10 @@ _LAZY = {
 
 __all__ = sorted(_LAZY)
 
+# Names that are rebound at runtime (init() replaces them) must be resolved on
+# every access, never cached in this module's globals.
+_MUTABLE = {"COMM_WORLD", "COMM_SELF"}
+
 
 def __getattr__(name: str) -> Any:
     try:
@@ -70,7 +135,8 @@ def __getattr__(name: str) -> Any:
         raise AttributeError(f"module {__name__!r} has no attribute "
                              f"{name!r}") from None
     value = getattr(importlib.import_module(mod), attr)
-    globals()[name] = value
+    if name not in _MUTABLE:
+        globals()[name] = value
     return value
 
 

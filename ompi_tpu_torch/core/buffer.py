@@ -19,18 +19,20 @@ tensor it passes already is its shard: DEVICE has TRACED's per-shard
 semantics and there is no TRACED kind.
 
 Every layer above (p2p, coll) dispatches on ``classify()`` instead of
-sprinkling isinstance checks.
+sprinkling isinstance checks.  The module does not import torch: a buffer
+can only be a tensor once the process has loaded torch, so a host-plane
+rank that never touches a tensor never pays torch's import.
 """
 
 from __future__ import annotations
 
 import enum
+import sys
 from typing import Any
 
 import numpy as np
-import torch
 
-__all__ = ["BufferKind", "classify", "is_device", "nbytes_of",
+__all__ = ["BufferKind", "classify", "is_device", "is_tensor", "nbytes_of",
            "BufferLocationError"]
 
 
@@ -43,9 +45,15 @@ class BufferLocationError(TypeError):
     pass
 
 
+def is_tensor(buf: Any) -> bool:
+    """Is ``buf`` a torch.Tensor (without importing torch)?"""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(buf, torch.Tensor)
+
+
 def classify(buf: Any) -> BufferKind:
     """Classify a user buffer."""
-    if isinstance(buf, torch.Tensor):
+    if is_tensor(buf):
         return BufferKind.DEVICE
     if buf is None:  # "no data on this rank" placeholder (non-root scatter)
         return BufferKind.HOST
@@ -76,7 +84,7 @@ def is_device(buf: Any) -> bool:
 
 
 def nbytes_of(buf: Any) -> int:
-    if isinstance(buf, torch.Tensor):
+    if is_tensor(buf):
         return buf.numel() * buf.element_size()
     if isinstance(buf, (bytes, bytearray, memoryview)):
         return len(buf)

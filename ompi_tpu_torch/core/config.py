@@ -9,10 +9,14 @@ registered, typed variable with one namespace and a fixed precedence
 The environment prefix, the file format and the value parsers are the
 JAX package's, so one ``OMPI_TPU_MCA_ops_flash_block_q`` or
 ``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
-The port keeps only what its slices read: integer, size, boolean and
-string variables from the file and environment sources, and the
-programmatic override ``VarRegistry.set`` (no synonyms, info levels,
-read-only vars or command-line source).
+The port keeps only what its slices read: integer, size, double,
+boolean and string variables with an optional allowed-value list; the
+file, environment and command-line (``tpurun --mca``, ``load_cli``)
+sources; one synonym per framework-selection variable (``--mca btl
+self,tcp`` sets ``btl_``); and the programmatic override
+``VarRegistry.set`` (no info levels, deprecations or read-only vars).
+
+    default  <  file  <  environment  <  command line  <  set()
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import dataclasses
 import enum
 import os
 import threading
-from typing import Any
+from typing import Any, Iterable, Optional
 
 __all__ = ["VarType", "Var", "VarRegistry", "var_registry", "register_var"]
 
@@ -32,6 +36,7 @@ ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
 class VarType(enum.Enum):
     INT = "int"
     SIZE = "size"
+    DOUBLE = "double"
     BOOL = "bool"
     STRING = "string"
 
@@ -59,7 +64,8 @@ def _parse_bool(s: str) -> bool:
 
 
 _PARSERS = {VarType.INT: int, VarType.SIZE: _parse_size,
-            VarType.BOOL: _parse_bool, VarType.STRING: str}
+            VarType.DOUBLE: float, VarType.BOOL: _parse_bool,
+            VarType.STRING: str}
 
 
 @dataclasses.dataclass
@@ -72,13 +78,20 @@ class Var:
     default: Any
     description: str = ""
     value: Any = None
+    #: allowed values of a string variable (None = any)
+    enumerator: Optional[tuple] = None
+    synonyms: tuple[str, ...] = ()  # alternate full names
 
     @property
     def full_name(self) -> str:
         return f"{self.framework}_{self.name}" if self.framework else self.name
 
     def parse(self, raw: str) -> Any:
-        return _PARSERS[self.vtype](raw)
+        value = _PARSERS[self.vtype](raw)
+        if self.enumerator is not None and value not in self.enumerator:
+            raise ValueError(f"{value!r} is not one of "
+                             f"{list(self.enumerator)}")
+        return value
 
 
 class VarRegistry:
@@ -89,7 +102,9 @@ class VarRegistry:
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._vars: dict[str, Var] = {}
+        self._synonyms: dict[str, str] = {}
         self._file: dict[str, str] = {}
+        self._cli: dict[str, str] = {}
         self._load_files()
 
     def _load_files(self) -> None:
@@ -110,6 +125,25 @@ class VarRegistry:
             except OSError:
                 continue
 
+    def _apply(self, var: Var, raw: str, source: str) -> None:
+        try:
+            var.value = var.parse(raw)
+        except ValueError as e:
+            raise ValueError(
+                f"bad value {raw!r} for {var.vtype.value} variable "
+                f"{var.full_name} (from {source}): {e}") from None
+
+    def load_cli(self, pairs: Iterable[tuple[str, str]]) -> None:
+        """Record ``--mca name value`` pairs (called by CLI front-ends);
+        they win over the file and the environment."""
+        with self._lock:
+            for name, raw in pairs:
+                canon = self._synonyms.get(name, name)
+                self._cli[canon] = raw
+                var = self._vars.get(canon)
+                if var is not None:
+                    self._apply(var, raw, "command line")
+
     def register(self, var: Var) -> Var:
         with self._lock:
             existing = self._vars.get(var.full_name)
@@ -117,23 +151,28 @@ class VarRegistry:
                 return existing
             var.value = var.default
             self._vars[var.full_name] = var
+            names = (var.full_name, *var.synonyms)
+            for syn in var.synonyms:
+                self._synonyms[syn] = var.full_name
+                if syn in self._cli:
+                    self._cli.setdefault(var.full_name, self._cli.pop(syn))
+            file_raw = next((self._file[n] for n in names
+                             if n in self._file), None)
+            env_name = next((self.ENV_PREFIX + n for n in names
+                             if self.ENV_PREFIX + n in os.environ), None)
             for raw, source in (
-                    (self._file.get(var.full_name), "file"),
-                    (os.environ.get(self.ENV_PREFIX + var.full_name),
-                     self.ENV_PREFIX + var.full_name)):
-                if raw is None:
-                    continue
-                try:
-                    var.value = var.parse(raw)
-                except ValueError as e:
-                    raise ValueError(
-                        f"bad value {raw!r} for {var.vtype.value} variable "
-                        f"{var.full_name} (from {source}): {e}") from None
+                    (file_raw, "file"),
+                    (os.environ.get(env_name) if env_name else None,
+                     env_name),
+                    (self._cli.get(var.full_name), "command line")):
+                if raw is not None:
+                    self._apply(var, raw, source)
             return var
 
     def get(self, full_name: str) -> Any:
         with self._lock:
-            return self._vars[full_name].value
+            return self._vars[self._synonyms.get(full_name,
+                                                 full_name)].value
 
     def set(self, full_name: str, value: Any) -> None:
         """Programmatic override, above every other source; a string is
@@ -147,7 +186,10 @@ var_registry = VarRegistry()
 
 
 def register_var(framework: str, name: str, vtype: VarType, default: Any,
-                 description: str = "") -> Var:
+                 description: str = "",
+                 enumerator: Optional[tuple] = None,
+                 synonyms: tuple[str, ...] = ()) -> Var:
     return var_registry.register(
         Var(framework=framework, name=name, vtype=vtype, default=default,
-            description=description))
+            description=description, enumerator=enumerator,
+            synonyms=tuple(synonyms)))

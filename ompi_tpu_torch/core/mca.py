@@ -9,8 +9,9 @@ user's directive.  Components register with a class decorator at import
 time.
 
 The directive is the configuration variable ``<framework>_`` (empty name),
-read through the port's ``core/config.py``, so ``OMPI_TPU_MCA_coll_=^xla``
-reads the same in both packages:
+read through the port's ``core/config.py`` (with the bare framework name
+as its synonym), so ``OMPI_TPU_MCA_coll_=^xla`` and ``--mca coll ^xla``
+read the same in both packages:
 
 - ``""``      → every component eligible, highest ``query()`` first
 - ``"xla"``   → only the listed component(s) (a missing one raises)
@@ -63,7 +64,8 @@ class Framework:
         register_var(
             name, "", VarType.STRING, "",
             description=f"Component selection for the {name} framework "
-                        f"(comma list; prefix with ^ to exclude)")
+                        f"(comma list; prefix with ^ to exclude)",
+            synonyms=(name,))
 
     def component(self, cls: Type[Component]) -> Type[Component]:
         """Class decorator registering a component with this framework."""
@@ -105,6 +107,16 @@ class Framework:
                     f"{', '.join(sorted(components))}; check the "
                     f"{self.name}_ selection directive)")
         return comps
+
+    def select(self, **context: Any) -> Component:
+        """Pick the single highest-priority component that accepts
+        ``context``."""
+        best = self.select_all(**context)
+        if not best:
+            raise ComponentError(
+                f"no {self.name} component available for context "
+                f"{context!r}")
+        return best[0]
 
     def select_all(self, **context: Any) -> list[Component]:
         """All accepting components, highest priority first (for stacked

@@ -1,5 +1,13 @@
-"""Communicators of the port (device plane)."""
-
-from ompi_tpu_torch.mpi.device_comm import DeviceCommunicator, device_world
+"""Communicators of the port: the host plane (``comm``, ``pml``, ``btl``,
+``coll``) and the device plane (``device_comm``).  The device names load
+on first use, so a host-plane rank does not import torch."""
 
 __all__ = ["DeviceCommunicator", "device_world"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from ompi_tpu_torch.mpi import device_comm
+
+        return getattr(device_comm, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

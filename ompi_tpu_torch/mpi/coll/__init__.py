@@ -9,15 +9,15 @@ component providing it wins.
 Components here:
 - ``self`` — size-1 communicators, host buffers: every collective is a
   local copy (≈ coll/self).
+- ``host`` — the tuned host algorithms over the communicator's PML
+  (≈ coll/tuned + coll/base), for host buffers on more than one rank.
 - ``xla``  — the device path (≈ the coll/cuda slot, inverted): collectives
   on torch tensors run on the communicator's bound ``DeviceCommunicator``
   (NCCL on the card, gloo on the CPU), with no host copy.
 
-The JAX package's host components (``host``, ``shm``) belong to the host
-plane, which is not ported yet (ROADMAP.md Queue 1 item 6): a host buffer
-on a communicator of more than one rank raises ``BufferLocationError``.
-Nor is its trace plane (the flight recorder, spans and dispatch
-histograms).
+Left out of the JAX package's dispatch (ROADMAP.md Queue 1 item 6):
+``coll/shm`` (the shared-memory arena), and the trace plane (the flight
+recorder, spans and dispatch histograms).
 
 Buffer-location dispatch: each table slot is a dispatcher that routes by
 ``core.buffer.classify()`` — HOST buffers to the best host-capable
@@ -52,12 +52,6 @@ COLL_FUNCTIONS = (
 # slots whose first argument is a data buffer (everything but barrier)
 _BUFFER_SLOTS = frozenset(COLL_FUNCTIONS) - {"barrier"}
 
-_HOST_NOT_PORTED = (
-    "{slot}: host buffer on {comm} (size {size}), but the port's host "
-    "collectives (coll/host, coll/shm and the PML under them) are not "
-    "ported yet (ROADMAP.md Queue 1 item 6); pass a torch tensor on the "
-    "bound mesh's device for the device path [{dev}]")
-
 
 class CollModule:
     """The per-communicator collective table. Attributes are bound
@@ -75,19 +69,16 @@ def _handles(comp: Component) -> frozenset:
 
 
 def _make_dispatch(slot: str, host_fn, host_name: Optional[str],
-                   dev_fn, dev_name: Optional[str], host_excluded: bool):
+                   dev_fn, dev_name: Optional[str]):
     def dispatch(comm, buf, *args, **kw):
         if classify(buf) is BufferKind.HOST:
-            if host_fn is not None:
-                return host_fn(comm, buf, *args, **kw)
-            if host_excluded:
+            if host_fn is None:
                 raise BufferLocationError(
                     f"{slot}: host buffer but no host-capable coll "
                     f"component selected (directive excludes "
                     f"host/self; device path [{dev_name}] needs torch "
                     f"tensors)")
-            raise BufferLocationError(_HOST_NOT_PORTED.format(
-                slot=slot, comm=comm.name, size=comm.size, dev=dev_name))
+            return host_fn(comm, buf, *args, **kw)
         if dev_fn is None:
             raise BufferLocationError(
                 f"{slot}: device buffer but no device-capable coll "
@@ -104,15 +95,12 @@ def _make_dispatch(slot: str, host_fn, host_name: Optional[str],
 def install(comm: "Communicator") -> None:
     """Fill comm.coll by priority query (≈ coll_base_comm_select)."""
     # import registers the components
+    from ompi_tpu_torch.mpi.coll import host as _host  # noqa: F401
     from ompi_tpu_torch.mpi.coll import selfcoll as _selfcoll  # noqa: F401
     from ompi_tpu_torch.mpi.coll import xla as _xla  # noqa: F401
 
     module = CollModule()
     ranked = coll_framework.select_all(comm=comm)
-    # a host component would serve this comm but the directive left it out
-    self_comp = coll_framework.components()["self"]
-    host_excluded = (self_comp.query(comm=comm) is not None
-                     and self_comp not in ranked)
     for slot in COLL_FUNCTIONS:
         host_fn = host_name = dev_fn = dev_name = None
         for comp in ranked:
@@ -127,11 +115,17 @@ def install(comm: "Communicator") -> None:
         if slot in _BUFFER_SLOTS:
             setattr(module, slot,
                     _make_dispatch(slot, host_fn, host_name, dev_fn,
-                                   dev_name, host_excluded))
+                                   dev_name))
         elif host_fn is None and dev_fn is None:
             setattr(module, slot, _unimplemented(slot))
-        else:  # barrier: no buffer to classify; host provider wins
-            setattr(module, slot, host_fn or dev_fn)
+        else:
+            # barrier, no buffer to classify: the host provider wins, as
+            # in the JAX package, on a communicator with a PML to run it
+            # over; one with none (a device-only communicator,
+            # ``Communicator(...).bind_device(...)``) takes the device's
+            host_ok = host_fn is not None and (
+                dev_fn is None or getattr(comm, "pml", None) is not None)
+            setattr(module, slot, host_fn if host_ok else dev_fn)
         if host_name:
             module.providers[slot] = host_name
         if dev_name:

@@ -1,7 +1,7 @@
 """Dynamic collective-selection rules file (the port's copy of the JAX
-package's ``mpi/coll/rules.py``: the format, ``RuleSet.lookup`` and
-``load_rules``; the host plane's ``decide`` ladder and coll/shm keys stay
-there).
+package's ``mpi/coll/rules.py``: the format, ``RuleSet.lookup``,
+``load_rules`` and the ``decide`` ladder of coll/host; the coll/shm keys
+wait for coll/shm, ROADMAP.md Queue 1 item 6).
 
 ≈ ompi/mca/coll/tuned/coll_tuned_dynamic_file.c — the reference lets admins
 override the fixed decision tables with a file of measured crossover points,
@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["RuleSet", "parse", "load_rules"]
+__all__ = ["RuleSet", "parse", "load_rules", "decide"]
 
 
 class RuleSet:
@@ -99,3 +99,36 @@ def load_rules(path: str) -> RuleSet:
     _cache[path] = (mtime, rs)
     return rs
 
+
+def decide(coll: str, comm_size: int, msg_bytes: int, forced: str = "",
+           path: str = "", valid: Optional[tuple] = None,
+           forced_src: str = "forced var",
+           load=None) -> tuple[Optional[str], str]:
+    """The selection ladder every decision layer repeats, factored
+    once: forced config var > rules-file hit > ``(None, "fixed")``
+    (the caller applies its fixed default).  ``valid`` is the
+    validation universe (None skips validation; an EMPTY tuple means
+    nothing is valid, so any forced name raises — user tuning must
+    fail loudly, not silently fall through).  ``forced_src`` labels
+    the forced rung in traces/errors; ``load`` substitutes the
+    caller's RuleSet cache for :func:`load_rules` (HostColl keeps its
+    lock-guarded component cache).  Returns
+    ``(algorithm | None, source)``."""
+    if forced:
+        alg: Optional[str] = forced
+        src = forced_src
+    elif path:
+        alg = (load or load_rules)(path).lookup(coll, comm_size,
+                                                msg_bytes)
+        src = f"rules file {path}"
+        if alg is None:
+            return None, "fixed"
+    else:
+        return None, "fixed"
+    if valid is not None and alg not in valid:
+        from ompi_tpu_torch.mpi.constants import MPIException
+
+        raise MPIException(
+            f"unknown {coll} algorithm {alg!r} (from {src}); "
+            f"valid: {', '.join(valid)}")
+    return alg, src

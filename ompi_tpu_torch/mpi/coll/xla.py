@@ -30,9 +30,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import torch
-
-from ompi_tpu_torch.core.buffer import BufferLocationError
+from ompi_tpu_torch.core.buffer import BufferLocationError, is_tensor
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.core.mca import Component
 from ompi_tpu_torch.mpi.coll import coll_framework, rules
@@ -93,6 +91,8 @@ def _same_device(dev: torch.device, mesh_dev: torch.device) -> bool:
         return False
     if dev.type != "cuda" or mesh_dev.index is None:
         return True
+    import torch
+
     return (dev.index if dev.index is not None
             else torch.cuda.current_device()) == mesh_dev.index
 
@@ -102,7 +102,7 @@ def _check_device(comm, dc, buf) -> None:
     never moves it (no fallback that hides the device)."""
     parts = buf if isinstance(buf, (list, tuple)) else (buf,)
     for t in parts:
-        if isinstance(t, torch.Tensor) and not _same_device(
+        if is_tensor(t) and not _same_device(
                 t.device, dc.mesh.device):
             raise BufferLocationError(
                 f"{comm.name}: a tensor on {t.device} in a collective over "

@@ -2,22 +2,28 @@
 (the port's trimmed copy of the JAX package's ``mpi/comm.py``).
 
 ≈ ompi/communicator (communicator.h:134-189: cid, local/remote groups, the
-c_coll function table).  The collective table (``self.coll``) is
-installed by ``ompi_tpu_torch.mpi.coll`` at creation by priority query,
-as coll_base_comm_select.c:107.
+c_coll function table) and CID allocation (comm_cid.c:51-124).  The
+collective table (``self.coll``) is installed by ``ompi_tpu_torch.mpi.coll``
+at creation by priority query, as coll_base_comm_select.c:107.
 
-What the port keeps is the device route: a communicator bound to a
-``DeviceCommunicator`` (``comm.bind_device(device_world(mesh))``) runs its
-collectives on torch tensors there, through coll/xla, with no host copy.
-A world communicator is
-``Communicator(Group(range(world_size)), cid=0, my_world_rank=rank)``.
+A communicator carries two routes:
 
-The host plane under the JAX package's communicator — the PML and its
-transports, host collectives, nonblocking, persistent and neighbourhood
-collectives, topologies, fault tolerance, attributes and ``split`` — is
-not ported yet (ROADMAP.md Queue 1 item 6).  Point-to-point calls refuse
-a tensor as the JAX package's PML refuses a device buffer, and raise
-``NotImplementedError`` on a host buffer.
+- the host route: point-to-point calls and collectives on host buffers
+  (numpy arrays, bytes) go through its PML (``pml=``, the ob1 PML over
+  the self/proc/tcp BTLs) and coll/host's algorithms.  ``init()`` builds
+  ``COMM_WORLD`` this way; a hand-made one is
+  ``Communicator(Group(range(n)), cid=0, my_world_rank=rank, pml=pml)``.
+- the device route: a communicator bound to a ``DeviceCommunicator``
+  (``comm.bind_device(device_world(mesh))``) runs its collectives on
+  torch tensors there, through coll/xla, with no host copy.  A tensor is
+  never staged through the PML: point-to-point calls refuse it.
+
+CID allocation is deterministic: each parent carries a monotonic
+per-parent counter and every member computes the same new cid with no
+traffic.  Left out (ROADMAP.md Queue 1 item 6): nonblocking, persistent,
+partitioned and neighbourhood collectives, ``split``/``create`` and the
+topologies, fault tolerance, attributes and errhandlers (an error raises
+``MPIException``, the JAX package's default ERRORS_RETURN behaviour).
 """
 
 from __future__ import annotations
@@ -25,42 +31,34 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional
 
-from ompi_tpu_torch.core.buffer import (BufferKind, BufferLocationError,
-                                        classify)
+import numpy as np
+
+from ompi_tpu_torch.mpi import datatype as dt_mod
 from ompi_tpu_torch.mpi import op as op_mod
-from ompi_tpu_torch.mpi.constants import ANY_TAG
+from ompi_tpu_torch.mpi.constants import (ANY_SOURCE, ANY_TAG, PROC_NULL,
+                                          MPIException)
+from ompi_tpu_torch.mpi.datatype import Datatype
 from ompi_tpu_torch.mpi.group import Group
+# the PML's refusal, checked here as well so that a communicator with no
+# PML refuses a tensor the same way
+from ompi_tpu_torch.mpi.pml import MESSAGE_NO_PROC, _reject_device
+from ompi_tpu_torch.mpi.request import CompletedRequest, Request, Status
 
 __all__ = ["Communicator"]
 
-_NO_HOST_PML = (
-    "{what}: host point-to-point needs the host PML, which the port has "
-    "not ported yet (ROADMAP.md Queue 1 item 6); on tensors use "
-    "DeviceCommunicator.shift/permute/sendrecv")
-
-
-def _reject_device(buf: Any, what: str) -> None:
-    """Device buffers must NEVER silently host-stage through the PML (the
-    reference's coll/cuda bounce-buffer anti-pattern this design forbids);
-    the JAX package's ``pml._reject_device``."""
-    kind = classify(buf)
-    if kind is not BufferKind.HOST:
-        raise BufferLocationError(
-            f"pml.{what}: got a {kind.value} buffer; the host PML would "
-            f"stage it through host memory. Use the device path instead "
-            f"(comm.bind_device(device_world(mesh)) routes collectives "
-            f"over NCCL/gloo; for p2p use DeviceCommunicator.shift/"
-            f"permute/sendrecv), or .cpu().numpy() the tensor explicitly "
-            f"if host staging is intended.")
+# tag space: user tags ≥ 0; negative tags reserved for internal collectives
+# (≈ the reference's MCA_COLL_BASE_TAG_* negative tag range)
+_INTERNAL_TAG_BASE = -1000
 
 
 class Communicator:
     """A group of ranks sharing an isolated message context."""
 
     def __init__(self, group: Group, cid: int, my_world_rank: int,
-                 name: str = "comm") -> None:
+                 name: str = "comm", pml=None) -> None:
         self.group = group
         self.cid = cid
+        self.pml = pml
         self._world_rank = my_world_rank
         self.name = name
         self.rank = group.rank_of(my_world_rank)
@@ -90,35 +88,219 @@ class Communicator:
         """≈ MPI_Comm_set_name."""
         self.name = str(name)
 
-    # -- point-to-point (the host PML is not ported) -------------------------
+    def world_rank(self, rank: int) -> int:
+        return self.group.world_rank(rank)
 
-    def _p2p(self, what: str, buf, recvbuf=None) -> None:
-        if recvbuf is not None:
-            _reject_device(recvbuf, "irecv")
-        if buf is not None:
-            _reject_device(buf, what)
-        raise NotImplementedError(_NO_HOST_PML.format(what=what))
+    def _check_rank(self, rank: int, what: str = "rank") -> None:
+        if rank != PROC_NULL and not 0 <= rank < self.size:
+            raise MPIException(
+                f"{what} {rank} out of range for {self.name} "
+                f"(size {self.size})", error_class=6)
 
-    def isend(self, buf: Any, dest: int, tag: int = 0, datatype=None,
-              count: Optional[int] = None):
-        self._p2p("isend", buf)
+    # -- point-to-point ----------------------------------------------------
 
-    def send(self, buf: Any, dest: int, tag: int = 0, datatype=None,
+    def isend(self, buf: Any, dest: int, tag: int = 0,
+              datatype: Optional[Datatype] = None,
+              count: Optional[int] = None) -> Request:
+        return self._isend_mode("standard", buf, dest, tag, datatype, count)
+
+    def send(self, buf: Any, dest: int, tag: int = 0,
+             datatype: Optional[Datatype] = None,
              count: Optional[int] = None) -> None:
-        self._p2p("isend", buf)
+        self.isend(buf, dest, tag, datatype, count).wait()
 
-    def irecv(self, buf=None, source: int = 0, tag: int = ANY_TAG,
-              datatype=None, count: Optional[int] = None):
-        self._p2p("irecv", buf)
+    # send modes (≈ MPI_Ssend/Bsend/Rsend and their nonblocking forms)
 
-    def recv(self, buf=None, source: int = 0, tag: int = ANY_TAG,
-             datatype=None, count: Optional[int] = None, status=None):
-        self._p2p("irecv", buf)
+    def _isend_mode(self, mode: str, buf, dest, tag, datatype, count
+                    ) -> Request:
+        self._check_rank(dest, "dest")
+        if tag < 0:
+            raise MPIException(f"negative tag {tag} is reserved",
+                               error_class=4)
+        if dest == PROC_NULL:
+            return CompletedRequest()
+        _reject_device(buf, "isend")
+        return self.pml.isend(buf, self.world_rank(dest), tag, self.cid,
+                              datatype, count, mode=mode)
+
+    def issend(self, buf, dest: int, tag: int = 0, datatype=None,
+               count=None) -> Request:
+        """≈ MPI_Issend: completes once the matching recv is posted."""
+        return self._isend_mode("sync", buf, dest, tag, datatype, count)
+
+    def ssend(self, buf, dest: int, tag: int = 0, **kw) -> None:
+        self.issend(buf, dest, tag, **kw).wait()
+
+    def ibsend(self, buf, dest: int, tag: int = 0, datatype=None,
+               count=None) -> Request:
+        """≈ MPI_Ibsend: local completion against the attached buffer
+        (``comm.pml.bsend_pool``, ``ompi_tpu_torch.mpi.pml.buffer_attach``)."""
+        return self._isend_mode("buffered", buf, dest, tag, datatype, count)
+
+    def bsend(self, buf, dest: int, tag: int = 0, **kw) -> None:
+        self.ibsend(buf, dest, tag, **kw).wait()
+
+    def irsend(self, buf, dest: int, tag: int = 0, datatype=None,
+               count=None) -> Request:
+        """≈ MPI_Irsend: erroneous (fails) unless the recv is posted."""
+        return self._isend_mode("ready", buf, dest, tag, datatype, count)
+
+    def rsend(self, buf, dest: int, tag: int = 0, **kw) -> None:
+        self.irsend(buf, dest, tag, **kw).wait()
+
+    def _recv_src(self, source: int) -> Optional[int]:
+        """The PML source for a recv: a world rank, ANY_SOURCE, or None
+        for PROC_NULL (an empty completed receive)."""
+        if source < 0 and source not in (ANY_SOURCE, PROC_NULL):
+            raise MPIException(
+                f"source {source} is neither a rank nor "
+                f"ANY_SOURCE/PROC_NULL", error_class=6)
+        if source == PROC_NULL:
+            return None
+        if source < 0:
+            return source
+        self._check_rank(source, "source")
+        return self.world_rank(source)
+
+    def irecv(self, buf: Optional[np.ndarray] = None, source: int = 0,
+              tag: int = ANY_TAG, datatype: Optional[Datatype] = None,
+              count: Optional[int] = None) -> Request:
+        src = self._recv_src(source)
+        if src is None:
+            return CompletedRequest(
+                np.empty(0, dtype=(datatype or dt_mod.BYTE).base_np))
+        if buf is not None:
+            _reject_device(buf, "irecv")
+        return self.pml.irecv(buf, src, tag, self.cid, datatype, count)
+
+    def _group_status(self, status: Optional[Status], st: Status) -> None:
+        """Copy ``st`` into ``status`` with the source as a group rank."""
+        if status is not None:
+            status.__dict__.update(st.__dict__)
+            if status.source >= 0:
+                status.source = self.group.rank_of(status.source)
+
+    def recv(self, buf: Optional[np.ndarray] = None, source: int = 0,
+             tag: int = ANY_TAG, datatype: Optional[Datatype] = None,
+             count: Optional[int] = None,
+             status: Optional[Status] = None) -> np.ndarray:
+        req = self.irecv(buf, source, tag, datatype, count)
+        out = req.wait()
+        self._group_status(status, req.status)
+        return out
 
     def sendrecv(self, sendbuf: Any, dest: int, recvbuf=None,
                  source: int = 0, sendtag: int = 0, recvtag: int = ANY_TAG,
-                 status=None):
-        self._p2p("isend", sendbuf, recvbuf)
+                 status: Optional[Status] = None) -> np.ndarray:
+        rreq = self.irecv(recvbuf, source, recvtag)
+        sreq = self.isend(sendbuf, dest, sendtag)
+        out = rreq.wait()
+        sreq.wait()
+        self._group_status(status, rreq.status)
+        return out
+
+    def sendrecv_replace(self, buf: Any, dest: int, source: int = 0,
+                         sendtag: int = 0, recvtag: int = ANY_TAG,
+                         status: Optional[Status] = None) -> np.ndarray:
+        """≈ MPI_Sendrecv_replace: send ``buf`` to ``dest`` and receive
+        into the SAME buffer from ``source``.  The wire copy is made
+        before the receive can land, and the received data is written
+        back into ``buf`` in place when it is a writable ndarray."""
+        _reject_device(buf, "isend")
+        arr = np.asarray(buf)
+        staged = arr.copy()                  # sender-side staging copy
+        out = self.sendrecv(staged, dest, None, source, sendtag, recvtag,
+                            status)
+        got = np.asarray(out)
+        if got.size == 0 and arr.size != 0:
+            # PROC_NULL source: the receive is a no-op, buf stays unchanged
+            return buf if isinstance(buf, np.ndarray) else arr
+        got = got.reshape(arr.shape).astype(arr.dtype, copy=False)
+        if isinstance(buf, np.ndarray) and buf.flags.writeable:
+            buf[...] = got
+            return buf
+        return got
+
+    def probe(self, source: int = -1, tag: int = ANY_TAG,
+              timeout: Optional[float] = None) -> Status:
+        src = source if source < 0 else self.world_rank(source)
+        st = self.pml.probe(src, tag, self.cid, timeout=timeout)
+        if st.source >= 0:
+            st.source = self.group.rank_of(st.source)
+        return st
+
+    def iprobe(self, source: int = -1, tag: int = ANY_TAG) -> Optional[Status]:
+        src = source if source < 0 else self.world_rank(source)
+        st = self.pml.iprobe(src, tag, self.cid)
+        if st is not None and st.source >= 0:
+            st.source = self.group.rank_of(st.source)
+        return st
+
+    # -- matched probe (≈ MPI_Mprobe/Improbe/Mrecv/Imrecv, mprobe.c:1) -----
+
+    def _msg_no_proc(self):
+        st = Status()
+        st.source = PROC_NULL
+        st.tag = ANY_TAG
+        st.count = 0
+        return MESSAGE_NO_PROC, st
+
+    def mprobe(self, source: int = -1, tag: int = ANY_TAG,
+               timeout: Optional[float] = None):
+        """Blocking match-and-detach → (Message, Status).  The returned
+        handle is consumed by exactly one mrecv/imrecv."""
+        if source == PROC_NULL:
+            return self._msg_no_proc()
+        src = source if source < 0 else self.world_rank(source)
+        msg, st = self.pml.mprobe(src, tag, self.cid, timeout=timeout)
+        if st.source >= 0:
+            st.source = self.group.rank_of(st.source)
+        return msg, st
+
+    def improbe(self, source: int = -1, tag: int = ANY_TAG):
+        """Nonblocking match-and-detach → (Message, Status) or None."""
+        if source == PROC_NULL:
+            return self._msg_no_proc()
+        src = source if source < 0 else self.world_rank(source)
+        out = self.pml.improbe(src, tag, self.cid)
+        if out is None:
+            return None
+        msg, st = out
+        if st.source >= 0:
+            st.source = self.group.rank_of(st.source)
+        return msg, st
+
+    def imrecv(self, buf=None, message=None, datatype=None,
+               count=None) -> Request:
+        # status.source must be the GROUP rank (as mrecv reports); the
+        # detached message pins the sender, so the translation rides the
+        # request into delivery
+        src = None
+        if message is not None and not message.no_proc \
+                and message.peer >= 0:
+            src = self.group.rank_of(message.peer)
+        return self.pml.imrecv(buf, message, datatype, count,
+                               status_source=src)
+
+    def mrecv(self, buf=None, message=None, datatype=None, count=None,
+              status: Optional[Status] = None) -> np.ndarray:
+        out = self.pml.mrecv(buf, message, datatype, count, status)
+        if status is not None and status.source >= 0:
+            status.source = self.group.rank_of(status.source)
+        return out
+
+    # internal p2p on the reserved tag space (collectives use these)
+
+    def _coll_isend(self, buf, dest: int, coll_tag: int) -> Request:
+        return self.pml.isend(np.asarray(buf), self.world_rank(dest),
+                              _INTERNAL_TAG_BASE - coll_tag, self.cid)
+
+    def _coll_irecv(self, buf, source: int, coll_tag: int,
+                    datatype=None, count=None) -> Request:
+        src = source if source < 0 else self.world_rank(source)
+        return self.pml.irecv(buf, src,
+                              _INTERNAL_TAG_BASE - coll_tag, self.cid,
+                              datatype, count)
 
     # -- collectives (delegate to the installed coll table) ----------------
 
@@ -184,7 +366,19 @@ class Communicator:
         route through coll/xla over its mesh axes (zero host copies).
         Returns self for chaining.  ≈ installing coll/cuda's module on the
         comm — except the device path replaces the host algorithms instead
-        of bounce-buffering into them."""
+        of bounce-buffering into them.
+
+        The device communicator must span the same ranks, with this rank
+        at the same place: a one-process mesh bound to a job of N ranks
+        would reduce this rank's data alone.  Raises ValueError if not."""
+        if device_comm.size != self.size or device_comm.rank() != self.rank:
+            raise ValueError(
+                f"bind_device: {self.name} is rank {self.rank} of "
+                f"{self.size} but the device communicator "
+                f"{getattr(device_comm, 'name', '')!r} is rank "
+                f"{device_comm.rank()} of {device_comm.size}: build the "
+                f"mesh over the job's process group (tpurun --gpu, then "
+                f"make_mesh())")
         self.device = device_comm
         return self
 
@@ -199,16 +393,19 @@ class Communicator:
             return cid
 
     def dup(self, name: Optional[str] = None) -> "Communicator":
-        """≈ MPI_Comm_dup — collective over this communicator; the device
-        binding carries over (same group ⇒ same mesh)."""
+        """≈ MPI_Comm_dup — collective over this communicator: the copy
+        takes the next deterministic cid (its own message context over
+        the same PML); the device binding carries over (same group ⇒
+        same mesh)."""
         new = Communicator(self.group, self._next_cid(), self._world_rank,
-                           name or f"{self.name}.dup")
+                           name or f"{self.name}.dup", pml=self.pml)
         new.device = self.device
         return new
 
     def free(self) -> None:
         """≈ MPI_Comm_free: drop the device binding and the table; the
-        device groups belong to the mesh, not to the communicator."""
+        device groups belong to the mesh and the PML to the runtime, not
+        to the communicator."""
         self.device = None
         self.coll = None
 

@@ -13,8 +13,13 @@ device instead of a host byte loop.  The index tensor is made once per
 ``(datatype, count, device)``; a repeated pack makes no host-to-device
 copy.
 
-The host convertor (pack/unpack into bytes, the native pack, ``PackPlan``)
-is host plane and not ported yet (ROADMAP.md Queue 1 item 6).
+The host convertor packs into bytes for the PML's send/recv
+(``datatype=``): ``pack_plan`` compiles a ``(datatype, count)`` pair to
+one of three executors (one memcpy, a strided block copy, or one
+gather over the coalesced runs), run with numpy.  The JAX package's native
+pack executor and its convertor statistics are left out (ROADMAP.md
+Queue 1 item 6, the native executors); so are ``create_darray`` and the
+external32 pack.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import threading
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from ompi_tpu_torch.mpi.constants import MPIException
 
@@ -34,8 +38,88 @@ __all__ = [
     "BYTE", "INT8", "UINT8", "INT16", "UINT16", "INT32",
     "UINT32", "INT64", "UINT64", "FLOAT16", "BFLOAT16", "FLOAT32", "FLOAT64",
     "COMPLEX64", "COMPLEX128", "BOOL", "FLOAT", "DOUBLE", "INT", "LONG",
-    "CHAR", "FLOAT_INT", "DOUBLE_INT", "LONG_INT",
+    "CHAR", "FLOAT_INT", "DOUBLE_INT", "LONG_INT", "PackPlan",
+    "from_numpy",
 ]
+
+class PackPlan:
+    """A compiled pack program for one ``(datatype, count)`` pair —
+    ≈ the reference's optimized dt_elem_desc chain (opal_datatype_optimize).
+
+    ``kind`` selects the executor:
+
+    - ``"empty"``    nothing to move.
+    - ``"single"``   ONE memcpy: ``[start, start + total)`` — the plan
+                     collapsed (contiguous layout, any count).
+    - ``"strided"``  ``nblocks`` blocks of ``blocklen`` bytes, block i at
+                     ``start + i*stride`` — vector-class layouts need no
+                     per-run metadata at all.
+    - ``"gather"``   absolute coalesced ``(offsets, lengths)`` runs
+                     covering ALL count items (abutting runs merged, across
+                     item boundaries when the extent makes items abut),
+                     moved with one numpy fancy-index copy.
+
+    ``span`` is the user-buffer bytes the plan touches (validation bound).
+    """
+
+    __slots__ = ("kind", "total", "span", "start", "nblocks", "blocklen",
+                 "stride", "offsets", "lengths")
+
+    def __init__(self, kind: str, total: int, span: int) -> None:
+        self.kind = kind
+        self.total = total
+        self.span = span
+        self.start = 0
+        self.nblocks = 0
+        self.blocklen = 0
+        self.stride = 0
+        self.offsets: Optional[np.ndarray] = None
+        self.lengths: Optional[np.ndarray] = None
+
+    @property
+    def single_run(self) -> bool:
+        """Plan collapsed to one memcpy (the zero-copy gate consumers
+        check before sending a buffer view instead of packing)."""
+        return self.kind == "single"
+
+    def __repr__(self) -> str:  # debugging aid
+        return (f"PackPlan({self.kind}, total={self.total}, "
+                f"span={self.span})")
+
+
+def _plan_empty() -> PackPlan:
+    return PackPlan("empty", 0, 0)
+
+
+def _plan_single(start: int, total: int) -> PackPlan:
+    p = PackPlan("single", total, start + total)
+    p.start = start
+    return p
+
+
+def _plan_strided(start: int, nblocks: int, blocklen: int,
+                  stride: int) -> PackPlan:
+    if blocklen == stride and nblocks > 1:  # blocks abut: collapse
+        return _plan_single(start, nblocks * blocklen)
+    if nblocks == 1:
+        return _plan_single(start, blocklen)
+    p = PackPlan("strided", nblocks * blocklen,
+                 start + (nblocks - 1) * stride + blocklen)
+    p.start = start
+    p.nblocks = nblocks
+    p.blocklen = blocklen
+    p.stride = stride
+    return p
+
+
+def _plan_gather(offsets: np.ndarray, lengths: np.ndarray) -> PackPlan:
+    if len(offsets) == 1:
+        return _plan_single(int(offsets[0]), int(lengths[0]))
+    p = PackPlan("gather", int(lengths.sum()),
+                 int((offsets + lengths).max()))
+    p.offsets = np.ascontiguousarray(offsets)
+    p.lengths = np.ascontiguousarray(lengths)
+    return p
 
 
 class Datatype:
@@ -46,9 +130,16 @@ class Datatype:
     extent: int
     base_np: np.dtype  # element dtype (its itemsize is the element unit)
 
+    _committed = False
+
     def commit(self) -> "Datatype":
         """Compile the layout (≈ MPI_Type_commit → opal_datatype_commit)."""
+        self._committed = True
         return self
+
+    @property
+    def committed(self) -> bool:
+        return self._committed
 
     def get_extent(self) -> tuple[int, int]:
         """≈ MPI_Type_get_extent → (lb, extent).  This layout model has no
@@ -68,6 +159,169 @@ class Datatype:
         extent/base_np.itemsize positions — the gather map for device packs."""
         raise NotImplementedError
 
+    @property
+    def elements_per_item(self) -> int:
+        return self.size // self.base_np.itemsize
+
+    # -- pack/unpack (host path; ≈ opal_convertor_pack/unpack) ------------
+
+    @property
+    def is_contiguous(self) -> bool:
+        """One gap-free run per item, items abutting — memcpy territory."""
+        offs, lens = self.segment_arrays()
+        return (len(offs) == 1 and int(offs[0]) == 0
+                and int(lens[0]) == self.size
+                and self.extent == self.size)
+
+    # -- pack plans (the run-coalescing compiled convertor) ---------------
+
+    def pack_plan(self, count: int) -> PackPlan:
+        """The compiled pack program for ``count`` items — cached per
+        ``(datatype, count)`` on this object (benign-race cache: a lost
+        race rebuilds an identical plan)."""
+        count = int(count)
+        cache = self.__dict__.setdefault("_plan_cache", {})
+        plan = cache.get(count)
+        if plan is None:
+            plan = self._build_plan(count)
+            if len(cache) >= 16:   # bound: plans are per-count
+                cache.clear()
+            cache[count] = plan
+        return plan
+
+    def _build_plan(self, count: int) -> PackPlan:
+        if count <= 0 or self.size == 0:
+            return _plan_empty()
+        ext = self.extent
+        offs, lens = self.segment_arrays()
+        n = len(offs)
+        if n == 0:
+            return _plan_empty()
+        if n == 1:
+            one = _plan_single(int(offs[0]), int(lens[0]))
+            return (one if count == 1
+                    else self._plan_repeat_single(one, count, ext))
+        if count == 1:
+            return _plan_gather(offs, lens)
+        base = np.arange(count, dtype=np.int64)[:, None] * ext
+        all_offs = (base + offs[None, :]).reshape(-1)
+        all_lens = np.broadcast_to(lens[None, :], (count, n)).reshape(-1)
+        return _plan_gather(*_merge_adjacent(all_offs, all_lens))
+
+    @staticmethod
+    def _plan_repeat_single(one: PackPlan, count: int,
+                            extent: int) -> PackPlan:
+        """count repetitions of a one-run item at ``extent`` stride."""
+        if one.start == 0 and one.total == extent:
+            return _plan_single(0, count * one.total)  # items abut
+        return _plan_strided(one.start, count, one.total, extent)
+
+    def _validate_packing(self, count: int, what: str) -> None:
+        """Shared pack/unpack argument validation — count sign, then
+        commit state (buffer-size checks follow in the caller, in the
+        same order on both paths)."""
+        if count < 0:
+            raise MPIException(
+                f"{what}: negative count {count}", error_class=2)
+        if not self._committed:
+            raise MPIException(
+                f"{what} on an uncommitted datatype "
+                f"{getattr(self, 'name', type(self).__name__)!r} "
+                f"(MPI_Type_commit first)", error_class=3)
+
+    def pack(self, buf: np.ndarray, count: int) -> bytes:
+        """Gather `count` items from `buf` into contiguous bytes."""
+        self._validate_packing(count, "pack")
+        raw = np.ascontiguousarray(buf).view(np.uint8).ravel()
+        plan = self.pack_plan(count)
+        if raw.nbytes < plan.span:
+            raise MPIException(
+                f"pack: buffer has {raw.nbytes}B, datatype needs "
+                f"{plan.span}B for count={count}")
+        if plan.kind == "empty":   # no bytes move: no span (all 3 paths)
+            return b""
+        if plan.kind == "single":   # single-memcpy fast path
+            blob = raw[plan.start:plan.start + plan.total].tobytes()
+        else:
+            out = np.empty(plan.total, np.uint8)
+            self._execute_pack(raw, plan, out)
+            blob = out.tobytes()
+        return blob
+
+    def pack_into(self, buf: np.ndarray, count: int, out) -> int:
+        """Pack ``count`` items from ``buf`` into a caller-provided
+        writable buffer (ndarray / memoryview / bytearray) and return the
+        packed byte count — the memoryview-based variant that skips the
+        intermediate ``bytes`` object ``pack()`` materializes."""
+        self._validate_packing(count, "pack")
+        raw = np.ascontiguousarray(buf).view(np.uint8).ravel()
+        plan = self.pack_plan(count)
+        if raw.nbytes < plan.span:
+            raise MPIException(
+                f"pack: buffer has {raw.nbytes}B, datatype needs "
+                f"{plan.span}B for count={count}")
+        out_arr = np.frombuffer(out, np.uint8)
+        if not out_arr.flags.writeable:
+            raise MPIException(
+                "pack_into: output buffer is read-only (bytes? pass a "
+                "bytearray/memoryview/ndarray)", error_class=2)
+        if out_arr.nbytes < plan.total:
+            raise MPIException(
+                f"pack_into: output buffer has {out_arr.nbytes}B, plan "
+                f"packs {plan.total}B")
+        if plan.kind == "empty":
+            return 0
+        if plan.kind == "single":
+            out_arr[:plan.total] = raw[plan.start:plan.start + plan.total]
+        else:
+            self._execute_pack(raw, plan, out_arr[:plan.total])
+        return plan.total
+
+    def _execute_pack(self, raw: np.ndarray, plan: PackPlan,
+                      out: np.ndarray) -> None:
+        """Run a non-trivial plan with vectorized numpy."""
+        if plan.kind == "strided":
+            view = np.lib.stride_tricks.as_strided(
+                raw[plan.start:], (plan.nblocks, plan.blocklen),
+                (plan.stride, 1))
+            out.reshape(plan.nblocks, plan.blocklen)[:] = view
+            return
+        out[:] = raw[_concat_aranges(plan.offsets, plan.lengths)]
+
+    def unpack(self, data, buf: np.ndarray, count: int) -> None:
+        """Scatter contiguous bytes (any buffer object: bytes, bytearray,
+        memoryview, uint8 ndarray) into `buf` according to the layout."""
+        self._validate_packing(count, "unpack")
+        if buf.flags["C_CONTIGUOUS"] is False:
+            raise MPIException("unpack requires a C-contiguous target buffer")
+        raw = buf.view(np.uint8).reshape(-1)
+        src = np.frombuffer(data, dtype=np.uint8)
+        plan = self.pack_plan(count)
+        if len(src) < plan.total:
+            raise MPIException(
+                f"unpack: got {len(src)}B, layout expects "
+                f"{plan.total}B", error_class=15)
+        if raw.nbytes < plan.span:
+            raise MPIException(
+                f"unpack: target buffer has {raw.nbytes}B, layout spans "
+                f"{plan.span}B for count={count}", error_class=15)
+        if plan.kind == "empty":
+            return
+        if plan.kind == "single":
+            raw[plan.start:plan.start + plan.total] = src[:plan.total]
+        else:
+            self._execute_unpack(src[:plan.total], plan, raw)
+
+    def _execute_unpack(self, src: np.ndarray, plan: PackPlan,
+                        raw: np.ndarray) -> None:
+        if plan.kind == "strided":
+            view = np.lib.stride_tricks.as_strided(
+                raw[plan.start:], (plan.nblocks, plan.blocklen),
+                (plan.stride, 1))
+            view[:] = src.reshape(plan.nblocks, plan.blocklen)
+            return
+        raw[_concat_aranges(plan.offsets, plan.lengths)] = src
+
     # -- device path (index_select / index_put_) ---------------------------
 
     def _device_index(self, count: int, device: torch.device) -> torch.Tensor:
@@ -77,6 +331,8 @@ class Datatype:
         key = (int(count), device)
         idx = cache.get(key)
         if idx is None:
+            import torch
+
             idx1 = self.element_indices()
             stride = self._elem_stride()
             if count == 1:
@@ -92,6 +348,8 @@ class Datatype:
         """Device-side pack: gather this layout's elements from a tensor
         with ONE ``torch.index_select``.  Returns a flat tensor of
         ``count * size / itemsize`` elements on the tensor's device."""
+        import torch
+
         idx = self._device_index(count, arr.device)
         return torch.index_select(arr.reshape(-1), 0, idx)
 
@@ -110,6 +368,8 @@ class Datatype:
         """Device-side unpack: scatter a flat element stream into a new
         zeroed tensor of ``total_elems`` elements (default: count*extent
         worth) with ONE ``index_put_``."""
+        import torch
+
         idx = self._device_index(count, data.device)
         n = (total_elems if total_elems is not None
              else count * self._elem_stride())
@@ -225,6 +485,7 @@ class PredefinedDatatype(Datatype):
         self.size = self.base_np.itemsize
         self.extent = self.base_np.itemsize
         self.name = name
+        self._committed = True
 
     def segment_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         return np.zeros(1, np.int64), np.full(1, self.size, np.int64)
@@ -277,7 +538,10 @@ class DerivedDatatype(Datatype):
         self._elem_idx: Optional[np.ndarray] = None
 
     def commit(self) -> "DerivedDatatype":
-        self.segment_arrays()
+        # compile the pack plan (≈ opal_datatype_commit running the
+        # descriptor optimizer)
+        self._committed = True
+        self.pack_plan(1)
         return self
 
     def segment_arrays(self) -> tuple[np.ndarray, np.ndarray]:
@@ -451,3 +715,18 @@ DOUBLE_INT = PredefinedDatatype(
     np.dtype([("val", np.float64), ("loc", np.int32)]), "double_int")
 LONG_INT = PredefinedDatatype(
     np.dtype([("val", np.int64), ("loc", np.int32)]), "long_int")
+
+_BY_NP: dict = {}
+for _t in (INT8, UINT8, INT16, UINT16, INT32, UINT32, INT64, UINT64,
+           FLOAT16, BFLOAT16, FLOAT32, FLOAT64, COMPLEX64, COMPLEX128, BOOL,
+           FLOAT_INT, DOUBLE_INT, LONG_INT):
+    _BY_NP.setdefault(_t.base_np, _t)
+
+
+def from_numpy(dtype) -> PredefinedDatatype:
+    """Map a numpy dtype to the predefined Datatype (auto-typing for arrays)."""
+    dt = np.dtype(dtype)
+    try:
+        return _BY_NP[dt]
+    except KeyError:
+        raise MPIException(f"no predefined datatype for numpy dtype {dt}") from None

@@ -7,7 +7,9 @@ the device collectives of ``DeviceCommunicator``.  In place of the JAX
 package's ``jax_reduce_name``, ``dist_op`` names the native
 ``torch.distributed.ReduceOp`` of SUM, MAX and MIN (the three the JAX
 package lowers to psum/pmax/pmin); every other op goes through the
-communicator's rank-ordered fold.
+communicator's rank-ordered fold.  The predefined ops name their torch
+function and ``ReduceOp`` member, resolved at their first device use, so
+a host-only rank does not import torch.
 
 MAXLOC/MINLOC operate on the (val, loc) pair types, as in MPI, on the
 host only.
@@ -18,8 +20,6 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 from ompi_tpu_torch.mpi.constants import MPIException
 
@@ -32,25 +32,40 @@ class Op:
     """A reduction operator with host and device callables.
 
     ``host(a, b)`` reduces two numpy arrays elementwise; ``device(a, b)``
-    does the same for torch tensors.  ``commutative`` gates algorithm
-    choice, as in the reference.
+    does the same for torch tensors (``device`` is a callable or the name
+    of a ``torch`` function).  ``commutative`` gates algorithm choice, as
+    in the reference.
     """
 
-    def __init__(self, name: str, host: Callable, device: Optional[Callable],
+    def __init__(self, name: str, host: Callable,
+                 device: Optional[Callable | str],
                  commutative: bool = True,
-                 dist_op: Optional[dist.ReduceOp] = None) -> None:
+                 dist_op: Optional[str] = None) -> None:
         self.name = name
         self.host = host
         self._device = device
         self.commutative = commutative
-        #: the native torch.distributed reduction, where one matches
-        self.dist_op = dist_op
+        self._dist_op = dist_op
+
+    @property
+    def dist_op(self):
+        """The native ``torch.distributed.ReduceOp``, where one matches."""
+        if self._dist_op is None:
+            return None
+        import torch.distributed as dist
+
+        return getattr(dist.ReduceOp, self._dist_op)
 
     def device(self, a: Any, b: Any) -> Any:
-        if self._device is None:
+        fn = self._device
+        if fn is None:
             raise MPIException(
                 f"op {self.name} has no device implementation; reduce on host")
-        return self._device(a, b)
+        if isinstance(fn, str):
+            import torch
+
+            fn = getattr(torch, fn)
+        return fn(a, b)
 
     def __call__(self, a, b):
         return self.host(a, b)
@@ -71,16 +86,16 @@ def _pair_extreme(cmp):
     return host
 
 
-SUM = Op("sum", np.add, torch.add, dist_op=dist.ReduceOp.SUM)
-PROD = Op("prod", np.multiply, torch.mul)
-MAX = Op("max", np.maximum, torch.maximum, dist_op=dist.ReduceOp.MAX)
-MIN = Op("min", np.minimum, torch.minimum, dist_op=dist.ReduceOp.MIN)
-LAND = Op("land", np.logical_and, torch.logical_and)
-LOR = Op("lor", np.logical_or, torch.logical_or)
-LXOR = Op("lxor", np.logical_xor, torch.logical_xor)
-BAND = Op("band", np.bitwise_and, torch.bitwise_and)
-BOR = Op("bor", np.bitwise_or, torch.bitwise_or)
-BXOR = Op("bxor", np.bitwise_xor, torch.bitwise_xor)
+SUM = Op("sum", np.add, "add", dist_op="SUM")
+PROD = Op("prod", np.multiply, "mul")
+MAX = Op("max", np.maximum, "maximum", dist_op="MAX")
+MIN = Op("min", np.minimum, "minimum", dist_op="MIN")
+LAND = Op("land", np.logical_and, "logical_and")
+LOR = Op("lor", np.logical_or, "logical_or")
+LXOR = Op("lxor", np.logical_xor, "logical_xor")
+BAND = Op("band", np.bitwise_and, "bitwise_and")
+BOR = Op("bor", np.bitwise_or, "bitwise_or")
+BXOR = Op("bxor", np.bitwise_xor, "bitwise_xor")
 MAXLOC = Op("maxloc", _pair_extreme(np.greater), None)
 MINLOC = Op("minloc", _pair_extreme(np.less), None)
 REPLACE = Op("replace", lambda a, b: b, lambda a, b: b, commutative=False)

@@ -1,0 +1,211 @@
+"""MPI init/finalize and the world communicator (the port's trimmed copy
+of the JAX package's ``mpi/runtime.py``).
+
+≈ ompi/runtime/ompi_mpi_init.c:375 — the bring-up sequence (:482-941):
+identity from the environment (≈ ess/env reading PMIx), the job-wide
+device view when the launcher named a rendezvous
+(``parallel/multihost.py``: the rank's card and one ``torch.distributed``
+group), PML selection (:655), the modex business-card exchange
+(:673-703), world communicator construction with the collective table
+(:934), and the final barrier.
+
+Outside tpurun (no rendezvous URI) init degenerates to a singleton world,
+like mpirun-less ./a.out singleton init in the reference.
+
+Left out (ROADMAP.md Queue 1 item 6): the flight recorder and metrics
+push, the hang-doctor responder, fault-tolerance attach and the respawn
+branch, and the thread-level and pcontrol queries.
+"""
+
+from __future__ import annotations
+
+import atexit
+import os
+import sys
+import threading
+from typing import Optional
+
+from ompi_tpu_torch.core import output
+from ompi_tpu_torch.mpi.comm import Communicator
+from ompi_tpu_torch.mpi.constants import MPIException
+from ompi_tpu_torch.mpi.group import Group
+from ompi_tpu_torch.mpi.pml import pml_framework
+from ompi_tpu_torch.runtime import pmix
+
+__all__ = ["init", "finalize", "initialized", "finalized", "abort",
+           "COMM_WORLD", "COMM_SELF", "get_world", "wtime", "wtick",
+           "get_processor_name", "get_version"]
+
+_log = output.get_stream("mpi")
+_lock = threading.Lock()
+_state: dict = {"world": None, "self": None, "client": None, "pml": None,
+                "finalized": False}
+
+COMM_WORLD: Optional[Communicator] = None
+COMM_SELF: Optional[Communicator] = None
+
+
+def initialized() -> bool:
+    return _state["world"] is not None
+
+
+def finalized() -> bool:
+    """≈ MPI_Finalized."""
+    return bool(_state["finalized"])
+
+
+def init() -> Communicator:
+    """Bring up MPI; returns COMM_WORLD. Idempotent."""
+    global COMM_WORLD, COMM_SELF
+    with _lock:
+        if _state["world"] is not None:
+            return _state["world"]
+
+        under_launcher = pmix.ENV_URI in os.environ
+        if under_launcher:
+            client = pmix.PMIxClient()
+            rank, size = client.rank, client.size
+        else:
+            client, rank, size = None, 0, 1
+
+        # job-wide device view: bind the rank's card and join the job's
+        # process group (≈ the modex feeding transport bring-up,
+        # pmix.h:384-407), before any CUDA work of this process; a no-op
+        # unless the launcher exported a coordinator (tpurun --gpu)
+        from ompi_tpu_torch.parallel import multihost
+
+        multihost.initialize_from_env()
+
+        pml = pml_framework.select().create(rank)
+
+        if size > 1:
+            assert client is not None
+            # modex: publish my BTL business card, fence, learn everyone's
+            # (≈ ompi_mpi_init.c:673-703)
+            client.put("btl.addr", pml.address)
+            cards = client.fence(collect=True)
+            pml.set_peers({
+                r: cards[f"btl.addr@{r}"] for r in range(size) if r != rank
+            })
+
+        world = Communicator(Group(range(size)), cid=0, my_world_rank=rank,
+                             name="WORLD", pml=pml)
+        selfc = Communicator(Group([rank]), cid=1, my_world_rank=rank,
+                             name="SELF", pml=pml)
+        _state.update(world=world, self=selfc, client=client, pml=pml)
+        COMM_WORLD, COMM_SELF = world, selfc
+        _log.verbose(1, "init complete: rank %d/%d", rank, size)
+
+        # final barrier: everyone reachable before user code runs
+        if size > 1:
+            world.barrier()
+        if client is not None:
+            client.ready()
+        _state["finalized"] = False
+        atexit.register(_atexit_finalize)
+        return world
+
+
+def get_world() -> Communicator:
+    if _state["world"] is None:
+        raise MPIException("MPI not initialized (call ompi_tpu_torch.init())")
+    return _state["world"]
+
+
+def finalize(_collective: bool = True) -> None:
+    """Tear down: final rendezvous, close transports (≈ ompi_mpi_finalize)."""
+    global COMM_WORLD, COMM_SELF
+    with _lock:
+        world = _state["world"]
+        if world is None:
+            return
+        from ompi_tpu_torch.parallel import multihost
+
+        try:
+            if world.size > 1 and _collective:
+                # rendezvous on the PMIx control plane (the JAX package
+                # does so unconditionally), then leave the process group
+                # while every rank is still alive
+                client = _state["client"]
+                if client is not None:
+                    client.fence()
+                else:
+                    world.barrier()
+            if _collective:
+                multihost.shutdown()
+        finally:
+            if _state["pml"] is not None:
+                _state["pml"].close()
+            client = _state["client"]
+            if client is not None:
+                try:
+                    client.finalize()
+                except Exception:  # noqa: BLE001 — teardown continues
+                    pass
+            _state.update(world=None, self=None, client=None, pml=None,
+                          finalized=True)
+            COMM_WORLD = COMM_SELF = None
+
+
+def _atexit_finalize() -> None:
+    # Exiting without MPI_Finalize is erroneous (MPI-3.1 §8.7); a
+    # collective barrier here would block this process forever (peers may
+    # be dead), so close transports non-collectively and let the
+    # launcher's errmgr act on the exit.
+    if _state["world"] is None:
+        return
+    _log.verbose(0, "process exiting without finalize(); closing transports")
+    try:
+        finalize(_collective=False)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def abort(errorcode: int = 1, msg: str = "") -> None:
+    """≈ MPI_Abort: terminate ALL ranks of the job, not just this one.
+
+    Under a launcher the abort rides the PMIx control plane (the HNP
+    tears the job down, ≈ orterun's response to PMIx_Abort); a singleton
+    simply exits with the code.  Does not return.
+    """
+    client = _state.get("client")
+    _log.error("MPI_Abort(%d)%s", errorcode, f": {msg}" if msg else "")
+    if client is not None:
+        try:
+            client.abort(msg or f"MPI_Abort({errorcode})",
+                         status=int(errorcode))
+        except Exception:  # noqa: BLE001 — the exit below still happens
+            pass
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(int(errorcode) & 0xFF or 1)
+
+
+def get_processor_name() -> str:
+    """≈ MPI_Get_processor_name — the host identity the transports use."""
+    from ompi_tpu_torch.core.sysinfo import host_identity
+
+    return host_identity()
+
+
+#: the MPI standard generation whose semantics this API follows
+_MPI_VERSION = (3, 1)
+
+
+def get_version() -> tuple[int, int]:
+    """≈ MPI_Get_version: (version, subversion) of the MPI semantics."""
+    return _MPI_VERSION
+
+
+def wtime() -> float:
+    """≈ MPI_Wtime: seconds from an arbitrary epoch, monotonic."""
+    from ompi_tpu_torch.core.sysinfo import Timer
+
+    return Timer.cycles() / 1e9
+
+
+def wtick() -> float:
+    """≈ MPI_Wtick: resolution of :func:`wtime` in seconds."""
+    from ompi_tpu_torch.core.sysinfo import Timer
+
+    return Timer.resolution_s()

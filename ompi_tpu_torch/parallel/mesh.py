@@ -6,7 +6,8 @@ on GPUs runs one process per rank, so the port's :class:`Mesh` is a
 multi-process mesh: the ranks of a ``torch.distributed`` process group
 laid out row-major over ``shape`` (``devices`` is that integer array of
 ranks, the counterpart of ``jax.sharding.Mesh.devices``).  Rank ``r``
-owns ``cuda:{r % torch.cuda.device_count()}``, or the CPU.
+owns ``cuda:{r % torch.cuda.device_count()}`` (:func:`card_index`, the
+launcher's ``OMPI_TPU_CHIP`` binding), or the CPU.
 
 The mesh keeps two kinds of process groups, made at init by every rank
 in one fixed order (``new_group`` is collective, so a group made lazily
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import os
 import socket
 from typing import Optional, Sequence
 
@@ -41,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "mesh_shape_for", "resolve_device",
-           "local_block"]
+           "local_block", "card_index"]
 
 
 def resolve_device(device) -> torch.device:
@@ -80,6 +82,22 @@ def mesh_shape_for(n_devices: int, axis_names: Sequence[str]) -> dict[str, int]:
     return shape
 
 
+def card_index(rank: int) -> int:
+    """The card rank ``rank`` owns: ``rank % torch.cuda.device_count()``.
+    On a one-host job that is the launcher's binding (``OMPI_TPU_CHIP``,
+    local rank r on card r, wrapping); a launcher binding that disagrees
+    raises instead of leaving two views of one rank's card."""
+    idx = int(rank) % torch.cuda.device_count()
+    chip = os.environ.get("OMPI_TPU_CHIP")
+    if chip is not None and int(chip) != idx:
+        raise RuntimeError(
+            f"rank {rank}: the launcher bound card {chip} (OMPI_TPU_CHIP) "
+            f"but the mesh binds rank % device_count() = {idx}; launch "
+            f"one host's ranks with tpurun --gpu, which binds the same "
+            f"card")
+    return idx
+
+
 def _card_id(device: torch.device) -> str:
     """The card's UUID (host and index where PyTorch does not give one)."""
     props = torch.cuda.get_device_properties(device)
@@ -107,8 +125,7 @@ class Mesh:
                 "and pass rank, world_size and init_method to make_mesh)")
         dev = resolve_device(device)
         if dev.type == "cuda" and distributed and dev.index is None:
-            dev = torch.device("cuda",
-                               self.rank % torch.cuda.device_count())
+            dev = torch.device("cuda", card_index(self.rank))
         self.device = dev
         #: ranks laid out row-major over the axes
         self.devices = np.arange(total).reshape(sizes)
@@ -243,7 +260,7 @@ def make_mesh(axes: Optional[dict[str, int] | Sequence[str]] = None,
                                "initialised; call make_mesh without "
                                "rank/world_size/init_method to use it")
         if dev.type == "cuda":
-            torch.cuda.set_device(int(rank) % torch.cuda.device_count())
+            torch.cuda.set_device(card_index(int(rank)))
         dist.init_process_group("gloo", init_method=init_method,
                                 rank=int(rank), world_size=int(world_size))
     n = dist.get_world_size() if dist.is_initialized() else 1

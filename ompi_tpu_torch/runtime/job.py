@@ -1,0 +1,147 @@
+"""Job / Node / Proc data model (the port's copy of the JAX package's
+``runtime/job.py``, whole).
+
+Analog of the reference's job objects
+(orte/runtime/orte_globals.h:215-342: orte_job_t, orte_node_t, orte_proc_t).
+A Node is a host (optionally with accelerator cards, ``chips``); a slot is
+one rank's worth of resources (a core, or a card in device-per-rank mode).
+The respawn bookkeeping fields of ``Proc`` are kept for the errmgr
+policies still to port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+from typing import Any, Optional
+
+__all__ = ["JobState", "ProcState", "Node", "Proc", "AppContext", "Job"]
+
+
+class JobState(enum.Enum):
+    """Job lifecycle (subset of ORTE_JOB_STATE_*, orte_globals.h)."""
+
+    INIT = "init"
+    ALLOCATE = "allocate"
+    ALLOCATION_COMPLETE = "allocation_complete"
+    MAP = "map"
+    MAP_COMPLETE = "map_complete"
+    LAUNCH_APPS = "launch_apps"
+    RUNNING = "running"
+    TERMINATED = "terminated"
+    ABORTED = "aborted"
+
+
+class ProcState(enum.Enum):
+    """Proc lifecycle (subset of ORTE_PROC_STATE_*)."""
+
+    INIT = "init"
+    LAUNCHED = "launched"
+    RUNNING = "running"
+    TERMINATED = "terminated"
+    ABORTED = "aborted"
+    FAILED_TO_START = "failed_to_start"
+    KILLED_BY_CMD = "killed_by_cmd"
+
+
+@dataclasses.dataclass
+class Node:
+    """A host with schedulable slots (≈ orte_node_t)."""
+
+    name: str
+    slots: int = 1
+    # accelerator metadata: card indices for device-per-rank mapping, or None.
+    chips: Optional[list[Any]] = None
+    slots_inuse: int = 0
+    topology: Optional[dict] = None  # fake hwloc-ish topology from simulator
+
+    @property
+    def slots_available(self) -> int:
+        return max(0, self.slots - self.slots_inuse)
+
+
+@dataclasses.dataclass
+class Proc:
+    """One rank of the job (≈ orte_proc_t)."""
+
+    rank: int
+    node: Optional[Node] = None
+    slot: Optional[int] = None
+    chip: Optional[Any] = None
+    app_idx: int = 0  # which AppContext this rank runs
+    state: ProcState = ProcState.INIT
+    pid: Optional[int] = None
+    exit_code: Optional[int] = None
+    local_rank: int = 0  # rank among procs on the same node
+    # crash-loop BUDGET counter: revives since the rank last earned its
+    # errmgr_min_uptime_s (the governor resets it on an earned-uptime
+    # death) — never use it as an identity
+    restarts: int = 0
+    # monotone incarnation number (OMPI_TPU_RESTART / the PMIx life /
+    # the PML si stamp): total revives over the rank's whole history.
+    # Survivors adopt it and the incarnation fence drops anything lower,
+    # so unlike `restarts` it must NEVER go backwards
+    lives: int = 0
+    # monotonic time of this life's PMIx registration (first client
+    # contact) — the errmgr crash-loop governor measures uptime from it
+    # (errmgr_min_uptime_s), so interpreter and framework boot don't count; None
+    # until the life registers (a pre-registration death is the
+    # crash-loopiest case of all)
+    launched_at: Optional[float] = None
+    # set by plm._fail_daemon_ranks: this rank's daemon died with its
+    # host, so no revival order can reach it — a reviving errmgr policy
+    # must skip straight to its degrade rung
+    daemon_lost: bool = False
+    # planned shrink (elastic jobs): the rank is being retired on
+    # purpose, so a reviving policy must NOT resurrect it — selfheal
+    # degrades straight to its notify/shrink rung and the survivors
+    # continue smaller (the ULFM recipe)
+    no_revive: bool = False
+
+
+@dataclasses.dataclass
+class AppContext:
+    """What to run (≈ orte_app_context_t): argv + env + working dir."""
+
+    argv: list[str]
+    np: int
+    env: dict[str, str] = dataclasses.field(default_factory=dict)
+    cwd: Optional[str] = None
+
+
+_jobid_counter = itertools.count(1)
+
+
+class Job:
+    """A job: app contexts + allocation + map + proc states (≈ orte_job_t)."""
+
+    def __init__(self, apps: list[AppContext], jobid: Optional[int] = None) -> None:
+        self.jobid = jobid if jobid is not None else next(_jobid_counter)
+        self.apps = apps
+        self.state = JobState.INIT
+        self.nodes: list[Node] = []
+        self.procs: list[Proc] = []
+        self.aborted_proc: Optional[Proc] = None
+        self.abort_reason: Optional[str] = None
+        self.abort_status: Optional[int] = None
+        # per-job launcher bookkeeping (a multi-tenant DVM runs several
+        # jobs concurrently, so none of this can live on the launcher):
+        # rank → rc once the exit report landed, the job-scoped kill
+        # latch, and the job's own PMIx rendezvous
+        self.exited: dict[int, int] = {}
+        self.killed: bool = False
+        self.pmix_server: Optional[Any] = None
+
+    @property
+    def np(self) -> int:
+        return sum(app.np for app in self.apps)
+
+    def procs_on(self, node: Node) -> list[Proc]:
+        return [p for p in self.procs if p.node is node]
+
+    def all_terminated(self) -> bool:
+        return all(
+            p.state in (ProcState.TERMINATED, ProcState.ABORTED,
+                        ProcState.FAILED_TO_START, ProcState.KILLED_BY_CMD)
+            for p in self.procs)

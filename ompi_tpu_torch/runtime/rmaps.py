@@ -1,0 +1,148 @@
+"""RMAPS — mapping ranks onto nodes/slots/cards (the port's copy of the
+JAX package's ``runtime/rmaps.py``, whole).
+
+≈ orte/mca/rmaps (rmaps_base_map_job.c): given an allocation, place each rank
+on a node+slot, assign local ranks, and bind to chips where available.
+
+Components:
+- ``round_robin`` — by-slot (fill a node) or by-node (spread) placement, the
+  reference's default mapper.
+- ``ppr``         — procs-per-resource: exactly N procs per node.
+- ``seq``         — rank i on node[i % len], one per step (reference's seq).
+
+Card binding: if a node carries ``chips`` metadata (the card indices the
+``gpu`` RAS found), local rank r binds to card r, wrapping when there are
+more ranks than cards (device-per-rank — the replacement for cpu binding
+in orte/mca/rmaps + rtc/hwloc).  The launcher exports the binding as
+``OMPI_TPU_CHIP``.
+"""
+
+from __future__ import annotations
+
+from ompi_tpu_torch.core.config import VarType, register_var, var_registry
+from ompi_tpu_torch.core.mca import Component, Framework
+from ompi_tpu_torch.runtime.job import Job, Proc
+
+__all__ = ["rmaps_framework", "map_job"]
+
+rmaps_framework = Framework("rmaps", "process mapping")
+
+
+def _finalize(job: Job) -> Job:
+    """Assign local ranks, app indices, and chip bindings after placement."""
+    # app boundaries: ranks [0, np0) run app 0, [np0, np0+np1) app 1, ...
+    bounds = []
+    acc = 0
+    for i, app in enumerate(job.apps):
+        acc += app.np
+        bounds.append((acc, i))
+    per_node_count: dict[str, int] = {}
+    for proc in job.procs:
+        assert proc.node is not None
+        idx = per_node_count.get(proc.node.name, 0)
+        proc.local_rank = idx
+        per_node_count[proc.node.name] = idx + 1
+        if proc.node.chips:
+            proc.chip = proc.node.chips[idx % len(proc.node.chips)]
+        for bound, app_i in bounds:
+            if proc.rank < bound:
+                proc.app_idx = app_i
+                break
+    return job
+
+
+@rmaps_framework.component
+class RoundRobinMapper(Component):
+    NAME = "round_robin"
+    PRIORITY = 10
+
+    def register_params(self) -> None:
+        register_var("rmaps", "rr_policy", VarType.STRING, "byslot",
+                     "round-robin policy", enumerator=("byslot", "bynode"))
+
+    def map_job(self, job: Job) -> Job:
+        policy = var_registry.get("rmaps_rr_policy")
+        job.procs = []
+        n = job.np
+        if policy == "byslot":
+            rank = 0
+            while rank < n:
+                placed = False
+                for node in job.nodes:
+                    while node.slots_available > 0 and rank < n:
+                        job.procs.append(
+                            Proc(rank=rank, node=node, slot=node.slots_inuse))
+                        node.slots_inuse += 1
+                        rank += 1
+                        placed = True
+                if not placed:  # oversubscribe: wrap around ignoring slots
+                    for node in job.nodes:
+                        if rank >= n:
+                            break
+                        job.procs.append(
+                            Proc(rank=rank, node=node, slot=node.slots_inuse))
+                        node.slots_inuse += 1
+                        rank += 1
+        else:  # bynode: spread one per node per pass
+            rank = 0
+            while rank < n:
+                for node in job.nodes:
+                    if rank >= n:
+                        break
+                    job.procs.append(
+                        Proc(rank=rank, node=node, slot=node.slots_inuse))
+                    node.slots_inuse += 1
+                    rank += 1
+        return _finalize(job)
+
+
+@rmaps_framework.component
+class PprMapper(Component):
+    """Procs-per-resource: exactly N ranks per node (≈ rmaps/ppr)."""
+
+    NAME = "ppr"
+    PRIORITY = 0
+
+    def register_params(self) -> None:
+        register_var("rmaps", "ppr_n", VarType.INT, 1, "procs per node")
+
+    def query(self, **ctx):
+        return self.PRIORITY
+
+    def map_job(self, job: Job) -> Job:
+        per = var_registry.get("rmaps_ppr_n")
+        job.procs = []
+        rank = 0
+        n = job.np
+        for node in job.nodes:
+            for _ in range(per):
+                if rank >= n:
+                    break
+                job.procs.append(Proc(rank=rank, node=node, slot=node.slots_inuse))
+                node.slots_inuse += 1
+                rank += 1
+        if rank < n:
+            raise RuntimeError(
+                f"ppr mapping: {n} ranks do not fit at {per}/node on "
+                f"{len(job.nodes)} nodes")
+        return _finalize(job)
+
+
+@rmaps_framework.component
+class SeqMapper(Component):
+    NAME = "seq"
+    PRIORITY = 0
+
+    def map_job(self, job: Job) -> Job:
+        job.procs = []
+        for rank in range(job.np):
+            node = job.nodes[rank % len(job.nodes)]
+            job.procs.append(Proc(rank=rank, node=node, slot=node.slots_inuse))
+            node.slots_inuse += 1
+        return _finalize(job)
+
+
+def map_job(job: Job, **context) -> Job:
+    """Run the mapping phase (≈ orte_rmaps_base_map_job)."""
+    comp = rmaps_framework.select(**context)
+    return comp.map_job(job)

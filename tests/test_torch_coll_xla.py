@@ -4,9 +4,10 @@
 Counterparts of every test of ``tests/mpi/test_coll_xla.py`` and of the two
 decision-layer tests of ``tests/mpi/test_device_vcoll.py``; then the
 route's own traps: per-shard bytes in the decision, the TPU's measured
-rules not steering the port, the message for a host buffer on a
-communicator of more than one rank, and a tensor on another device than
-the bound mesh's.
+rules not steering the port, a host buffer on a communicator of more
+than one rank (with a PML: the host route's answer, equal to the JAX
+package's; with none: the JAX package's error), and a tensor on another
+device than the bound mesh's.
 
 Parity: the same numpy inputs go through the JAX package's global-array
 ``comm.<slot>`` (a size-1 communicator bound to a 4-device mesh of the
@@ -51,6 +52,7 @@ from ompi_tpu_torch.mpi.device_comm import device_world  # noqa: E402
 from ompi_tpu_torch.mpi.group import Group  # noqa: E402
 from ompi_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
 from tests import torch_ranks as TR  # noqa: E402
+from tests.mpi.harness import run_ranks as jrun  # noqa: E402
 
 N = TR.WORLD
 SUM_RTOL = 1e-6
@@ -187,17 +189,52 @@ def test_device_max_and_reduce_scatter(pool, jcomm):
     np.testing.assert_allclose(np.concatenate(rs), host.sum(0))
 
 
+def _jax_no_pml_errors():
+    """What the JAX package's communicator of ranks 0 and 1 with no PML
+    raises for a host send, a host recv and a host allreduce."""
+    def err(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — the test inspects it
+            return type(e).__name__
+        return None
+
+    c0, c1 = (JCommunicator(JGroup([0, 1]), cid=3, pml=None,
+                            my_world_rank=r, name="w") for r in (0, 1))
+    return {"send": err(lambda: c0.send(np.ones(4, np.float32), dest=1,
+                                        tag=5)),
+            "recv": err(lambda: c1.recv(source=0, tag=5)),
+            "allreduce": err(lambda: c0.allreduce(np.ones(4, np.float32)))}
+
+
+def _host_data():
+    return np.arange(N * 4, dtype=np.float32).reshape(N, 4) * 0.5
+
+
 def test_pml_rejects_device_buffer(pool):
-    res = pool.map(TR.mpi_errors, [s for s in TR.shards(
-        np.ones((N, 4), np.float32))])
+    x = _host_data()
+    res = pool.map(TR.mpi_errors, TR.shards(x))
+    want = _jax_no_pml_errors()
+    assert want["send"] == want["recv"] == "AttributeError"
     for rank in (0, 1):
         kind, msg = res[rank]["p2p_device"]
         assert kind == "BufferLocationError"
         assert "DeviceCommunicator.shift/permute/sendrecv" in msg
-        kind, msg = res[rank]["p2p_host"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP.md Queue 1 item 6" in msg
+        kind, _ = res[rank]["p2p_host"]   # no PML: the JAX package's error
+        assert kind == want["send" if rank == 0 else "recv"]
     assert all("p2p_device" not in r for r in res[2:])
+
+    # with a PML, the host route answers as the JAX package's does
+    def ref_body(c):
+        if c.rank == 0:
+            c.send(x[0:1], dest=1, tag=5)
+        return c.recv(source=0, tag=5) if c.rank == 1 else None
+
+    ref = jrun(2, ref_body)
+    got = res[1]["p2p_pml"]
+    assert got.dtype == ref[1].dtype and got.shape == ref[1].shape
+    assert got.tobytes() == ref[1].tobytes()
+    assert all(r["p2p_pml"] is None for i, r in enumerate(res) if i != 1)
 
 
 def test_directive_excluding_xla_makes_device_buffers_error(coll_directive):
@@ -362,6 +399,9 @@ class _RecordingDC:
     axes = ("world",)
     mesh = types.SimpleNamespace(device=torch.device("meta"))
 
+    def rank(self):
+        return 0
+
     def allreduce(self, x, op=None):
         return "allreduce"
 
@@ -373,7 +413,7 @@ def test_decision_reads_per_shard_bytes():
     """32 MiB a shard at size 8 is at coll_xla_allreduce_large: rs_ag.
     Dividing by the size, as the JAX package must for its global array,
     would see 4 MiB and pick psum."""
-    comm = Communicator(Group([0]), cid=1, my_world_rank=0)
+    comm = Communicator(Group(range(8)), cid=1, my_world_rank=0)
     comm.bind_device(_RecordingDC())
     big = torch.empty(8 << 20, dtype=torch.float32, device="meta")
     assert big.numel() * big.element_size() == 32 << 20
@@ -406,24 +446,36 @@ def test_tpu_measured_rules_not_copied_nor_used(tmp_path, monkeypatch):
 
 
 def test_host_buffer_on_a_multi_rank_comm_names_the_roadmap():
+    """A communicator of two ranks with no PML: coll/host serves every
+    buffer slot, and a host allreduce fails as the JAX package's
+    communicator with no PML does."""
     comm = Communicator(Group([0, 1]), cid=3, my_world_rank=0, name="w")
-    with pytest.raises(BufferLocationError) as e:
+    with pytest.raises(Exception) as e:
         comm.allreduce(np.ones(4, np.float32))
-    assert "ROADMAP.md Queue 1 item 6" in str(e.value)
-    assert "directive excludes" not in str(e.value)
-    assert comm.coll.providers == {}
-    assert set(comm.coll.device_providers) == {
-        "barrier", "bcast", "reduce", "allreduce", "gather", "allgather",
-        "scatter", "alltoall", "reduce_scatter", "reduce_scatter_block",
-        "scan", "exscan", "gatherv", "scatterv", "allgatherv", "alltoallv"}
+    assert type(e.value).__name__ == _jax_no_pml_errors()["allreduce"]
+    slots = {"barrier", "bcast", "reduce", "allreduce", "gather",
+             "allgather", "scatter", "alltoall", "reduce_scatter",
+             "reduce_scatter_block", "scan", "exscan", "gatherv",
+             "scatterv", "allgatherv", "alltoallv"}
+    assert comm.coll.providers == {s: "host" for s in slots | {"alltoallw"}}
+    assert set(comm.coll.device_providers) == slots
 
 
 def test_host_buffer_through_the_pool_names_the_roadmap(pool):
-    res = pool.map(TR.mpi_errors, TR.shards(np.ones((N, 4), np.float32)))
-    for r in res:
-        kind, msg = r["host"]
-        assert kind == "BufferLocationError"
-        assert "ROADMAP.md Queue 1 item 6" in msg
+    """On 4 rank processes: the world communicator with no PML fails a
+    host allreduce as the JAX package's does; with a PML, its host
+    allreduce equals the JAX package's bit for bit."""
+    x = _host_data()
+    res = pool.map(TR.mpi_errors, TR.shards(x))
+    want = _jax_no_pml_errors()["allreduce"]
+    ref = jrun(N, lambda c: c.allreduce(x[c.rank:c.rank + 1]))
+    for r, jr in zip(res, ref):
+        kind, _ = r["host"]
+        assert kind == want
+        got = r["host_pml"]
+        assert got.dtype == jr.dtype and got.shape == jr.shape
+        assert got.tobytes() == jr.tobytes()
+    np.testing.assert_array_equal(res[0]["host_pml"][0], x.sum(0))
 
 
 def test_tensor_on_another_device_raises_and_is_not_moved(monkeypatch):
@@ -449,6 +501,21 @@ def test_unbound_solo_comm_and_default_op():
     assert torch.equal(out, torch.arange(3.0))
     comm.free()
     assert comm.device is None
+
+
+def test_bind_device_refuses_a_mesh_of_other_ranks():
+    """A 2-rank communicator bound to the one-process mesh (a job launched
+    without --gpu) would reduce its own data alone: bind_device raises,
+    and so it does when the ranks agree in number but not in place."""
+    comm = Communicator(Group([0, 1]), cid=4, my_world_rank=0, name="w2")
+    with pytest.raises(ValueError, match="rank 0 of 2.*rank 0 of 1"):
+        comm.bind_device(device_world(make_mesh(device="cpu")))
+    assert comm.device is None
+    other = Communicator(Group([0, 1]), cid=4, my_world_rank=1, name="w2")
+    pair = types.SimpleNamespace(size=2, rank=lambda: 0, name="pair")
+    with pytest.raises(ValueError, match="rank 1 of 2.*rank 0 of 2"):
+        other.bind_device(pair)
+    assert other.device is None
 
 
 # -- the trimmed copies beside their counterparts ----------------------------

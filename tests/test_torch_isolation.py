@@ -69,7 +69,27 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.mpi.coll.selfcoll",
                 "ompi_tpu_torch.mpi.coll.xla",
                 "ompi_tpu_torch.mpi.mpiext",
-                "ompi_tpu_torch.mpi.datatype"):
+                "ompi_tpu_torch.mpi.datatype",
+                "ompi_tpu_torch.core.output",
+                "ompi_tpu_torch.core.dss",
+                "ompi_tpu_torch.core.sysinfo",
+                "ompi_tpu_torch.mpi.request",
+                "ompi_tpu_torch.mpi.btl",
+                "ompi_tpu_torch.mpi.pml",
+                "ompi_tpu_torch.mpi.coll.base",
+                "ompi_tpu_torch.mpi.coll.host",
+                "ompi_tpu_torch.mpi.runtime",
+                "ompi_tpu_torch.runtime.pmix",
+                "ompi_tpu_torch.runtime.job",
+                "ompi_tpu_torch.runtime.state",
+                "ompi_tpu_torch.runtime.rmaps",
+                "ompi_tpu_torch.runtime.ras",
+                "ompi_tpu_torch.runtime.launcher",
+                "ompi_tpu_torch.tools.tpurun",
+                "ompi_tpu_torch.parallel.multihost",
+                "ompi_tpu_torch.examples.hello",
+                "ompi_tpu_torch.examples.ring",
+                "ompi_tpu_torch.examples.device_allreduce"):
         assert mod in res["imported"]
 
 
@@ -79,7 +99,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "tests/torch_ranks.py"]))
+    + ["chip_smoke.py", "tests/torch_ranks.py",
+       "tests/torch_host_harness.py"]))
 def test_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _IMPORT.search(src), path

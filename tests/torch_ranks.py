@@ -480,7 +480,8 @@ def decode_tokens(fields, axes, params, prompt, max_new):
 
 def mpi_comm(ranks=None, bind=True):
     """This rank's port ``Communicator`` over ``ranks`` (default: the
-    world), bound to the world mesh's DeviceCommunicator."""
+    world), bound to the world mesh's DeviceCommunicator (``bind`` on the
+    world only: the binding must span the communicator's ranks)."""
     from ompi_tpu_torch.mpi.comm import Communicator
     from ompi_tpu_torch.mpi.device_comm import device_world
     from ompi_tpu_torch.mpi.group import Group
@@ -492,6 +493,27 @@ def mpi_comm(ranks=None, bind=True):
         c = Communicator(Group(ranks), cid=0, my_world_rank=m.rank)
         _STATE[key] = c.bind_device(device_world(m)) if bind else c
     return _STATE[key]
+
+
+def mpi_host_comm():
+    """This rank's world ``Communicator`` with a PML of its own, bound to
+    the world mesh's DeviceCommunicator: the PMLs' business cards go round
+    over the mesh's host group (the exchange ``init()`` makes through
+    PMIx)."""
+    from ompi_tpu_torch.mpi.comm import Communicator
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.mpi.group import Group
+    from ompi_tpu_torch.mpi.pml import PmlOb1
+
+    if "mpi_host" not in _STATE:
+        m = mesh()
+        pml = PmlOb1(m.rank)
+        cards = m.all_gather_object(pml.address)
+        pml.set_peers({r: a for r, a in enumerate(cards) if r != m.rank})
+        c = Communicator(Group(range(m.world_size)), cid=0,
+                         my_world_rank=m.rank, pml=pml)
+        _STATE["mpi_host"] = c.bind_device(device_world(m))
+    return _STATE["mpi_host"]
 
 
 def staging_guard(fn):
@@ -538,9 +560,13 @@ def mpi_coll(slot, shard=None, margs=(), guard=True):
 
 def mpi_errors(shard):
     """The refusals of the route on this rank, as (type name, message):
-    an unbound communicator, a host buffer on the world communicator,
-    and, on a 2-rank communicator of ranks 0 and 1, rank 0's send and
-    rank 1's recv of a tensor and of a host buffer."""
+    an unbound communicator, a host buffer on the world communicator
+    that has no PML, and, on a 2-rank communicator of ranks 0 and 1
+    with no PML, rank 0's send and rank 1's recv of a tensor and of a
+    host buffer; then the host route's answers on the world
+    communicator with a PML: ``host_pml``, the allreduce of the shard,
+    and ``p2p_pml``, what rank 1 receives of rank 0's shard (None on
+    the other ranks)."""
     x = to_torch(shard)
 
     def err(fn):
@@ -554,7 +580,7 @@ def mpi_errors(shard):
            "host": err(lambda: mpi_comm().allreduce(shard))}
     rank = mesh().rank
     if rank < 2:
-        pair = mpi_comm((0, 1))
+        pair = mpi_comm((0, 1), bind=False)
         if rank == 0:
             out["p2p_device"] = err(lambda: pair.send(x, dest=1, tag=5))
             out["p2p_host"] = err(lambda: pair.send(shard, dest=1, tag=5))
@@ -562,4 +588,11 @@ def mpi_errors(shard):
             out["p2p_device"] = err(lambda: pair.recv(buf=x, source=0,
                                                       tag=5))
             out["p2p_host"] = err(lambda: pair.recv(source=0, tag=5))
+    world = mpi_host_comm()
+    out["host_pml"] = world.allreduce(shard)
+    out["p2p_pml"] = None
+    if rank == 0:
+        world.send(shard, dest=1, tag=5)
+    elif rank == 1:
+        out["p2p_pml"] = world.recv(source=0, tag=5)
     return out
