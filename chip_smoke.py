@@ -11,7 +11,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    sm_90a, one nvcc per source, all started together; prints the
    ``-Xptxas -v`` register and shared-memory lines and fails on a spill
    or a wgmma-serialisation warning (ptxas's C751x);
-3. host_plane (after build) — the host process mode through the port's
+3. hwtopo — ``core.hwtopo.discover(probe_accelerators=True)`` counts the
+   CUDA cards (and counts none unless asked);
+4. pipeline — ``parallel.gpipe`` at pp = 1 on the card at the flagship's
+   width (a gelu(h @ w + b) stage, w 2048 × 2048, h 16·512 × 2048,
+   bf16, 4 microbatches): output and the w, b and h gradients equal to
+   the direct call's bit for bit, both timed;
+5. host_plane (after build) — the host process mode through the port's
    launcher (``python -m ompi_tpu_torch.tools.tpurun``), a subprocess a
    job: ring and hello at -np 4 print the reference programs' lines;
    ping-pong (``tools/host_bench.py``) at 8 B, 4 KiB, 1 MiB and 64 MiB
@@ -31,7 +37,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ranks on card 0, where the device route raises the shared-card
    error and the host route runs; ``init()`` at -np 4 and a hello job's
    launch-to-exit time;
-4. kernel — the flash-attention forward kernel against its plain
+6. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, bf16 without a mask at t = 1024, and at the decode
    prefill shape (B=16, T=512, H=16, D=128, bf16, causal), where it is
@@ -39,7 +45,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
    in bf16 and in f32; and timed at the training shape (B·H=256, T=1024,
    D=128, bf16, causal) beside its bound and SDPA;
-5. kernel_bwd — the dq and dk/dv backward kernels against their plain
+7. kernel_bwd — the dq and dk/dv backward kernels against their plain
    versions over causal/full, offsets, f32/bf16, head dims, lengths and
    with or without an lse cotangent; the autograd backward with the
    kernels against the recompute backward; and, at the training shape
@@ -47,7 +53,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain version, its bound, the recompute backward and SDPA's backward,
    and ptxas's register and spill lines (and any wgmma-serialisation
    warning) of each D of the Hopper dq and dk/dv kernels;
-6. ring (after kernel_bwd) — ring attention's hop and merge at full
+8. ring (after kernel_bwd) — ring attention's hop and merge at full
    width in one process: a causal bf16 sequence of 4 × 1024 tokens
    (batch 4, 16 heads of 128) as 4 sequence-parallel ranks hold it; for
    each virtual rank, ``parallel.attention._ring_step`` over its 4 hops
@@ -59,17 +65,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backward (relative L2), no NaN or Inf, the masked hops' O = 0 and
    lse ≈ -1e30, and the ring's forward + backward device time beside the
    full-sequence kernels', with a profiled ring by kernel kind;
-7. decode — the flagship 468M dense model (bench.py's decode widths) with
+9. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
    tokens, the launch counts of that one call, the same prompt through the
    plain attention path, the prefill time (max_new=1), the per-token time
    by the two-max_new slope, tokens/s and peak memory; then torch.profiler
    windows over the prefill and a 16-token decode: device busy and idle
    share, and the kernels that take the time;
-8. cache — on the small f32 config of the decode tests, the cached greedy
+10. cache — on the small f32 config of the decode tests, the cached greedy
    decode through the kernel equals a token-by-token full-forward greedy
    exactly;
-9. train — the flagship model training at bench.py's MFU widths (batch
+11. train — the flagship model training at bench.py's MFU widths (batch
    16 × seq 1024, bf16, remat "dots", ce_chunk 256), through the
    multi-rank training code at world size 1 (every collective elided;
    the token shard is the whole batch), with the flash
@@ -78,10 +84,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    warm-up step and an 8-step ``make_train_loop`` whose launch counts are
    read around it; step time, tokens/s, MFU, peak memory and a profiled
    step;
-10. train_small — on the small f32 config of the model tests, the first
+12. train_small — on the small f32 config of the model tests, the first
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
-11. moe_layer — the MoE family (every FFN a switch of 8 experts,
+12a. ckpt (after train_small) — checkpoint/restart of the flagship's
+   training state at phase train's config and batch, one rank: 2 steps,
+   a snapshot of the params, f32 moments and step count (~5.6 GB, free
+   disk checked first) under ``build/ckpt_smoke``, 2 steps as the
+   uninterrupted reference, then a restore into fresh tensors on the
+   card and the same 2 steps, twice; the losses and every param and
+   moment leaf bit for bit (or, should the two continuations differ, the
+   nondeterministic op named and the resume held at their spread);
+   through ``ckpt.SnapshotStore`` and then ``ckpt.DcpStore``, each with
+   its bytes, write and read s and GB/s; then the small bf16 config
+   (bf16 params and moments, grad_accum 2) through SnapshotStore, which
+   puts the bf16 manifest to work without ml_dtypes; the snapshots are
+   removed;
+13. moe_layer — the MoE family (every FFN a switch of 8 experts,
    capacity factor 1.25, at the flagship's widths; its parameters drawn
    once by ``init_params``, 2.35B, and shared by the MoE phases): one
    full-width bf16 layer input (16 × 1024 tokens of 2048), the index
@@ -89,19 +108,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    output, aux and every gradient bit for bit, the same routing, and
    each part timed (route, dispatch, combine, expert FFN, the layer
    forward and backward in both forms) beside its byte bound;
-12. moe_decode — phase decode's metrics and checks for the MoE model
+14. moe_decode — phase decode's metrics and checks for the MoE model
    (8 forward launches a call), with the prefill's routing: the share
    of tokens dropped and the tokens routed to each expert, per layer;
-13. moe_train — phase train for the MoE model at world size 1 (the ep
+15. moe_train — phase train for the MoE model at world size 1 (the ep
    exchange elided): the first step's loss and every gradient leaf
    against the plain attention path, an 8-step loop's launch counts
    (16 / 8 / 8 a step), step time, tokens/s, MFU by the ACTIVE
    parameters (468M), peak memory, the loss falling, and a profiled
    step split into the flash kernels, the expert GEMMs, the index ops
    and the rest;
-14. moe_small — phase train_small on the MoE tests' small f32 config
+16. moe_small — phase train_small on the MoE tests' small f32 config
    (8 experts);
-15. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
+17. rma_kernel (after kernel_bwd) — the one-sided copy kernels (put, get
    and a root's push to 3 peers) at kernel level in this process, on
    local buffers with their flag words, bitwise against ``copy_plain``
    over float32, bfloat16 and int32 at 4 KiB, 1 MiB, 64 MiB and 256 MiB,
@@ -113,7 +132,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and at 4 KiB (200 calls), where the call rate is the host's and the
    profiler gives the device time of one launch; put and get at 64 MiB also without the
    handshake;
-16. rma_ranks (after rma_kernel) — 4 rank processes on the one card
+18. rma_ranks (after rma_kernel) — 4 rank processes on the one card
    (tcp init on a free port, each mapping its peers' 64 MiB windows):
    ``DeviceCommunicator.put``/``get`` for all 12 (src, dst) pairs and a
    self-put, ``fetch_bcast`` from every root, ``DeviceWindow`` and the
@@ -124,10 +143,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
-17. collectives (last but one) — ``make_mesh`` on the card with NCCL at
+19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
-18. mpi_coll (last, on the same NCCL group) — the MPI communicator's
+20. mpi_coll (on the same NCCL group) — the MPI communicator's
    device route: a ``Communicator`` bound to the card's
    ``DeviceCommunicator``; each buffer collective through
    ``comm.<slot>`` bitwise equal to the direct call at 4 KiB, 64 MiB and
@@ -144,9 +163,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    equal to the direct call, timed with its peak memory; the host cost
    of a 4 KiB ``comm.allreduce`` beside the direct call, and psum against
    rs_ag at 64 and 256 MiB;
-19. the ``kernels`` line (6 entries; the flash kernels' launches by
-   path: decode, train, ring, moe_decode, moe_train), then the card's
-   nvidia-smi line,
+20a. tune (on the same NCCL group) — ``tools.tune`` at world size 1:
+   every algorithm of allreduce, allgather and bcast (qint8 included) at
+   the reference's sizes (4 KiB–64 MiB f32 a shard), µs each; the file
+   (a temporary path) holds platform=cuda, the card's name and
+   n_devices=1 and no rule, and coll/xla's decisions at 4 KiB and 64 MiB
+   are those without it;
+21. the ``kernels`` line (6 entries; the flash kernels' launches by
+   path: decode, train, ring, moe_decode, moe_train, ckpt), then the
+   card's nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2795,6 +2820,333 @@ def phase_mpi_coll(card, mesh):
          card=card)
 
 
+# ---------------------------------------------------------------------------
+# slice 11: hwtopo, tune, pipeline, ckpt
+# ---------------------------------------------------------------------------
+
+def phase_hwtopo(card):
+    """``discover(probe_accelerators=True)`` counts the CUDA cards."""
+    import dataclasses as dc
+
+    import torch
+
+    from ompi_tpu_torch.core.hwtopo import discover
+
+    topo = discover(probe_accelerators=True)
+    check(topo.accelerators == torch.cuda.device_count() >= 1,
+          f"hwtopo: {topo.accelerators} accelerators, torch sees "
+          f"{torch.cuda.device_count()}")
+    check(discover().accelerators == 0, "hwtopo probed without being asked")
+    emit("hwtopo", topology=dc.asdict(topo), smt=topo.smt, card=card)
+
+
+def phase_tune(card, mesh):
+    """The tuner at world size 1 on phase collectives' NCCL group: the
+    reference's size sweep over every algorithm; the file holds the
+    provenance and no rule, and coll/xla decides as without it."""
+    import tempfile
+
+    import torch
+
+    from ompi_tpu_torch.mpi.coll import rules, xla
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.tools.tune import DEFAULT_SIZES, tune_device_colls
+
+    dc = device_world(mesh)
+    comp = xla.XlaColl()
+    comp.register_params()
+
+    def decisions():
+        xla._measured_cache.clear()
+        return {c: [comp._decide(c, None, dc, n) for n in (4 << 10,
+                                                            64 << 20)]
+                for c in xla.XlaColl.ALGORITHMS}
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "xla_measured_rules.conf")
+        t0 = time.perf_counter()
+        text, table = tune_device_colls(mesh, sizes=DEFAULT_SIZES,
+                                        out_path=out)
+        secs = time.perf_counter() - t0
+        rs = rules.load_rules(out)
+        name = torch.cuda.get_device_name(0)
+        check(rs.meta == {"platform": "cuda",
+                          "device_kind": name.replace(" ", "_"),
+                          "n_devices": "1"}, f"tune provenance {rs.meta}")
+        check(len(rs) == 0, f"tune at one card wrote rules:\n{text}")
+        check(all(set(row) == set(xla.XlaColl.ALGORITHMS[c])
+                  for c, rows in table.items() for row in rows.values()),
+              f"a cell was not measured: {table}")
+        saved = xla._MEASURED_PATH
+        without = decisions()
+        xla._MEASURED_PATH = out
+        try:
+            with_file = decisions()
+        finally:
+            xla._MEASURED_PATH = saved
+            xla._measured_cache.clear()
+    check(with_file == without,
+          f"decisions moved with the file: {with_file} vs {without}")
+    ar = table["allreduce"]["64MiB"]
+    emit("tune", us=table, seconds=secs, rules=len(rs), meta=rs.meta,
+         decisions_4KiB_64MiB=without,
+         psum_over_rs_ag_64MiB=ar["psum"] / ar["rs_ag"], card=card)
+
+
+#: the pipeline phase: one flagship-width stage over 16 × 512 tokens
+PIPE = dict(tokens=16 * 512, width=2048, microbatches=4)
+
+
+def phase_pipeline(card):
+    """``gpipe`` at pp = 1 on the card at the flagship's width: the stage
+    gelu(h @ w + b), bf16; forward and every gradient equal to the direct
+    call's, bit for bit."""
+    import torch
+
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.parallel import gpipe
+    from ompi_tpu_torch.parallel.mesh import Mesh
+
+    comm = device_world(Mesh({"pp": 1}, device=DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    T_, D = PIPE["tokens"], PIPE["width"]
+
+    def draw(*shape, scale):
+        return (torch.randn(*shape, device=DEVICE, generator=gen) * scale
+                ).to(torch.bfloat16)
+
+    w, b = draw(D, D, scale=D ** -0.5), draw(D, scale=0.1)
+    h = draw(T_, D, scale=1.0)
+
+    def stage(params, x):
+        pw, pb = params
+        return torch.nn.functional.gelu(x @ pw + pb)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (w, b, h)]
+        out = fn(leaves)
+        out.float().square().sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    got = run(lambda l: gpipe(comm, stage, (l[0], l[1]), l[2],
+                              PIPE["microbatches"], axis="pp"))
+    want = run(lambda l: stage((l[0], l[1]), l[2]))
+    torch.cuda.synchronize()
+    for name, g, x in zip(("out", "dw", "db", "dh"), got, want):
+        check(g.shape == x.shape and torch.equal(g, x),
+              f"pipeline {name}: gpipe at pp = 1 differs from the direct "
+              f"call")
+    ms = cuda_ms(lambda: run(lambda l: gpipe(comm, stage, (l[0], l[1]),
+                                             l[2], PIPE["microbatches"])),
+                 iters=10)
+    direct_ms = cuda_ms(lambda: run(lambda l: stage((l[0], l[1]), l[2])),
+                        iters=10)
+    emit("pipeline", pp=1, **PIPE, dtype="bfloat16", bitwise=True,
+         fwd_bwd_ms=ms, direct_fwd_bwd_ms=direct_ms, card=card)
+
+
+def _leaves_equal(a, b) -> dict:
+    """{leaf: max |a − b|} over two (params, opt_state) pairs (0.0 =
+    bitwise equal as values; NaN-safe by exact comparison first)."""
+    import torch
+
+    from ompi_tpu_torch.models.optim import AdamWState
+
+    def flat(params, state):
+        out = {f"p_{k}": v for k, v in params.items()}
+        if isinstance(state, dict):
+            out.update({f"master_{k}": v
+                        for k, v in state["master"].items()})
+            state = state["opt"]
+        check(isinstance(state, AdamWState), f"optimizer state {state!r}")
+        out.update({f"mu_{k}": v for k, v in state.mu.items()})
+        out.update({f"nu_{k}": v for k, v in state.nu.items()})
+        out["count"] = state.count
+        return out
+
+    fa, fb = flat(*a), flat(*b)
+    res = {}
+    for k in fa:
+        x, y = fa[k].detach(), fb[k].detach().to(fa[k].device)
+        res[k] = (0.0 if torch.equal(x, y)
+                  else (x.double() - y.double()).abs().max().item())
+    return res
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
+            more: int):
+    """Train ``snap_at`` steps, snapshot through the ``kind`` store
+    (``npz``: SnapshotStore write_rank + commit, ``dcp``: DcpStore), train
+    ``more`` steps (the uninterrupted reference), then restore into fresh
+    tensors on the card twice and train the same ``more`` steps from each.
+    Bitwise equality with the reference is demanded when the two
+    continuations agree bit for bit; when they do not, the step has a
+    nondeterministic op, named by a run under
+    ``torch.use_deterministic_algorithms(True)``, and the resume is held
+    at the two continuations' spread."""
+    import shutil
+
+    import torch
+
+    from ompi_tpu_torch.ckpt import DcpStore, SnapshotStore
+    from ompi_tpu_torch.models.transformer import make_train_step
+    from ompi_tpu_torch.models.weights import (from_jax_params,
+                                               from_train_state, train_state)
+
+    step, init = make_train_step(cfg, mesh, lr=1e-3)
+    params = from_jax_params(params_np, cfg, DEVICE, train=True, mesh=mesh)
+    state = init(params)
+
+    def steps(p, s, batches):
+        losses = []
+        for t in batches:
+            p, s, loss = step(p, s, t)
+            losses.append(loss.item())
+        return losses, p, s
+
+    _, params, state = steps(params, state, toks[:snap_at])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = train_state(params, state, cfg, mesh=mesh)
+    if kind == "npz":
+        store = SnapshotStore(base, job="ckpt")
+        store.write_rank(0, 0, snap)
+        store.commit(0, nranks=1, extra={"step": snap_at})
+    else:
+        store = DcpStore(base, job="ckpt")
+        store.save(0, snap)
+    write_s = time.perf_counter() - t0
+    del snap
+    nbytes = _dir_bytes(store.snapshot_dir(0))
+    ref_losses, params, state = steps(params, state,
+                                      toks[snap_at:snap_at + more])
+    ref = (params, state)
+
+    def restored():
+        t0 = time.perf_counter()
+        blobs = (store.load_rank(store.latest(), 0) if kind == "npz"
+                 else store.restore(store.latest()))
+        p, s = from_train_state(blobs, cfg, DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        return p, s, time.perf_counter() - t0
+
+    p1, s1, read_s = restored()
+    count = (s1["opt"] if isinstance(s1, dict) else s1).count
+    check(int(count) == snap_at, f"the restored step count {count}")
+    got1, p1, s1 = steps(p1, s1, toks[snap_at:snap_at + more])
+    vs_ref = _leaves_equal(ref, (p1, s1))
+    del ref, params, state
+    p2, s2, _ = restored()
+    got2, p2, s2 = steps(p2, s2, toks[snap_at:snap_at + more])
+    spread = _leaves_equal((p1, s1), (p2, s2))
+    del p1, s1, p2, s2
+    shutil.rmtree(store.base)
+    deterministic = got1 == got2 and not any(spread.values())
+    res = {"bytes": nbytes, "write_s": write_s, "read_s": read_s,
+           "write_GBps": nbytes / write_s / 1e9,
+           "read_GBps": nbytes / read_s / 1e9,
+           "losses_reference": ref_losses, "losses_resumed": got1,
+           "losses_resumed_again": got2, "deterministic": deterministic}
+    if deterministic:
+        check(got1 == ref_losses and not any(vs_ref.values()),
+              f"{kind}: the resumed run differs from the uninterrupted "
+              f"one: losses {got1} vs {ref_losses}, leaves "
+              f"{ {k: v for k, v in vs_ref.items() if v} }")
+        res["resume"] = "bitwise"
+        return res
+    # a nondeterministic op: name it, then hold the resume at the spread
+    torch.use_deterministic_algorithms(True)
+    try:
+        p3, s3, _ = restored()
+        steps(p3, s3, toks[snap_at:snap_at + 1])
+        res["nondeterministic_op"] = None
+    except RuntimeError as e:       # the op that has no deterministic form
+        res["nondeterministic_op"] = str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worse = {k: (vs_ref[k], spread[k]) for k in vs_ref
+             if vs_ref[k] > spread[k]}
+    check(not worse, f"{kind}: the resume is off by more than two "
+          f"continuations from one state differ: {worse}")
+    res["resume"] = "within the spread of two continuations"
+    res["spread_max"] = max(spread.values())
+    return res
+
+
+def phase_ckpt(fa, card, params_np):
+    """Checkpoint/restart of the flagship's training state on the card:
+    the dense 468M model at phase train's config and batch, one rank;
+    2 steps, a snapshot (params, f32 moments and the step count: ~5.6 GB),
+    2 steps as the reference, a restore into fresh tensors and the same
+    2 steps, bitwise, through SnapshotStore and then DcpStore; then the
+    small bf16 config (bf16 params and moments, grad_accum 2) through
+    SnapshotStore, which puts the bf16 manifest to work without
+    ml_dtypes.  Returns the flash kernels' launches on this path."""
+    import shutil
+
+    import torch
+
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params)
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "ckpt_smoke")
+    os.makedirs(base, exist_ok=True)
+    cfg = TransformerConfig(**FLAGSHIP, seq=TRAIN["seq"], attention="flash",
+                            compute_dtype="bfloat16", remat="dots",
+                            ce_chunk=TRAIN["ce_chunk"])
+    n_params = sum(int(np.prod(v.shape)) for v in params_np.values())
+    need = 3 * 4 * n_params                 # f32 params, mu, nu
+    free = shutil.disk_usage(base).free
+    check(free >= 1.5 * need,
+          f"ckpt: {free / 1e9:.1f} GB free under {base}, a snapshot takes "
+          f"{need / 1e9:.1f} GB")
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
+    rng = np.random.default_rng(12)
+    toks = [rng.integers(0, cfg.vocab, size=(TRAIN["batch"], cfg.seq))
+            .astype(np.int32) for _ in range(4)]
+    var_registry.set("ops_flash_bwd_kernel", True)
+    stores = {}
+    L = cfg.n_layers
+    try:
+        zero_counts(fa)
+        for kind in ("npz", "dcp"):
+            stores[kind] = _resume(cfg, mesh, params_np, toks, kind, base,
+                                   snap_at=2, more=2)
+            torch.cuda.empty_cache()
+        launches = counts(fa)
+        small = TransformerConfig(
+            vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128, seq=32,
+            attention="flash", compute_dtype="float32",
+            param_dtype="bfloat16", adam_mu_dtype="bfloat16", grad_accum=2)
+        small_toks = [rng.integers(0, 128, size=(4, 32)).astype(np.int32)
+                      for _ in range(5)]
+        stores["small_bf16_npz"] = _resume(
+            small, mesh, init_params(small, seed=5), small_toks, "npz",
+            base, snap_at=3, more=2)
+    finally:
+        var_registry.set("ops_flash_bwd_kernel", False)
+        shutil.rmtree(base, ignore_errors=True)
+    # 2 + 2 + 2 + 2 steps a store: the reference and two continuations
+    n_steps = 2 * 8
+    check(launches == {"flash_fwd": 2 * L * n_steps,
+                       "flash_bwd_dq": L * n_steps,
+                       "flash_bwd_dkv": L * n_steps},
+          f"ckpt launches in {n_steps} steps: {launches}")
+    emit("ckpt", config="flagship 468M dense, phase train's config, batch "
+         "16 x 1024, one rank; then the small bf16 config (bf16 params and "
+         "moments, grad_accum 2)", n_params=n_params, stores=stores,
+         launches=launches, card=card)
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2829,6 +3181,8 @@ def main() -> int:
     name, count, smi = run("device", phase_device)
     card = f"{name}, power limit {smi.split(',')[-1].strip()}"
     run("build", phase_build)
+    run("hwtopo", phase_hwtopo, card)
+    run("pipeline", phase_pipeline, card)
     run("host_plane", phase_host_plane, card)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)
@@ -2840,6 +3194,7 @@ def main() -> int:
     run("cache", phase_cache, fa)
     train = run("train", phase_train, fa, card, params_np)
     run("train_small", phase_train_small, fa)
+    ckpt = run("ckpt", phase_ckpt, fa, card, params_np)
     del params_np
     moe_np = run("moe_params", flagship_params, True)
     run("moe_layer", phase_moe_layer, card, moe_np)
@@ -2849,6 +3204,7 @@ def main() -> int:
     run("moe_small", phase_train_small, fa, True)
     mesh = run("collectives", phase_collectives, card)
     run("mpi_coll", phase_mpi_coll, card, mesh)
+    run("tune", phase_tune, card, mesh)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -2860,12 +3216,14 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
          "launches": decode_launches + train["flash_fwd"]
-         + ring["flash_fwd"] + moe_decode + moe_train["flash_fwd"],
+         + ring["flash_fwd"] + moe_decode + moe_train["flash_fwd"]
+         + ckpt["flash_fwd"],
          "launches_by_path": {"decode": decode_launches,
                               "train": train["flash_fwd"],
                               "ring": ring["flash_fwd"],
                               "moe_decode": moe_decode,
-                              "moe_train": moe_train["flash_fwd"]},
+                              "moe_train": moe_train["flash_fwd"],
+                              "ckpt": ckpt["flash_fwd"]},
          **fwd, "ok": True},
     ]
     for part, line in (("dq", 173), ("dkv", 215)):
@@ -2874,9 +3232,11 @@ def main() -> int:
             "name": key, "route": "cuda", "source": src + "flash_bwd.cu",
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line} "
                         f"(_bwd_{part}_kernel)",
-            "launches": train[key] + ring[key] + moe_train[key],
+            "launches": train[key] + ring[key] + moe_train[key]
+            + ckpt[key],
             "launches_by_path": {"train": train[key], "ring": ring[key],
-                                 "moe_train": moe_train[key]},
+                                 "moe_train": moe_train[key],
+                                 "ckpt": ckpt[key]},
             **bwd[part], "ok": True})
     for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
         kernels.append({

@@ -1,0 +1,90 @@
+"""Host topology discovery — the hwloc-lite (the port's copy of the JAX
+package's ``core/hwtopo.py``).
+
+≈ the role opal's vendored hwloc plays for ras/rmaps (opal/mca/hwloc):
+how many packages/cores/threads does this host have, what accelerators
+are attached, and which CPUs may this process use.  Reads Linux /sys
+and falls back to ``os.cpu_count`` elsewhere; no external dependency —
+the consumers (ras slot counts, rmaps binding, diagnostics) need counts
+and ids, not hwloc's full tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+__all__ = ["Topology", "discover"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """One host's compute layout."""
+
+    logical_cpus: int          # schedulable hardware threads
+    physical_cores: int        # distinct (package, core) pairs
+    packages: int              # sockets
+    allowed_cpus: int          # this process's cpuset width (affinity)
+    accelerators: int          # CUDA cards visible (0 = none/unknown)
+
+    @property
+    def smt(self) -> int:
+        """Hardware threads per core (≥1)."""
+        return max(1, self.logical_cpus // max(1, self.physical_cores))
+
+
+def _sysfs_topology() -> Optional[tuple[int, int, int]]:
+    """(logical, cores, packages) from /sys, or None off-Linux."""
+    base = "/sys/devices/system/cpu"
+    try:
+        cpus = [d for d in os.listdir(base)
+                if d.startswith("cpu") and d[3:].isdigit()]
+    except OSError:
+        return None
+    if not cpus:
+        return None
+    pairs = set()
+    packages = set()
+    logical = 0
+    for c in cpus:
+        tdir = os.path.join(base, c, "topology")
+        try:
+            with open(os.path.join(tdir, "core_id")) as f:
+                core = int(f.read())
+            with open(os.path.join(tdir, "physical_package_id")) as f:
+                pkg = int(f.read())
+        except (OSError, ValueError):
+            continue
+        logical += 1
+        pairs.add((pkg, core))
+        packages.add(pkg)
+    if not logical:
+        return None
+    return logical, len(pairs), len(packages)
+
+
+def discover(probe_accelerators: bool = False) -> Topology:
+    """Inspect this host.  ``probe_accelerators`` counts the CUDA cards
+    (``torch.cuda.device_count()``, 0 without CUDA) where the JAX package
+    counts its non-CPU jax devices; it imports torch, so callers on the
+    launch path keep it False (a host-plane rank never loads torch) and
+    let the app side probe."""
+    sysfs = _sysfs_topology()
+    if sysfs is not None:
+        logical, cores, pkgs = sysfs
+    else:
+        logical = os.cpu_count() or 1
+        cores, pkgs = logical, 1
+    try:
+        allowed = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        allowed = logical
+    accel = 0
+    if probe_accelerators:
+        import torch
+
+        accel = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return Topology(logical_cpus=logical, physical_cores=cores,
+                    packages=pkgs, allowed_cpus=allowed,
+                    accelerators=accel)

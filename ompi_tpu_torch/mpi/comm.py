@@ -20,10 +20,21 @@ A communicator carries two routes:
 
 CID allocation is deterministic: each parent carries a monotonic
 per-parent counter and every member computes the same new cid with no
-traffic.  Left out (ROADMAP.md Queue 1 item 6): nonblocking, persistent,
-partitioned and neighbourhood collectives, ``split``/``create`` and the
-topologies, fault tolerance, attributes and errhandlers (an error raises
-``MPIException``, the JAX package's default ERRORS_RETURN behaviour).
+traffic (``dup``, ``create``, ``split``); ``create_group``, collective over
+the new group's members only, derives its cid from a crc32 of (parent
+cid, member world ranks, tag, call sequence) instead.  A communicator
+made by ``split``, ``create`` or ``create_group`` has no device binding
+(its group is not the mesh's); ``dup`` keeps it.
+
+Errors route through the communicator's errhandler (``mpi.errhandler``:
+ERRORS_RETURN by default, the ``MPIException`` propagating; a user
+handler that returns True swallows a validation error and the call
+becomes a no-op).  Attributes are cached under ``mpi.info.Keyval``s with
+copy and delete callbacks, run by ``dup`` and ``free``.
+
+Left out (ROADMAP.md Queue 1 item 6): nonblocking, persistent,
+partitioned and neighbourhood collectives, the topologies and fault
+tolerance (``shrink``).
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ import numpy as np
 
 from ompi_tpu_torch.mpi import datatype as dt_mod
 from ompi_tpu_torch.mpi import op as op_mod
-from ompi_tpu_torch.mpi.constants import (ANY_SOURCE, ANY_TAG, PROC_NULL,
-                                          MPIException)
+from ompi_tpu_torch.mpi.constants import (ANY_SOURCE, ANY_TAG,
+                                          COMM_TYPE_SHARED, PROC_NULL,
+                                          UNDEFINED, MPIException)
 from ompi_tpu_torch.mpi.datatype import Datatype
 from ompi_tpu_torch.mpi.group import Group
 # the PML's refusal, checked here as well so that a communicator with no
@@ -63,10 +75,17 @@ class Communicator:
         self.name = name
         self.rank = group.rank_of(my_world_rank)
         self._cid_next = cid * 1024 + 1
+        self._cg_seq: dict = {}   # create_group per-key call sequence
         self._lock = threading.Lock()
         self.coll = None  # installed by ompi_tpu_torch.mpi.coll.install()
         self.device = None  # bound DeviceCommunicator (coll/xla path)
+        self.attrs: dict[Any, Any] = {}  # ≈ MPI attribute caching
+        # error policy (≈ ompi_errhandler; default mirrors ERRORS_RETURN —
+        # the MPIException propagating IS the returned error code here)
         from ompi_tpu_torch.mpi import coll
+        from ompi_tpu_torch.mpi import errhandler as _eh
+
+        self.errhandler = _eh.ERRORS_RETURN
 
         coll.install(self)
 
@@ -91,11 +110,30 @@ class Communicator:
     def world_rank(self, rank: int) -> int:
         return self.group.world_rank(rank)
 
-    def _check_rank(self, rank: int, what: str = "rank") -> None:
-        if rank != PROC_NULL and not 0 <= rank < self.size:
-            raise MPIException(
+    def _raise(self, exc: MPIException) -> None:
+        """Route an error through the installed errhandler (which raises
+        unless a user handler swallows it)."""
+        self.errhandler.invoke(self, exc)
+
+    def set_errhandler(self, eh) -> None:
+        """≈ MPI_Comm_set_errhandler."""
+        self.errhandler = eh
+
+    def get_errhandler(self):
+        return self.errhandler
+
+    def _check_rank(self, rank: int, what: str = "rank") -> bool:
+        """True when the op may proceed.  A user errhandler that swallows
+        the error turns the operation into a no-op (proceeding with an
+        invalid rank would negative-index into the group)."""
+        if rank == PROC_NULL:
+            return True
+        if not 0 <= rank < self.size:
+            self._raise(MPIException(
                 f"{what} {rank} out of range for {self.name} "
-                f"(size {self.size})", error_class=6)
+                f"(size {self.size})", error_class=6))
+            return False
+        return True
 
     # -- point-to-point ----------------------------------------------------
 
@@ -111,13 +149,21 @@ class Communicator:
 
     # send modes (≈ MPI_Ssend/Bsend/Rsend and their nonblocking forms)
 
+    def _send_args_ok(self, dest: int, tag: int) -> bool:
+        """Shared dest/tag validation for every send flavor. False ⇒ the
+        caller should return a no-op request (error was routed through the
+        errhandler, or dest is PROC_NULL)."""
+        if not self._check_rank(dest, "dest"):
+            return False
+        if tag < 0:
+            self._raise(MPIException(f"negative tag {tag} is reserved",
+                                     error_class=4))
+            return False  # swallowed: must not hit the internal tag space
+        return dest != PROC_NULL
+
     def _isend_mode(self, mode: str, buf, dest, tag, datatype, count
                     ) -> Request:
-        self._check_rank(dest, "dest")
-        if tag < 0:
-            raise MPIException(f"negative tag {tag} is reserved",
-                               error_class=4)
-        if dest == PROC_NULL:
+        if not self._send_args_ok(dest, tag):
             return CompletedRequest()
         _reject_device(buf, "isend")
         return self.pml.isend(buf, self.world_rank(dest), tag, self.cid,
@@ -150,17 +196,18 @@ class Communicator:
 
     def _recv_src(self, source: int) -> Optional[int]:
         """The PML source for a recv: a world rank, ANY_SOURCE, or None
-        for PROC_NULL (an empty completed receive)."""
+        for an empty completed receive (PROC_NULL, or an error the
+        errhandler swallowed)."""
         if source < 0 and source not in (ANY_SOURCE, PROC_NULL):
-            raise MPIException(
+            self._raise(MPIException(
                 f"source {source} is neither a rank nor "
-                f"ANY_SOURCE/PROC_NULL", error_class=6)
-        if source == PROC_NULL:
+                f"ANY_SOURCE/PROC_NULL", error_class=6))
             return None
-        if source < 0:
-            return source
-        self._check_rank(source, "source")
-        return self.world_rank(source)
+        if source == PROC_NULL or (source >= 0
+                                   and not self._check_rank(source,
+                                                            "source")):
+            return None
+        return source if source < 0 else self.world_rank(source)
 
     def irecv(self, buf: Optional[np.ndarray] = None, source: int = 0,
               tag: int = ANY_TAG, datatype: Optional[Datatype] = None,
@@ -392,20 +439,171 @@ class Communicator:
             self._cid_next += 1
             return cid
 
+    # -- attributes, info, construction (≈ ompi/attribute, comm.c) ---------
+
+    def test_inter(self) -> bool:
+        """≈ MPI_Comm_test_inter (an intercommunicator would say True)."""
+        return False
+
+    def set_info(self, info) -> None:
+        """≈ MPI_Comm_set_info: attach hints (stored; consulted by the
+        layers that define comm hints)."""
+        self.info = info
+
+    def get_info(self):
+        """≈ MPI_Comm_get_info."""
+        from ompi_tpu_torch.mpi.info import Info
+
+        return getattr(self, "info", None) or Info()
+
+    def dup_with_info(self, info, name: Optional[str] = None
+                      ) -> "Communicator":
+        """≈ MPI_Comm_dup_with_info: dup, replacing (not inheriting) the
+        info hints."""
+        new = self.dup(name=name)
+        new.info = info
+        return new
+
+    def set_attr(self, keyval, value: Any) -> None:
+        """≈ MPI_Comm_set_attr."""
+        self.attrs[keyval] = value
+
+    def get_attr(self, keyval) -> Any:
+        """≈ MPI_Comm_get_attr — None when not cached."""
+        return self.attrs.get(keyval)
+
+    def delete_attr(self, keyval) -> None:
+        """≈ MPI_Comm_delete_attr — runs the delete callback."""
+        if keyval in self.attrs:
+            value = self.attrs.pop(keyval)
+            if getattr(keyval, "delete_fn", None) is not None:
+                keyval.delete_fn(self, value)
+
+    def _copy_attrs(self, new: "Communicator") -> None:
+        from ompi_tpu_torch.mpi.info import Keyval
+
+        for kv, value in self.attrs.items():
+            if isinstance(kv, Keyval):
+                if kv.copy_fn is None:
+                    continue        # MPI default: do NOT propagate
+                keep, newval = kv.copy_fn(self, value)
+                if keep:
+                    new.attrs[kv] = newval
+            # plain (non-Keyval) keys are internal; not propagated
+
     def dup(self, name: Optional[str] = None) -> "Communicator":
         """≈ MPI_Comm_dup — collective over this communicator: the copy
         takes the next deterministic cid (its own message context over
-        the same PML); the device binding carries over (same group ⇒
-        same mesh)."""
+        the same PML); attributes propagate through their keyvals' copy
+        callbacks, and the errhandler and the device binding carry over
+        (same group ⇒ same mesh)."""
         new = Communicator(self.group, self._next_cid(), self._world_rank,
                            name or f"{self.name}.dup", pml=self.pml)
+        self._copy_attrs(new)
+        new.errhandler = self.errhandler
         new.device = self.device
         return new
 
+    def idup(self, name: Optional[str] = None) -> tuple[Request,
+                                                        "Communicator"]:
+        """≈ MPI_Comm_idup: (request, newcomm).  CID agreement is
+        deterministic (the per-parent counter), so the handle is fully
+        formed and the request completes at once; callers written for
+        slower allocators, which use the handle only after the request
+        completes, stay correct."""
+        new = self.dup(name)
+        return CompletedRequest(new, kind="idup"), new
+
+    def create(self, group: Group, name: Optional[str] = None
+               ) -> Optional["Communicator"]:
+        """≈ MPI_Comm_create — collective over this communicator (every
+        rank burns the same cid); returns None on non-members."""
+        cid = self._next_cid()
+        if group.rank_of(self._world_rank) == UNDEFINED:
+            return None
+        return Communicator(group, cid, self._world_rank,
+                            name or f"{self.name}.sub", pml=self.pml)
+
+    def create_group(self, group: Group, tag: int = 0,
+                     name: Optional[str] = None
+                     ) -> Optional["Communicator"]:
+        """≈ MPI_Comm_create_group: collective ONLY over the members of
+        ``group``; non-members do not take part.  The cid cannot come from
+        the parent's shared counter (non-members would fall behind), so
+        every member derives it from (parent cid, member world ranks, tag,
+        call sequence): a crc32 in the NEGATIVE cid namespace, which the
+        counter-derived cids never reach, equal to the JAX package's for
+        the same call.  The per-key call sequence gives repeated identical
+        calls distinct contexts."""
+        if group.rank_of(self._world_rank) == UNDEFINED:
+            return None
+        import zlib
+
+        key = (self.cid, group.ranks, int(tag))
+        with self._lock:   # THREAD_MULTIPLE: concurrent same-key calls
+            seq = self._cg_seq.get(key, 0) + 1
+            self._cg_seq[key] = seq
+        desc = f"{self.cid}:{','.join(map(str, group.ranks))}:{tag}:{seq}"
+        cid = -(1 + (zlib.crc32(desc.encode()) & 0x7FFFFFFF))
+        return Communicator(group, cid, self._world_rank,
+                            name or f"{self.name}.grp", pml=self.pml)
+
+    def _my_host_key(self) -> int:
+        """Shared-memory-domain identity (``core.sysinfo.host_identity``);
+        tests may override it per communicator through
+        ``comm._io_host_override`` (threads share os.environ)."""
+        import zlib
+
+        from ompi_tpu_torch.core.sysinfo import host_identity
+
+        name = getattr(self, "_io_host_override", None) or host_identity()
+        return zlib.crc32(str(name).encode()) & 0x7FFFFFFF
+
+    def split_type(self, split_type: int = COMM_TYPE_SHARED, key: int = 0,
+                   name: Optional[str] = None) -> Optional["Communicator"]:
+        """≈ MPI_Comm_split_type(COMM_TYPE_SHARED): one communicator per
+        shared-memory domain (host).  UNDEFINED returns None, like
+        split."""
+        if split_type == UNDEFINED:
+            # still collective: peers' allgather inside split needs us
+            return self.split(UNDEFINED, key, name)
+        if split_type != COMM_TYPE_SHARED:
+            raise MPIException(
+                f"unknown split_type {split_type} (COMM_TYPE_SHARED)",
+                error_class=3)
+        return self.split(self._my_host_key(), key,
+                          name or f"{self.name}.shared")
+
+    def split(self, color: int, key: int = 0,
+              name: Optional[str] = None) -> Optional["Communicator"]:
+        """≈ MPI_Comm_split — collective over this communicator: an
+        allgather of (color, key, world rank) over the parent's host
+        route (as the reference's comm_split does), then a deterministic
+        local partition."""
+        mine = np.array([color, key, self._world_rank], dtype=np.int64)
+        gathered = self.coll.allgather(self, mine)  # (size, 3)
+        rows = [tuple(int(x) for x in row)
+                for row in np.asarray(gathered).reshape(self.size, 3)]
+        # distinct colors get distinct cids; every rank (members and
+        # UNDEFINED alike) burns the same count to keep counters aligned
+        colors = sorted({c for c, _, _ in rows if c != UNDEFINED})
+        cid_base = self._next_cid()
+        for _ in range(max(0, len(colors) - 1)):
+            self._next_cid()
+        if color == UNDEFINED:
+            return None
+        members = sorted((k, wr) for c, k, wr in rows if c == color)
+        return Communicator(Group([wr for _, wr in members]),
+                            cid_base + colors.index(color), self._world_rank,
+                            name or f"{self.name}.split({color})",
+                            pml=self.pml)
+
     def free(self) -> None:
-        """≈ MPI_Comm_free: drop the device binding and the table; the
-        device groups belong to the mesh and the PML to the runtime, not
-        to the communicator."""
+        """≈ MPI_Comm_free: run the attributes' delete callbacks, then drop
+        the device binding and the table; the device groups belong to the
+        mesh and the PML to the runtime, not to the communicator."""
+        for kv in list(self.attrs):
+            self.delete_attr(kv)
         self.device = None
         self.coll = None
 

@@ -7,12 +7,14 @@ from __future__ import annotations
 
 __all__ = ["MPIException", "ANY_SOURCE", "ANY_TAG", "PROC_NULL",
            "UNDEFINED", "SUCCESS", "ERR_BUFFER", "ERR_COUNT", "ERR_TYPE",
-           "ERR_TAG", "ERR_RANK", "ERR_TRUNCATE", "ERR_INTERN"]
+           "ERR_TAG", "ERR_RANK", "ERR_TRUNCATE", "ERR_INTERN", "ERR_IO",
+           "COMM_TYPE_SHARED"]
 
 ANY_SOURCE = -1  # MPI_ANY_SOURCE: match a message from any rank
 ANY_TAG = -2     # MPI_ANY_TAG: match any tag
 PROC_NULL = -3   # MPI_PROC_NULL: send/recv to nowhere completes immediately
 UNDEFINED = -32766  # MPI_UNDEFINED (e.g. the rank of a process not in a group)
+COMM_TYPE_SHARED = 1   # ranks that share a memory domain (same host)
 
 # Error classes (subset of MPI_ERR_*)
 SUCCESS = 0
@@ -23,6 +25,7 @@ ERR_TAG = 4
 ERR_RANK = 6
 ERR_INTERN = 13
 ERR_TRUNCATE = 15
+ERR_IO = 38
 
 
 class MPIException(RuntimeError):

@@ -6,6 +6,9 @@ JAX differentiates ``ppermute``, ``psum``, ``all_to_all`` and
 ``torch.autograd.Function`` whose backward is written out:
 
 - :func:`shift`: a ring shift; the backward shifts the cotangent back.
+- :func:`permute`: a (src, dst) permutation along an axis (ranks that
+  receive nothing get zeros); the backward sends each cotangent back
+  along the inverse pairs (GPipe's stage-to-stage hop).
 - :func:`sum_forward`: an all-reduce SUM forward, the identity backward.
   Every rank of the group then holds, and differentiates, the same
   replicated value, and passes its cotangent to its own partial (the
@@ -31,7 +34,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["shift", "sum_forward", "sum_backward", "all_to_all",
+__all__ = ["shift", "permute", "sum_forward", "sum_backward", "all_to_all",
            "all_gather", "group_size"]
 
 
@@ -54,6 +57,18 @@ class _Shift(torch.autograd.Function):
     def backward(ctx, g):
         comm, disp, axis = ctx.args
         return comm.shift(g, -disp, axis), None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, perm, axis):
+        ctx.args = (comm, [(d, s) for s, d in perm], axis)
+        return comm.permute(x, perm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, inverse, axis = ctx.args
+        return comm.permute(g, inverse, axis), None, None, None
 
 
 class _SumForward(torch.autograd.Function):
@@ -108,6 +123,15 @@ def shift(comm, x: torch.Tensor, disp: int, axis: str) -> torch.Tensor:
     if group_size(comm, (axis,)) == 1:
         return x
     return _Shift.apply(x, comm, int(disp), axis)
+
+
+def permute(comm, x: torch.Tensor, perm, axis: str) -> torch.Tensor:
+    """``lax.ppermute`` along ``axis``: rank s's ``x`` lands on rank d for
+    each (s, d) in ``perm``; a rank that receives nothing gets zeros."""
+    if group_size(comm, (axis,)) == 1:
+        return x
+    return _Permute.apply(x, comm, [(int(s), int(d)) for s, d in perm],
+                          axis)
 
 
 def sum_forward(comm, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

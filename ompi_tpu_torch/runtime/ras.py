@@ -3,9 +3,10 @@ package's ``runtime/ras.py``).
 
 ≈ orte/mca/ras: turns "where can I run" into a list of Nodes.  Components:
 
-- ``localhost`` — N slots on this host (the cpus this process may schedule
-  on by default); the analog of oversubscribed local launch, the
-  workhorse for tests.
+- ``localhost`` — N slots on this host (by default the cpus this process
+  may schedule on, from ``core.hwtopo.discover``, which the launch path
+  calls without the accelerator probe); the analog of oversubscribed
+  local launch, the workhorse for tests.
 - ``gpu``       — one slot per local CUDA card
   (``torch.cuda.device_count()``), with ``chips`` the card indices, so
   ranks map 1:1 onto cards (``tpurun --gpu``; it takes the place of the
@@ -47,15 +48,18 @@ class LocalhostRAS(Component):
 
     def register_params(self) -> None:
         register_var("ras", "localhost_slots", VarType.INT, 0,
-                     "slots on localhost (0 = the cpus this process may "
-                     "schedule on)")
+                     "slots on localhost (0 = discovered topology: "
+                     "cpus this process may schedule on)")
 
     def allocate(self, job: Job, **ctx) -> list[Node]:
         slots = var_registry.get("ras_localhost_slots")
         if not slots:
-            # the cpuset width, not the raw cpu count — a containerized
-            # launcher sees its quota, not the whole machine
-            slots = len(os.sched_getaffinity(0))
+            # topology-derived default (≈ hwloc feeding ras): the cpuset
+            # width, not raw cpu count — a containerized launcher sees its
+            # quota, not the whole machine
+            from ompi_tpu_torch.core.hwtopo import discover
+
+            slots = discover().allowed_cpus
         # mpirun-style oversubscription: never under-allocate the job
         slots = max(slots, job.np)
         return [Node(name="localhost", slots=slots)]

@@ -89,8 +89,36 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.parallel.multihost",
                 "ompi_tpu_torch.examples.hello",
                 "ompi_tpu_torch.examples.ring",
-                "ompi_tpu_torch.examples.device_allreduce"):
+                "ompi_tpu_torch.examples.device_allreduce",
+                "ompi_tpu_torch.core.hwtopo",
+                "ompi_tpu_torch.tools.tune",
+                "ompi_tpu_torch.parallel.pipeline",
+                "ompi_tpu_torch.ckpt",
+                "ompi_tpu_torch.ckpt.store",
+                "ompi_tpu_torch.ckpt.dcp_store",
+                "ompi_tpu_torch.mpi.info",
+                "ompi_tpu_torch.mpi.errhandler",
+                "ompi_tpu_torch.examples.pipeline"):
         assert mod in res["imported"]
+
+
+def test_ckpt_loads_no_ml_dtypes_and_no_jax():
+    """The stores write and read bf16 and float8 leaves through their
+    integer bits: importing them and round-tripping a bf16 tensor loads
+    neither ml_dtypes nor JAX."""
+    probe = (
+        "import sys, tempfile, torch\n"
+        "from ompi_tpu_torch.ckpt import SnapshotStore\n"
+        "st = SnapshotStore(tempfile.mkdtemp())\n"
+        "st.write_rank(0, 0, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
+        "st.commit(0, nranks=1)\n"
+        "assert st.load_rank(0, 0)['w'].dtype == torch.bfloat16\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'optax', 'ompi_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"

@@ -77,14 +77,23 @@ def test_host_ranks_do_not_import_torch():
                                 "[1,1]1 [0.0, 2.0, 4.0] False"]
 
 
-def test_nonzero_exit_propagates_and_stdin_reaches_rank_0():
+def test_stdin_reaches_rank_0_and_x_exports():
     p = _run(["-np", "2", "-x", "RING_X=41", "--", sys.executable, "-c",
               "import os, sys; r = os.environ['OMPI_TPU_RANK']; "
-              "print(r, repr(sys.stdin.read()), os.environ['RING_X']); "
-              "sys.exit(3 if r == '1' else 0)"], input="hello\n")
-    assert p.returncode == 3
+              "print(r, repr(sys.stdin.read()), os.environ['RING_X'])"],
+             input="hello\n")
+    assert p.returncode == 0, p.stderr
     assert "[1,0]0 'hello\\n' 41" in p.stdout
     assert "[1,1]1 '' 41" in p.stdout
+
+
+def test_nonzero_exit_propagates():
+    # rank 0 outlives rank 1, so the abort errmgr has a rank to take down
+    p = _run(["-np", "2", "--", sys.executable, "-c",
+              "import os, sys, time\n"
+              "if os.environ['OMPI_TPU_RANK'] == '1': sys.exit(3)\n"
+              "time.sleep(30)"])
+    assert p.returncode == 3
     assert "rank 1 aborted (exit code 3)" in p.stderr
 
 

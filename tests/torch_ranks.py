@@ -596,3 +596,117 @@ def mpi_errors(shard):
     elif rank == 1:
         out["p2p_pml"] = world.recv(source=0, tag=5)
     return out
+
+
+# ---------------------------------------------------------------------------
+# rank side of tests/test_torch_tune.py, test_torch_pipeline.py and
+# test_torch_ckpt.py
+# ---------------------------------------------------------------------------
+
+def tune(sizes, iters, out_dir):
+    """``tune_device_colls`` over the world mesh, each rank given its own
+    output path (``out_<rank>.conf``): (text, table, the paths that
+    exist afterwards)."""
+    from ompi_tpu_torch.tools.tune import tune_device_colls
+
+    m = mesh()
+    text, table = tune_device_colls(
+        m, sizes=sizes, iters=iters,
+        out_path=os.path.join(out_dir, f"out_{m.rank}.conf"))
+    m.host_barrier()
+    return text, table, sorted(os.listdir(out_dir))
+
+
+def gpipe_run(x, w, b, microbatches, grad=False):
+    """``gpipe`` over a pp = 4 mesh, stage d = gelu(h @ w[d] + b[d]) on
+    rank d: (output, this stage's w and b gradients, x's gradient on
+    this rank, stage_fn calls) for the loss Σ out² (gradients None
+    without ``grad``)."""
+    from ompi_tpu_torch.parallel.pipeline import gpipe
+
+    c = comm({"pp": WORLD}, ("pp",))
+    d = c.mesh.coord("pp")
+    ws = to_torch(w[d]).requires_grad_(grad)
+    bs = to_torch(b[d]).requires_grad_(grad)
+    xt = to_torch(x).requires_grad_(grad)
+    calls = []
+
+    def stage(params, h):
+        calls.append(1)
+        pw, pb = params
+        return torch.nn.functional.gelu(h @ pw + pb)
+
+    out = gpipe(c, stage, (ws, bs), xt, microbatches, axis="pp")
+    if not grad:
+        return to_numpy(out), None, None, None, len(calls)
+    (out ** 2).sum().backward()
+    return (to_numpy(out), to_numpy(ws.grad), to_numpy(bs.grad),
+            to_numpy(xt.grad), len(calls))
+
+
+def resume_steps(fields, axes, params, toks, snap_at, more, store_dir,
+                 lr=1e-2):
+    """Train ``snap_at`` steps, snapshot through ``SnapshotStore`` (rank 0
+    writes the JAX package's layout, ``weights.train_state``), train
+    ``more`` steps (the uninterrupted run), then restore into fresh
+    tensors on every rank and train the same ``more`` steps:
+    (losses of the uninterrupted run, losses after the restore, whether
+    every parameter and every optimizer leaf is bitwise equal, the
+    optimizer leaves' shapes)."""
+    from ompi_tpu_torch.ckpt import SnapshotStore
+    from ompi_tpu_torch.models import transformer as T
+    from ompi_tpu_torch.models.weights import (from_train_state,
+                                               to_numpy_opt_state,
+                                               to_numpy_params, train_state)
+
+    cfg, m, p = _model(fields, axes, params)
+    step, init = T.make_train_step(cfg, m, lr=lr)
+    s = init(p)
+    for t in toks[:snap_at]:
+        p, s, _ = step(p, s, T.shard_tokens(t, m))
+    store = SnapshotStore(store_dir, job="resume")
+    state = train_state(p, s, cfg, mesh=m)
+    if m.rank == 0:
+        store.write_rank(0, 0, state)
+        store.commit(0, nranks=1, extra={"step": snap_at})
+    m.host_barrier()
+
+    def run(p, s):
+        losses = []
+        for t in toks[snap_at:snap_at + more]:
+            p, s, loss = step(p, s, T.shard_tokens(t, m))
+            losses.append(loss.item())
+        return losses, to_numpy_params(p, mesh=m), to_numpy_opt_state(
+            s, cfg, params, mesh=m)
+
+    ref = run(p, s)
+    del p, s
+    blobs = store.load_rank(store.latest(), 0)
+    got = run(*from_train_state(blobs, cfg, "cpu", mesh=m))
+    same = (all(np.array_equal(ref[1][k], got[1][k]) for k in ref[1])
+            and all(np.array_equal(a, b) for a, b in zip(ref[2], got[2])))
+    return ref[0], got[0], same, [np.shape(v) for v in ref[2]]
+
+
+def dcp_cases(base):
+    """DcpStore on the world (dp = 4): the (8, 4) array saved as two rows
+    a rank and restored sharded and whole; a distinct row a rank as a
+    DTensor (every row survives) and as a plain tensor (DCP keeps one
+    rank's copy); (block back, placements, whole, parts, plains)."""
+    from ompi_tpu_torch.ckpt import DcpStore, sharded
+
+    m = mesh({"dp": WORLD})
+    r = m.rank
+    store = DcpStore(base, job="s", mesh=m)
+    x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+    block = x[2 * r:2 * r + 2]
+    store.save(1, {"x": sharded(block, m, "dp"),
+                   "part": sharded(torch.full((1, 3), float(r)), m, "dp"),
+                   "plain": torch.full((3,), float(r))})
+    back = store.restore(1, {"x": sharded(torch.empty(2, 4), m, "dp")})["x"]
+    whole = store.restore(1)
+    return (to_numpy(back.to_local()),
+            [(type(p).__name__, getattr(p, "dim", None))
+             for p in back.placements],
+            to_numpy(whole["x"]), to_numpy(whole["part"]),
+            to_numpy(whole["plain"]), store.latest())
