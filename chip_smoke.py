@@ -10,33 +10,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build — nvcc builds every kernel from ``ompi_tpu_torch/ops/csrc`` for
    sm_90a, one nvcc per source, all started together; prints the
    ``-Xptxas -v`` register and shared-memory lines and fails on a spill
-   or a wgmma-serialisation warning (ptxas's C751x);
+   or a wgmma-serialisation warning (ptxas's C751x); then phase native:
+   g++ builds the four host executors from ``ompi_tpu_torch/_native``
+   (the convertor, the arena, the tcp plane and the fastdss extension),
+   one build each, all started together, into build/ompi_tpu_torch/native,
+   and each must load (no fall back to the Python branches); /dev/shm's
+   capacity and the shm backing directory are printed;
 3. hwtopo — ``core.hwtopo.discover(probe_accelerators=True)`` counts the
    CUDA cards (and counts none unless asked);
 4. pipeline — ``parallel.gpipe`` at pp = 1 on the card at the flagship's
    width (a gelu(h @ w + b) stage, w 2048 × 2048, h 16·512 × 2048,
    bf16, 4 microbatches): output and the w, b and h gradients equal to
    the direct call's bit for bit, both timed;
-5. host_plane (after build) — the host process mode through the port's
+5. host_plane (after native) — the host process mode through the port's
    launcher (``python -m ompi_tpu_torch.tools.tpurun``), a subprocess a
    job: ring and hello at -np 4 print the reference programs' lines;
    ping-pong (``tools/host_bench.py``) at 8 B, 4 KiB, 1 MiB and 64 MiB
-   over tcp between ranks 0 and 1 of a -np 4 job (eager limit 4 KiB: 1
-   MiB and up go rendezvous) and over proc between two ranks on threads
-   of this process, medians over blocks of the half round trip and
-   GB/s, the data bitwise back; in the same job allreduce, bcast,
-   allgather, alltoall,
-   reduce_scatter_block and scan on 64 MiB a rank of float32 small
-   integers and of int32, bitwise against numpy, and each forced
-   ``coll_host_allreduce_algorithm``; ``tpurun -np 1 --gpu`` runs
+   between ranks 0 and 1 of a -np 4 job (eager limit 4 KiB: 1 MiB and up
+   go rendezvous), over the shm rings (the default selection; the rank
+   reports the route), over tcp (``--mca btl self,tcp``) and over the
+   shm rings with ``OMPI_TPU_NO_NATIVE=1``, and over proc between two
+   ranks on threads of this process, medians over blocks of the half
+   round trip and GB/s, the data bitwise back; in the shm job allreduce,
+   bcast, allgather, alltoall, reduce_scatter_block and scan on 64 MiB a
+   rank of float32 small integers and of int32, bitwise against numpy,
+   and each forced ``coll_host_allreduce_algorithm``, every call served
+   by coll/shm, allreduce and bcast through the arena (its payload cap
+   raised to 64 MiB), then the same calls in a job with
+   ``--mca coll_shm_enable 0`` (coll/host); ``tpurun -np 1 --gpu`` runs
    ``examples/device_allreduce.py``: card 0 bound, a process group of
    one, ``comm.allreduce`` of 64 MiB on the card bitwise equal to the
    direct ``DeviceCommunicator.allreduce`` with no device-to-host copy
    in a torch.profiler window around the call (whose control copy must
    show), the numpy allreduce right; ``tpurun -np 2 --gpu`` puts both
    ranks on card 0, where the device route raises the shared-card
-   error and the host route runs; ``init()`` at -np 4 and a hello job's
-   launch-to-exit time;
+   error and the host route runs over the shm rings and the arena;
+   ``init()`` at -np 4 and a hello job's launch-to-exit time;
 6. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, bf16 without a mask at t = 1024, and at the decode
@@ -310,6 +319,53 @@ def bwd_bound_ms(kernel, bh, t_q, t_k, d, itemsize, causal, q_off, k_off):
         nbytes, flops = ins + 2 * t_k * bh * d * itemsize, 8 * pairs * d * bh
     peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
     return (*bound(nbytes, flops, peak), nbytes, flops)
+
+
+def phase_native(card):
+    """The four native host executors built with g++ from the port's own
+    copies (``ompi_tpu_torch/_native``) into ``build/ompi_tpu_torch/
+    native``, one build each, all started together: each library's build
+    seconds and whether it loaded; fails if one did not (no fall back to
+    the Python branches).  Also /dev/shm's capacity and free space and
+    the shm backing directory the rings and arenas use."""
+    import sysconfig
+
+    from ompi_tpu_torch import _native
+    from ompi_tpu_torch.core import shmseg
+
+    inc = sysconfig.get_paths().get("include") or ""
+    has_python_h = os.path.exists(os.path.join(inc, "Python.h"))
+    check(has_python_h, f"native: no Python.h under {inc!r} on this "
+          f"machine: the fastdss extension cannot build")
+    loaders = {"convertor": _native.lib, "arena": _native.arena,
+               "net": _native.net, "fastdss": _native.fastdss}
+    built_before = set(os.listdir(_native.BUILD_DIR)) if os.path.isdir(
+        _native.BUILD_DIR) else set()
+
+    def build(item):
+        name, fn = item
+        t0 = time.perf_counter()
+        lib = fn()
+        return name, {"seconds": round(time.perf_counter() - t0, 3),
+                      "loaded": lib is not None}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        libs = dict(pool.map(build, loaders.items()))
+    secs = time.perf_counter() - t0
+    files = sorted(set(os.listdir(_native.BUILD_DIR)) - built_before)
+    shm_dir = shmseg.backing_dir()
+    st = os.statvfs(shm_dir)
+    out = {"card": card, "compiler": "g++", "build_dir": _native.BUILD_DIR,
+           "libs": libs, "built": files, "seconds": round(secs, 3),
+           "python_h": os.path.join(inc, "Python.h"),
+           "shm_dir": shm_dir,
+           "shm_capacity_bytes": st.f_frsize * st.f_blocks,
+           "shm_free_bytes": st.f_frsize * st.f_bavail}
+    emit("native", **out)
+    check(all(v["loaded"] for v in libs.values()),
+          f"native: a library did not load: {libs}")
+    return out
 
 
 def phase_device():
@@ -1823,6 +1879,10 @@ HOST_RING_NP = 4
 HOST_PINGPONG = (8, 4 << 10, 1 << 20, 64 << 20)
 HOST_PINGPONG_EAGER = 4096      # 1 MiB and 64 MiB go rendezvous
 HOST_COLL_MIB = 64
+# the arena's payload cap for the 64 MiB collectives (the default, 4 MiB,
+# sends them to coll/host); the arena itself stays p + 1 slots of 256 KiB
+HOST_ARENA_CAP = "64M"
+HOST_RING_BYTES = 4 << 20       # btl_shm_ring_size's default
 
 
 def ring_lines(np_: int) -> list[str]:
@@ -1888,12 +1948,14 @@ def tagged_json(out: str, tag: str) -> list[dict]:
 def phase_host_plane(card):
     """The host process mode through the port's launcher: (a) ring and
     hello at -np 4 against the reference programs' lines; (b) ping-pong
-    over tcp between two launched ranks and over proc between two ranks
-    on threads of one process; (c) the host collectives at -np 4 on
-    64 MiB a rank, bitwise against numpy, each forced allreduce
-    algorithm once; (d) a --gpu rank on the card: both routes of one
-    communicator; (e) two --gpu ranks sharing the card: the device route
-    refuses, the host route runs; (f) init() and a hello job's wall
+    between two launched ranks over the shm rings, over tcp and over the
+    rings without the native executors, and over proc between two ranks
+    on threads of one process; (c) the collectives at -np 4 on 64 MiB a
+    rank through the coll/shm arena and through coll/host, bitwise
+    against numpy, each forced allreduce algorithm once; (d) a --gpu
+    rank on the card: both routes of one communicator; (e) two --gpu
+    ranks sharing the card: the device route refuses, the host route
+    runs over the rings and the arena; (f) init() and a hello job's wall
     times."""
     try:
         return _host_plane_jobs(card)
@@ -1906,6 +1968,7 @@ def phase_host_plane(card):
 
 
 def _host_plane_jobs(card):
+    from ompi_tpu_torch.core import shmseg
     from ompi_tpu_torch.tools import host_bench
 
     out = {"card": card}
@@ -1956,10 +2019,15 @@ def _host_plane_jobs(card):
               f"host_plane --gpu -np 2: no shared-card refusal: {r}")
         check(r["host_equal"] and r["group_size"] == 2,
               f"host_plane --gpu -np 2: the host route failed: {r}")
+        check(r["host_route"] == "shm" and r["host_provider"] == "shm"
+              and r["host_mode"] == "arena",
+              f"host_plane --gpu -np 2: the host route is not the shm "
+              f"rings and the arena: {r}")
     jobs["gpu_np2_s"] = secs
     out["gpu_np2"] = {"chips": [r["chip"] for r in two],
                       "device_error": two[0]["device_error"],
-                      "host_equal": True}
+                      "host_equal": True, "host_route": "shm",
+                      "host_mode": "arena"}
     # (a, f) hello, alone: its launch-to-exit time
     secs, rc, stdout, stderr = tpurun(["-np", "4", "--", sys.executable,
                                        "-m", "ompi_tpu_torch.examples.hello"])
@@ -1970,41 +2038,97 @@ def _host_plane_jobs(card):
     jobs["hello_launch_to_exit_s"] = secs
     out["examples"] = {"ring_lines": len(ring_lines(HOST_RING_NP)),
                        "hello_lines": 4, "equal": True}
-    # (b, c) one -np 4 job: ping-pong over tcp between ranks 0 and 1,
-    # then the host collectives on every rank
+    # (b, c) -np 4 jobs of tools/host_bench.py, one after the other:
+    # ping-pong between ranks 0 and 1 over the shm rings with the
+    # collectives through the arena (the default selection), the same
+    # ping-pong over tcp and over shm without the native executors, and
+    # the collectives through coll/host.  A 4-rank job holds up to 12
+    # rings; on a small /dev/shm (a full tmpfs raises SIGBUS on a mapped
+    # write) the rings shrink to fit, and the run records their size.
+    st = os.statvfs(shmseg.backing_dir())
+    free = st.f_frsize * st.f_bavail
+    ring = HOST_RING_BYTES
+    while ring > (256 << 10) and 12 * ring + (16 << 20) > free:
+        ring //= 2
+    out["shm"] = {"dir": shmseg.backing_dir(), "free_bytes": free,
+                  "ring_bytes": ring}
     sizes = ",".join(map(str, HOST_PINGPONG))
-    secs, rc, stdout, stderr = tpurun([
-        "-np", "4", "--no-tag-output", "--mca", "pml_eager_limit",
-        str(HOST_PINGPONG_EAGER), "--", sys.executable, "-m",
-        "ompi_tpu_torch.tools.host_bench", "--sizes", sizes,
-        "--mib", str(HOST_COLL_MIB)])
-    check(rc == 0, f"host_plane host_bench: rc {rc}\n{stderr[-2000:]}")
-    bench = tagged_json(stdout, "host_bench")[0]
-    jobs["pingpong_and_coll_s"] = secs
+    base = ["-np", "4", "--no-tag-output", "--mca", "pml_eager_limit",
+            str(HOST_PINGPONG_EAGER), "--mca", "btl_shm_ring_size",
+            str(ring)]
+    bench = "ompi_tpu_torch.tools.host_bench"
+    runs = {
+        "shm": base + ["--mca", "coll_shm_arena_size", HOST_ARENA_CAP, "--",
+                       sys.executable, "-m", bench, "--sizes", sizes,
+                       "--mib", str(HOST_COLL_MIB)],
+        "tcp": base + ["--mca", "btl", "self,tcp", "--", sys.executable,
+                       "-m", bench, "--sizes", sizes, "--mib", "0"],
+        "shm_no_native": base + ["-x", "OMPI_TPU_NO_NATIVE=1", "--",
+                                 sys.executable, "-m", bench, "--sizes",
+                                 sizes, "--mib", "0"],
+        "coll_host": base + ["--mca", "coll_shm_enable", "0", "--",
+                             sys.executable, "-m", bench, "--sizes", "",
+                             "--mib", str(HOST_COLL_MIB)],
+    }
+    res = {}
+    for label, args in runs.items():
+        secs, rc, stdout, stderr = tpurun(args)
+        check(rc == 0, f"host_plane host_bench {label}: rc {rc}\n"
+              f"{stderr[-2000:]}")
+        res[label] = tagged_json(stdout, "host_bench")[0]
+        jobs[f"host_bench_{label}_s"] = secs
+    natives = {label: r["native"] for label, r in res.items()}
+    for label in ("shm", "tcp", "coll_host"):
+        check(all(natives[label].values()),
+              f"host_plane {label}: a native executor is off: {natives}")
+    check(not any(natives["shm_no_native"].values()),
+          f"host_plane OMPI_TPU_NO_NATIVE=1: an executor loaded: {natives}")
+    out["native"] = natives
     # (b) ping-pong between two ranks on threads of this process
     t0 = time.perf_counter()
     proc = {"transport": "proc",
             "rows": host_bench._proc_pingpong(list(HOST_PINGPONG))}
     jobs["pingpong_proc_s"] = time.perf_counter() - t0
     out["pingpong"] = {}
-    for res in (bench, proc):
-        for row in res["rows"]:
-            check(row["bitwise"], f"host_plane pingpong {res['transport']} "
+    for label, want in (("shm", "shm"), ("tcp", "tcp"),
+                        ("shm_no_native", "shm"), ("proc", "proc")):
+        r = proc if label == "proc" else res[label]
+        check(r["transport"] == want, f"host_plane pingpong {label}: rank "
+              f"0 reached rank 1 over {r['transport']}, not {want}")
+        for row in r["rows"]:
+            check(row["bitwise"], f"host_plane pingpong {label} "
                   f"{row['bytes']} B: the data came back changed")
-        out["pingpong"][res["transport"]] = [
+        check([row["protocol"] for row in r["rows"]]
+              == ["eager", "eager", "rendezvous", "rendezvous"],
+              "host_plane pingpong: pml_eager_limit did not reach the ranks")
+        out["pingpong"][label] = [
             {k: row[k] for k in ("bytes", "protocol", "half_rtt_us", "gb_s",
                                  "half_rtt_us_blocks", "round_trips")}
-            for row in res["rows"]]
-    check([r["protocol"] for r in out["pingpong"]["tcp"]]
-          == ["eager", "eager", "rendezvous", "rendezvous"],
-          "host_plane pingpong: pml_eager_limit did not reach the ranks")
-    # (c) the host collectives at -np 4
-    for c in bench["calls"]:
-        check(c["bitwise"], f"host_plane coll {c['coll']} {c['dtype']}: "
-              f"differs from numpy")
-    check(len(bench["calls"]) == 16, "host_plane coll: calls missing")
-    out["coll"] = {"bytes_per_rank": bench["bytes_per_rank"], "ranks": 4,
-                   "calls": bench["calls"]}
+            for row in r["rows"]]
+    # (c) the collectives at -np 4, 64 MiB a rank: through the arena
+    # (allreduce and bcast pipeline through its slot halves; the rest of
+    # coll/shm's slots take coll/host past one 256 KiB slot, as do the
+    # forced host algorithms) and through coll/host
+    for label in ("shm", "coll_host"):
+        calls = res[label]["calls"]
+        check(len(calls) == 16, f"host_plane coll {label}: calls missing")
+        for c in calls:
+            check(c["bitwise"], f"host_plane coll {label} {c['coll']} "
+                  f"{c['dtype']}: differs from numpy")
+            want = "shm" if label == "shm" else "host"
+            check(c["provider"] == want, f"host_plane coll {label}: "
+                  f"{c['coll']} served by {c['provider']}, not {want}")
+            if label == "shm" and c["coll"] in ("allreduce", "bcast"):
+                check(c["path"] == "arena", f"host_plane coll: "
+                      f"{c['coll']} {c['dtype']} did not ride the arena")
+            if label == "coll_host":
+                check(c["path"] == "host", f"host_plane coll_host: "
+                      f"{c['coll']} rode an arena")
+    out["coll"] = {"bytes_per_rank": res["shm"]["bytes_per_rank"],
+                   "ranks": 4, "arena_cap": HOST_ARENA_CAP,
+                   "shm": res["shm"]["calls"],
+                   "host": res["coll_host"]["calls"]}
+    bench = res["shm"]
     # (f) init() at -np 4, each rank's
     out["init_s_np4"] = bench["init_s"]
     out["job_wall_s"] = jobs
@@ -3181,6 +3305,7 @@ def main() -> int:
     name, count, smi = run("device", phase_device)
     card = f"{name}, power limit {smi.split(',')[-1].strip()}"
     run("build", phase_build)
+    run("native", phase_native, card)
     run("hwtopo", phase_hwtopo, card)
     run("pipeline", phase_pipeline, card)
     run("host_plane", phase_host_plane, card)

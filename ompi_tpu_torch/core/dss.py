@@ -1,7 +1,9 @@
 """DSS — self-describing typed serialization for control messages (the
-port's copy of the JAX package's ``core/dss.py``, pure-Python codec only:
-the compiled ``_fastdss`` codec is left out, ROADMAP.md Queue 1 item 6's
-native executors).
+port's copy of the JAX package's ``core/dss.py``).  ``pack``/``unpack``
+run the compiled codec (``_native/fastdss.c``, loaded as
+``_fastdss_torch``) when it built, and this module's Python codec for
+what it cannot encode (ndarrays, subclasses) or when
+``OMPI_TPU_NO_NATIVE=1``; both write the same bytes.
 
 Equivalent of the reference's data storage service (opal/dss/dss.h:107,212):
 control-plane messages (launch commands, modex business cards, IOF chunks)
@@ -235,7 +237,31 @@ def _pack_into(parts: list, value: Any) -> None:
         parts.append(b.bytes())
 
 
+_fast = None
+_fast_tried = False
+
+
+def _fastmod():
+    """The compiled codec (ompi_tpu_torch._native.fastdss), or None."""
+    global _fast, _fast_tried
+    if not _fast_tried:
+        _fast_tried = True
+        try:
+            from ompi_tpu_torch import _native
+
+            _fast = _native.fastdss()
+        except Exception:  # noqa: BLE001 — loader failure → python codec
+            _fast = None
+    return _fast
+
+
 def pack(*values: Any) -> bytes:
+    fast = _fastmod()
+    if fast is not None:
+        try:
+            return fast.pack(values)
+        except fast.Unsupported:
+            pass          # exotic type (ndarray, subclass): python codec
     parts: list = []
     for v in values:
         _pack_into(parts, v)
@@ -301,6 +327,16 @@ def _unpack_one(data: bytes, pos: int) -> tuple[Any, int]:
 
 
 def unpack(data: bytes, n: Optional[int] = None) -> list[Any]:
+    if not isinstance(data, (bytes, bytearray, memoryview)):
+        data = bytes(data)     # uniform accept surface for both codecs
+    fast = _fastmod()
+    if fast is not None:
+        try:
+            return fast.unpack(data, -1 if n is None else n)
+        except fast.Unsupported:
+            pass          # ndarray record: python codec handles the call
+        except ValueError as e:
+            raise DSSError(str(e)) from None
     if not isinstance(data, bytes):
         data = bytes(data)
     out: list[Any] = []

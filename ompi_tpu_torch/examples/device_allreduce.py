@@ -2,7 +2,8 @@
 ``make_mesh()`` over the job's process group, ``comm.bind_device(
 device_world(mesh))``, one ``allreduce`` of a tensor on the rank's card
 (the device route, coll/xla → NCCL) and one of a numpy array (the host
-route, coll/host → the ob1 PML), each printed with a checksum.
+route: coll/shm's arena when the ranks share a host, else coll/host over
+the ob1 PML), each printed with a checksum.
 
 Run:  python -m ompi_tpu_torch.tools.tpurun -np 1 --gpu -- python -m ompi_tpu_torch.examples.device_allreduce
 
@@ -18,8 +19,9 @@ host route's, the tensor copies to the host made inside the
 communicator's call (on the card, the device-to-host copies that
 torch.profiler records; on the CPU, the calls that stage a tensor
 through numpy), whether the host result equals numpy's sum, the
-checksums, and the device route's error when ranks share a card (the
-host route runs all the same).
+checksums, the host route's provider, coll/shm's mode and the BTL route
+to the next rank, and the device route's error when ranks share a card
+(the host route runs all the same).
 """
 
 from __future__ import annotations
@@ -111,6 +113,9 @@ def main(argv=None) -> dict:
            "device_error": None}
     host = comm.allreduce(h)
     res["host_checksum"] = _checksum(host)
+    res["host_provider"] = comm.coll.providers["allreduce"]
+    res["host_mode"] = getattr(comm._coll_shm_state, "mode", None)
+    res["host_route"] = comm.pml.endpoint.route((comm.rank + 1) % comm.size)
     try:
         comm.allreduce(x)   # warm: NCCL's first call, outside the window
         if args.device == "cuda":

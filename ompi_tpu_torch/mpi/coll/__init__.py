@@ -11,13 +11,18 @@ Components here:
   local copy (≈ coll/self).
 - ``host`` — the tuned host algorithms over the communicator's PML
   (≈ coll/tuned + coll/base), for host buffers on more than one rank.
+- ``shm``  — single-copy on-node collectives through a per-communicator
+  shared-memory arena (barrier, bcast, reduce, allreduce, allgather, the
+  alltoall family, reduce_scatter and scan), hierarchical (intra-node
+  arena + inter-node coll/host) on mixed-host communicators (≈ coll/sm +
+  the HiCCL decomposition), for host buffers on ranks that share a host.
 - ``xla``  — the device path (≈ the coll/cuda slot, inverted): collectives
   on torch tensors run on the communicator's bound ``DeviceCommunicator``
   (NCCL on the card, gloo on the CPU), with no host copy.
 
-Left out of the JAX package's dispatch (ROADMAP.md Queue 1 item 6):
-``coll/shm`` (the shared-memory arena), and the trace plane (the flight
-recorder, spans and dispatch histograms).
+Left out of the JAX package's dispatch: the trace plane (the flight
+recorder, spans and dispatch histograms; ROADMAP.md Queue 1 item 6.9) and
+the fault injector's collective triggers (item 6.10).
 
 Buffer-location dispatch: each table slot is a dispatcher that routes by
 ``core.buffer.classify()`` — HOST buffers to the best host-capable
@@ -97,6 +102,7 @@ def install(comm: "Communicator") -> None:
     # import registers the components
     from ompi_tpu_torch.mpi.coll import host as _host  # noqa: F401
     from ompi_tpu_torch.mpi.coll import selfcoll as _selfcoll  # noqa: F401
+    from ompi_tpu_torch.mpi.coll import shm as _shm  # noqa: F401
     from ompi_tpu_torch.mpi.coll import xla as _xla  # noqa: F401
 
     module = CollModule()

@@ -12,8 +12,9 @@ dynamic rules file (``coll_host_dynamic_rules``, coll_tuned_dynamic_file.c →
 
 The variables, their defaults and every decision are the JAX package's;
 :meth:`HostColl.decision` names the algorithm a call will run.  Left out:
-the trace plane's decision instants and per-algorithm histograms, and the
-bind-time freezing for persistent collectives (ROADMAP.md Queue 1 item 6).
+the trace plane's decision instants and per-algorithm histograms (ROADMAP.md
+Queue 1 item 6.9), and the bind-time freezing for persistent collectives
+(item 6.7).
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Dynamic collective-selection rules file (the port's copy of the JAX
 package's ``mpi/coll/rules.py``: the format, ``RuleSet.lookup``,
-``load_rules`` and the ``decide`` ladder of coll/host; the coll/shm keys
-wait for coll/shm, ROADMAP.md Queue 1 item 6).
+``load_rules``, the ``decide`` ladder and the coll/shm allreduce keys).
 
 ≈ ompi/mca/coll/tuned/coll_tuned_dynamic_file.c — the reference lets admins
 override the fixed decision tables with a file of measured crossover points,
@@ -25,7 +24,14 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["RuleSet", "parse", "load_rules", "decide"]
+__all__ = ["RuleSet", "parse", "load_rules", "decide",
+           "SHM_ALLREDUCE", "SHM_ALLREDUCE_ALGORITHMS"]
+
+#: rules-file collective key selecting the coll/shm arena allreduce
+#: fold strategy (coll/shm.decide_allreduce_algo's ladder reads it) —
+#: e.g. ``shm_allreduce 0 1048576 segment_parallel``
+SHM_ALLREDUCE = "shm_allreduce"
+SHM_ALLREDUCE_ALGORITHMS = ("root_fold", "segment_parallel")
 
 
 class RuleSet:

@@ -10,7 +10,8 @@ A communicator carries two routes:
 
 - the host route: point-to-point calls and collectives on host buffers
   (numpy arrays, bytes) go through its PML (``pml=``, the ob1 PML over
-  the self/proc/tcp BTLs) and coll/host's algorithms.  ``init()`` builds
+  the self/proc/shm/tcp BTLs) and coll/shm's arena or coll/host's
+  algorithms.  ``init()`` builds
   ``COMM_WORLD`` this way; a hand-made one is
   ``Communicator(Group(range(n)), cid=0, my_world_rank=rank, pml=pml)``.
 - the device route: a communicator bound to a ``DeviceCommunicator``
@@ -80,6 +81,7 @@ class Communicator:
         self.coll = None  # installed by ompi_tpu_torch.mpi.coll.install()
         self.device = None  # bound DeviceCommunicator (coll/xla path)
         self.attrs: dict[Any, Any] = {}  # ≈ MPI attribute caching
+        self._coll_shm_state = None  # coll/shm's cached arena/hierarchy
         # error policy (≈ ompi_errhandler; default mirrors ERRORS_RETURN —
         # the MPIException propagating IS the returned error code here)
         from ompi_tpu_torch.mpi import coll
@@ -232,7 +234,11 @@ class Communicator:
              count: Optional[int] = None,
              status: Optional[Status] = None) -> np.ndarray:
         req = self.irecv(buf, source, tag, datatype, count)
-        out = req.wait()
+        # receiver-pull progress when the PML offers it: the blocked
+        # thread drains its own shm rings instead of waiting for the
+        # poller's futex handoff
+        waiter = getattr(self.pml, "_progress_wait", None)
+        out = waiter(req) if waiter is not None else req.wait()
         self._group_status(status, req.status)
         return out
 
@@ -600,12 +606,24 @@ class Communicator:
 
     def free(self) -> None:
         """≈ MPI_Comm_free: run the attributes' delete callbacks, then drop
-        the device binding and the table; the device groups belong to the
-        mesh and the PML to the runtime, not to the communicator."""
+        the device binding, the table and coll/shm's arena; the device
+        groups belong to the mesh and the PML to the runtime, not to the
+        communicator."""
         for kv in list(self.attrs):
             self.delete_attr(kv)
         self.device = None
         self.coll = None
+        # flag + cache-clear under the comm lock, ATOMIC against coll/shm's
+        # build completion: a state build in flight on another thread
+        # decides cache-vs-close under the same lock, so whichever side
+        # runs second sees the other's effect and the arena is closed
+        # exactly once
+        with self._lock:
+            self._coll_freed = True
+            st = self._coll_shm_state
+            self._coll_shm_state = None
+        if st is not None and hasattr(st, "close"):
+            st.close()
 
     def __repr__(self) -> str:
         return (f"Communicator({self.name}, rank={self.rank}/{self.size}, "

@@ -8,7 +8,7 @@ from __future__ import annotations
 __all__ = ["MPIException", "ANY_SOURCE", "ANY_TAG", "PROC_NULL",
            "UNDEFINED", "SUCCESS", "ERR_BUFFER", "ERR_COUNT", "ERR_TYPE",
            "ERR_TAG", "ERR_RANK", "ERR_TRUNCATE", "ERR_INTERN", "ERR_IO",
-           "COMM_TYPE_SHARED"]
+           "ERR_PROC_FAILED", "COMM_TYPE_SHARED"]
 
 ANY_SOURCE = -1  # MPI_ANY_SOURCE: match a message from any rank
 ANY_TAG = -2     # MPI_ANY_TAG: match any tag
@@ -26,6 +26,7 @@ ERR_RANK = 6
 ERR_INTERN = 13
 ERR_TRUNCATE = 15
 ERR_IO = 38
+ERR_PROC_FAILED = 75   # ULFM: target/peer process is dead
 
 
 class MPIException(RuntimeError):

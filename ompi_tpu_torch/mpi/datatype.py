@@ -16,14 +16,19 @@ copy.
 The host convertor packs into bytes for the PML's send/recv
 (``datatype=``): ``pack_plan`` compiles a ``(datatype, count)`` pair to
 one of three executors (one memcpy, a strided block copy, or one
-gather over the coalesced runs), run with numpy.  The JAX package's native
-pack executor and its convertor statistics are left out (ROADMAP.md
-Queue 1 item 6, the native executors); so are ``create_darray`` and the
-external32 pack.
+gather over the coalesced runs).  A strided or gather plan of at least
+``_NATIVE_MIN_BYTES`` runs through the compiled walk of
+``_native/convertor.cpp`` (its ``uniform`` hint specialises the inner
+copy), and through numpy when the library did not build or
+``OMPI_TPU_NO_NATIVE=1``; both move the same bytes.  ``stats`` counts
+every pack and unpack (the copy-counting hook the transport tests read).
+Left out: ``create_darray`` (it comes with MPI-IO, ROADMAP.md Queue 1
+item 6.12) and the external32 pack.
 """
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import threading
 from typing import Optional, Sequence
@@ -39,8 +44,82 @@ __all__ = [
     "UINT32", "INT64", "UINT64", "FLOAT16", "BFLOAT16", "FLOAT32", "FLOAT64",
     "COMPLEX64", "COMPLEX128", "BOOL", "FLOAT", "DOUBLE", "INT", "LONG",
     "CHAR", "FLOAT_INT", "DOUBLE_INT", "LONG_INT", "PackPlan",
-    "from_numpy",
+    "ConvertorStats", "stats", "from_numpy",
 ]
+
+# native convertor (_native/convertor.cpp): used above this payload size;
+# below it, ctypes call overhead beats the numpy gather it would replace
+_NATIVE_MIN_BYTES = 256
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def _native_convertor(nbytes: int):
+    if nbytes < _NATIVE_MIN_BYTES:
+        return None
+    from ompi_tpu_torch import _native  # cheap after first import
+
+    return _native.lib()
+
+
+class ConvertorStats:
+    """Pack/unpack call counters — the copy-counting hook transport tests
+    use to assert a zero-copy path really took no pack round-trip.
+
+    The counters are process-wide, so a *delta* measured against them is
+    only meaningful while nothing else in the process converts.  Tests
+    that need attribution register a *listener* instead:
+    ``add_listener(cb)`` gets ``cb(kind, nbytes)`` per pack/unpack
+    ("pack"/"unpack", plan.total).  ``reset()`` leaves listeners alone."""
+
+    __slots__ = ("pack_calls", "unpack_calls", "pack_bytes",
+                 "unpack_bytes", "_listeners")
+
+    def __init__(self) -> None:
+        self._listeners: list = []
+        self.reset()
+
+    def reset(self) -> None:
+        self.pack_calls = 0
+        self.unpack_calls = 0
+        self.pack_bytes = 0
+        self.unpack_bytes = 0
+
+    def add_listener(self, cb) -> None:
+        """Register ``cb(kind, nbytes)``; fired per pack/unpack call."""
+        self._listeners.append(cb)
+
+    def remove_listener(self, cb) -> None:
+        try:
+            self._listeners.remove(cb)
+        except ValueError:
+            pass
+
+    def note(self, kind: str, nbytes: int) -> None:
+        """Count one conversion (call sites; one branch when silent)."""
+        if kind == "pack":
+            self.pack_calls += 1
+            self.pack_bytes += nbytes
+        else:
+            self.unpack_calls += 1
+            self.unpack_bytes += nbytes
+        if self._listeners:
+            for cb in list(self._listeners):
+                cb(kind, nbytes)
+
+
+#: process-wide convertor counters (observability hook, not a hot metric)
+stats = ConvertorStats()
+
+
+def _u8p(arr: np.ndarray):
+    return arr.ctypes.data_as(_U8P)
+
+
+def _i64p(arr: np.ndarray):
+    return arr.ctypes.data_as(_I64P)
+
 
 class PackPlan:
     """A compiled pack program for one ``(datatype, count)`` pair —
@@ -59,11 +138,13 @@ class PackPlan:
                      item boundaries when the extent makes items abut),
                      moved with one numpy fancy-index copy.
 
+    ``uniform`` is the shared run length when every run is equal (0
+    otherwise) — the native walk specializes its inner copy on it.
     ``span`` is the user-buffer bytes the plan touches (validation bound).
     """
 
     __slots__ = ("kind", "total", "span", "start", "nblocks", "blocklen",
-                 "stride", "offsets", "lengths")
+                 "stride", "offsets", "lengths", "uniform")
 
     def __init__(self, kind: str, total: int, span: int) -> None:
         self.kind = kind
@@ -75,6 +156,7 @@ class PackPlan:
         self.stride = 0
         self.offsets: Optional[np.ndarray] = None
         self.lengths: Optional[np.ndarray] = None
+        self.uniform = 0
 
     @property
     def single_run(self) -> bool:
@@ -109,6 +191,7 @@ def _plan_strided(start: int, nblocks: int, blocklen: int,
     p.nblocks = nblocks
     p.blocklen = blocklen
     p.stride = stride
+    p.uniform = blocklen
     return p
 
 
@@ -117,8 +200,10 @@ def _plan_gather(offsets: np.ndarray, lengths: np.ndarray) -> PackPlan:
         return _plan_single(int(offsets[0]), int(lengths[0]))
     p = PackPlan("gather", int(lengths.sum()),
                  int((offsets + lengths).max()))
-    p.offsets = np.ascontiguousarray(offsets)
-    p.lengths = np.ascontiguousarray(lengths)
+    p.offsets = np.ascontiguousarray(offsets, np.int64)
+    p.lengths = np.ascontiguousarray(lengths, np.int64)
+    first = int(lengths[0])
+    p.uniform = first if bool((lengths == first).all()) else 0
     return p
 
 
@@ -238,6 +323,7 @@ class Datatype:
             raise MPIException(
                 f"pack: buffer has {raw.nbytes}B, datatype needs "
                 f"{plan.span}B for count={count}")
+        stats.note("pack", plan.total)
         if plan.kind == "empty":   # no bytes move: no span (all 3 paths)
             return b""
         if plan.kind == "single":   # single-memcpy fast path
@@ -269,6 +355,7 @@ class Datatype:
             raise MPIException(
                 f"pack_into: output buffer has {out_arr.nbytes}B, plan "
                 f"packs {plan.total}B")
+        stats.note("pack", plan.total)
         if plan.kind == "empty":
             return 0
         if plan.kind == "single":
@@ -279,12 +366,24 @@ class Datatype:
 
     def _execute_pack(self, raw: np.ndarray, plan: PackPlan,
                       out: np.ndarray) -> None:
-        """Run a non-trivial plan with vectorized numpy."""
+        """Run a non-trivial plan: the native walk when available,
+        vectorized numpy otherwise."""
+        native = _native_convertor(plan.total)
         if plan.kind == "strided":
+            if native is not None:
+                native.ompi_tpu_pack_strided(
+                    _u8p(out), _u8p(raw[plan.start:]), plan.nblocks,
+                    plan.blocklen, plan.stride)
+                return
             view = np.lib.stride_tricks.as_strided(
                 raw[plan.start:], (plan.nblocks, plan.blocklen),
                 (plan.stride, 1))
             out.reshape(plan.nblocks, plan.blocklen)[:] = view
+            return
+        if native is not None:
+            native.ompi_tpu_pack_runs(
+                _u8p(out), _u8p(raw), _i64p(plan.offsets),
+                _i64p(plan.lengths), len(plan.offsets), plan.uniform)
             return
         out[:] = raw[_concat_aranges(plan.offsets, plan.lengths)]
 
@@ -305,6 +404,7 @@ class Datatype:
             raise MPIException(
                 f"unpack: target buffer has {raw.nbytes}B, layout spans "
                 f"{plan.span}B for count={count}", error_class=15)
+        stats.note("unpack", plan.total)
         if plan.kind == "empty":
             return
         if plan.kind == "single":
@@ -314,11 +414,22 @@ class Datatype:
 
     def _execute_unpack(self, src: np.ndarray, plan: PackPlan,
                         raw: np.ndarray) -> None:
+        native = _native_convertor(plan.total)
         if plan.kind == "strided":
+            if native is not None:
+                native.ompi_tpu_unpack_strided(
+                    _u8p(src), _u8p(raw[plan.start:]), plan.nblocks,
+                    plan.blocklen, plan.stride)
+                return
             view = np.lib.stride_tricks.as_strided(
                 raw[plan.start:], (plan.nblocks, plan.blocklen),
                 (plan.stride, 1))
             view[:] = src.reshape(plan.nblocks, plan.blocklen)
+            return
+        if native is not None:
+            native.ompi_tpu_unpack_runs(
+                _u8p(src), _u8p(raw), _i64p(plan.offsets),
+                _i64p(plan.lengths), len(plan.offsets), plan.uniform)
             return
         raw[_concat_aranges(plan.offsets, plan.lengths)] = src
 

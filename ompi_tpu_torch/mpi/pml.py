@@ -22,16 +22,23 @@ processed by one reader, the send worker is FIFO, and every data frame
 carries a per-(peer, cid) wire sequence number that the receiver gates on.
 
 The wire format (header keys, frame types, dtype specs) is the JAX
-package's.  What the port keeps is its pure-Python matcher, the branch the
-JAX package runs under ``OMPI_TPU_NO_NATIVE=1``.  Left out (ROADMAP.md
-Queue 1 item 6): the native matching engine and its same-address-space
-fast lane (``pml_native_match`` is not registered), receiver-pull progress
-over shm rings, memchecker, the MPI_T pvars, the trace bridge (flow ids,
-spans, histograms), the hang doctor's pending summary, the fault-tolerance
-hooks (ULFM checks, incarnation fencing, respawn rebind and the
-park-and-heal retransmit: a frame that cannot be routed fails its request
-at once, as the JAX package does with ``pml_retry_window`` 0), and
-partitioned requests.
+package's.  Matching runs in the compiled engine of ``_native/fastdss.c``
+(``pml_native_match``, on when it built: the posted and unexpected queues,
+the wire-sequence gate and the held frames in C, handing protocol actions
+back to ``_apply_action``), with its same-address-space fast lane (a plain
+eager contiguous send delivered into the peer's engine with no header) and
+its fused shm drain; with the engine off, or ``OMPI_TPU_NO_NATIVE=1``, the
+pure-Python matcher below runs the same protocol.  A blocked ``recv``
+drains its own shm rings (receiver-pull progress), or on a tcp-only
+endpoint runs the native poller's service pass on its own thread.
+
+Left out: memchecker and the hang doctor's pending summary, the MPI_T
+pvars and the trace bridge (flow ids, spans, histograms; ROADMAP.md Queue
+1 item 6.9), the fault-tolerance hooks (ULFM checks, incarnation fencing,
+respawn rebind and the park-and-heal retransmit, item 6.10: a frame that
+cannot be routed fails its request at once, as the JAX package does with
+``pml_retry_window`` 0), and persistent and partitioned requests (item
+6.7).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from __future__ import annotations
 import collections
 import itertools
 import math
+import os
 import queue
 import threading
 import time
@@ -82,12 +90,20 @@ def _reject_device(buf: Any, what: str) -> None:
 
 _log = output.get_stream("pml")
 
+# 1-2 core hosts flip the receiver-pull spin style (see _progress_wait)
+_SMALL_HOST = (os.cpu_count() or 1) <= 2
+
 pml_framework = Framework("pml", "point-to-point messaging logic")
 
 register_var("pml", "eager_limit", VarType.SIZE, 64 * 1024,
              "max payload bytes sent eagerly (larger goes rendezvous)")
 register_var("pml", "frag_size", VarType.SIZE, 1 << 20,
              "fragment size for rendezvous pipelines")
+register_var("pml", "native_match", VarType.BOOL, True,
+             "run the matching engine (posted/unexpected queues, wire-seq "
+             "gate, held frames) in the compiled extension "
+             "(_native/fastdss.c Engine — ob1's recvfrag matcher in C); "
+             "off, or a failed native build, → the pure-python matcher")
 
 
 class RecvRequest(Request):
@@ -116,13 +132,17 @@ class RecvRequest(Request):
         if pml is None or self.done():
             return
         with pml._lock:
-            m = pml._matching.get(self.cid)
-            if m is None:
-                return
-            try:
-                m.posted.remove(self)
-            except ValueError:
-                return  # already matched — delivery wins
+            if pml._eng is not None:
+                if not pml._eng.cancel(self.cid, self):
+                    return  # already matched — delivery wins
+            else:
+                m = pml._matching.get(self.cid)
+                if m is None:
+                    return
+                try:
+                    m.posted.remove(self)
+                except ValueError:
+                    return  # already matched — delivery wins
         self.cancelled = True
         self.status.set_cancelled(True)  # MPI_Test_cancelled sees it
         self.complete(None)
@@ -374,10 +394,36 @@ class PmlOb1:
         self._listeners: list = []   # peruse/monitoring subscribers
         self._events: "collections.deque[tuple]" = collections.deque()
         self.bsend_pool = BsendPool()  # per-PML, like every other send state
+        # compiled matching engine: owns posted/unexpected queues + the
+        # wire-seq gate when available; every call happens under
+        # self._lock (the engine replaces the structures that lock
+        # guarded, it does not add its own)
+        self._eng = None
+        self._fast = None
+        if var_registry.get("pml_native_match"):
+            from ompi_tpu_torch import _native
+
+            fast = _native.fastdss()
+            if fast is not None and hasattr(fast, "Engine"):
+                self._eng = fast.Engine()
+                self._fast = fast
         self._worker = threading.Thread(
             target=self._send_loop, name=f"pml-send-{rank}", daemon=True)
         self._worker.start()
         self._closed = False
+        if self._eng is not None and self.endpoint.proc_btl is not None:
+            # same-address-space fast lane: peers deliver into my engine
+            self.endpoint.proc_btl.on_fast = self._on_frame_fast
+        if self._eng is not None and self.endpoint.shm_btl is not None:
+            # fused shm drain: ring decode + matching in one C call per
+            # batch; also enables receiver-pull progress (_progress_wait)
+            self.endpoint.shm_btl.drain_hook = self._drain_shm
+        if self.endpoint.tcp_btl is not None:
+            # zero-copy rndv landing: the tcp poller asks for the
+            # plan-registered destination of an in-flight "data" frame
+            # and lands payload bytes straight into it
+            self.endpoint.tcp_btl.recv_sink = self._rndv_sink
+            self.endpoint.tcp_btl.recv_sink_done = self._rndv_sink_done
 
     # -- event hooks (PERUSE equivalent) -----------------------------------
     #
@@ -435,6 +481,19 @@ class PmlOb1:
             raise MPIException(
                 f"unknown send mode {mode!r} (standard/sync/ready/buffered)")
         _reject_device(buf, "isend")
+        # compiled fast lane (same-address-space or same-host peers): a
+        # plain eager contiguous send delivers straight into the peer's
+        # posted buffer through its engine — no header object at all
+        if (mode == "standard"
+                and self._eng is not None
+                and peer != self.rank
+                and not self._listeners
+                and datatype is None and count is None
+                and isinstance(buf, np.ndarray)
+                and buf.flags["C_CONTIGUOUS"]):
+            req = self._isend_fast(buf, peer, tag, cid)
+            if req is not None:
+                return req
         arr = np.asarray(buf)
         if datatype is None:
             datatype = dt_mod.from_numpy(arr.dtype)
@@ -531,6 +590,75 @@ class PmlOb1:
         self._drain_events()
         return req
 
+    def _isend_fast(self, arr: np.ndarray, peer: int, tag: int,
+                    cid: int) -> Optional[Request]:
+        """Fast lane for plain eager contiguous sends: deliver through
+        the same-address-space peer's compiled engine (proc BTL) or a
+        C-built header into its shm ring.  None ⇒ precondition missed,
+        caller runs the general isend.  If the receiver punts (no posted
+        contiguous buffer, out-of-order, listeners attached mid-flight)
+        the frame falls back to the header path WITH the already-drawn
+        seq — the wire order is unaffected."""
+        if arr.nbytes > var_registry.get("pml_eager_limit"):
+            return None
+        ep = self.endpoint
+        proc_ok = ep.proc_btl is not None and (
+            peer in ep._proc_ok
+            or (peer not in ep._proc_no and ep._proc_route(peer)))
+        if not proc_ok:
+            # cross-process: the lane still applies over shm rings
+            if ep.shm_btl is None or not (
+                    peer in ep._shm_ok or ep._shm_route(peer)):
+                return None
+        with self._lock:
+            if self._queued.get(peer, 0):
+                return None
+            seq_key = (peer, cid)
+            seq = self._seq.get(seq_key, 0)
+            self._seq[seq_key] = seq + 1
+        payload = arr.reshape(-1).view(np.uint8).data
+        req = Request(kind="send")
+        dt = _dtype_to_wire(arr.dtype)
+        if proc_ok and ep.proc_btl.send_fast(peer, tag, cid, seq, payload,
+                                             dt, arr.size, arr.shape):
+            req.complete(None)
+            return req
+        if not proc_ok and isinstance(dt, str):
+            # cross-process same-host: publish with the C-built header
+            try:
+                if ep.shm_btl.try_send_eager(peer, tag, cid, seq, dt,
+                                             arr.size, arr.shape, payload):
+                    req.complete(None)
+                    return req
+            except Exception:  # noqa: BLE001 — dead peer/oversize: the
+                pass           # header path surfaces it properly
+        # receiver declined the fast path — same frame, header route
+        hdr = {"tag": tag, "cid": cid, "seq": seq, "dt": dt,
+               "elems": arr.size, "shp": list(arr.shape), "t": "eager"}
+        if ep.try_send_inline(peer, hdr, payload):
+            req.complete(None)
+        else:
+            self._enqueue_frame(peer, hdr, payload, req)
+        return req
+
+    def _on_frame_fast(self, peer: int, tag: int, cid: int, seq: int,
+                       payload, dt, elems: int, shp) -> bool:
+        """Receiver half of the fast lane (installed as the proc BTL's
+        on_fast hook).  False ⇒ sender must re-send via the header
+        path — the engine consumed NOTHING."""
+        eng = self._eng
+        if eng is None:
+            return False
+        with self._lock:
+            acts = eng.incoming_fast(peer, tag, cid, seq, payload,
+                                     dt, elems, shp)
+            if acts is None:
+                return False
+            for act in acts:
+                self._apply_action(act)
+        self._drain_events()
+        return True
+
     def issend(self, buf, peer, tag, cid, **kw) -> Request:
         """≈ MPI_Issend: completes only once the matching recv is posted."""
         return self.isend(buf, peer, tag, cid, mode="sync", **kw)
@@ -567,18 +695,38 @@ class PmlOb1:
         if self._listeners:
             self._emit(EVT_RECV_POST, peer=source, tag=tag, cid=cid)
         with self._lock:
-            m = self._matching_for(cid)
-            # try the unexpected queue first, in arrival order
-            for i, (peer, hdr, payload) in enumerate(m.unexpected):
-                if _hdr_matches(req, peer, hdr):
-                    del m.unexpected[i]
+            if self._eng is not None:
+                barr = None
+                if (buf is not None and datatype is not None
+                        and datatype.is_contiguous
+                        and buf.flags["C_CONTIGUOUS"]):
+                    barr = buf   # registered for native fast delivery
+                hit = self._eng.post(
+                    cid, req.source, req.tag, req, barr,
+                    datatype.base_np.itemsize if datatype is not None
+                    else 1,
+                    count * datatype.size
+                    if (count is not None and datatype is not None)
+                    else -1)
+                if hit is not None:
+                    peer, hdr, payload = hit
                     if self._listeners:
-                        self._emit(EVT_MATCH, peer=peer,
-                                   tag=hdr["tag"], cid=hdr["cid"])
+                        self._emit(EVT_MATCH, peer=peer, tag=hdr["tag"],
+                                   cid=hdr["cid"])
                     self._match(req, peer, hdr, payload)
-                    break
             else:
-                m.posted.append(req)
+                m = self._matching_for(cid)
+                # try the unexpected queue first, in arrival order
+                for i, (peer, hdr, payload) in enumerate(m.unexpected):
+                    if _hdr_matches(req, peer, hdr):
+                        del m.unexpected[i]
+                        if self._listeners:
+                            self._emit(EVT_MATCH, peer=peer,
+                                       tag=hdr["tag"], cid=hdr["cid"])
+                        self._match(req, peer, hdr, payload)
+                        break
+                else:
+                    m.posted.append(req)
         self._drain_events()
         return req
 
@@ -586,10 +734,125 @@ class PmlOb1:
              datatype: Optional[Datatype] = None, count: Optional[int] = None,
              status: Optional[Status] = None) -> np.ndarray:
         req = self.irecv(buf, source, tag, cid, datatype, count)
-        out = req.wait()
+        out = self._progress_wait(req)
         if status is not None:
             status.__dict__.update(req.status.__dict__)
         return out
+
+    def _progress_wait(self, req: Request):
+        """Receiver-pull progress (≈ opal_progress running in the waiting
+        thread): while blocked on a recv, THIS thread drains its own shm
+        rings through the engine — the frame that completes the request
+        is matched and copied here, with no poller-thread futex handoff
+        on the critical path.  Only engages when shm rings exist (frames
+        from another process): for in-process peers the sender's thread
+        delivers directly, and a GIL-holding spin would steal exactly
+        the cycles it is waiting for."""
+        shm = self.endpoint.shm_btl
+        if self._eng is None or shm is None or req.done():
+            return self._tcp_pull_wait(req)
+        readers = shm.reader_list()
+        if not readers:
+            return self._tcp_pull_wait(req)
+        # spin style by core count: on a 1-2 core host the frame we are
+        # waiting for is PRODUCED by the process we'd be starving, so
+        # yield every iteration; on bigger hosts yield rarely (a
+        # sched_yield per iteration invites the kernel to deschedule us
+        # right when the frame lands)
+        yield_every = _SMALL_HOST
+        shm.pull_depth += 1   # poller backs off while we drain
+        try:
+            spins = 0
+            while not req.done():
+                progressed = 0
+                for r in readers:
+                    try:
+                        progressed += self._drain_shm(r)
+                    except OSError as e:  # corrupt ring already recovered
+                        _log.error("receiver-pull drain: %r", e)
+                if progressed:
+                    spins = 0
+                    continue
+                spins += 1
+                if spins > 4000:   # a few ms of spinning, then sleep
+                    break
+                if yield_every:
+                    time.sleep(0)
+                if not spins % 64:
+                    readers = shm.reader_list()   # new rings mid-wait
+                    if not yield_every:
+                        time.sleep(0)
+        finally:
+            shm.pull_depth -= 1
+        return req.wait()
+
+    def _tcp_pull_wait(self, req: Request):
+        """Receiver-pull over the native tcp plane: while blocked, THIS
+        thread runs the poller's bounded service pass (btl progress()),
+        so the frame that completes the request is parsed, matched and
+        copied here — no poller wake, no completion-event handoff.
+        Each pass is one GIL-released poll slice; request state is
+        re-checked between slices.  Falls back to the event wait the
+        moment the native plane declines (var off, closing, no
+        connections yet): the parked poller thread is always running as
+        the backstop."""
+        ep = self.endpoint
+        tcp = ep.tcp_btl
+        # tcp-only endpoints: with proc or shm lanes present the frame
+        # may arrive off-plane, and a poll slice here would only delay
+        # seeing that completion
+        if (tcp is None or not tcp._native_ok
+                or ep.proc_btl is not None or ep.shm_btl is not None
+                or not var_registry.get("btl_tcp_pull")):
+            return req.wait()
+        tcp.pull_depth += 1
+        try:
+            while not req.done():
+                if not tcp.progress():
+                    break
+        finally:
+            tcp.pull_depth -= 1
+        return req.wait()
+
+    def _drain_shm(self, reader) -> int:
+        """The shm BTL's drain hook: decode + seq-gate + match a batch of
+        ring frames in one C call under the PML lock.  Control frames
+        (cts/sack/…) come back as punts and re-enter the full _on_frame
+        after the lock drops."""
+        eng = self._eng
+        punts = None
+        try:
+            with self._lock:
+                new_tail, n, acts = eng.drain_ring(
+                    reader.peer, reader._mm, reader._tail, 64)
+                reader._tail = new_tail
+                for act in acts:
+                    if act[0] == "frame":
+                        if punts is None:
+                            punts = []
+                        punts.append(act)
+                    else:
+                        self._apply_action(act)
+        except self._fast.Unsupported:
+            # a header tag only the python codec knows: drain this batch
+            # through the python framing path instead
+            return reader.poll(self._on_frame)
+        except ValueError as e:
+            # corrupt stream: same recovery as ShmRingReader.poll —
+            # nothing trustworthy to advance by; discard and surface
+            head = int(reader._ctr[0])
+            dropped = head - reader._tail
+            reader._tail = head
+            reader._ctr[1] = head
+            raise OSError(
+                f"btl/shm: corrupt ring from peer {reader.peer} "
+                f"({e}); {dropped} pending bytes discarded") from None
+        if punts:
+            for _k, hdr, payload in punts:
+                self._on_frame(reader.peer, hdr, payload)
+        if n:
+            self._drain_events()
+        return n
 
     # -- probe -------------------------------------------------------------
 
@@ -615,6 +878,17 @@ class PmlOb1:
                 self._cv.wait(timeout=left)
 
     def _iprobe_locked(self, source: int, tag: int, cid: int) -> Optional[Status]:
+        if self._eng is not None:
+            hit = self._eng.iprobe(cid, source, tag)
+            if hit is None:
+                return None
+            peer, hdr = hit
+            st = Status()
+            st.source = peer
+            st.tag = hdr["tag"]
+            st.count = hdr.get("elems", hdr.get("size", 0))
+            st.count_bytes = hdr.get("size")
+            return st
         probe = RecvRequest(None, dt_mod.BYTE, 0, source, tag, cid)
         for peer, hdr, payload in self._matching_for(cid).unexpected:
             if _hdr_matches(probe, peer, hdr):
@@ -639,6 +913,12 @@ class PmlOb1:
 
     def _improbe_locked(self, source: int, tag: int,
                         cid: int) -> Optional[tuple[Message, Status]]:
+        if self._eng is not None:
+            hit = self._eng.improbe(cid, source, tag)
+            if hit is None:
+                return None
+            peer, hdr, payload = hit
+            return self._detach_message(peer, hdr, payload)
         probe = RecvRequest(None, dt_mod.BYTE, 0, source, tag, cid)
         m = self._matching_for(cid)
         for i, (peer, hdr, payload) in enumerate(m.unexpected):
@@ -738,28 +1018,36 @@ class PmlOb1:
         t = hdr["t"]
         if t in ("eager", "rndv"):
             with self._lock:
-                # per-(peer, cid) sequence enforcement: TCP + one reader
-                # already guarantee order, but frames of one pair may
-                # ride two BTLs (inline proc and the worker's tcp) —
-                # frames arriving early are held back
-                key = (peer, hdr["cid"])
-                seq, expected = hdr["seq"], self._recv_seq.get(key, 0)
-                if seq != expected:
-                    # held frames outlive the sender's call: own the
-                    # bytes (a zero-copy self/proc payload aliases the
-                    # user buffer)
-                    if isinstance(payload, memoryview):
-                        payload = bytes(payload)
-                    self._held.setdefault(key, {})[seq] = (hdr, payload)
-                    return
-                self._match_incoming(peer, hdr, payload)
-                nxt = expected + 1
-                held = self._held.get(key)
-                while held and nxt in held:
-                    h2, p2 = held.pop(nxt)
-                    self._match_incoming(peer, h2, p2)
-                    nxt += 1
-                self._recv_seq[key] = nxt
+                if self._eng is not None:
+                    # seq gate + matching in the compiled engine; the
+                    # protocol actions come back for this thread to run
+                    for act in self._eng.incoming(peer, hdr, payload):
+                        self._apply_action(act)
+                else:
+                    # per-(peer, cid) sequence enforcement: TCP + one
+                    # reader already guarantee order, but frames of one
+                    # pair may ride two BTLs (shm rings and tcp for an
+                    # oversize frame, inline proc and the worker) —
+                    # frames arriving early are held back
+                    key = (peer, hdr["cid"])
+                    seq, expected = hdr["seq"], self._recv_seq.get(key, 0)
+                    if seq != expected:
+                        # held frames outlive the sender's call: own the
+                        # bytes (a zero-copy self/proc payload aliases
+                        # the user buffer)
+                        if isinstance(payload, memoryview):
+                            payload = bytes(payload)
+                        self._held.setdefault(key, {})[seq] = (hdr,
+                                                               payload)
+                        return
+                    self._match_incoming(peer, hdr, payload)
+                    nxt = expected + 1
+                    held = self._held.get(key)
+                    while held and nxt in held:
+                        h2, p2 = held.pop(nxt)
+                        self._match_incoming(peer, h2, p2)
+                        nxt += 1
+                    self._recv_seq[key] = nxt
             self._drain_events()
         elif t == "cts":
             with self._lock:
@@ -786,6 +1074,55 @@ class PmlOb1:
                     error_class=4))
         else:
             _log.error("unknown frame type %r from %d", t, peer)
+
+    def _apply_action(self, act: tuple) -> None:
+        """With self._lock held: execute one engine action — the
+        protocol step the compiled matcher handed back."""
+        kind = act[0]
+        if kind == "match":
+            _, req, peer, hdr, payload = act
+            if self._listeners:
+                self._emit(EVT_MATCH, peer=peer, tag=hdr["tag"],
+                           cid=hdr["cid"])
+            self._match(req, peer, hdr, payload)
+        elif kind == "unexpected":
+            _, peer, hdr = act
+            self._cv.notify_all()
+            if self._listeners:
+                self._emit(EVT_UNEXPECTED, peer=peer,
+                           tag=hdr["tag"], cid=hdr["cid"])
+        elif kind == "done":
+            # native fast delivery: payload already memcpy'd into the
+            # posted buffer — only status + completion remain
+            _, req, peer, tag, count, nbytes = act
+            if self._listeners:
+                self._emit(EVT_MATCH, peer=peer, tag=tag, cid=req.cid)
+                self._emit(EVT_DELIVER, peer=peer, tag=tag, cid=req.cid,
+                           nbytes=nbytes)
+            ov = req.source_override
+            req.status.source = peer if ov is None else ov
+            req.status.tag = tag
+            req.status.count = count
+            req.status.count_bytes = nbytes
+            req.complete(req.buf)
+        elif kind == "adeliver":
+            # fast-lane frame matched an allocate-on-match recv: build
+            # the array from the C-owned bytes via the normal deliver
+            # (the synthetic header carries cid: _deliver's EVT_DELIVER
+            # emit reads it when listeners are attached)
+            _, req, peer, tag, payload, dtspec, shp = act
+            if self._listeners:
+                self._emit(EVT_MATCH, peer=peer, tag=tag, cid=req.cid)
+            self._deliver(req, peer,
+                          {"tag": tag, "cid": req.cid, "dt": dtspec,
+                           "shp": list(shp)},
+                          payload)
+        elif kind == "rnack":  # ready-mode send found no posted recv
+            _, peer, hdr = act
+            self._enqueue_frame(peer, {"t": "rnack", "sid": hdr["sid"]},
+                                b"", None)
+        else:
+            _log.error("unknown engine action %r", kind)
 
     def _match_incoming(self, peer: int, hdr: dict, payload: bytes) -> None:
         """Called with self._lock held: match one in-order frame."""
@@ -863,18 +1200,41 @@ class PmlOb1:
                                  "rid": req.rid},
                                 b"", None)
 
-    def _on_data(self, hdr: dict, payload: bytes) -> None:
-        nbytes = len(payload)
+    def _rndv_sink(self, hdr: dict, nbytes: int):
+        """btl/tcp zero-copy landing hook: hand the poller the
+        destination slice for an in-flight "data" frame's payload, or
+        None (⇒ the btl stages the bytes and delivers normally)."""
+        if hdr.get("t") != "data":
+            return None
+        with self._lock:
+            state = self._recv_states.get(hdr.get("rid"))
+            if state is None or not state.direct:
+                return None
+            off = hdr.get("off", 0)
+            if (not isinstance(off, int) or off < 0
+                    or off + nbytes > len(state.data)):
+                return None   # malformed offset: staged path bounds it
+            return state.data[off:off + nbytes]
+
+    def _rndv_sink_done(self, hdr: dict, nbytes: int) -> None:
+        """Completion half of _rndv_sink: the payload already sits in
+        the user buffer, so account for it without a copy."""
+        self._on_data(hdr, b"", landed=nbytes)
+
+    def _on_data(self, hdr: dict, payload: bytes,
+                 landed: Optional[int] = None) -> None:
+        nbytes = len(payload) if landed is None else landed
         with self._lock:
             state = self._recv_states.get(hdr["rid"])
             if state is None:
                 return
             off = hdr["off"]
-            if state.direct:
-                state.data[off:off + nbytes] = \
-                    np.frombuffer(payload, np.uint8)
-            else:
-                state.data[off:off + nbytes] = payload
+            if landed is None:
+                if state.direct:
+                    state.data[off:off + nbytes] = \
+                        np.frombuffer(payload, np.uint8)
+                else:
+                    state.data[off:off + nbytes] = payload
             state.received += nbytes
             done = state.received >= len(state.data)
             if done:
@@ -1037,12 +1397,15 @@ class PmlOb1:
         """Dequeue a posted recv so a late frame can no longer complete
         it."""
         with self._lock:
-            m = self._matching.get(req.cid)
-            if m is not None:
-                try:
-                    m.posted.remove(req)
-                except ValueError:
-                    pass
+            if self._eng is not None:
+                self._eng.cancel(req.cid, req)
+            else:
+                m = self._matching.get(req.cid)
+                if m is not None:
+                    try:
+                        m.posted.remove(req)
+                    except ValueError:
+                        pass
         req.cancel()
 
 

@@ -6,20 +6,27 @@ run as the ranks of a job of the port's launcher.
     python -m ompi_tpu_torch.tools.host_bench --proc
 
 Under the launcher, ranks 0 and 1 bounce a buffer of each size (8 B,
-4 KiB, 1 MiB, 64 MiB by default) between them (tcp between two
-processes); with ``--proc`` (no launcher) two ranks on threads of this
+4 KiB, 1 MiB, 64 MiB by default) between them: two processes of one
+host, so over the shm rings by default, over tcp with ``--mca btl
+self,tcp``; the row's ``transport`` is the route rank 0's endpoint took
+to rank 1.  With ``--proc`` (no launcher) two ranks on threads of this
 one process do (the proc BTL).  Each size runs in blocks of round trips
 and reports the median over blocks of the half round trip (µs) and of
 the bandwidth (GB/s), the protocol (eager or rendezvous, from
 ``pml_eager_limit``), and whether the data came back bit for bit.
+``--sizes ''`` skips the ping-pong.
 
 Then every rank of the job runs allreduce, bcast, allgather, alltoall,
 reduce_scatter_block and scan on ``--mib`` MiB a rank of float32 holding
 small integers (every order of summation is exact) and of int32, each
 result held bit for bit against numpy on the same data, then allreduce
-once under each forced ``coll_host_allreduce_algorithm``; every rank
-also reports its ``init()`` wall time.  One ``host_bench {json}`` line
-is printed (by rank 0); the exit code is 1 when a result differs.
+once under each forced ``coll_host_allreduce_algorithm``; each call
+reports its provider (``shm`` or ``host``) and its path (``arena`` when
+the communicator's coll/shm arena carried it, else ``host``).
+``--mib 0`` skips the collectives.  Every rank also reports its
+``init()`` wall time, and rank 0 which native executors loaded.  One
+``host_bench {json}`` line is printed (by rank 0); the exit code is 1
+when a result differs.
 """
 
 from __future__ import annotations
@@ -115,6 +122,14 @@ def _proc_pingpong(sizes) -> list[dict]:
     return out[0]
 
 
+def _arena_ops(comm) -> int:
+    """The communicator's coll/shm arena operation count (this rank's
+    arrive counter: it advances once per arena round), 0 before the
+    arena exists."""
+    arena = getattr(getattr(comm, "_coll_shm_state", None), "arena", None)
+    return arena._arr if arena is not None else 0
+
+
 def _rank_data(rank: int, n: int, dtype) -> np.ndarray:
     rng = np.random.default_rng(100 + rank)
     return rng.integers(-8, 8, size=n, dtype=np.int32).astype(dtype)
@@ -131,16 +146,22 @@ def colls(comm, mib: float) -> dict:
 
     def timed(name, dtype, fn, want):
         comm.barrier()
+        ops = _arena_ops(comm)
         t0 = time.perf_counter()
         got = fn()
         dt = time.perf_counter() - t0
+        arena = _arena_ops(comm) > ops
         got = np.asarray(got)
         ok = (got.dtype == want.dtype and got.shape == want.shape
               and got.tobytes() == want.tobytes())
         oks = comm.allgather(np.array([ok]))
         times = comm.allgather(np.array([dt]))
+        paths = comm.allgather(np.array([arena]))
         out["calls"].append({"coll": name, "dtype": np.dtype(dtype).name,
                              "bitwise": bool(oks.all()),
+                             "provider": comm.coll.providers[
+                                 name.split(":")[0]],
+                             "path": "arena" if paths.all() else "host",
                              "seconds_max": float(times.max())})
 
     for dtype in (np.float32, np.int32):
@@ -183,7 +204,7 @@ def main(argv=None) -> int:
     p.add_argument("--mib", type=float, default=64.0)
     p.add_argument("--sizes", default=",".join(map(str, SIZES)))
     args = p.parse_args(argv)
-    sizes = [int(s) for s in args.sizes.split(",")]
+    sizes = [int(s) for s in args.sizes.split(",") if s]
     if args.proc:
         rows = _proc_pingpong(sizes)
         print("host_bench " + json.dumps({"transport": "proc",
@@ -194,10 +215,19 @@ def main(argv=None) -> int:
     import ompi_tpu_torch.mpi.runtime  # noqa: F401 — torch, numpy, the PML
 
     t_import = time.perf_counter()
+    from ompi_tpu_torch import _native
+
     comm = ompi_tpu_torch.init()
     init_s = time.perf_counter() - t_import
-    res = {"transport": "tcp", "rows": pingpong(comm, sizes),
-           **colls(comm, args.mib)}
+    res = {"transport": comm.pml.endpoint.route(1 - min(comm.rank, 1)),
+           "native": {"convertor": _native.available(),
+                      "arena": _native.arena_available(),
+                      "net": _native.net_available(),
+                      "fastdss": _native.fastdss() is not None,
+                      "engine": comm.pml._eng is not None},
+           "rows": pingpong(comm, sizes), "calls": []}
+    if args.mib > 0:
+        res.update(colls(comm, args.mib))
     inits = comm.allgather(np.array([init_s, t_import - t0]))
     res["init_s"] = inits[:, 0].tolist()
     res["import_s"] = inits[:, 1].tolist()

@@ -446,9 +446,9 @@ def test_tpu_measured_rules_not_copied_nor_used(tmp_path, monkeypatch):
 
 
 def test_host_buffer_on_a_multi_rank_comm_names_the_roadmap():
-    """A communicator of two ranks with no PML: coll/host serves every
-    buffer slot, and a host allreduce fails as the JAX package's
-    communicator with no PML does."""
+    """A communicator of two ranks with no PML: coll/shm and coll/host
+    serve the buffer slots as in the JAX package's, and a host allreduce
+    fails as the JAX package's communicator with no PML does."""
     comm = Communicator(Group([0, 1]), cid=3, my_world_rank=0, name="w")
     with pytest.raises(Exception) as e:
         comm.allreduce(np.ones(4, np.float32))
@@ -457,7 +457,14 @@ def test_host_buffer_on_a_multi_rank_comm_names_the_roadmap():
              "allgather", "scatter", "alltoall", "reduce_scatter",
              "reduce_scatter_block", "scan", "exscan", "gatherv",
              "scatterv", "allgatherv", "alltoallv"}
-    assert comm.coll.providers == {s: "host" for s in slots | {"alltoallw"}}
+    shm = {"barrier", "bcast", "reduce", "allreduce", "allgather",
+           "alltoall", "alltoallv", "alltoallw", "reduce_scatter",
+           "reduce_scatter_block", "scan", "exscan"}
+    assert comm.coll.providers == {
+        s: "shm" if s in shm else "host" for s in slots | {"alltoallw"}}
+    jcomm = JCommunicator(JGroup([0, 1]), cid=3, pml=None,
+                          my_world_rank=0, name="w")
+    assert comm.coll.providers == jcomm.coll.providers
     assert set(comm.coll.device_providers) == slots
 
 

@@ -17,10 +17,12 @@ import types
 import numpy as np
 import pytest
 
+from ompi_tpu.core.config import var_registry as jvars
 from ompi_tpu.mpi import constants as jconst
 from ompi_tpu.mpi import errhandler as jeh
 from ompi_tpu.mpi import group as jgroup
 from ompi_tpu.mpi import info as jinfo
+from ompi_tpu_torch.core.config import var_registry as pvars
 from ompi_tpu_torch.mpi import constants as pconst
 from ompi_tpu_torch.mpi import errhandler as peh
 from ompi_tpu_torch.mpi import group as pgroup
@@ -35,17 +37,20 @@ SIZES = (2, 3, 4)
 
 
 @pytest.fixture(autouse=True)
-def jax_shm_off():
-    """The JAX package's coll/shm arena off: its first collective would
-    build node communicators and burn cids the port (which has no
-    coll/shm) does not, so both packages run coll/host."""
+def shm_off():
+    """coll/shm's arena off in both packages, so both run coll/host
+    (``test_construction_with_the_arena_matches`` turns it on in both:
+    each package's first collective then builds its node and leader
+    communicators, burning the same cids)."""
     import ompi_tpu.mpi.coll.shm  # noqa: F401 — registers coll_shm_enable
-    from ompi_tpu.core.config import var_registry as jvars
+    import ompi_tpu_torch.mpi.coll.shm  # noqa: F401 — the port's
 
-    old = jvars.get("coll_shm_enable")
-    jvars.set("coll_shm_enable", False)
+    old = [(reg, reg.get("coll_shm_enable")) for reg in (jvars, pvars)]
+    for reg, _ in old:
+        reg.set("coll_shm_enable", False)
     yield
-    jvars.set("coll_shm_enable", old)
+    for reg, value in old:
+        reg.set("coll_shm_enable", value)
 
 
 def both(n, body):
@@ -118,6 +123,17 @@ def _dup_idup_info(c, M):
                                   _dup_idup_info],
                          ids=["split", "split_type", "create", "dup"])
 def test_construction_matches_the_jax_package(n, body):
+    want, got = both(n, body)
+    assert got == want
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("body", [_split, _split_type, _create,
+                                  _dup_idup_info],
+                         ids=["split", "split_type", "create", "dup"])
+def test_construction_with_the_arena_matches(n, body):
+    for reg in (jvars, pvars):
+        reg.set("coll_shm_enable", True)
     want, got = both(n, body)
     assert got == want
 

@@ -4,12 +4,15 @@
 Each case runs one rank body on in-process ranks through the JAX
 package's harness and through the port's (``tests/torch_host_harness.py``)
 with the same seeded numpy inputs.  Both run coll/host's algorithms over
-their PMLs (the JAX package's coll/shm arena is switched off, so both sum
-in the same order), so every result must be equal bit for bit: every
-buffer collective at n = 2, 3 and 4 in float32, float64 and int32 with
-SUM, PROD, MAX and MAXLOC (on the (value, index) pair types), each
-forced algorithm, and the decision (the algorithm coll/host picks for
-each (n, bytes), forced variable and rules file).
+their PMLs (coll/shm's arena is switched off in both packages), so every
+result must be equal bit for bit: every buffer collective at n = 2, 3 and
+4 in float32, float64 and int32 with SUM, PROD, MAX and MAXLOC (on the
+(value, index) pair types), each forced algorithm, and the decision (the
+algorithm coll/host picks for each (n, bytes), forced variable and rules
+file).  The ``*_with_the_arena`` cases run the same bodies with the arena
+on in both packages, their default: the arena folds the mapped slots in
+rank order in both, and a forced host algorithm makes both fall back to
+coll/host, so the results are again equal bit for bit.
 """
 
 from __future__ import annotations
@@ -48,14 +51,22 @@ def _set(name, value):
 
 @pytest.fixture(autouse=True)
 def host_only():
-    """The JAX package's coll/shm arena off: both packages run coll/host."""
+    """coll/shm's arena off in both packages: both run coll/host."""
     import ompi_tpu.mpi.coll.shm  # noqa: F401 — registers coll_shm_enable
     import ompi_tpu_torch.mpi.coll.host  # noqa: F401 — registers its vars
+    import ompi_tpu_torch.mpi.coll.shm  # noqa: F401
 
-    old = jvars.get("coll_shm_enable")
-    jvars.set("coll_shm_enable", False)
+    old = [(reg, reg.get("coll_shm_enable")) for reg in (jvars, pvars)]
+    _set("coll_shm_enable", False)
     yield
-    jvars.set("coll_shm_enable", old)
+    for reg, value in old:
+        reg.set("coll_shm_enable", value)
+
+
+@pytest.fixture
+def arena():
+    """coll/shm's arena on in both packages (after ``host_only``)."""
+    _set("coll_shm_enable", True)
 
 
 def _rank_data(rank, shape, dtype, op):
@@ -115,6 +126,17 @@ def _collectives(c, M, dtype, op_name):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("op_name", OPS)
 def test_every_host_collective_equals_the_jax_package(n, dtype, op_name):
+    _every_collective(n, dtype, op_name)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op_name", OPS)
+def test_every_host_collective_with_the_arena(n, dtype, op_name, arena):
+    _every_collective(n, dtype, op_name)
+
+
+def _every_collective(n, dtype, op_name):
     def body(M):
         return lambda c: _collectives(c, M, dtype, op_name)
 
@@ -153,6 +175,17 @@ def small_segments():
 @pytest.mark.parametrize("coll,alg", FORCED)
 def test_forced_algorithm_equals_the_jax_package(coll, alg, n,
                                                  small_segments):
+    _forced(coll, alg, n)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("coll,alg", FORCED)
+def test_forced_algorithm_with_the_arena(coll, alg, n, small_segments,
+                                         arena):
+    _forced(coll, alg, n)
+
+
+def _forced(coll, alg, n):
     def body(M):
         def fn(c):
             x = _rank_data(c.rank, (n * 384, 2), "float32", "SUM")
@@ -231,3 +264,14 @@ def test_providers_name_host_for_every_buffer_slot():
     for providers, device in res:
         assert providers == {s: "host" for s in slots}
         assert set(device) == slots - {"alltoallw"}
+
+
+def test_providers_name_shm_where_the_arena_serves(arena):
+    res = prun(2, lambda c: dict(c.coll.providers))
+    shm = {"barrier", "bcast", "reduce", "allreduce", "allgather",
+           "alltoall", "alltoallv", "alltoallw", "reduce_scatter",
+           "reduce_scatter_block", "scan", "exscan"}
+    want = jrun(2, lambda c: dict(c.coll.providers))
+    for providers, jproviders in zip(res, want):
+        assert providers == jproviders
+        assert {s for s, c in providers.items() if c == "shm"} == shm

@@ -8,8 +8,10 @@ joins the barriers): through
 and through ``tests.torch_host_harness.run_ranks`` (the port's), with the
 same seeded numpy inputs; a body gets the package's modules as ``M``.  Data
 must be equal bit for bit, and so must every ``Status`` (source, tag,
-count) and every error class.  Each body is also run once with the port's
-proc BTL left out (``--mca btl ^proc``), so its frames cross tcp sockets.
+count) and every error class.  Each body is also run with the port's
+proc BTL left out: over the shm rings (``--mca btl ^proc``) and over tcp
+sockets (``--mca btl ^proc,shm``), each with the native executors on and
+off.
 """
 
 from __future__ import annotations
@@ -39,16 +41,30 @@ P = types.SimpleNamespace(dt=pdt, C=pconst, Status=preq.Status)
 SEED = 20261017
 
 
-@pytest.fixture(params=["proc", "tcp"])
-def btl(request):
-    """The port's transports: proc (ranks are threads of this process) or
-    tcp only."""
-    import ompi_tpu_torch.mpi.btl  # noqa: F401 — registers btl_
+_TRANSPORTS = {"proc": ("", True), "tcp": ("^proc,shm", True),
+               "shm": ("^proc", True), "shm-python": ("^proc", False),
+               "tcp-python": ("^proc,shm", False)}
 
-    old = pvars.get("btl_")
-    pvars.set("btl_", "" if request.param == "proc" else "^proc")
+
+@pytest.fixture(params=list(_TRANSPORTS))
+def btl(request):
+    """The port's transports: proc (ranks are threads of this process),
+    tcp only, or the shm rings; the ``-python`` ones with the native
+    executors off (the shm framing, the tcp plane and the matching
+    engine run their Python branches)."""
+    import ompi_tpu_torch.mpi.btl  # noqa: F401 — registers btl_
+    import ompi_tpu_torch.mpi.btl_shm  # noqa: F401 — btl_shm_native
+
+    names = ("btl_", "btl_shm_native", "btl_tcp_native",
+             "pml_native_match")
+    old = [(name, pvars.get(name)) for name in names]
+    sel, native = _TRANSPORTS[request.param]
+    pvars.set("btl_", sel)
+    for name in names[1:]:
+        pvars.set(name, native)
     yield request.param
-    pvars.set("btl_", old)
+    for name, value in old:
+        pvars.set(name, value)
 
 
 def both(n, body):

@@ -5,7 +5,9 @@ to drop quietly to the CPU when no CUDA is present."""
 
 from __future__ import annotations
 
+import ast
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -98,8 +100,101 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.ckpt.dcp_store",
                 "ompi_tpu_torch.mpi.info",
                 "ompi_tpu_torch.mpi.errhandler",
-                "ompi_tpu_torch.examples.pipeline"):
+                "ompi_tpu_torch.examples.pipeline",
+                "ompi_tpu_torch._native",
+                "ompi_tpu_torch.core.shmseg",
+                "ompi_tpu_torch.mpi.btl_shm",
+                "ompi_tpu_torch.mpi.coll.shm"):
         assert mod in res["imported"]
+
+
+def test_host_plane_loads_neither_torch_nor_jax():
+    """The same-host data plane (shm rings, the coll/shm arena, the four
+    native executors) runs a 3-rank in-process job without importing
+    torch, JAX or the JAX package."""
+    probe = (
+        "import sys, numpy as np\n"
+        "from tests.torch_host_harness import run_ranks\n"
+        "from ompi_tpu_torch import _native\n"
+        "assert _native.available() and _native.arena_available()\n"
+        "assert _native.net_available() and _native.fastdss()\n"
+        "def body(c):\n"
+        "    s = c.allreduce(np.arange(4.0) + c.rank)\n"
+        "    c.send(s, dest=(c.rank + 1) % c.size, tag=1)\n"
+        "    r = c.recv(source=(c.rank - 1) % c.size, tag=1)\n"
+        "    return (c.coll.providers['allreduce'],\n"
+        "            c._coll_shm_state.mode,\n"
+        "            c.pml.endpoint.route((c.rank + 1) % c.size),\n"
+        "            c.pml._eng is not None, r.tolist())\n"
+        "print(run_ranks(3, body, btl='^proc'))\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    runs, mods = out.stdout.strip().splitlines()[-2:]
+    assert runs == str([("shm", "arena", "shm", True,
+                         [3.0, 6.0, 9.0, 12.0])] * 3)
+    assert mods == "[]"
+
+
+_BUILD_PROBE = """
+import json, os, sys
+from ompi_tpu_torch import _native
+_native.BUILD_DIR = sys.argv[1]
+events = []
+def hook(event, args):
+    if event in ("open", "os.rename", "os.remove", "os.mkdir",
+                 "subprocess.Popen"):
+        events.append((event, [str(a) for a in args]))
+sys.addaudithook(hook)
+ok = [_native.lib() is not None, _native.arena() is not None,
+      _native.net() is not None, _native.fastdss() is not None]
+print(json.dumps({"ok": ok, "events": events}))
+"""
+
+
+def test_native_build_reads_the_ports_sources_and_writes_its_build_dir():
+    """A fresh build of the four libraries (into a new directory under
+    the port's build directory): g++ compiles only sources under
+    ``ompi_tpu_torch/_native/``, every file the loader writes, renames or
+    removes lies in that build directory, which git ignores, and every
+    source it reads is the port's."""
+    from ompi_tpu_torch import _native
+
+    build = pathlib.Path(_native.BUILD_DIR) / f"isolation-{os.getpid()}"
+    src_dir = str(PKG / "_native")
+    try:
+        out = subprocess.run([sys.executable, "-c", _BUILD_PROBE,
+                              str(build)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600, check=True)
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res["ok"] == [True] * 4
+        compiles = [a for e, a in res["events"] if e == "subprocess.Popen"]
+        assert len(compiles) == 4
+        for args in compiles:
+            argv = ast.literal_eval(args[1])   # the argv list, repr'd
+            assert argv[0] == "g++"
+            assert argv[-1].startswith(src_dir + os.sep), argv
+            out_path = argv[argv.index("-o") + 1]
+            assert out_path.startswith(str(build) + os.sep), argv
+        for event, args in res["events"]:
+            if event == "open":
+                path, mode, flags = args[0], args[1], int(args[2])
+                writing = ("w" in mode or "a" in mode or "+" in mode
+                           or flags & (os.O_WRONLY | os.O_RDWR))
+                if writing:
+                    assert path.startswith(str(build) + os.sep), args
+                elif path.endswith((".c", ".cpp")):
+                    assert path.startswith(src_dir + os.sep), args
+            elif event in ("os.rename", "os.remove", "os.mkdir"):
+                for path in args[:2 if event == "os.rename" else 1]:
+                    assert path.startswith(str(build)), (event, args)
+        rel = build.relative_to(ROOT) / "x.so"
+        assert subprocess.run(["git", "check-ignore", "-q", str(rel)],
+                              cwd=ROOT).returncode == 0
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
 
 
 def test_ckpt_loads_no_ml_dtypes_and_no_jax():

@@ -77,6 +77,34 @@ def test_host_ranks_do_not_import_torch():
                                 "[1,1]1 [0.0, 2.0, 4.0] False"]
 
 
+def test_same_host_ranks_take_the_shm_rings_and_the_arena():
+    """A launched job's ranks share the host: by default their frames
+    ride the shm rings, their collectives the coll/shm arena, and
+    matching runs in the compiled engine — the JAX package's default
+    path; ``--mca btl self,tcp`` and ``OMPI_TPU_NO_NATIVE=1`` select the
+    others."""
+    code = ("import sys, numpy as np, ompi_tpu_torch as m\n"
+            "c = m.init()\n"
+            "s = c.allreduce(np.arange(3.0) + c.rank)\n"
+            "peer = 1 - c.rank\n"
+            "c.send(s, dest=peer, tag=2)\n"
+            "assert (c.recv(source=peer, tag=2) == s).all()\n"
+            "print(c.rank, c.pml.endpoint.route(peer),\n"
+            "      c.coll.providers['allreduce'], c._coll_shm_state.mode,\n"
+            "      c.pml._eng is not None, s.tolist())\n"
+            "m.finalize()\n")
+    for extra, env, want in (
+            ([], None, "shm shm arena True [1.0, 3.0, 5.0]"),
+            (["--mca", "btl", "self,tcp"], None,
+             "tcp shm arena True [1.0, 3.0, 5.0]"),
+            ([], {"OMPI_TPU_NO_NATIVE": "1"},
+             "shm shm arena False [1.0, 3.0, 5.0]")):
+        p = _run(["-np", "2", *extra, "--", sys.executable, "-c", code],
+                 env={**os.environ, **env} if env else None)
+        assert p.returncode == 0, p.stderr
+        assert _lines(p.stdout) == [f"[1,0]0 {want}", f"[1,1]1 {want}"]
+
+
 def test_stdin_reaches_rank_0_and_x_exports():
     p = _run(["-np", "2", "-x", "RING_X=41", "--", sys.executable, "-c",
               "import os, sys; r = os.environ['OMPI_TPU_RANK']; "

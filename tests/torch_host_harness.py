@@ -3,25 +3,34 @@ threads (the port's copy of ``tests/mpi/harness.py``'s ``run_ranks``; it
 imports no JAX package).
 
 Real matching, real frames: ranks of one process reach each other over
-the proc BTL (or over tcp sockets when ``--mca btl ^proc`` leaves proc
-out), with no subprocess spawn cost; the launcher tests cover the full
-stack.
+the proc BTL, or over the shm rings when ``btl="^proc"`` (``--mca btl
+^proc``) leaves proc out, or over tcp sockets with ``btl="^proc,shm"``,
+with no subprocess spawn cost; the launcher tests cover the full stack.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
+from ompi_tpu_torch.core.config import var_registry
 from ompi_tpu_torch.mpi.comm import Communicator
 from ompi_tpu_torch.mpi.group import Group
 from ompi_tpu_torch.mpi.pml import PmlOb1
 
 
 def run_ranks(n: int, fn: Callable[[Communicator], Any],
-              timeout: float = 60.0) -> list[Any]:
-    """Run fn(comm) on n in-process ranks; return per-rank results."""
-    pmls = [PmlOb1(r) for r in range(n)]
+              timeout: float = 60.0, btl: Optional[str] = None) -> list[Any]:
+    """Run fn(comm) on n in-process ranks; return per-rank results.
+    ``btl`` is an MCA selection of the btl framework (``"^proc"``: the
+    shm rings carry the frames) applied while the PMLs are built."""
+    old = var_registry.get("btl_")
+    if btl is not None:
+        var_registry.set("btl_", btl)
+    try:
+        pmls = [PmlOb1(r) for r in range(n)]
+    finally:
+        var_registry.set("btl_", old)
     addrs = {r: p.address for r, p in enumerate(pmls)}
     for p in pmls:
         p.set_peers(addrs)
