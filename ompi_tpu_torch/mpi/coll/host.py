@@ -11,10 +11,10 @@ dynamic rules file (``coll_host_dynamic_rules``, coll_tuned_dynamic_file.c →
 ``ompi_tpu_torch.mpi.coll.rules``).
 
 The variables, their defaults and every decision are the JAX package's;
-:meth:`HostColl.decision` names the algorithm a call will run.  Left out:
-the trace plane's decision instants and per-algorithm histograms (ROADMAP.md
-Queue 1 item 6.9), and the bind-time freezing for persistent collectives
-(item 6.7).
+:meth:`HostColl.decision` names the algorithm a call will run, and
+:meth:`HostColl.freeze_decision` resolves it once for a persistent plan.
+Left out: the trace plane's decision instants and per-algorithm histograms
+(ROADMAP.md Queue 1 item 6.9).
 """
 
 from __future__ import annotations
@@ -189,6 +189,37 @@ class HostColl(HostCollBase):
                     and comm.size
                     >= var_registry.get("coll_host_alltoall_bruck_ranks"))
                 else "pairwise")
+
+    # -- bind-time freezing (coll/persistent) ------------------------------
+
+    def freeze_decision(self, coll: str, comm, nbytes: int, op=None):
+        """Resolve the selection layer ONCE and return ``(fn, label)`` —
+        the algorithm callable with its tuning (segment sizes, forced
+        var, rules-file hit) baked in, so a persistent plan's Start
+        never re-pays the per-op decision walk.  ``fn`` keeps the
+        per-collective call shape of the ``coll_*`` table slot it
+        freezes (bcast: ``fn(comm, buf, root)``; reduce adds ``op``
+        before ``root``; allreduce: ``fn(comm, sendbuf, op)``)."""
+        fixed = {"barrier": (base.barrier_dissemination, "dissemination"),
+                 "reduce": (base.reduce_binomial, "binomial"),
+                 "alltoallv": (base.alltoallv_pairwise, "pairwise"),
+                 "scan": (base.scan_linear, "linear"),
+                 "exscan": (base.exscan_linear, "linear")}
+        if coll in fixed:
+            return fixed[coll]
+        if coll not in _FUNCS:
+            raise MPIException(f"freeze_decision: no persistent plan for "
+                               f"{coll!r}")
+        alg = self.decision(coll, comm, nbytes, op)
+        if alg == "pipeline":
+            seg = var_registry.get("coll_host_bcast_segment")
+            return (lambda c, buf, root: base.bcast_pipeline(
+                c, buf, root, segsize=seg)), f"pipeline(seg={seg})"
+        if alg == "segmented_ring":
+            seg = var_registry.get("coll_host_allreduce_segment")
+            return (lambda c, sb, o: base.allreduce_segmented_ring(
+                c, sb, o, segsize=seg)), f"segmented_ring(seg={seg})"
+        return _FUNCS[coll][alg], alg
 
     # -- table slots ------------------------------------------------------
 

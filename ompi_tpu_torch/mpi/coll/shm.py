@@ -68,9 +68,11 @@ What the port does in place of two planes it has not ported yet:
   arena wait still fails fast when the expected writer's process is gone
   (the shm BTL's pid probe) and at ``coll_shm_timeout``.
 
-Persistent slots (``PersistentSlots``, the persistent collectives' bound
-plans) come with item 6.7; ``decide_allreduce_algo``, their fold
-strategy, is here with its two variables.
+The persistent collectives' bound plans (``mpi/coll/persistent.py``) pin
+a ``PersistentSlots`` segment of their own (``make_persistent_slots``),
+parity double-buffered; ``decide_allreduce_algo`` is their fold strategy.
+Left out with fault tolerance (item 6.10): the eager recompile of a
+communicator's stale bound plans when a revived member rejoins.
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ from ompi_tpu_torch.mpi.constants import (
 )
 from ompi_tpu_torch.mpi.op import Op
 
-__all__ = ["ShmColl", "Arena", "StaleCollEpoch", "decide_allreduce_algo"]
+__all__ = ["ShmColl", "Arena", "StaleCollEpoch", "decide_allreduce_algo",
+           "PersistentSlots", "make_persistent_slots"]
 
 _log = output.get_stream("coll")
 
@@ -1081,6 +1084,73 @@ class Arena:
 #: per-dest header entry bytes in an alltoallv slot: u64 nbytes, u64
 #: offset, u64 ndim, u64 shape[_MAX_DIMS], 32B dtype str, pad to 128
 _VHDR = 128
+
+
+class PersistentSlots(Arena):
+    """Pinned, parity-double-buffered slots for ONE bound persistent
+    plan (coll/persistent).
+
+    Layout: the Arena counter block (arrive/depart u64 ×p, cacheline
+    padded) followed by TWO full slot sets — no descriptor region (the
+    descriptor's job, shipping shape/dtype/verdict, was done once at
+    bind time).  Parity q = op-sequence mod 2 indexes the slot set, so
+    op k+1's publish lands in the slots op k is NOT draining: a rank
+    that finished waiting op k may immediately Start op k+1 while
+    slower ranks still read op k's parity — the double-buffered
+    overlap the btl rings and ``allreduce_segmented_ring`` use, lifted
+    to whole-operation granularity.  Slot reuse is guarded by the
+    depart counters two ops back (same-parity predecessor), never by a
+    per-op full barrier.
+
+    The counters keep the Arena semantics (monotonic u64, single
+    writer, ``memoryview.cast("Q")`` aligned stores), so every
+    inherited wait — including the dead-writer pid probe — applies
+    unchanged.
+    """
+
+    def __init__(self, seg: shmseg.SharedSegment, size: int, rank: int,
+                 slot_bytes: int, nslots: int, world=None,
+                 pml=None, fence=None) -> None:
+        super().__init__(seg, size, rank, slot_bytes, world=world, pml=pml,
+                         fence=fence)
+        self.nslots = nslots              # slots per parity set
+        self._slot_base = 2 * size * _CACHELINE   # no desc region
+
+    @staticmethod
+    def pnbytes_for(size: int, slot_bytes: int, nslots: int) -> int:
+        return 2 * size * _CACHELINE + 2 * nslots * slot_bytes
+
+    def pslot_off(self, parity: int, i: int) -> int:
+        return self._slot_base + (parity * self.nslots + i) * self.slot_bytes
+
+    def pslot(self, parity: int, i: int) -> memoryview:
+        off = self.pslot_off(parity, i)
+        return self.seg.buf[off:off + self.slot_bytes]
+
+    # non-blocking peeks (the poll half of a persistent op's test())
+    def arrive_at(self, r: int) -> int:
+        return int(self._flags[r * 8])
+
+    def depart_at(self, r: int) -> int:
+        return int(self._flags[(self.size + r) * 8])
+
+
+def make_persistent_slots(comm, slot_bytes: int,
+                          nslots: int) -> Optional["PersistentSlots"]:
+    """Collectively map a dedicated parity-slot segment for one bound
+    plan (the pinned-slot half of a persistent-collective bind).  None
+    ⇒ mapping failed somewhere — every rank falls back together.  The
+    slots are epoch-fenced on the bound comm (the local epoch here; the
+    bind's incarnation agreement re-stamps it with the agreed value)."""
+    slot_bytes = max(0, (slot_bytes + 63) & ~63)
+    seg = _map_shared(
+        comm, max(PersistentSlots.pnbytes_for(comm.size, slot_bytes,
+                                              nslots), 1))
+    if seg is None:
+        return None
+    return PersistentSlots(seg, comm.size, comm.rank, slot_bytes, nslots,
+                           world=list(comm.group.ranks), pml=comm.pml,
+                           fence=(_coll_epoch(comm), weakref.ref(comm)))
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,20 @@ handler that returns True swallows a validation error and the call
 becomes a no-op).  Attributes are cached under ``mpi.info.Keyval``s with
 copy and delete callbacks, run by ``dup`` and ``free``.
 
-Left out (ROADMAP.md Queue 1 item 6): nonblocking, persistent,
-partitioned and neighbourhood collectives, the topologies and fault
-tolerance (``shrink``).
+The host route also carries the nonblocking collectives (``i*``, the
+libnbc-style schedules of ``mpi/coll/nbc.py``, progressed by
+``test()``/``wait()``), the persistent collectives (``*_init``, plans
+bound once by ``mpi/coll/persistent.py``), persistent and partitioned
+point-to-point (``send_init``/``recv_init``, ``psend_init``/
+``precv_init``) and the process topologies (``cart_create``,
+``graph_create``, ``dist_graph_create*``, their queries and the
+neighbor collectives, ``mpi/topo.py``; the topology rides ``comm.topo``).
+Every one of them refuses a torch tensor with the PML's message.
+
+Left out: fault tolerance (ROADMAP.md Queue 1 item 6.10: ``revoke``,
+``agree``, ``shrink``, the failed-group queries and the revocation gates
+of the persistent and partitioned starts) and the mpi4py facade (item
+6.11).
 """
 
 from __future__ import annotations
@@ -47,6 +58,8 @@ import numpy as np
 
 from ompi_tpu_torch.mpi import datatype as dt_mod
 from ompi_tpu_torch.mpi import op as op_mod
+from ompi_tpu_torch.mpi import topo as topo_mod
+from ompi_tpu_torch.mpi.coll import nbc, persistent
 from ompi_tpu_torch.mpi.constants import (ANY_SOURCE, ANY_TAG,
                                           COMM_TYPE_SHARED, PROC_NULL,
                                           UNDEFINED, MPIException)
@@ -54,8 +67,10 @@ from ompi_tpu_torch.mpi.datatype import Datatype
 from ompi_tpu_torch.mpi.group import Group
 # the PML's refusal, checked here as well so that a communicator with no
 # PML refuses a tensor the same way
-from ompi_tpu_torch.mpi.pml import MESSAGE_NO_PROC, _reject_device
-from ompi_tpu_torch.mpi.request import CompletedRequest, Request, Status
+from ompi_tpu_torch.mpi.pml import (MESSAGE_NO_PROC, PartitionedRecvRequest,
+                                    PartitionedSendRequest, _reject_device)
+from ompi_tpu_torch.mpi.request import (CompletedRequest, PersistentRequest,
+                                        Request, Status)
 
 __all__ = ["Communicator"]
 
@@ -82,6 +97,12 @@ class Communicator:
         self.device = None  # bound DeviceCommunicator (coll/xla path)
         self.attrs: dict[Any, Any] = {}  # ≈ MPI attribute caching
         self._coll_shm_state = None  # coll/shm's cached arena/hierarchy
+        # bound persistent-collective plans (weakrefs): free() releases
+        # their pinned slots and poisons later Starts
+        self._persistent_colls: list = []
+        self._pcoll_seq = 0   # persistent-collective tag sequence
+        self._nbc_seq = 0     # nonblocking-collective tag sequence
+        self.topo = None      # Cart/Graph/DistGraphTopology (mpi.topo)
         # error policy (≈ ompi_errhandler; default mirrors ERRORS_RETURN —
         # the MPIException propagating IS the returned error code here)
         from ompi_tpu_torch.mpi import coll
@@ -195,6 +216,37 @@ class Communicator:
 
     def rsend(self, buf, dest: int, tag: int = 0, **kw) -> None:
         self.irsend(buf, dest, tag, **kw).wait()
+
+    # persistent requests (≈ MPI_Send_init/Recv_init, pml.h:502-505)
+
+    def send_init(self, buf, dest: int, tag: int = 0, datatype=None,
+                  count=None, mode: str = "standard") -> PersistentRequest:
+        """≈ MPI_Send_init: inactive persistent send; arm with .start().
+        The buffer is re-read at each start."""
+        if not self._send_args_ok(dest, tag):
+            return PersistentRequest(CompletedRequest,
+                                     kind="persistent-send")
+        _reject_device(buf, "send_init")
+        return PersistentRequest(
+            lambda: self.pml.isend(buf, self.world_rank(dest), tag,
+                                   self.cid, datatype, count, mode=mode),
+            kind="persistent-send")
+
+    def recv_init(self, buf=None, source: int = 0, tag: int = ANY_TAG,
+                  datatype=None, count=None) -> PersistentRequest:
+        """≈ MPI_Recv_init: inactive persistent recv; arm with .start()."""
+        src = self._recv_src(source)
+        if src is None:
+            return PersistentRequest(
+                lambda: CompletedRequest(
+                    np.empty(0, dtype=(datatype or dt_mod.BYTE).base_np)),
+                kind="persistent-recv")
+        if buf is not None:
+            _reject_device(buf, "recv_init")
+        return PersistentRequest(
+            lambda: self.pml.irecv(buf, src, tag, self.cid, datatype,
+                                   count),
+            kind="persistent-recv")
 
     def _recv_src(self, source: int) -> Optional[int]:
         """The PML source for a recv: a world rank, ANY_SOURCE, or None
@@ -412,6 +464,250 @@ class Communicator:
         No component serves it on tensors, in the JAX package either."""
         return self.coll.alltoallw(self, sendspecs, recvspecs)
 
+    # -- nonblocking collectives (libnbc-style schedules, mpi/coll/nbc) ----
+
+    def ibarrier(self) -> Request:
+        return nbc.ibarrier(self)
+
+    def ibcast(self, buf, root: int = 0) -> Request:
+        return nbc.ibcast(self, buf, root)
+
+    def ireduce(self, sendbuf, op=None, root: int = 0) -> Request:
+        return nbc.ireduce(self, sendbuf, op or op_mod.SUM, root)
+
+    def iallreduce(self, sendbuf, op=None) -> Request:
+        return nbc.iallreduce(self, sendbuf, op or op_mod.SUM)
+
+    def igather(self, sendbuf, root: int = 0) -> Request:
+        return nbc.igather(self, sendbuf, root)
+
+    def iscatter(self, sendbuf, root: int = 0) -> Request:
+        return nbc.iscatter(self, sendbuf, root)
+
+    def iallgather(self, sendbuf) -> Request:
+        return nbc.iallgather(self, sendbuf)
+
+    def ialltoall(self, sendbuf) -> Request:
+        return nbc.ialltoall(self, sendbuf)
+
+    def ireduce_scatter(self, sendbuf, op=None) -> Request:
+        return nbc.ireduce_scatter(self, sendbuf, op or op_mod.SUM)
+
+    def iscan(self, sendbuf, op=None) -> Request:
+        return nbc.iscan(self, sendbuf, op or op_mod.SUM)
+
+    def iexscan(self, sendbuf, op=None) -> Request:
+        return nbc.iexscan(self, sendbuf, op or op_mod.SUM)
+
+    def iallgatherv(self, sendbuf) -> Request:
+        return nbc.iallgatherv(self, sendbuf)
+
+    def ialltoallv(self, sendparts) -> Request:
+        return nbc.ialltoallv(self, sendparts)
+
+    def igatherv(self, sendbuf, root: int = 0) -> Request:
+        return nbc.igatherv(self, sendbuf, root)
+
+    def iscatterv(self, sendparts, root: int = 0) -> Request:
+        return nbc.iscatterv(self, sendparts, root)
+
+    def ireduce_scatter_block(self, sendbuf, op=None) -> Request:
+        return nbc.ireduce_scatter_block(self, sendbuf, op or op_mod.SUM)
+
+    def ialltoallw(self, sendspecs, recvspecs) -> Request:
+        return nbc.ialltoallw(self, sendspecs, recvspecs)
+
+    # -- persistent collectives (≈ MPI_Barrier_init & friends, MPI-4 §6.12:
+    #    bind once via coll/persistent, Start forever) ----------------------
+
+    def barrier_init(self):
+        """≈ MPI_Barrier_init: inactive persistent barrier; arm with
+        .start() / start_all."""
+        return persistent.barrier_init(self)
+
+    def bcast_init(self, buf=None, root: int = 0):
+        """≈ MPI_Bcast_init: the root's ``buf`` is re-read at each
+        start; a non-root ndarray ``buf`` becomes the landing buffer
+        filled at each wait."""
+        return persistent.bcast_init(self, buf, root)
+
+    def reduce_init(self, sendbuf, op=None, root: int = 0):
+        """≈ MPI_Reduce_init."""
+        return persistent.reduce_init(self, sendbuf, op or op_mod.SUM,
+                                      root)
+
+    def allreduce_init(self, sendbuf, op=None):
+        """≈ MPI_Allreduce_init."""
+        return persistent.allreduce_init(self, sendbuf, op or op_mod.SUM)
+
+    def allgather_init(self, sendbuf):
+        """≈ MPI_Allgather_init."""
+        return persistent.allgather_init(self, sendbuf)
+
+    def alltoall_init(self, sendbuf):
+        """≈ MPI_Alltoall_init: ``sendbuf`` is re-read at each start."""
+        return persistent.alltoall_init(self, sendbuf)
+
+    def alltoallv_init(self, sendparts):
+        """≈ MPI_Alltoallv_init: one (possibly None) part per rank."""
+        return persistent.alltoallv_init(self, sendparts)
+
+    def reduce_scatter_init(self, sendbuf, op=None):
+        """≈ MPI_Reduce_scatter_init."""
+        return persistent.reduce_scatter_init(self, sendbuf,
+                                              op or op_mod.SUM)
+
+    def neighbor_alltoall_init(self, sendparts):
+        """≈ MPI_Neighbor_alltoall_init (needs an attached topology)."""
+        return persistent.neighbor_alltoall_init(self, sendparts)
+
+    def neighbor_alltoallv_init(self, sendparts):
+        """≈ MPI_Neighbor_alltoallv_init."""
+        return persistent.neighbor_alltoallv_init(self, sendparts)
+
+    # -- partitioned point-to-point (≈ MPI_Psend_init/Precv_init, MPI-4 §4:
+    #    Pready/Parrived ride the PML) -------------------------------------
+
+    def psend_init(self, buf, dest: int, tag: int = 0,
+                   partitions: int = 1):
+        """≈ MPI_Psend_init: partitioned persistent send — start()
+        activates, Pready(i) publishes partition i (a zero-copy view
+        of the bound buffer), wait() completes once every partition
+        was readied and sent."""
+        if not self._send_args_ok(dest, tag):
+            return PartitionedSendRequest(self.pml, buf, None, tag,
+                                          self.cid, partitions)
+        return self.pml.psend_init(buf, self.world_rank(dest), tag,
+                                   self.cid, partitions)
+
+    def precv_init(self, buf, source: int = 0, tag: int = 0,
+                   partitions: int = 1):
+        """≈ MPI_Precv_init: partitioned persistent recv into ``buf``;
+        Parrived(i) polls partition i, wait() returns the filled
+        buffer.  ANY_SOURCE is refused (matching is per channel)."""
+        if source == ANY_SOURCE:
+            self._raise(MPIException(
+                "precv_init: ANY_SOURCE is not supported for "
+                "partitioned receives (matching is per-channel)",
+                error_class=6))
+            src = None
+        else:
+            src = self._recv_src(source)
+        if src is None:
+            return PartitionedRecvRequest(self.pml, buf, None, tag,
+                                          self.cid, partitions)
+        return self.pml.precv_init(buf, src, tag, self.cid, partitions)
+
+    # -- topologies (≈ ompi_communicator_t.c_topo; see mpi/topo.py) --------
+
+    def cart_create(self, dims, periods=None, reorder: bool = False,
+                    mesh_shape=None) -> Optional["Communicator"]:
+        return topo_mod.cart_create(self, dims, periods, reorder,
+                                    mesh_shape)
+
+    def cart_sub(self, remain_dims) -> Optional["Communicator"]:
+        return topo_mod.cart_sub(self, remain_dims)
+
+    def graph_create(self, index, edges,
+                     reorder: bool = False) -> Optional["Communicator"]:
+        return topo_mod.graph_create(self, index, edges, reorder)
+
+    def dist_graph_create_adjacent(self, sources, destinations,
+                                   source_weights=None, dest_weights=None
+                                   ) -> "Communicator":
+        return topo_mod.dist_graph_create_adjacent(
+            self, sources, destinations, source_weights, dest_weights)
+
+    def dist_graph_create(self, sources, degrees, destinations,
+                          weights=None) -> "Communicator":
+        return topo_mod.dist_graph_create(self, sources, degrees,
+                                          destinations, weights)
+
+    def topo_test(self) -> Optional[str]:
+        """≈ MPI_Topo_test: "cart" | "graph" | "dist_graph" | None."""
+        return topo_mod.topo_test(self)
+
+    def cart_get(self):
+        """≈ MPI_Cart_get → (dims, periods, my coords)."""
+        return topo_mod.cart_get(self)
+
+    def cartdim_get(self) -> int:
+        """≈ MPI_Cartdim_get."""
+        return topo_mod.cartdim_get(self)
+
+    def cart_rank(self, coords) -> int:
+        """≈ MPI_Cart_rank."""
+        return topo_mod._topo_of(self, "cart").rank(coords)
+
+    def cart_coords(self, rank: int) -> list:
+        """≈ MPI_Cart_coords."""
+        return topo_mod._topo_of(self, "cart").coords(rank)
+
+    def cart_shift(self, direction: int, disp: int = 1) -> tuple:
+        """≈ MPI_Cart_shift → (source, dest) of this rank."""
+        return topo_mod._topo_of(self, "cart").shift(self.rank, direction,
+                                                     disp)
+
+    def cart_map(self, dims, periods=None, mesh_shape=None) -> int:
+        """≈ MPI_Cart_map."""
+        return topo_mod.cart_map(self, dims, periods, mesh_shape)
+
+    def graph_get(self):
+        """≈ MPI_Graph_get → (index, edges)."""
+        return topo_mod.graph_get(self)
+
+    def graphdims_get(self):
+        """≈ MPI_Graphdims_get → (nnodes, nedges)."""
+        return topo_mod.graphdims_get(self)
+
+    def graph_neighbors(self, rank: int) -> list:
+        """≈ MPI_Graph_neighbors."""
+        return topo_mod.graph_neighbors(self, rank)
+
+    def graph_neighbors_count(self, rank: int) -> int:
+        """≈ MPI_Graph_neighbors_count."""
+        return topo_mod.graph_neighbors_count(self, rank)
+
+    def graph_map(self, index, edges) -> int:
+        """≈ MPI_Graph_map."""
+        return topo_mod.graph_map(self, index, edges)
+
+    def dist_graph_neighbors(self):
+        """≈ MPI_Dist_graph_neighbors → (sources, destinations)."""
+        return topo_mod.dist_graph_neighbors(self)
+
+    def dist_graph_neighbors_count(self):
+        """≈ MPI_Dist_graph_neighbors_count → (indegree, outdegree,
+        weighted)."""
+        return topo_mod.dist_graph_neighbors_count(self)
+
+    def neighbor_allgather(self, sendbuf) -> list:
+        return topo_mod.neighbor_allgather(self, sendbuf)
+
+    def neighbor_allgatherv(self, sendbuf) -> list:
+        return topo_mod.neighbor_allgatherv(self, sendbuf)
+
+    def neighbor_alltoall(self, sendparts) -> list:
+        return topo_mod.neighbor_alltoall(self, sendparts)
+
+    def neighbor_alltoallv(self, sendparts) -> list:
+        return topo_mod.neighbor_alltoallv(self, sendparts)
+
+    def neighbor_alltoallw(self, sendspecs, recvspecs) -> None:
+        return topo_mod.neighbor_alltoallw(self, sendspecs, recvspecs)
+
+    def ineighbor_allgather(self, sendbuf) -> Request:
+        return topo_mod.ineighbor_allgather(self, sendbuf)
+
+    def ineighbor_allgatherv(self, sendbuf) -> Request:
+        return topo_mod.ineighbor_allgatherv(self, sendbuf)
+
+    def ineighbor_alltoall(self, sendparts) -> Request:
+        return topo_mod.ineighbor_alltoall(self, sendparts)
+
+    def ineighbor_alltoallv(self, sendparts) -> Request:
+        return topo_mod.ineighbor_alltoallv(self, sendparts)
+
     # -- device path binding (coll/xla) ------------------------------------
 
     def bind_device(self, device_comm) -> "Communicator":
@@ -605,12 +901,19 @@ class Communicator:
                             pml=self.pml)
 
     def free(self) -> None:
-        """≈ MPI_Comm_free: run the attributes' delete callbacks, then drop
-        the device binding, the table and coll/shm's arena; the device
-        groups belong to the mesh and the PML to the runtime, not to the
+        """≈ MPI_Comm_free: run the attributes' delete callbacks, free
+        every bound persistent-collective plan (their pinned slots
+        detach; a later Start on them raises), then drop the device
+        binding, the table and coll/shm's arena; the device groups belong
+        to the mesh and the PML to the runtime, not to the
         communicator."""
         for kv in list(self.attrs):
             self.delete_attr(kv)
+        for ref in self._persistent_colls:
+            req = ref()
+            if req is not None:
+                req.free()
+        self._persistent_colls = []
         self.device = None
         self.coll = None
         # flag + cache-clear under the comm lock, ATOMIC against coll/shm's

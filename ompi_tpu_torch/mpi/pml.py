@@ -32,13 +32,21 @@ pure-Python matcher below runs the same protocol.  A blocked ``recv``
 drains its own shm rings (receiver-pull progress), or on a tcp-only
 endpoint runs the native poller's service pass on its own thread.
 
+Partitioned point-to-point (``psend_init``/``precv_init``, MPI-4 §4.2)
+rides the same matching: each partition of the bound buffer is an ordinary
+zero-copy message on its own wire tag, ``-1_000_000 - tag·2^24 - (offset +
+i)``, which leaves int32 beyond user tag 127; every header codec (the dss
+dict, the native engine and fast lane, the shm and tcp frames) carries
+tags as int64.
+
 Left out: memchecker and the hang doctor's pending summary, the MPI_T
-pvars and the trace bridge (flow ids, spans, histograms; ROADMAP.md Queue
-1 item 6.9), the fault-tolerance hooks (ULFM checks, incarnation fencing,
-respawn rebind and the park-and-heal retransmit, item 6.10: a frame that
-cannot be routed fails its request at once, as the JAX package does with
-``pml_retry_window`` 0), and persistent and partitioned requests (item
-6.7).
+pvars (the partitioned ``pml_partitioned_*_total`` counters among them)
+and the trace bridge (flow ids, spans, histograms; ROADMAP.md Queue 1 item
+6.9), and the fault-tolerance hooks (ULFM checks, the partitioned start's
+revocation check, incarnation fencing, respawn rebind and the
+park-and-heal retransmit, item 6.10: a frame that cannot be routed fails
+its request at once, as the JAX package does with ``pml_retry_window``
+0).
 """
 
 from __future__ import annotations
@@ -65,10 +73,12 @@ from ompi_tpu_torch.mpi.constants import (
     ANY_SOURCE, ANY_TAG, ERR_TRUNCATE, PROC_NULL, MPIException,
 )
 from ompi_tpu_torch.mpi.datatype import Datatype
-from ompi_tpu_torch.mpi.request import Request, Status
+from ompi_tpu_torch.mpi.request import (CompletedRequest, PersistentRequest,
+                                        Request, Status)
 
 __all__ = ["pml_framework", "PmlOb1", "RecvRequest", "Message",
-           "MESSAGE_NO_PROC", "buffer_attach", "buffer_detach"]
+           "MESSAGE_NO_PROC", "buffer_attach", "buffer_detach",
+           "PartitionedSendRequest", "PartitionedRecvRequest"]
 
 
 def _reject_device(buf: Any, what: str) -> None:
@@ -86,6 +96,13 @@ def _reject_device(buf: Any, what: str) -> None:
             f"over NCCL/gloo; for p2p use DeviceCommunicator.shift/"
             f"permute/sendrecv), or .cpu().numpy() the tensor explicitly "
             f"if host staging is intended.")
+
+
+def _reject_device_parts(parts, what: str) -> None:
+    """:func:`_reject_device` for every part of a v-form or per-neighbor
+    part list (``classify`` of a list looks at its first part only)."""
+    for p in parts:
+        _reject_device(p, what)
 
 
 _log = output.get_stream("pml")
@@ -1407,6 +1424,259 @@ class PmlOb1:
                     except ValueError:
                         pass
         req.cancel()
+
+    # -- partitioned point-to-point (≈ MPI_Psend_init/Precv_init, MPI-4
+    #    §4.2: partitions of one bound buffer published independently) ----
+
+    def _part_offset(self, direction: str, peer: int, tag: int,
+                     cid: int, partitions: int) -> int:
+        """The n-th psend_init toward (peer, tag, cid) pairs with the
+        peer's n-th precv_init from me — a local per-endpoint counter
+        realises MPI's init-order matching rule with zero traffic.
+        The counter is CUMULATIVE in partitions, so every init owns a
+        disjoint block of partition slots in the wire-tag space even
+        when channels on the same key use different partition counts
+        (both sides must init in the same order with the same counts —
+        the pairing contract)."""
+        with self._lock:
+            chans = self.__dict__.setdefault("_part_chan", {})
+            key = (direction, peer, tag, cid)
+            off = chans.get(key, 0)
+            chans[key] = off + partitions
+            return off
+
+    def psend_init(self, buf, peer: int, tag: int, cid: int,
+                   partitions: int) -> "PartitionedSendRequest":
+        _reject_device(buf, "psend_init")   # before the channel counts
+        return PartitionedSendRequest(
+            self, buf, peer, tag, cid, partitions,
+            offset=self._part_offset("send", peer, tag, cid, partitions))
+
+    def precv_init(self, buf, peer: int, tag: int, cid: int,
+                   partitions: int) -> "PartitionedRecvRequest":
+        _reject_device(buf, "precv_init")
+        return PartitionedRecvRequest(
+            self, buf, peer, tag, cid, partitions,
+            offset=self._part_offset("recv", peer, tag, cid,
+                                     partitions))
+
+
+# ---------------------------------------------------------------------------
+# partitioned requests (MPI-4 §4.2)
+# ---------------------------------------------------------------------------
+
+# partition messages ride the reserved internal tag space far below the
+# collective/nbc/OSC/neighbor windows (which bottom out around -1891):
+# wire tag = BASE - tag·STRIDE - (cumulative offset + partition), so
+# distinct user tags own disjoint STRIDE-wide blocks and distinct inits
+# on one (peer, tag, cid) own disjoint partition-slot ranges — no two
+# live partitioned operations can ever share a wire tag, and Pready
+# order never matters
+_PART_WIRE_BASE = -1_000_000
+_PART_TAG_STRIDE = 1 << 24      # partition slots per user tag
+
+
+class _PartitionedBase(PersistentRequest):
+    """Shared half of psend/precv: one bound C-contiguous buffer split
+    into ``partitions`` flat views (``np.array_split`` boundaries — the
+    trailing partitions may be one element shorter), each riding the
+    PML as an ordinary zero-copy message on its own derived wire tag.
+    Sender and receiver must init channels on a (peer, tag) pair in
+    the same order with the same partition counts (the pairing
+    contract).  ``peer is None`` ⇒ the PROC_NULL inert form
+    (everything trivially completes).  Start/wait/Startall compose
+    exactly like any other persistent request."""
+
+    def __init__(self, pml, buf, peer: Optional[int], tag: int, cid: int,
+                 partitions: int, offset: int = 0,
+                 kind: str = "partitioned") -> None:
+        _reject_device(buf, f"{kind}_init")
+        n = int(partitions)
+        if n < 1:
+            raise MPIException(f"{kind}_init: partitions must be >= 1 "
+                               f"(got {partitions})")
+        if offset + n > _PART_TAG_STRIDE:
+            raise MPIException(
+                f"{kind}_init: partition-slot space for tag {tag} "
+                f"exhausted ({_PART_TAG_STRIDE} cumulative partitions "
+                f"per (peer, tag) pair)")
+        arr = np.asarray(buf)
+        if not arr.flags["C_CONTIGUOUS"]:
+            raise MPIException(
+                f"{kind}_init: partitioned operations need a "
+                f"C-contiguous buffer (partitions are zero-copy views)")
+        self._pml = pml
+        self._peer = peer
+        self._tag = tag
+        self._cid = cid
+        self._npart = n
+        self._off = int(offset)
+        self._arr = arr
+        self._parts = np.array_split(arr.reshape(-1), n)
+        self._plock = threading.Lock()
+        self._op: Optional[Request] = None
+        self._preqs: list = [None] * n
+        self._ndone = 0
+        self._fail: Optional[BaseException] = None
+        super().__init__(self._activate, kind=kind)
+
+    def _ptag(self, i: int) -> int:
+        return (_PART_WIRE_BASE - self._tag * _PART_TAG_STRIDE
+                - (self._off + i))
+
+    def _part_done(self, r: Request) -> None:
+        op = self._op
+        with self._plock:
+            if getattr(r, "_exc", None) is not None \
+                    and self._fail is None:
+                self._fail = r._exc
+            self._ndone += 1
+            fire = self._ndone == self._npart
+            fail = self._fail
+        if fire and op is not None:
+            if fail is not None:
+                op.fail(fail)
+            else:
+                op.complete(self._result_value())
+
+    def _result_value(self):
+        return None
+
+
+class PartitionedSendRequest(_PartitionedBase):
+    """≈ MPI_Psend_init: start() activates (nothing moves), Pready(i)
+    publishes partition i, wait() completes once every partition was
+    readied AND sent.  Waiting with unready partitions raises (the MPI
+    erroneous case, surfaced instead of hanging)."""
+
+    def __init__(self, pml, buf, peer, tag, cid, partitions,
+                 offset: int = 0) -> None:
+        super().__init__(pml, buf, peer, tag, cid, partitions,
+                         offset=offset, kind="psend")
+
+    def _activate(self) -> Request:
+        with self._plock:
+            self._readied = [False] * self._npart
+            self._preqs = [None] * self._npart
+            self._ndone = 0
+            self._fail = None
+        if self._peer is None:       # PROC_NULL: trivially complete
+            self._op = None
+            return CompletedRequest(None, kind="psend")
+        self._op = Request(kind="psend-op")
+        return self._op
+
+    def pready(self, partition: int) -> None:
+        """≈ MPI_Pready: partition ``partition`` of the bound buffer is
+        final — send it (a zero-copy view rides the PML now)."""
+        i = int(partition)
+        if not 0 <= i < self._npart:
+            raise MPIException(
+                f"Pready: partition {i} out of range [0, {self._npart})")
+        if self._inner is None:
+            raise MPIException(
+                "Pready on an inactive partitioned send (start() first)")
+        with self._plock:
+            if self._readied[i]:
+                raise MPIException(
+                    f"Pready: partition {i} already readied this start")
+            self._readied[i] = True
+        if self._peer is None:
+            return
+        req = self._pml.isend(self._parts[i], self._peer, self._ptag(i),
+                              self._cid)
+        with self._plock:
+            self._preqs[i] = req
+        req.add_completion_callback(self._part_done)
+
+    def pready_range(self, low: int, high: int) -> None:
+        """≈ MPI_Pready_range (inclusive bounds, like the binding)."""
+        for i in range(int(low), int(high) + 1):
+            self.pready(i)
+
+    def pready_list(self, partitions) -> None:
+        """≈ MPI_Pready_list."""
+        for i in partitions:
+            self.pready(i)
+
+    def wait(self, timeout: Optional[float] = None):
+        if self._inner is not None and not self._inner.done():
+            with self._plock:
+                unready = self._npart - sum(self._readied)
+            if unready:
+                raise MPIException(
+                    f"wait on a partitioned send with {unready} unready "
+                    f"partition(s) — Pready them first (erroneous per "
+                    f"MPI-4 §4.2.2, surfaced instead of hanging)")
+        return super().wait(timeout=timeout)
+
+
+class PartitionedRecvRequest(_PartitionedBase):
+    """≈ MPI_Precv_init: start() posts every partition's receive into
+    its zero-copy view of the bound buffer; Parrived(i) polls one
+    partition; wait() returns the filled buffer."""
+
+    def __init__(self, pml, buf, peer, tag, cid, partitions,
+                 offset: int = 0) -> None:
+        super().__init__(pml, buf, peer, tag, cid, partitions,
+                         offset=offset, kind="precv")
+        if not self._arr.flags.writeable:
+            raise MPIException("precv_init: receive buffer is read-only")
+
+    def _result_value(self):
+        return self._arr
+
+    def _activate(self) -> Request:
+        with self._plock:
+            self._preqs = [None] * self._npart
+            self._ndone = 0
+            self._fail = None
+        if self._peer is None:       # PROC_NULL: nothing will arrive
+            self._op = None
+            return CompletedRequest(self._arr, kind="precv")
+        self._op = Request(kind="precv-op")
+        for i in range(self._npart):
+            req = self._pml.irecv(self._parts[i], self._peer,
+                                  self._ptag(i), self._cid)
+            with self._plock:
+                self._preqs[i] = req
+            req.add_completion_callback(self._part_done)
+        return self._op
+
+    def parrived(self, partition: int) -> bool:
+        """≈ MPI_Parrived: has partition ``partition`` of the CURRENT
+        operation landed?  True on an inactive request (the last
+        operation delivered everything)."""
+        i = int(partition)
+        if not 0 <= i < self._npart:
+            raise MPIException(
+                f"Parrived: partition {i} out of range "
+                f"[0, {self._npart})")
+        if self._inner is None or self._peer is None:
+            return True
+        with self._plock:
+            req = self._preqs[i]
+        return req is not None and req.done()
+
+    def cancel(self) -> None:
+        with self._plock:
+            reqs = [r for r in self._preqs if r is not None]
+        for r in reqs:
+            r.cancel()
+        super().cancel()
+
+    def _abandon(self) -> None:
+        # Startall rollback: the posted partition irecvs must be
+        # DEQUEUED, not just flagged — left behind they would be
+        # FIFO-first on their wire tags and swallow the next
+        # activation's partitions (wait() would then hang forever)
+        with self._plock:
+            reqs = [r for r in self._preqs if r is not None]
+            self._preqs = [None] * self._npart
+        for r in reqs:
+            self._pml.cancel_recv(r)
+        self._op = None
+        super()._abandon()
 
 
 @pml_framework.component

@@ -104,7 +104,13 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch._native",
                 "ompi_tpu_torch.core.shmseg",
                 "ompi_tpu_torch.mpi.btl_shm",
-                "ompi_tpu_torch.mpi.coll.shm"):
+                "ompi_tpu_torch.mpi.coll.shm",
+                "ompi_tpu_torch.mpi.coll.nbc",
+                "ompi_tpu_torch.mpi.coll.persistent",
+                "ompi_tpu_torch.mpi.topo",
+                "ompi_tpu_torch.tools.host_bench",
+                "ompi_tpu_torch.examples.persistent_coll",
+                "ompi_tpu_torch.examples.cart_halo"):
         assert mod in res["imported"]
 
 
