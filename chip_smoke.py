@@ -46,6 +46,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ranks on card 0, where the device route raises the shared-card
    error and the host route runs over the shm rings and the arena;
    ``init()`` at -np 4 and a hello job's launch-to-exit time;
+5b. trace (after host_nbc) — the trace plane: (a) in a fresh process,
+   ``init()`` and the world bound to a one-rank DeviceCommunicator on
+   the card (NCCL); 64 ``comm.allreduce`` calls each at 4 KiB f32,
+   64 MiB f32 and 64 MiB bf16, every one leaving a post and a done on
+   the flight recorder (provider ``xla``, its bytes, the signature the
+   JAX package gives the same dtype: f32 as numpy's 11/4, bf16 as
+   256/2) and a ``coll_dispatch_ns`` sample, the results equal to the
+   inputs, no device-to-host copy beside the control in a profiler
+   window, and the host µs of a 4 KiB call beside the direct call with
+   the timeline disarmed, armed, armed, disarmed; (b) ``tpurun -np 4
+   --trace`` of ``examples/trace_demo``, its four dumps merged by
+   ``tools/trace_export``: pml, btl, coll and datatype spans, flow
+   arrows, no causality problem, the monitoring matrix's bytes; (c) a
+   collective mismatch (coll/shm off) and a straggler, each a 4-rank
+   job ended by ``tpurun --timeout``, named by ``tools/hang_doctor
+   --expect mismatch:1`` / ``straggler:1`` from the dumps; (d) on the
+   host, ns a recorder post+done, a span while armed, the disarmed gate;
 6. kernel — the flash-attention forward kernel against its plain
    PyTorch version (O and lse) over causal/full, offsets, f32/bf16, head
    dims and lengths, bf16 without a mask at t = 1024, and at the decode
@@ -2856,6 +2873,314 @@ def mpi_profiled(timeout: float = 180.0) -> dict:
     return value
 
 
+#: the trace phase's device-route calls: 64 each of (label, bytes, dtype)
+TRACE_CALLS = 64
+TRACE_SIZES = (("4KiB_f32", 4 << 10, "float32"),
+               ("64MiB_f32", 64 << 20, "float32"),
+               ("64MiB_bf16", 64 << 20, "bfloat16"))
+#: numpy's (type code, itemsize) of each dtype, as the JAX package signs
+#: a collective on it (ml_dtypes' bfloat16 registers as 256)
+TRACE_SIG_DTYPE = {"float32": (11, 4), "bfloat16": (256, 2)}
+#: tpurun --timeout of the hang doctor's two jobs (each ends by it)
+TRACE_HANG_TIMEOUT = 5
+#: the straggler and mismatch jobs of phase trace (c)
+TRACE_MISMATCH = """
+import numpy as np, ompi_tpu_torch
+c = ompi_tpu_torch.init()
+c.barrier()
+x = np.ones(1024)
+if c.rank == 1:
+    c.bcast(x, root=0)
+else:
+    c.allreduce(x)
+c.barrier()
+ompi_tpu_torch.finalize()
+"""
+TRACE_STRAGGLER = """
+import time, numpy as np, ompi_tpu_torch
+c = ompi_tpu_torch.init()
+c.allreduce(np.ones(1024))
+if c.rank == 1:
+    time.sleep(120)
+c.allreduce(np.ones(1024))
+ompi_tpu_torch.finalize()
+"""
+
+
+def trace_device_body(port: int, device: str) -> dict:
+    """Phase trace (a), in a fresh process: ``init()``, the world bound
+    to a one-rank DeviceCommunicator on the card, TRACE_CALLS
+    ``comm.allreduce`` calls at each of TRACE_SIZES; the flight
+    recorder's records and the dispatch histogram's samples of them, a
+    profiler window's copies, and the host µs of a 4 KiB call with the
+    timeline disarmed and armed, in turns."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mpi import trace
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    comm = ompi_tpu_torch.init()
+    mesh = make_mesh(device=device, rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        dc = device_world(mesh)
+        comm.bind_device(dc)
+        dev = mesh.device
+        xs = {}
+        for label, nbytes, dtype in TRACE_SIZES:
+            t = getattr(torch, dtype)
+            n = nbytes // torch.tensor([], dtype=t).element_size()
+            xs[label] = torch.arange(n, device=dev).remainder(7).to(t)
+        for x in xs.values():                  # warm: NCCL's first calls
+            comm.allreduce(x)
+        torch.cuda.synchronize()
+        trace.collrec.reset()
+
+        def samples():
+            return {k: sum(v[:trace.HIST_NBUCKETS])
+                    for k, v in trace.hists.items()
+                    if k.startswith('coll_dispatch_ns{slot="allreduce",'
+                                    'provider="xla"')}
+
+        h0 = samples()
+        equal = {}
+        for label, x in xs.items():
+            for _ in range(TRACE_CALLS):
+                out = comm.allreduce(x)
+            equal[label] = bool(torch.equal(out, x))
+        torch.cuda.synchronize()
+        h1 = samples()
+        recs = [r for r in trace.collrec.snapshot() if r[2] == comm.cid]
+        want = {}
+        for label, nbytes, dtype in TRACE_SIZES:
+            num, size = TRACE_SIG_DTYPE[dtype]
+            want[label] = (nbytes, trace.collrec_sig(
+                "allreduce", types.SimpleNamespace(num=num, itemsize=size),
+                nbytes))
+        posts = [r for r in recs if r[5] == "post"]
+        rec = {"posts": len(posts),
+               "dones": sum(1 for r in recs if r[5] == "done"),
+               "providers": sorted({r[7]["prov"] for r in posts}),
+               "seqs_in_order": [r[3] for r in posts]
+               == list(range(len(posts))),
+               "by_size": {}}
+        for label, (nbytes, sig) in want.items():
+            mine = [r for r in posts if r[7]["nb"] == nbytes
+                    and r[6] == sig]
+            rec["by_size"][label] = {"posts": len(mine), "sig": sig}
+        rec["hist_samples"] = sum(h1.values()) - sum(h0.values())
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            xs["4KiB_f32"].clone()             # a window may miss its first
+            for x in xs.values():
+                for _ in range(8):
+                    comm.allreduce(x)
+            xs["4KiB_f32"][:1].cpu()           # the control: one DtoH
+            torch.cuda.synchronize()
+        copies = profiler_copies(prof)
+        x4 = xs["4KiB_f32"]
+        turns = []
+        for armed in (False, True, True, False):
+            if armed:
+                trace.enable(capacity=65536, rank=0)
+            turns.append({"armed": armed,
+                          "route_us": host_us(lambda: comm.allreduce(x4),
+                                              400),
+                          "direct_us": host_us(lambda: dc.allreduce(x4),
+                                               400)})
+            trace.disable()
+        return {"equal": equal, "records": rec, "copies": copies,
+                "host_us": turns}
+    finally:
+        dist.destroy_process_group()
+        ompi_tpu_torch.finalize()
+
+
+def trace_device_main(port: int, device: str, results) -> None:
+    """Entry of the spawned process of phase trace."""
+    import traceback
+
+    try:
+        results.put(("ok", trace_device_body(port, device)))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put(("err", traceback.format_exc()))
+
+
+def trace_record_costs(n: int = 20000) -> dict:
+    """Phase trace (d): ns a recorder post+done, ns a span while the
+    timeline is armed, ns a check of the disarmed gate (best of 5
+    batches of ``n``, loop overhead included)."""
+    from ompi_tpu_torch.mpi import trace
+
+    def best(fn):
+        out = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter_ns()
+            fn()
+            out = min(out, (time.perf_counter_ns() - t0) / n)
+        return out
+
+    rec = trace.CollRecorder(capacity=4096)
+
+    def post_done():
+        for _ in range(n):
+            rec.done(0, 0, rec.post(0, 0, "allreduce", 7, "xla", 4096),
+                     "allreduce")
+
+    def gate():
+        for _ in range(n):
+            if trace.active:
+                trace.instant("pml", "x")
+
+    trace.disable()
+    gate_ns = best(gate)
+    trace.enable(capacity=1 << 16, rank=0)
+    try:
+        def span():
+            for _ in range(n):
+                t0 = trace.begin()
+                trace.complete("coll", "allreduce", t0, rank=0, seq=1)
+
+        span_ns = best(span)
+    finally:
+        trace.disable()
+    return {"post_done_ns": best(post_done), "span_ns": span_ns,
+            "disabled_gate_ns": gate_ns}
+
+
+def phase_trace(card):
+    """The trace plane: (a) the device route's collectives on the card
+    pass the recorder and the dispatch histogram (a spawned process,
+    NCCL at world size 1); (b) a traced 4-rank job of
+    ``examples/trace_demo`` merged by ``tools/trace_export``; (c) the
+    hang doctor's verdicts from the dumps of a mismatch job and a
+    straggler job, each ended by ``tpurun --timeout``; (d) the record
+    path's costs on this host."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    from ompi_tpu_torch.runtime import timeline
+
+    tmp = tempfile.mkdtemp(prefix="otpu-trace-")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in ("demo", "mismatch",
+                                                  "straggler")}
+        for d in dirs.values():
+            os.makedirs(d)
+        jobs = {
+            "demo": tpurun_start([
+                "-np", "4", "--trace", "--no-tag-output", "-x",
+                f"TMPDIR={dirs['demo']}", "--", sys.executable, "-m",
+                "ompi_tpu_torch.examples.trace_demo"]),
+            "mismatch": tpurun_start([
+                "-np", "4", "--trace", "--no-tag-output", "--timeout",
+                str(TRACE_HANG_TIMEOUT), "--mca", "coll_shm_enable", "0",
+                "-x", f"TMPDIR={dirs['mismatch']}", "--", sys.executable,
+                "-c", TRACE_MISMATCH]),
+            "straggler": tpurun_start([
+                "-np", "4", "--trace", "--no-tag-output", "--timeout",
+                str(TRACE_HANG_TIMEOUT), "-x",
+                f"TMPDIR={dirs['straggler']}", "--", sys.executable, "-c",
+                TRACE_STRAGGLER]),
+        }
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        proc = ctx.Process(target=trace_device_main,
+                           args=(free_port(), DEVICE, results))
+        proc.start()
+        try:
+            status, dev = results.get(timeout=240)
+        except queue.Empty:
+            status, dev = "err", "no result in 240 s"
+        finally:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(status == "ok", f"trace's device process: {dev}")
+        calls = TRACE_CALLS * len(TRACE_SIZES)
+        rec = dev["records"]
+        check(all(dev["equal"].values()),
+              f"comm.allreduce differs from its input: {dev['equal']}")
+        check(rec["posts"] == rec["dones"] == calls
+              and rec["providers"] == ["xla"] and rec["seqs_in_order"],
+              f"the recorder missed device-route calls: {rec}")
+        check(all(v["posts"] == TRACE_CALLS
+                  for v in rec["by_size"].values()),
+              f"device-route records with the wrong bytes or signature "
+              f"(bf16 must sign as numpy's 256/2): {rec['by_size']}")
+        check(rec["hist_samples"] == calls,
+              f"coll_dispatch_ns counted {rec['hist_samples']} of {calls}")
+        cp = dev["copies"]
+        check(cp["dtoh"] == 1,
+              f"device-route window: {cp['dtoh']} device-to-host copies "
+              f"(one is the control): {cp}")
+        costs = trace_record_costs()
+
+        out = {"card": card, "device_route": {
+            "calls": calls, "records": rec, "copies": cp,
+            "host_us_4KiB": dev["host_us"]}, "record_path": costs}
+        secs, rc, sout, serr = tpurun_wait(jobs["demo"])
+        check(rc == 0, f"trace_demo job: rc {rc}\n{serr[-2000:]}")
+        mon = tagged_json(sout, "MONITOR")
+        check(len(mon) == 1, f"trace_demo printed no matrix: {sout}")
+        dumps = sorted(os.listdir(dirs["demo"]))
+        check(len(dumps) == 4, f"trace_demo dumps: {dumps}")
+        merged = os.path.join(tmp, "merged.json")
+        res = subprocess.run(
+            [sys.executable, "-m", "ompi_tpu_torch.tools.trace_export",
+             "--dir", dirs["demo"], "-o", merged], capture_output=True,
+            text=True, timeout=120,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(res.returncode == 0, f"trace_export: {res.stderr[-2000:]}")
+        with open(merged, encoding="utf-8") as f:
+            doc = json.load(f)
+        evs = doc["traceEvents"]
+        cats = sorted({e.get("cat") for e in evs
+                       if e.get("ph") in ("X", "i")})
+        flows = sum(1 for e in evs if e.get("ph") == "s")
+        problems = timeline.causality_problems(evs)
+        check({"pml", "btl", "coll", "datatype"} <= set(cats),
+              f"merged trace categories {cats}")
+        check(flows > 0 and not problems,
+              f"flow arrows {flows}, causality problems {problems[:5]}")
+        out["traced_job"] = {"seconds": secs, "events": len(evs),
+                             "categories": cats, "flow_arrows": flows,
+                             "monitor_sent_bytes": mon[0]["sent_bytes"]}
+        out["doctor"] = {}
+        for kind in ("mismatch", "straggler"):
+            secs, rc, _o, serr = tpurun_wait(jobs[kind])
+            check(rc == 124, f"{kind} job: rc {rc} (the timeout ends it)"
+                  f"\n{serr[-2000:]}")
+            res = subprocess.run(
+                [sys.executable, "-m", "ompi_tpu_torch.tools.hang_doctor",
+                 "--dir", dirs[kind], "--expect", f"{kind}:1"],
+                capture_output=True, text=True, timeout=120,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            check(res.returncode == 0,
+                  f"hang_doctor --expect {kind}:1: {res.stdout[-2000:]}"
+                  f"{res.stderr[-1000:]}")
+            out["doctor"][kind] = {
+                "job_seconds": secs,
+                "verdict": res.stdout.splitlines()[0] if res.stdout
+                else ""}
+        emit("trace", **out)
+        return out
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_mpi_coll(card, mesh):
     """The MPI communicator's device route on the card, over the NCCL
     group of phase collectives (world size 1): ``comm.<slot>`` on CUDA
@@ -3459,6 +3784,7 @@ def main() -> int:
     run("pipeline", phase_pipeline, card)
     run("host_plane", phase_host_plane, card)
     run("host_nbc", phase_host_nbc, card)
+    run("trace", phase_trace, card)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)
     ring = run("ring", phase_ring, fa, card)

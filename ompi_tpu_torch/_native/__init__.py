@@ -25,9 +25,10 @@ requirement.  Each component re-reads its own switch
 ``pml_native_match``).
 
 The span rings (``spans_enable``/``spans_drain``: begin–end stamps of
-the GIL-released parks in ``arena.c`` and ``net.c``) stay in the C and
-in this loader; their consumer, the trace plane, is ROADMAP.md Queue 1
-item 6.9.  This module imports neither torch nor numpy.
+the GIL-released parks in ``arena.c`` and ``net.c``) are armed by
+``mpi.trace.enable`` and drained into its flight recorder
+(``trace.drain_native_spans``: at flush, on the metrics push cadence and
+in a live capture).  This module imports neither torch nor numpy.
 """
 
 from __future__ import annotations
@@ -343,8 +344,9 @@ def net_nogil() -> Optional[ctypes.PyDLL]:
 # -- native span rings ------------------------------------------------------
 #
 # arena.c and net.c stamp begin–end timestamps of their GIL-released
-# parks into small per-thread rings; the trace plane (ROADMAP.md Queue 1
-# item 6.9) will drain them into its flight recorder.  The arm state
+# parks into small per-thread rings; the trace plane
+# (``mpi.trace.drain_native_spans``) drains them into its flight
+# recorder.  The arm state
 # lives here so a caller can arm BEFORE either library is loaded (the
 # load applies the pending value).
 

@@ -174,6 +174,16 @@ class VarRegistry:
             return self._vars[self._synonyms.get(full_name,
                                                  full_name)].value
 
+    def lookup(self, full_name: str) -> Optional[Var]:
+        """The registered variable (a synonym resolves), or None."""
+        with self._lock:
+            return self._vars.get(self._synonyms.get(full_name, full_name))
+
+    def all_vars(self) -> list[Var]:
+        """Every registered variable, by full name (MPI_T's cvars)."""
+        with self._lock:
+            return sorted(self._vars.values(), key=lambda v: v.full_name)
+
     def set(self, full_name: str, value: Any) -> None:
         """Programmatic override, above every other source; a string is
         parsed as the environment's would be."""

@@ -29,10 +29,13 @@ by one writer thread in GIL-released batched ``sendmsg`` calls, one parked
 poller across every connection, rendezvous payloads landed straight into
 the receive buffer, and receiver-pull progress for a blocked recv).
 
-Left out: the fault-injection hook and the fault-tolerance checks between
-parks (ROADMAP.md Queue 1 item 6.10), the trace plane's counters, spans
-and histograms (item 6.9), and the identity aliasing and rebind of dynamic
-process management and respawn (items 6.13 and 6.10).
+The trace plane's sites are the JAX package's: the ``send`` and
+``send_inline`` instants, the tcp plane's ``btl_tcp_native_*_total``
+counters (writes, batched frames, parks) and its ``btl_tcp_write_ns``
+histogram.  Left out: the fault-injection hook and the fault-tolerance
+checks between parks (ROADMAP.md Queue 1 item 6.10), and the identity
+aliasing and rebind of dynamic process management and respawn (items
+6.13 and 6.10).
 
 Device buffers never travel through a BTL: the device path is the bound
 ``DeviceCommunicator`` (NCCL on the card).
@@ -56,6 +59,7 @@ import numpy as np
 from ompi_tpu_torch.core import dss
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.core.mca import Component, Framework
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.constants import MPIException
 
 __all__ = ["btl_framework", "TcpBTL", "SelfBTL", "ProcBTL",
@@ -401,6 +405,7 @@ class TcpBTL:
             with ring.mu:
                 if ring.error is not None or ring.entries:
                     return None   # FIFO: queued frames must go first
+            _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
             fd = sock.fileno()
             # fast path: the whole frame in ONE ctypes crossing —
             # send3 takes the three buffers as pointer args (bytes
@@ -432,6 +437,11 @@ class TcpBTL:
                     fd, parts[0], len(parts[0]), parts[1],
                     len(parts[1]), parg, len(pay), _WRITE_SLICE_NS)
             if w == total:
+                trace_mod.count("btl_tcp_native_writes_total")
+                trace_mod.count("btl_tcp_native_batched_frames_total")
+                if _h_t0:
+                    trace_mod.record_hist(
+                        "btl_tcp_write_ns", time.monotonic_ns() - _h_t0)
                 return True
             if w < 0:
                 err = OSError(-w, f"{os.strerror(-w)} "
@@ -447,6 +457,7 @@ class TcpBTL:
             keep = [np.frombuffer(p, np.uint8) for p in parts if len(p)]
             flat = [(v.ctypes.data, v.nbytes) for v in keep]
             written = w
+            calls = 1
             idx = off = 0
             adv = w
             while idx < len(flat) and adv >= flat[idx][1]:
@@ -472,6 +483,7 @@ class TcpBTL:
                         raise err
                     return False
                 if w > 0:
+                    calls += 1
                     written += w
                     off += w
                     while idx < len(flat) and off >= flat[idx][1]:
@@ -484,6 +496,7 @@ class TcpBTL:
                 # torn frame desyncs the stream) — park bounded, and on
                 # abandonment kill the socket so the receiver sees EOF
                 # instead of a desynced stream
+                trace_mod.count("btl_tcp_native_parks_total")
                 if self._stop.is_set():
                     err = ConnectionError("endpoint closed mid-write")
                     self._fail_ring(ring, err)
@@ -495,6 +508,11 @@ class TcpBTL:
                         raise err
                     return False
             del keep
+            trace_mod.count("btl_tcp_native_writes_total", calls)
+            trace_mod.count("btl_tcp_native_batched_frames_total")
+            if _h_t0:
+                trace_mod.record_hist("btl_tcp_write_ns",
+                                      time.monotonic_ns() - _h_t0)
             return True
         finally:
             lock.release()
@@ -565,6 +583,7 @@ class TcpBTL:
                                           _PARK_SLICE_NS)
         else:
             time.sleep(0.0005)
+        trace_mod.count("btl_tcp_native_parks_total")
         if self._stop.is_set():
             raise ConnectionError("btl/tcp: endpoint closed mid-send")
 
@@ -676,6 +695,7 @@ class TcpBTL:
             else:
                 time.sleep(0.0005)
             self._writer_parked = False
+            trace_mod.count("btl_tcp_native_parks_total")
 
     def _drain_ring(self, peer: int, ring: _TxRing, net) -> bool:
         """Drain one peer's backlog under the per-peer out lock (the
@@ -706,7 +726,9 @@ class TcpBTL:
                         keep.append(v)
                         flat.append((v.ctypes.data, v.nbytes))
             total = sum(ln for _a, ln in flat)
+            _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
             written = 0
+            calls = 0
             idx = 0         # first not-fully-written iovec
             off = 0         # bytes of flat[idx] already written
             fd = sock.fileno()
@@ -726,6 +748,7 @@ class TcpBTL:
                         -w, f"{os.strerror(-w)} (native writev)"))
                     return written > 0
                 if w > 0:
+                    calls += 1
                     written += w
                     off += w
                     while idx < len(flat) and off >= flat[idx][1]:
@@ -734,6 +757,7 @@ class TcpBTL:
                     continue
                 # slice expired without progress (peer backpressure):
                 # check the stop flag, then wait again
+                trace_mod.count("btl_tcp_native_parks_total")
                 if self._stop.is_set():
                     self._fail_ring(ring, ConnectionError(
                         "endpoint closed mid-drain"))
@@ -751,6 +775,12 @@ class TcpBTL:
                 if last and ring.error is None:
                     ring.ctr[0] = last
             self._wake_ring(ring)
+            trace_mod.count("btl_tcp_native_writes_total", calls)
+            trace_mod.count("btl_tcp_native_batched_frames_total",
+                            len(batch))
+            if _h_t0:
+                trace_mod.record_hist("btl_tcp_write_ns",
+                                      time.monotonic_ns() - _h_t0)
             return True
         finally:
             lock.release()
@@ -871,6 +901,7 @@ class TcpBTL:
                 rc = net.ompi_tpu_net_poll(fds, nfds, rdy, spins,
                                            _POLL_SLICE_NS)
                 if rc == 0:
+                    trace_mod.count("btl_tcp_native_parks_total")
                     continue
                 if rc < 0:
                     ready = conns   # service-all: dead fds prune here
@@ -1098,6 +1129,7 @@ class TcpBTL:
                     raise OSError("btl/tcp: connection lost "
                                   f"(native landing {m})")
                 if m == 0:
+                    trace_mod.count("btl_tcp_native_parks_total")
                     c.pending[3] = filled
                     return False
             else:
@@ -1409,6 +1441,18 @@ class BtlEndpoint:
         the ring has room, the native tcp ring when it does.  False ⇒
         caller enqueues for the send worker.  Safe to mix with queued
         sends: the PML reorders by per-(peer,cid) sequence."""
+        ok = self._try_send_inline(peer, header, payload)
+        if ok and trace_mod.active:
+            # AFTER success only: a declined inline attempt is re-sent by
+            # the worker (whose endpoint.send emits its own instant) — an
+            # entry-time emit would trace that frame twice
+            trace_mod.instant("btl", "send_inline", rank=self.rank,
+                              peer=peer, nbytes=len(payload),
+                              t=header.get("t"))
+        return ok
+
+    def _try_send_inline(self, peer: int, header: dict,
+                         payload: bytes = b"") -> bool:
         if peer == self.rank:
             self.self_btl.send(peer, header, payload)
             return True
@@ -1435,6 +1479,9 @@ class BtlEndpoint:
         return False
 
     def send(self, peer: int, header: dict, payload: bytes = b"") -> None:
+        if trace_mod.active:
+            trace_mod.instant("btl", "send", rank=self.rank, peer=peer,
+                              nbytes=len(payload), t=header.get("t"))
         if peer == self.rank:
             self.self_btl.send(peer, header, payload)
             return

@@ -1,7 +1,7 @@
 """btl/shm — shared-memory transport for same-host ranks (the port's copy
-of the JAX package's ``mpi/btl_shm.py``, whole but for its trace hooks:
-the publish/drain counters and spans come with the trace plane, ROADMAP.md
-Queue 1 item 6.9).
+of the JAX package's ``mpi/btl_shm.py``, whole, with its trace hooks: the
+publish/drain counters, the ``shm_publish`` instant, the ``shm_drain``
+span and the ``btl_shm_drain_ns`` histogram).
 
 ≈ opal/mca/btl/vader (btl_vader_component.c:61-69): intra-host frames move
 through mmap'd SPSC ring buffers instead of TCP loopback — no syscalls per
@@ -58,6 +58,7 @@ from typing import Callable, Optional
 from ompi_tpu_torch import _native
 from ompi_tpu_torch.core import dss, output
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
+from ompi_tpu_torch.mpi import trace as trace_mod
 
 __all__ = ["ShmBTL", "FrameTooBig", "PeerDeadError", "ShmRingWriter",
            "ShmRingReader"]
@@ -577,6 +578,15 @@ class ShmBTL:
         if w is not None:
             w.close()
 
+    def _trace_publish(self, peer: int, payload) -> None:
+        """Counter + instant for a frame that DID enter a ring — called
+        only after a successful publish, so the pvar never counts frames
+        a FrameTooBig/dead-peer failure kept out."""
+        trace_mod.count("btl_shm_publish_total")
+        if trace_mod.active:
+            trace_mod.instant("btl", "shm_publish", rank=self.rank,
+                              peer=peer, nbytes=len(payload))
+
     def send(self, peer: int, header: dict, payload=b"") -> None:
         """Deliver one frame (``payload``: any bytes-like, zero-copy
         buffer views included); raises FrameTooBig for oversized frames,
@@ -584,6 +594,7 @@ class ShmBTL:
         never called for this peer."""
         self._check_alive(peer)
         self._writers[peer].send(header, payload)
+        self._trace_publish(peer, payload)
 
     def try_send(self, peer: int, header: dict, payload=b"") -> bool:
         """Nonblocking delivery on the caller's thread; False when the
@@ -594,7 +605,10 @@ class ShmBTL:
         if w is None:
             return False
         self._check_alive(peer)
-        return w.try_send(header, payload)
+        if not w.try_send(header, payload):
+            return False
+        self._trace_publish(peer, payload)
+        return True
 
     def try_send_eager(self, peer: int, tag: int, cid: int, seq: int,
                       dt: str, elems: int, shp: tuple, payload) -> bool:
@@ -604,7 +618,10 @@ class ShmBTL:
         if w is None or w._fast is None:
             return False
         self._check_alive(peer)
-        return w.try_send_eager(tag, cid, seq, dt, elems, shp, payload)
+        if not w.try_send_eager(tag, cid, seq, dt, elems, shp, payload):
+            return False
+        self._trace_publish(peer, payload)
+        return True
 
     # -- receive side ------------------------------------------------------
 
@@ -657,9 +674,24 @@ class ShmBTL:
                     # reader thread dying mid-delivery; the log below is the
                     # only trace, so keep it loud
                     if hook is not None:
-                        n += hook(r)
+                        n += hook(r)   # fused drain traces in the PML
                     else:
-                        n += r.poll(self.on_frame)
+                        _t0 = (trace_mod.begin()
+                               if trace_mod.active
+                               or trace_mod.hist_active else 0)
+                        got = r.poll(self.on_frame)
+                        if got:
+                            trace_mod.count("btl_shm_drained_total", got)
+                            if _t0 and trace_mod.hist_active:
+                                trace_mod.record_hist(
+                                    "btl_shm_drain_ns",
+                                    time.monotonic_ns() - _t0)
+                            if _t0 and trace_mod.active:
+                                trace_mod.complete(
+                                    "btl", "shm_drain", _t0,
+                                    rank=self.rank, peer=r.peer,
+                                    frames=got)
+                        n += got
                 except Exception as e:   # a bad frame must not kill polling
                     _log.error("btl/shm poll from %d failed: %r", r.peer, e)
             if n:
@@ -677,6 +709,7 @@ class ShmBTL:
                     # a head moved during the GIL-released park: drain
                     # immediately (the whole idle window ran without
                     # touching the interpreter once)
+                    trace_mod.count("btl_shm_native_drains_total")
                     idle = 0
                     continue
                 # slice expired with nothing published: fall through to

@@ -20,9 +20,12 @@ Components here:
   on torch tensors run on the communicator's bound ``DeviceCommunicator``
   (NCCL on the card, gloo on the CPU), with no host copy.
 
-Left out of the JAX package's dispatch: the trace plane (the flight
-recorder, spans and dispatch histograms; ROADMAP.md Queue 1 item 6.9) and
-the fault injector's collective triggers (item 6.10).
+Every dispatch, host route and device route alike, passes the one
+choke point ``_run_recorded``: the collective flight recorder's post and
+done/err (always on), the ``coll_dispatch_ns`` histogram labelled slot,
+provider and log2 size bucket, and the ``coll`` span with cid and seq
+when the timeline is armed.  Left out of the JAX package's dispatch: the
+fault injector's ``@coll`` triggers (ROADMAP.md Queue 1 item 6.10).
 
 Buffer-location dispatch: each table slot is a dispatcher that routes by
 ``core.buffer.classify()`` — HOST buffers to the best host-capable
@@ -33,11 +36,13 @@ silently staging.
 
 from __future__ import annotations
 
+import time
 from typing import TYPE_CHECKING, Optional
 
 from ompi_tpu_torch.core.buffer import (BufferKind, BufferLocationError,
                                         classify)
 from ompi_tpu_torch.core.mca import Component, Framework
+from ompi_tpu_torch.mpi import trace as trace_mod
 
 if TYPE_CHECKING:
     from ompi_tpu_torch.mpi.comm import Communicator
@@ -73,6 +78,54 @@ def _handles(comp: Component) -> frozenset:
     return getattr(comp, "HANDLES", frozenset({"host"}))
 
 
+#: position of the root argument within a dispatcher's ``*args`` (after
+#: the buffer) — mirrors Communicator's positional call shapes so the
+#: recorder signature catches divergent-root mismatches
+_ROOT_ARG = {"bcast": 0, "gather": 0, "scatter": 0, "gatherv": 0,
+             "scatterv": 0, "reduce": 1}
+
+
+def _run_recorded(comm, slot: str, kind: str, sig: int,
+                  provider: Optional[str], nbytes: int, fn, fargs, fkw):
+    """The ONE choke point: flight-recorder post/done (always-on, the
+    hang doctor's evidence), the per-collective span (timeline) and the
+    dispatch-latency histogram labeled provider + log2 size bucket
+    (szb).  A device-only communicator (no PML) records under its world
+    rank."""
+    pml = comm.pml
+    rank = pml.rank if pml is not None else comm._world_rank
+    seq = trace_mod.coll_post(rank, comm.cid, kind, sig, provider,
+                              nbytes)
+    t0 = (trace_mod.begin()
+          if trace_mod.hist_active or trace_mod.active else 0)
+    try:
+        ret = fn(comm, *fargs, **fkw)
+        trace_mod.coll_done(rank, comm.cid, seq, kind)
+        return ret
+    except BaseException as e:
+        trace_mod.coll_err(rank, comm.cid, seq, kind, type(e).__name__)
+        raise
+    finally:
+        # span + histogram land on the raise path too: the one
+        # collective that FAILED is exactly the sample a postmortem
+        # trace needs
+        if t0:
+            now = time.monotonic_ns()
+            if trace_mod.hist_active:
+                szb = nbytes.bit_length()
+                trace_mod.record_hist(
+                    "coll_dispatch_ns", now - t0,
+                    labels=f'slot="{slot}",provider="{provider}",'
+                           f'szb="{szb}"')
+            if trace_mod.active:
+                # cid+seq is the cross-rank round key: the timeline
+                # merge chains every rank's span of one collective
+                trace_mod.complete(
+                    "coll", slot, t0, rank=rank, provider=provider,
+                    comm=comm.name, cid=comm.cid, size=comm.size,
+                    seq=seq)
+
+
 def _make_dispatch(slot: str, host_fn, host_name: Optional[str],
                    dev_fn, dev_name: Optional[str]):
     def dispatch(comm, buf, *args, **kw):
@@ -83,18 +136,50 @@ def _make_dispatch(slot: str, host_fn, host_name: Optional[str],
                     f"component selected (directive excludes "
                     f"host/self; device path [{dev_name}] needs torch "
                     f"tensors)")
-            return host_fn(comm, buf, *args, **kw)
-        if dev_fn is None:
-            raise BufferLocationError(
-                f"{slot}: device buffer but no device-capable coll "
-                f"component selected (have [{host_name}]; enable "
-                f"coll/xla and comm.bind_device(...) for the device "
-                f"path, or .cpu().numpy() the tensor if host staging is "
-                f"intended)")
-        return dev_fn(comm, buf, *args, **kw)
+            fn, provider = host_fn, host_name
+        else:
+            if dev_fn is None:
+                raise BufferLocationError(
+                    f"{slot}: device buffer but no device-capable coll "
+                    f"component selected (have [{host_name}]; enable "
+                    f"coll/xla and comm.bind_device(...) for the device "
+                    f"path, or .cpu().numpy() the tensor if host staging "
+                    f"is intended)")
+            fn, provider = dev_fn, dev_name
+        nbytes = int(getattr(buf, "nbytes", 0))
+        if root_pos is not None:
+            # Communicator passes root positionally (comm.py) — pull it
+            # from its slot-specific position so a divergent-root
+            # collective signs differently across ranks
+            if len(args) > root_pos:
+                root = args[root_pos]
+            else:
+                root = kw.get("root", -1)
+            root = root if isinstance(root, int) else -1
+        else:
+            root = -1
+        sig = trace_mod.collrec_sig(
+            slot, getattr(buf, "dtype", None), nbytes, root)
+        return _run_recorded(comm, slot, slot, sig, provider, nbytes,
+                             fn, (buf, *args), kw)
 
+    root_pos = _ROOT_ARG.get(slot)
     dispatch.__name__ = f"coll_{slot}_dispatch"
     return dispatch
+
+
+def _make_traced_barrier(fn, provider):
+    """Barrier has no buffer to classify; wrap the provider directly so
+    the epoch still shows up on the recorder, the coll timeline and the
+    dispatch histogram — a barrier's latency IS the wait for the last
+    arriver."""
+    sig = trace_mod.collrec_sig("barrier", None, 0)
+
+    def barrier(comm, *args, **kw):
+        return _run_recorded(comm, "barrier", "barrier", sig, provider,
+                             0, fn, args, kw)
+
+    return barrier
 
 
 def install(comm: "Communicator") -> None:
@@ -131,7 +216,8 @@ def install(comm: "Communicator") -> None:
             # ``Communicator(...).bind_device(...)``) takes the device's
             host_ok = host_fn is not None and (
                 dev_fn is None or getattr(comm, "pml", None) is not None)
-            setattr(module, slot, host_fn if host_ok else dev_fn)
+            setattr(module, slot, _make_traced_barrier(
+                *((host_fn, host_name) if host_ok else (dev_fn, dev_name))))
         if host_name:
             module.providers[slot] = host_name
         if dev_name:

@@ -13,20 +13,23 @@ dynamic rules file (``coll_host_dynamic_rules``, coll_tuned_dynamic_file.c →
 The variables, their defaults and every decision are the JAX package's;
 :meth:`HostColl.decision` names the algorithm a call will run, and
 :meth:`HostColl.freeze_decision` resolves it once for a persistent plan.
-Left out: the trace plane's decision instants and per-algorithm histograms
-(ROADMAP.md Queue 1 item 6.9).
+Each decision records a ``decision:<coll>`` instant on the timeline and
+each algorithm body its latency into the ``coll_host_algo_ns`` histogram
+labelled collective and algorithm, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.core.mca import Component
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.coll import base, coll_framework, rules
 from ompi_tpu_torch.mpi.constants import MPIException
 from ompi_tpu_torch.mpi.op import Op
@@ -36,6 +39,20 @@ __all__ = ["HostColl", "HostCollBase"]
 
 def _nbytes(buf) -> int:
     return np.asarray(buf).nbytes
+
+
+def _timed(coll: str, algo: str, fn, *args, **kw):
+    """Run one decided algorithm body, recording its latency into the
+    per-(collective, algorithm) histogram."""
+    if not trace_mod.hist_active:
+        return fn(*args, **kw)
+    t0 = time.monotonic_ns()
+    try:
+        return fn(*args, **kw)
+    finally:
+        trace_mod.record_hist(
+            "coll_host_algo_ns", time.monotonic_ns() - t0,
+            labels=f'coll="{coll}",algo="{algo}"')
 
 
 class HostCollBase(Component):
@@ -64,14 +81,26 @@ class HostCollBase(Component):
         """forced config var > dynamic rules file > None (fixed
         decision) — the shared :func:`rules.decide` ladder, fed by the
         component's lock-guarded RuleSet cache."""
-        alg, _src = rules.decide(
+        alg, src = rules.decide(
             coll, comm.size, nbytes,
             forced=var_registry.get(f"coll_host_{coll}_algorithm") or "",
             path=var_registry.get("coll_host_dynamic_rules") or "",
             valid=self.ALGORITHMS.get(coll, ()),
             forced_src=f"config var coll_host_{coll}_algorithm",
             load=self._load_rules)
+        self._trace_decision(coll, comm, nbytes, alg, src)
         return alg
+
+    @staticmethod
+    def _trace_decision(coll: str, comm, nbytes: int,
+                        alg: Optional[str], src: str) -> None:
+        """Record the selection layer's verdict on the timeline, so the
+        per-algorithm spans carry WHY that algorithm ran."""
+        if trace_mod.active:
+            trace_mod.instant(
+                "coll", f"decision:{coll}", rank=comm.pml.rank,
+                algorithm=alg or "fixed-default", source=src,
+                nbytes=nbytes, size=comm.size)
 
 
 #: algorithm name → base-library function, per collective
@@ -229,10 +258,10 @@ class HostColl(HostCollBase):
     def coll_bcast(self, comm, buf, root: int):
         alg = self.decision("bcast", comm, 0)
         if alg == "pipeline":
-            return base.bcast_pipeline(
-                comm, buf, root,
-                segsize=var_registry.get("coll_host_bcast_segment"))
-        return _FUNCS["bcast"][alg](comm, buf, root)
+            return _timed(
+                "bcast", "pipeline", base.bcast_pipeline, comm, buf,
+                root, segsize=var_registry.get("coll_host_bcast_segment"))
+        return _timed("bcast", alg, _FUNCS["bcast"][alg], comm, buf, root)
 
     def coll_reduce(self, comm, sendbuf, op: Op, root: int):
         return base.reduce_binomial(comm, sendbuf, op, root)
@@ -240,28 +269,33 @@ class HostColl(HostCollBase):
     def coll_allreduce(self, comm, sendbuf, op: Op):
         alg = self.decision("allreduce", comm, _nbytes(sendbuf), op)
         if alg == "segmented_ring":
-            return base.allreduce_segmented_ring(
-                comm, sendbuf, op,
+            return _timed(
+                "allreduce", alg, base.allreduce_segmented_ring, comm,
+                sendbuf, op,
                 segsize=var_registry.get("coll_host_allreduce_segment"))
-        return _FUNCS["allreduce"][alg](comm, sendbuf, op)
+        return _timed("allreduce", alg, _FUNCS["allreduce"][alg], comm,
+                      sendbuf, op)
 
     def coll_gather(self, comm, sendbuf, root: int):
         return base.gather_linear(comm, sendbuf, root)
 
     def coll_allgather(self, comm, sendbuf):
         alg = self.decision("allgather", comm, _nbytes(sendbuf))
-        return _FUNCS["allgather"][alg](comm, sendbuf)
+        return _timed("allgather", alg, _FUNCS["allgather"][alg], comm,
+                      sendbuf)
 
     def coll_scatter(self, comm, sendbuf, root: int):
         return base.scatter_linear(comm, sendbuf, root)
 
     def coll_alltoall(self, comm, sendbuf):
         alg = self.decision("alltoall", comm, _nbytes(sendbuf))
-        return _FUNCS["alltoall"][alg](comm, sendbuf)
+        return _timed("alltoall", alg, _FUNCS["alltoall"][alg], comm,
+                      sendbuf)
 
     def coll_reduce_scatter(self, comm, sendbuf, op: Op):
         alg = self.decision("reduce_scatter", comm, _nbytes(sendbuf), op)
-        return _FUNCS["reduce_scatter"][alg](comm, sendbuf, op)
+        return _timed("reduce_scatter", alg, _FUNCS["reduce_scatter"][alg],
+                      comm, sendbuf, op)
 
     def coll_reduce_scatter_block(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)

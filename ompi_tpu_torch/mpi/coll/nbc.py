@@ -18,9 +18,10 @@ Host buffers only: a torch tensor (on any device) is refused with the
 PML's message before anything is copied; collectives on tensors run on
 the communicator's device route (``comm.bind_device``).
 
-Left out: the trace plane's flight-recorder records (``i<kind>`` posts,
-round advances) and the ``coll_nbc_ns`` histogram (ROADMAP.md Queue 1
-item 6.9).
+Each schedule posts to the collective flight recorder under its
+``i<kind>`` name, records every round advance and its done or err on the
+same op_seq, and its post-to-completion latency lands in the
+``coll_nbc_ns`` histogram, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.constants import MPIException
 from ompi_tpu_torch.mpi.op import Op
 from ompi_tpu_torch.mpi.pml import _reject_device, _reject_device_parts
@@ -83,6 +85,20 @@ class NbcRequest(Request):
         self._ridx = 0
         self._pending: Optional[list] = None  # [(req, key|None), ...]
         self._nbc_lock = threading.Lock()
+        # post→completion latency (the nbc rung of the coll dispatch
+        # histogram family; persistent Starts ride coll_pstart_ns)
+        self._h_t0 = (time.monotonic_ns()
+                      if trace_mod.hist_active else 0)
+        # collective flight recorder: nbc schedules post under their
+        # "i<kind>" name with their own (rank, cid) op_seq — round
+        # advances and completion ride the same seq.  The signature is
+        # kind-only: per-rank schedule shape is NOT cross-rank-comparable
+        # and would read as a false mismatch
+        self._rec_rank = comm.pml.rank
+        self._rec_closed = False
+        self._rec_seq = trace_mod.coll_post(
+            self._rec_rank, comm.cid, kind,
+            trace_mod.collrec_sig(kind, None, 0), "nbc", 0)
         self._progress(block=False)
 
     # -- progress engine --------------------------------------------------
@@ -114,6 +130,10 @@ class NbcRequest(Request):
             rnd.compute(self._state)
         self._pending = None
         self._ridx += 1
+        trace_mod.coll_event(
+            self._rec_rank, self._comm.cid, "round",
+            {"r": self._ridx, "of": len(self._rounds)},
+            seq=self._rec_seq, kind=self.kind)
 
     def _progress(self, block: bool,
                   deadline: Optional[float] = None) -> bool:
@@ -121,25 +141,44 @@ class NbcRequest(Request):
         with self._nbc_lock:
             if self.done():
                 return True
-            while self._ridx < len(self._rounds):
-                if self._pending is None:
-                    self._start_round()
-                assert self._pending is not None
-                if block:
-                    for req, _ in self._pending:
-                        if deadline is None:
-                            req.wait()
-                        else:
-                            remaining = deadline - time.monotonic()
-                            if remaining <= 0:
-                                raise TimeoutError(
-                                    f"{self.kind} timed out in round "
-                                    f"{self._ridx}/{len(self._rounds)}")
-                            req.wait(timeout=remaining)
-                elif not all(req.test() for req, _ in self._pending):
-                    return False
-                self._finish_round()
+            try:
+                while self._ridx < len(self._rounds):
+                    if self._pending is None:
+                        self._start_round()
+                    assert self._pending is not None
+                    if block:
+                        for req, _ in self._pending:
+                            if deadline is None:
+                                req.wait()
+                            else:
+                                remaining = deadline - time.monotonic()
+                                if remaining <= 0:
+                                    raise TimeoutError(
+                                        f"{self.kind} timed out in round "
+                                        f"{self._ridx}/{len(self._rounds)}")
+                                req.wait(timeout=remaining)
+                    elif not all(req.test() for req, _ in self._pending):
+                        return False
+                    self._finish_round()
+            except BaseException as e:
+                # a failed round must close the recorder entry — a
+                # leaked in-flight head would read as a forever-wedged
+                # rank (once: test() may re-raise)
+                if not self._rec_closed:
+                    self._rec_closed = True
+                    trace_mod.coll_err(
+                        self._rec_rank, self._comm.cid, self._rec_seq,
+                        self.kind, type(e).__name__)
+                raise
             self.complete(self._result_fn(self._state))
+            if not self._rec_closed:
+                self._rec_closed = True
+                trace_mod.coll_done(self._rec_rank, self._comm.cid,
+                                    self._rec_seq, self.kind)
+            if self._h_t0 and trace_mod.hist_active:
+                trace_mod.record_hist(
+                    "coll_nbc_ns", time.monotonic_ns() - self._h_t0,
+                    labels=f'kind="{self.kind}"')
             return True
 
     # -- Request interface ------------------------------------------------

@@ -48,11 +48,16 @@ multi-phase plans must be waited in the same order on every rank.
 buffers only: a torch tensor (on any device) given to a ``*_init`` is
 refused with the PML's message before anything is bound or copied.
 
-Left out: the trace plane (ROADMAP.md Queue 1 item 6.9: the
-``coll_persistent_*_total`` counters, bind spans, decision instants,
-Start histograms and the flight recorder's ``p<kind>`` records) and
-fault tolerance (item 6.10: the Start gate's revocation and
-dead-member checks, and the auto-rebind after a member is revived).
+The trace plane's sites are the JAX package's: the
+``coll_persistent_{binds,starts,rebinds}_total`` counters, the
+``persistent_bind:<kind>`` span, the ``decision:shm_allreduce`` instant,
+the ``coll_pstart_ns`` and ``coll_ppublish_ns`` histograms, and the
+flight recorder's ``p<kind>`` post and done/err for every Start with
+its ``pub`` and ``fold`` phase records.
+
+Left out: fault tolerance (ROADMAP.md Queue 1 item 6.10: the Start
+gate's revocation and dead-member checks, and the auto-rebind after a
+member is revived).
 Every bind still runs the incarnation agreement (``_agree_incs``) on
 the all-zero snapshot, so a bind's collective sequence — and the cids
 and tags after it — stays in step with the JAX package's, and item
@@ -62,12 +67,14 @@ and tags after it — stays in step with the JAX package's, and item
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from typing import Any, Callable, Optional
 
 import numpy as np
 
 from ompi_tpu_torch.core.config import var_registry
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.constants import MPIException
 from ompi_tpu_torch.mpi.pml import _reject_device, _reject_device_parts
 from ompi_tpu_torch.mpi.request import (
@@ -385,11 +392,22 @@ class _ArenaPlan:
                 arr = self._as_bound()
                 if k >= 2:         # readers done with this parity's
                     s._wait_all_depart(k - 1, comm)   # k-2 occupant
+                _h_t0 = (time.monotonic_ns()
+                         if trace_mod.hist_active else 0)
                 if not s._publish_arrive(self._res_off[q], arr, k + 1):
                     np.copyto(self._res[q].reshape(self._shape), arr,
                               casting="no")
                     s._set_arrive(k + 1)
                 s._set_depart(k + 1)
+                if _h_t0:
+                    # publish half of the straggler split: slot copy +
+                    # flag store, no waits (those land in
+                    # coll_arena_wait_ns)
+                    trace_mod.record_hist(
+                        "coll_ppublish_ns",
+                        time.monotonic_ns() - _h_t0)
+                trace_mod.coll_event(comm.pml.rank, comm.cid, "pub",
+                                     {"k": k})
                 return CompletedRequest(arr, kind="pbcast")
             return _LazyRequest(
                 lambda: self._drain_bcast(k),
@@ -406,12 +424,17 @@ class _ArenaPlan:
             fold = 0 if kind == "allreduce" else self._root
             if k >= 2:
                 s._wait_depart(fold, k - 1, comm)
+        _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
         arrive = 2 * k + 1 if segpar else k + 1
         if not s._publish_arrive(self._in_off[q][comm.rank], arr,
                                  arrive):
             np.copyto(self._in[q][comm.rank].reshape(self._shape), arr,
                       casting="no")
             s._set_arrive(arrive)
+        if _h_t0:
+            trace_mod.record_hist("coll_ppublish_ns",
+                                  time.monotonic_ns() - _h_t0)
+        trace_mod.coll_event(comm.pml.rank, comm.cid, "pub", {"k": k})
         if kind == "reduce":
             if comm.rank != self._root:
                 # contribution is in the slot: locally complete (the
@@ -465,6 +488,8 @@ class _ArenaPlan:
         """Rank-ordered fold straight over the parity-q slots — one
         GIL-released native call when the (op, dtype) pair compiled,
         the numpy view chain otherwise (bit-identical either way)."""
+        trace_mod.coll_event(self._comm.pml.rank, self._comm.cid,
+                             "fold", {"k": k})
         q = k & 1
         ex = self._fold_exec()
         if ex is not None:
@@ -764,7 +789,12 @@ def _bind_arena(comm, kind, buf, op, root, shape, dtype, nbytes,
         # resolved by the standard ladder (forced var > rules file >
         # payload crossover) — every rank computes the same verdict
         # from globally-agreed inputs
-        algorithm, _src = shm_mod.decide_allreduce_algo(comm, nbytes)
+        algorithm, src = shm_mod.decide_allreduce_algo(comm, nbytes)
+        if trace_mod.active:
+            trace_mod.instant(
+                "coll", "decision:shm_allreduce", rank=comm.pml.rank,
+                algorithm=algorithm, source=src, nbytes=nbytes,
+                size=comm.size)
     nslots = {"barrier": 0, "bcast": 1, "allgather": p,
               "reduce": p + 1, "allreduce": p + 1}[kind]
     slots = shm_mod.make_persistent_slots(comm, nbytes, nslots)
@@ -873,6 +903,7 @@ def _bind_hier(comp, st, host, comm, kind, buf, op, root, nbytes,
         if node.size > 1:
             if (st.arena is not None and raw_ok
                     and arr.nbytes <= st.arena.slot_bytes):
+                trace_mod.count("coll_shm_fanin_total")
                 block = st.arena.allgather(node, arr)
             else:
                 block = base.allgather_ring(node, arr)
@@ -998,11 +1029,16 @@ class PersistentCollRequest(PersistentRequest):
         self._binder = binder
         self._plan = None
         self._incs: tuple = ()
+        # recorder signature of this plan's Starts (kind + world size:
+        # a persistent op's shape is frozen at bind, so the signature
+        # cannot drift between Starts)
+        self._rec_sig = trace_mod.collrec_sig(f"p{kind}", None, comm.size)
         super().__init__(self._launch, kind=f"persistent-{kind}")
-        self._compile()
+        self._compile(first=True)
         comm._persistent_colls.append(weakref.ref(self))
 
-    def _compile(self) -> None:
+    def _compile(self, first: bool) -> None:
+        t0 = trace_mod.begin() if trace_mod.active else 0
         self._plan = self._binder()
         # the staleness snapshot is AGREED across the members (element-
         # wise MAX — one base allreduce on a path that is collective
@@ -1014,6 +1050,14 @@ class PersistentCollRequest(PersistentRequest):
             # re-stamp the pinned slots' epoch fence with the agreed
             # snapshot's epoch (sum of agreed incarnations)
             slots._fence = (sum(self._incs), slots._fence[1])
+        trace_mod.count("coll_persistent_binds_total")
+        if not first:
+            trace_mod.count("coll_persistent_rebinds_total")
+        if t0:
+            trace_mod.complete(
+                "coll", f"persistent_bind:{self._ckind}", t0,
+                rank=self._comm.pml.rank, cid=self._comm.cid,
+                provider=self._plan.provider, rebind=not first)
 
     @property
     def provider(self) -> Optional[str]:
@@ -1033,7 +1077,41 @@ class PersistentCollRequest(PersistentRequest):
             raise MPIException(
                 f"Start on a freed persistent {self._ckind} plan "
                 f"(Comm.free() released its pinned slots)")
-        return plan.start_op()
+        comm = self._comm
+        trace_mod.count("coll_persistent_starts_total")
+        # collective flight recorder: every Start posts under the
+        # "p<kind>" name with its own (rank, cid) op_seq; completion of
+        # the inner request records done — a wedged Start therefore
+        # leaves a post-without-done head the hang doctor reads
+        rank = comm.pml.rank
+        seq = trace_mod.coll_post(
+            rank, comm.cid, f"p{self._ckind}", self._rec_sig,
+            plan.provider, 0)
+        # Start→completion latency: stamped here, recorded when the
+        # inner request completes (CompletedRequest fires the callback
+        # inline, so a locally-complete publish still lands a sample)
+        _h_t0 = trace_mod.begin() if trace_mod.hist_active else 0
+        req = plan.start_op()
+
+        def _rec_close(_r, r=rank, c=comm.cid, s=seq,
+                       k=f"p{self._ckind}"):
+            # completion callbacks also fire from Request.fail() — a
+            # failed Start records err, not done
+            exc = getattr(_r, "_exc", None)
+            if exc is not None:
+                trace_mod.coll_err(r, c, s, k, type(exc).__name__)
+            else:
+                trace_mod.coll_done(r, c, s, k)
+
+        req.add_completion_callback(_rec_close)
+        if _h_t0:
+            labels = (f'kind="{self._ckind}",'
+                      f'provider="{plan.provider}"')
+            req.add_completion_callback(
+                lambda _r, t0=_h_t0, lb=labels: trace_mod.record_hist(
+                    "coll_pstart_ns", time.monotonic_ns() - t0,
+                    labels=lb))
+        return req
 
     def rebind(self) -> "PersistentCollRequest":
         """Recompile the bound plan on the same communicator —
@@ -1045,7 +1123,7 @@ class PersistentCollRequest(PersistentRequest):
         self._inner = None
         if old is not None:
             old.close()
-        self._compile()
+        self._compile(first=False)
         return self
 
     def free(self) -> None:

@@ -55,18 +55,24 @@ For bcast only the root knows the payload, so the root *communicates*
 its arena-vs-host verdict through the descriptor round — every rank
 takes the same branch without a pre-exchange.
 
-What the port does in place of two planes it has not ported yet:
+The trace plane's sites are the JAX package's: the ``coll_shm_*_total``
+counters (fan-in, fan-out, fallback, native waits, publishes and folds,
+dead writers), a ``decision:<coll>`` instant for every fallback to
+coll/host, the ``shm_setup`` span, the ``coll_arena_wait_ns``
+histogram, the flight recorder's ``wait`` edge naming the rank a wait
+outlived a park slice on, and the stuck watchdog (``coll_stuck_timeout``:
+a ``stuck`` record, ``coll_stuck_events_total`` and an immediate metrics
+push).  ``arena_states`` gives the hang doctor every live arena's
+arrive/depart counters.
 
-- the trace plane (ROADMAP.md Queue 1 item 6.9): no ``coll_shm_*_total``
-  counters, no ``decision:<coll>`` instants, no wait histograms, no
-  flight-recorder wait edges or stuck watchdog;
-- fault tolerance (item 6.10): the coll epoch every cached artifact is
-  stamped with is the constant 0 (``_coll_epoch``), since no member can be
-  revived yet; the stale-state check that compares a cached state's epoch
-  with the communicator's, and the arena wait's epoch fence
-  (``StaleCollEpoch``), stay in the code for that item to drive.  An
-  arena wait still fails fast when the expected writer's process is gone
-  (the shm BTL's pid probe) and at ``coll_shm_timeout``.
+What the port does in place of a plane it has not ported yet, fault
+tolerance (ROADMAP.md Queue 1 item 6.10): the coll epoch every cached
+artifact is stamped with is the constant 0 (``_coll_epoch``), since no
+member can be revived yet; the stale-state check that compares a cached
+state's epoch with the communicator's, and the arena wait's epoch fence
+(``StaleCollEpoch``), stay in the code for that item to drive.  An arena
+wait still fails fast when the expected writer's process is gone (the
+shm BTL's pid probe) and at ``coll_shm_timeout``.
 
 The persistent collectives' bound plans (``mpi/coll/persistent.py``) pin
 a ``PersistentSlots`` segment of their own (``make_persistent_slots``),
@@ -91,6 +97,7 @@ from ompi_tpu_torch.core import output, shmseg
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.core.mca import Component
 from ompi_tpu_torch.mpi import op as op_mod
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.coll import base, coll_framework, rules
 from ompi_tpu_torch.mpi.constants import (
     COMM_TYPE_SHARED, ERR_PROC_FAILED, UNDEFINED, MPIException,
@@ -133,6 +140,33 @@ class StaleCollEpoch(MPIException):
         super().__init__(msg, error_class=ERR_PROC_FAILED)
 
 
+#: live arenas of this process — the hang doctor's capture walks them
+#: for the arrive/depart counter snapshots (the "who hasn't arrived"
+#: signal); weak so a closed/garbage-collected arena just disappears
+_live_arenas: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def arena_states() -> list[dict]:
+    """Each live arena's counter block as a plain dict — what a doctor
+    capture embeds.  Best-effort: a concurrently-detached segment
+    contributes nothing rather than raising on a reader thread."""
+    out = []
+    for a in list(_live_arenas):
+        try:
+            f = a._flags
+            out.append({
+                "size": a.size,
+                "rank": a.rank,
+                "world": list(a.world) if a.world is not None else None,
+                "arrive": [int(f[r * 8]) for r in range(a.size)],
+                "depart": [int(f[(a.size + r) * 8])
+                           for r in range(a.size)],
+            })
+        except (ValueError, IndexError, OSError):
+            continue
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the native executor (_native/arena.c via ctypes — every call runs with
 # the GIL RELEASED, which is the entire point: a rank parked in a flag
@@ -150,6 +184,11 @@ _NATIVE_SPINS = _native.PARK_SPINS
 _NATIVE_SLICE_NS = 2_000_000
 #: below this a ctypes call costs more than the GIL-held numpy copy
 _NATIVE_PUBLISH_MIN = 512
+
+#: a wait this old records its flight-recorder wait-for edge (one park
+#: slice: younger waits are normal publish races, and an entry-time
+#: edge could name a laggard that long since arrived)
+_WAIT_REC_AFTER_S = _NATIVE_SLICE_NS / 1e9
 
 #: physical parallelism available to cooperative folds (tests patch it)
 _NCORES = os.cpu_count() or 1
@@ -222,6 +261,7 @@ def _native_fold(ex, dst_addr: int, src_addrs: list, nelems: int,
         raise MPIException(
             f"coll/shm: native fold rejected pre-validated plan "
             f"(dtype code {dtype_code}, op code {op_code})")
+    trace_mod.count("coll_shm_native_folds_total")
 
 
 def decide_allreduce_algo(comm, nbytes: int) -> tuple[str, str]:
@@ -314,6 +354,11 @@ class Arena:
         # node arenas, so a revive anywhere in the hierarchy breaks the
         # wait).  None ⇒ unfenced (bare test arenas).
         self._fence = fence
+        # this rank's WORLD rank (the flight recorder / doctor key; the
+        # arena index is node-local)
+        self._wr = (pml.rank if pml is not None
+                    else (list(world)[rank] if world is not None
+                          else rank))
         # arena rank → world rank, plus the pml whose btl owns the
         # pid-liveness probe: a writer dying between flag stores leaves
         # peers nothing to observe but its pid, so the wait loop probes
@@ -331,6 +376,7 @@ class Arena:
         # the mapped u64 view is base + i*8, slot offsets are relative
         # to the same base); None ⇒ python data plane only
         self._base_addr = _addr_of(seg.buf)
+        _live_arenas.add(self)   # doctor capture reads arrive/depart
 
     @staticmethod
     def nbytes_for(size: int, slot_bytes: int) -> int:
@@ -376,11 +422,24 @@ class Arena:
         f = self._flags
         if f[idx] >= v:
             return
+        # the straggler signal: every ns burnt in here is this rank
+        # waiting on a PEER's flag store — recorded into the arena-wait
+        # histogram on completed waits (an already-satisfied flag never
+        # reaches this point, so the fast path stays one compare).  The
+        # slow paths below additionally record a flight-recorder
+        # ``wait`` event naming the world rank whose store the wait is
+        # parked on (the hang doctor's wait-for edge) — AFTER the wait
+        # has survived ~one park slice, so transient publish races
+        # cannot fabricate stale mutual edges (a fake deadlock cycle)
+        _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
         ex = _exec() if self._base_addr is not None else None
         if ex is not None:
             self._park_native(ex, v, comm, idx=idx)
         else:
             self._wait_py(idx, v, comm)
+        if _h_t0 and trace_mod.hist_active:
+            trace_mod.record_hist("coll_arena_wait_ns",
+                                  time.monotonic_ns() - _h_t0)
 
     def _wait_py(self, idx: int, v: int, comm) -> None:
         """The pure-python park (native executor off/unavailable)."""
@@ -391,6 +450,8 @@ class Arena:
         now = time.monotonic()
         deadline = now + timeout
         probe_at = now + grace if grace > 0 else None
+        stuck_at = self._stuck_at(now)
+        rec_at: Optional[float] = now + _WAIT_REC_AFTER_S
         spins = 0
         delay = 2e-5
         while f[idx] < v:
@@ -400,12 +461,19 @@ class Arena:
                 continue
             time.sleep(delay)       # escalate once the burst window passed
             delay = min(delay * 2, 1e-3)
+            if rec_at is not None and time.monotonic() > rec_at:
+                rec_at = self._record_wait(comm, idx // 8,
+                                           (idx // 8) % self.size, v)
             if comm is not None:
                 self._check_ft(comm)
             if probe_at is not None and time.monotonic() > probe_at:
                 # the probe itself is rate-limited (shared btl cache), so
                 # asking every escalated iteration stays cheap
                 self._probe_writer((idx // 8) % self.size, grace, timeout)
+            if stuck_at is not None and time.monotonic() > stuck_at:
+                stuck_at = self._report_stuck(
+                    comm, time.monotonic() - (deadline - timeout),
+                    (idx // 8) % self.size)
             if time.monotonic() > deadline:
                 raise MPIException(
                     f"coll/shm: arena wait (flag {idx // 8}, want {v}, "
@@ -421,12 +489,15 @@ class Arena:
         the dead-writer pid probe after the grace, and the
         coll_shm_timeout deadline, all at the same ~slice cadence the
         escalated python loop reached them."""
+        trace_mod.count("coll_shm_native_waits_total")
         timeout = float(var_registry.get("coll_shm_timeout") or 60)
         grace = _probe_grace(timeout) if (self.world is not None
                                           and self._pml is not None) else 0.0
         now = time.monotonic()
         deadline = now + timeout
         probe_at = now + grace if grace > 0 else None
+        stuck_at = self._stuck_at(now)
+        recorded = False
         base = self._base_addr
         while True:
             if all_base is None:
@@ -441,8 +512,20 @@ class Arena:
             if comm is not None:
                 self._check_ft(comm)
             lag = self._laggard(v, idx=idx, all_base=all_base)
+            if not recorded:
+                # the wait outlived a whole park slice: record the edge
+                # with the laggard as of NOW (not wait entry — the
+                # entry-time laggard may have long since arrived)
+                recorded = True
+                flag = (idx if all_base is None
+                        else all_base + lag * 8) // 8
+                self._record_wait(comm, flag, lag % self.size, v)
             if probe_at is not None and time.monotonic() > probe_at:
                 self._probe_writer(lag % self.size, grace, timeout)
+            if stuck_at is not None and time.monotonic() > stuck_at:
+                stuck_at = self._report_stuck(
+                    comm, time.monotonic() - (deadline - timeout),
+                    lag % self.size)
             if time.monotonic() > deadline:
                 f = self._flags
                 flag = idx if all_base is None else all_base + lag * 8
@@ -464,6 +547,32 @@ class Arena:
                 return r
         return 0
 
+    def _record_wait(self, comm, flag: int, lag: int, v: int) -> None:
+        """One flight-recorder ``wait`` edge naming the current laggard
+        (called once per wait, after it survived ~a park slice).
+        Returns None — the caller's record-once sentinel."""
+        trace_mod.coll_event(
+            self._wr, comm.cid if comm is not None else -1, "wait",
+            {"flag": flag, "want": v,
+             "on": self.world[lag] if self.world is not None else lag})
+        return None
+
+    def _stuck_at(self, now: float) -> Optional[float]:
+        """When this wait should push a stuck event up the uplink
+        (None = watchdog disabled via coll_stuck_timeout 0)."""
+        stuck = float(var_registry.get("coll_stuck_timeout") or 0)
+        return now + stuck if stuck > 0 else None
+
+    def _report_stuck(self, comm, waited_s: float,
+                      lag: int) -> Optional[float]:
+        """The watchdog fired: record a stuck event naming the laggard
+        and force a metrics push (once per wait — returns the cleared
+        re-arm sentinel)."""
+        trace_mod.coll_stuck(
+            self._wr, comm.cid if comm is not None else -1, waited_s,
+            self.world[lag] if self.world is not None else lag)
+        return None
+
     def _wait_many(self, all_base: int, v: int, comm) -> None:
         """Wait flag[all_base + r*8] >= v for every arena rank — ONE
         native call when the executor is live, the per-flag python
@@ -479,7 +588,11 @@ class Arena:
             for r in range(r0, self.size):
                 self._wait(all_base + r * 8, v, comm)
             return
+        _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
         self._park_native(ex, v, comm, all_base=all_base)
+        if _h_t0 and trace_mod.hist_active:
+            trace_mod.record_hist("coll_arena_wait_ns",
+                                  time.monotonic_ns() - _h_t0)
 
     def _probe_writer(self, writer: int, grace: float,
                       timeout: float) -> None:
@@ -494,6 +607,7 @@ class Arena:
         ep = getattr(self._pml, "endpoint", None)
         if ep is None or ep.peer_alive(w) is not False:
             return
+        trace_mod.count("coll_shm_writer_dead_total")
         raise MPIException(
             f"coll/shm: rank {w} (arena writer) died mid-collective — "
             f"pid probe after {grace:.1f}s grace, not the "
@@ -565,6 +679,7 @@ class Arena:
             ex.ompi_tpu_arena_publish_strided(
                 dst, arr.ctypes.data, nblocks, bl, stride,
                 self._base_addr, fidx, fval)
+        trace_mod.count("coll_shm_native_publishes_total")
         return True
 
     def _publish_arrive(self, dst_off: int, arr: np.ndarray,
@@ -892,6 +1007,7 @@ class Arena:
             ctypes.addressof(ln), n,
             self._base_addr if fidx is not None else None,
             fidx if fidx is not None else 0, fval)
+        trace_mod.count("coll_shm_native_publishes_total")
         return True
 
     def _fold_slots(self, dtype: np.dtype, op: Op, lo: int, hi: int,
@@ -1284,6 +1400,13 @@ class ShmColl(Component):
                      "seconds an arena flag wait may stall before raising "
                      "(a dead peer or collective-order mismatch leaves "
                      "flags behind forever)")
+        register_var("coll", "stuck_timeout", VarType.DOUBLE, 5.0,
+                     "seconds an arena flag wait may stall before the "
+                     "rank records a 'stuck' event on the collective "
+                     "flight recorder and forces an out-of-cadence "
+                     "metrics push (the hang doctor's watchdog trigger).  "
+                     "0 disables the watchdog; the wait itself still "
+                     "fails at coll_shm_timeout")
         register_var("coll", "shm_probe_grace", VarType.DOUBLE, 1.0,
                      "seconds an arena wait stalls before probing the "
                      "expected writer's pid via the btl liveness probe "
@@ -1336,7 +1459,12 @@ class ShmColl(Component):
         comm._coll_shm_state = _SETUP
         built = None
         try:
+            t0 = trace_mod.begin() if trace_mod.active else 0
             built = self._build_state(comm, epoch)
+            if t0:
+                trace_mod.complete("coll", "shm_setup", t0,
+                                   rank=comm.pml.rank, cid=comm.cid,
+                                   mode=built.mode, size=comm.size)
         except MPIException as e:
             # the raise is deterministic (every rank computes the same
             # partition), so settling on coll/host is collectively
@@ -1440,9 +1568,14 @@ class ShmColl(Component):
         return None
 
     def _fallback(self, comm, coll: str, reason: str, nbytes: int = 0):
-        """coll/host for this call.  The reason, collective and size are
-        what the trace plane's ``decision:<coll>`` instant will record
-        (ROADMAP.md Queue 1 item 6.9)."""
+        """coll/host for this call, counted and recorded as a
+        ``decision:<coll>`` instant naming the reason."""
+        trace_mod.count("coll_shm_fallback_total")
+        if trace_mod.active:
+            trace_mod.instant(
+                "coll", f"decision:{coll}", rank=comm.pml.rank,
+                algorithm="fallback:host", source=f"coll/shm: {reason}",
+                nbytes=nbytes, size=comm.size)
         return self._host()
 
     def _route(self, comm, coll: str, nbytes: int = 0):
@@ -1466,6 +1599,7 @@ class ShmColl(Component):
         if st.node.size == 1:
             return
         if st.arena is not None:
+            trace_mod.count("coll_shm_fanin_total")
             st.arena.gate_in(st.node, 0)
         else:
             base.gather_linear(st.node, _TOKEN, 0)
@@ -1474,6 +1608,7 @@ class ShmColl(Component):
         if st.node.size == 1:
             return
         if st.arena is not None:
+            trace_mod.count("coll_shm_fanout_total")
             st.arena.gate_out(st.node, 0)
         else:
             base.bcast_binomial(st.node,
@@ -1486,7 +1621,9 @@ class ShmColl(Component):
         if st.arena is not None:
             out = st.arena.bcast(node, nroot, buf, self._cap())
             if out is not None:
+                trace_mod.count("coll_shm_fanout_total")
                 return out
+            trace_mod.count("coll_shm_fallback_total")
         return self._host().coll_bcast(node, buf, nroot)
 
     def _intra_reduce(self, st, arr, op: Op):
@@ -1495,7 +1632,9 @@ class ShmColl(Component):
         if node.size == 1:
             return np.asarray(arr)
         if st.arena is not None and self._reducible(arr, op, st.arena):
+            trace_mod.count("coll_shm_fanin_total")
             return st.arena.reduce(node, 0, arr, op, bcast_result=False)
+        trace_mod.count("coll_shm_fallback_total")
         return self._host().coll_reduce(node, arr, op, 0)
 
     def _reducible(self, arr: np.ndarray, op: Op, arena: Arena) -> bool:
@@ -1510,6 +1649,7 @@ class ShmColl(Component):
         if host is not None:
             return host.coll_barrier(comm)
         if st.mode == "arena":
+            trace_mod.count("coll_shm_fanin_total")
             return st.arena.barrier(comm)
         self._intra_gate_in(st)
         if st.leader is not None:
@@ -1527,6 +1667,7 @@ class ShmColl(Component):
                     comm, "bcast", "payload above coll_shm_arena_size or "
                     "unsupported dtype (root's descriptor verdict)"
                 ).coll_bcast(comm, buf, root)
+            trace_mod.count("coll_shm_fanout_total")
             return out
         my_idx = st.node_idx_of[comm.rank]
         root_idx = st.node_idx_of[root]
@@ -1556,6 +1697,7 @@ class ShmColl(Component):
                     comm, "reduce", "payload above coll_shm_arena_size or "
                     "unsupported dtype", arr.nbytes
                 ).coll_reduce(comm, arr, op, root)
+            trace_mod.count("coll_shm_fanin_total")
             return st.arena.reduce(comm, int(st.c2n[root]), arr, op,
                                    bcast_result=False)
         root_idx = st.node_idx_of[root]
@@ -1588,6 +1730,8 @@ class ShmColl(Component):
                     comm, "allreduce", "payload above coll_shm_arena_size "
                     "or unsupported dtype", arr.nbytes
                 ).coll_allreduce(comm, arr, op)
+            trace_mod.count("coll_shm_fanin_total")
+            trace_mod.count("coll_shm_fanout_total")
             return st.arena.reduce(comm, 0, arr, op, bcast_result=True)
         partial = self._intra_reduce(st, arr, op)
         total = partial
@@ -1610,6 +1754,8 @@ class ShmColl(Component):
                     comm, "allgather", "payload above the slot/arena cap "
                     "or unsupported dtype", arr.nbytes
                 ).coll_allgather(comm, arr)
+            trace_mod.count("coll_shm_fanin_total")
+            trace_mod.count("coll_shm_fanout_total")
             out = st.arena.allgather(comm, arr)
             c2n = st.c2n
             if not np.array_equal(c2n, np.arange(comm.size)):
@@ -1620,6 +1766,7 @@ class ShmColl(Component):
         if node.size > 1:
             if (st.arena is not None and _arena_dtype_ok(arr.dtype)
                     and arr.nbytes <= st.arena.slot_bytes):
+                trace_mod.count("coll_shm_fanin_total")
                 block = st.arena.allgather(node, arr)
             else:
                 block = self._host().coll_allgather(node, arr)
@@ -1666,6 +1813,8 @@ class ShmColl(Component):
                     comm, "alltoall", "payload above the slot/arena cap "
                     "or unsupported dtype", arr.nbytes
                 ).coll_alltoall(comm, arr)
+            trace_mod.count("coll_shm_fanin_total")
+            trace_mod.count("coll_shm_fanout_total")
             c2n = st.c2n
             ident = bool(np.array_equal(c2n, np.arange(p)))
             a = np.ascontiguousarray(arr)
@@ -1690,6 +1839,7 @@ class ShmColl(Component):
         bb = arr.size // p
         a = np.ascontiguousarray(arr)
         if node.size > 1:
+            trace_mod.count("coll_shm_fanin_total")
             if (st.arena is not None and _arena_dtype_ok(a.dtype)
                     and a.nbytes <= st.arena.slot_bytes):
                 gathered = st.arena.allgather(node, a)
@@ -1738,6 +1888,8 @@ class ShmColl(Component):
                 comm, "alltoallv", "peer verdict: part above the slot "
                 "cap or undescribable dtype (descriptor round)"
             ).coll_alltoallv(comm, sendparts)
+        trace_mod.count("coll_shm_fanin_total")
+        trace_mod.count("coll_shm_fanout_total")
         return got if ident else [got[int(c2n[r])] for r in range(p)]
 
     def coll_alltoallw(self, comm, sendspecs, recvspecs):
@@ -1768,6 +1920,8 @@ class ShmColl(Component):
                 comm, "alltoallw", "peer verdict: packed part above the "
                 "slot cap (descriptor round)"
             ).coll_alltoallw(comm, sendspecs, recvspecs)
+        trace_mod.count("coll_shm_fanin_total")
+        trace_mod.count("coll_shm_fanout_total")
         for r in range(p):
             base.unpack_spec(recvspecs[r],
                              got[r] if ident else got[int(c2n[r])])
@@ -1794,6 +1948,8 @@ class ShmColl(Component):
                     comm, "reduce_scatter", "payload above the slot/arena "
                     "cap or unsupported dtype", arr.nbytes
                 ).coll_reduce_scatter(comm, arr, op)
+            trace_mod.count("coll_shm_fanin_total")
+            trace_mod.count("coll_shm_fanout_total")
             # comm-rank fold order: canonical for non-commutative ops
             # too, unlike the host ring
             bnds = self._rs_bounds(arr.size, p)
@@ -1852,6 +2008,7 @@ class ShmColl(Component):
                     comm, "scan", "payload above the slot/arena cap or "
                     "unsupported dtype", arr.nbytes
                 ).coll_scan(comm, arr, op)
+            trace_mod.count("coll_shm_fanin_total")
             order = [int(st.c2n[r]) for r in range(comm.rank + 1)]
             return st.arena.scan(comm, arr, op, order)
         return self._scan_hier(comm, st, arr, op, exclusive=False)
@@ -1869,6 +2026,7 @@ class ShmColl(Component):
                     comm, "exscan", "payload above the slot/arena cap or "
                     "unsupported dtype", arr.nbytes
                 ).coll_exscan(comm, arr, op)
+            trace_mod.count("coll_shm_fanin_total")
             order = [int(st.c2n[r]) for r in range(comm.rank)]
             return st.arena.scan(comm, arr, op, order)
         return self._scan_hier(comm, st, arr, op, exclusive=True)
@@ -1904,6 +2062,7 @@ class ShmColl(Component):
         nr = node.rank
         intra = None
         if node.size > 1:
+            trace_mod.count("coll_shm_fanin_total")
             if st.arena is not None:
                 # one round, per-rank fold orders: the leader folds ALL
                 # slots (the node total); members fold their prefix

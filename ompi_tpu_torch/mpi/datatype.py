@@ -22,6 +22,11 @@ gather over the coalesced runs).  A strided or gather plan of at least
 copy), and through numpy when the library did not build or
 ``OMPI_TPU_NO_NATIVE=1``; both move the same bytes.  ``stats`` counts
 every pack and unpack (the copy-counting hook the transport tests read).
+The trace plane's sites are the JAX package's: a committed derived or
+struct datatype bumps ``convertor_plan_<kind>_total`` once (with a
+``commit:<kind>`` instant when the timeline is armed), and every pack
+and unpack that moves bytes records a ``pack:<kind>``/``unpack:<kind>``
+span.
 Left out: ``create_darray`` (it comes with MPI-IO, ROADMAP.md Queue 1
 item 6.12) and the external32 pack.
 """
@@ -35,6 +40,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.constants import MPIException
 
 __all__ = [
@@ -112,6 +118,25 @@ class ConvertorStats:
 #: process-wide convertor counters (observability hook, not a hot metric)
 stats = ConvertorStats()
 
+#: plan kinds exported as commit-time counters
+#: (``convertor_plan_<kind>_total`` pvars — see ompi_tpu_torch.mpi.trace)
+_PLAN_COUNTED = frozenset(("single", "strided", "runs", "items"))
+
+
+def _count_commit_plan(dt: "Datatype", first: bool) -> None:
+    """Bump the pack-plan-class counter for a freshly committed datatype
+    (once per datatype: re-commits are MPI-legal no-ops)."""
+    if not first:
+        return
+    kind = dt.pack_plan(1).kind
+    if kind in _PLAN_COUNTED:
+        trace_mod.count(f"convertor_plan_{kind}_total")
+        if trace_mod.active:
+            trace_mod.instant(
+                "datatype", f"commit:{kind}",
+                dtname=getattr(dt, "name", type(dt).__name__),
+                size=dt.size, extent=dt.extent)
+
 
 def _u8p(arr: np.ndarray):
     return arr.ctypes.data_as(_U8P)
@@ -133,7 +158,7 @@ class PackPlan:
     - ``"strided"``  ``nblocks`` blocks of ``blocklen`` bytes, block i at
                      ``start + i*stride`` — vector-class layouts need no
                      per-run metadata at all.
-    - ``"gather"``   absolute coalesced ``(offsets, lengths)`` runs
+    - ``"runs"``     absolute coalesced ``(offsets, lengths)`` runs
                      covering ALL count items (abutting runs merged, across
                      item boundaries when the extent makes items abut),
                      moved with one numpy fancy-index copy.
@@ -195,10 +220,10 @@ def _plan_strided(start: int, nblocks: int, blocklen: int,
     return p
 
 
-def _plan_gather(offsets: np.ndarray, lengths: np.ndarray) -> PackPlan:
+def _plan_runs(offsets: np.ndarray, lengths: np.ndarray) -> PackPlan:
     if len(offsets) == 1:
         return _plan_single(int(offsets[0]), int(lengths[0]))
-    p = PackPlan("gather", int(lengths.sum()),
+    p = PackPlan("runs", int(lengths.sum()),
                  int((offsets + lengths).max()))
     p.offsets = np.ascontiguousarray(offsets, np.int64)
     p.lengths = np.ascontiguousarray(lengths, np.int64)
@@ -278,6 +303,20 @@ class Datatype:
         if count <= 0 or self.size == 0:
             return _plan_empty()
         ext = self.extent
+        # affine layouts (vector/hvector over a dense base) plan as one
+        # strided walk
+        aff = getattr(self, "_affine", None)
+        if aff is not None:
+            start, nblocks, bl, stride = aff
+            per_item = _plan_strided(start, nblocks, bl, stride)
+            if count == 1:
+                return per_item
+            if per_item.kind == "single":
+                return self._plan_repeat_single(per_item, count, ext)
+            if start == 0 and ext == nblocks * stride:
+                # items continue the arithmetic progression seamlessly
+                return _plan_strided(0, count * nblocks, bl, stride)
+            # fall through to the general expansion on the runs
         offs, lens = self.segment_arrays()
         n = len(offs)
         if n == 0:
@@ -287,11 +326,11 @@ class Datatype:
             return (one if count == 1
                     else self._plan_repeat_single(one, count, ext))
         if count == 1:
-            return _plan_gather(offs, lens)
+            return _plan_runs(offs, lens)
         base = np.arange(count, dtype=np.int64)[:, None] * ext
         all_offs = (base + offs[None, :]).reshape(-1)
         all_lens = np.broadcast_to(lens[None, :], (count, n)).reshape(-1)
-        return _plan_gather(*_merge_adjacent(all_offs, all_lens))
+        return _plan_runs(*_merge_adjacent(all_offs, all_lens))
 
     @staticmethod
     def _plan_repeat_single(one: PackPlan, count: int,
@@ -326,12 +365,16 @@ class Datatype:
         stats.note("pack", plan.total)
         if plan.kind == "empty":   # no bytes move: no span (all 3 paths)
             return b""
+        _t0 = trace_mod.begin() if trace_mod.active else 0
         if plan.kind == "single":   # single-memcpy fast path
             blob = raw[plan.start:plan.start + plan.total].tobytes()
         else:
             out = np.empty(plan.total, np.uint8)
             self._execute_pack(raw, plan, out)
             blob = out.tobytes()
+        if _t0 and trace_mod.active:
+            trace_mod.complete("datatype", f"pack:{plan.kind}", _t0,
+                               nbytes=plan.total)
         return blob
 
     def pack_into(self, buf: np.ndarray, count: int, out) -> int:
@@ -358,10 +401,14 @@ class Datatype:
         stats.note("pack", plan.total)
         if plan.kind == "empty":
             return 0
+        _t0 = trace_mod.begin() if trace_mod.active else 0
         if plan.kind == "single":
             out_arr[:plan.total] = raw[plan.start:plan.start + plan.total]
         else:
             self._execute_pack(raw, plan, out_arr[:plan.total])
+        if _t0 and trace_mod.active:
+            trace_mod.complete("datatype", f"pack:{plan.kind}", _t0,
+                               nbytes=plan.total)
         return plan.total
 
     def _execute_pack(self, raw: np.ndarray, plan: PackPlan,
@@ -407,10 +454,14 @@ class Datatype:
         stats.note("unpack", plan.total)
         if plan.kind == "empty":
             return
+        _t0 = trace_mod.begin() if trace_mod.active else 0
         if plan.kind == "single":
             raw[plan.start:plan.start + plan.total] = src[:plan.total]
         else:
             self._execute_unpack(src[:plan.total], plan, raw)
+        if _t0 and trace_mod.active:
+            trace_mod.complete("datatype", f"unpack:{plan.kind}", _t0,
+                               nbytes=plan.total)
 
     def _execute_unpack(self, src: np.ndarray, plan: PackPlan,
                         raw: np.ndarray) -> None:
@@ -498,11 +549,18 @@ class Datatype:
         natural = 0 if count == 0 else (
             ((count - 1) * stride if stride >= 0 else 0)
             + blocklength) * self.extent
-        return DerivedDatatype(
+        dt = DerivedDatatype(
             self, (np.arange(count, dtype=np.int64) * (stride * self.extent),
                    np.full(count, blocklength, np.int64)),
             extent=natural, pattern_unit="bytes",
             name=f"vector({count},{blocklength},{stride})")
+        if count > 0 and blocklength > 0 and stride > 0 \
+                and self.is_contiguous:
+            # affine layout: the plan is one strided walk, as in the JAX
+            # package (whose plan class the trace counters name)
+            dt._affine = (0, count, blocklength * self.size,
+                          stride * self.extent)
+        return dt
 
     def hvector(self, count: int, blocklength: int,
                 byte_stride: int) -> "DerivedDatatype":
@@ -512,11 +570,15 @@ class Datatype:
         natural = 0 if count == 0 else (
             ((count - 1) * byte_stride if byte_stride >= 0 else 0)
             + blocklength * self.extent)
-        return DerivedDatatype(
+        dt = DerivedDatatype(
             self, (np.arange(count, dtype=np.int64) * byte_stride,
                    np.full(count, blocklength, np.int64)),
             extent=natural, pattern_unit="bytes",
             name=f"hvector({count},{blocklength},{byte_stride}B)")
+        if count > 0 and blocklength > 0 and byte_stride > 0 \
+                and self.is_contiguous:
+            dt._affine = (0, count, blocklength * self.size, byte_stride)
+        return dt
 
     def indexed(self, blocklengths: Sequence[int],
                 displacements: Sequence[int]) -> "DerivedDatatype":
@@ -651,8 +713,10 @@ class DerivedDatatype(Datatype):
     def commit(self) -> "DerivedDatatype":
         # compile the pack plan (≈ opal_datatype_commit running the
         # descriptor optimizer)
+        first = not self._committed
         self._committed = True
         self.pack_plan(1)
+        _count_commit_plan(self, first)
         return self
 
     def segment_arrays(self) -> tuple[np.ndarray, np.ndarray]:
@@ -728,6 +792,13 @@ class StructDatatype(Datatype):
         self.extent = max((d + b * t.extent for d, b, t in self.fields),
                           default=0)
         self.name = name or f"struct({len(self.fields)})"
+
+    def commit(self) -> "StructDatatype":
+        first = not self._committed
+        self._committed = True
+        self.pack_plan(1)
+        _count_commit_plan(self, first)
+        return self
 
     def segment_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         starts, lens = [], []

@@ -39,14 +39,22 @@ i)``, which leaves int32 beyond user tag 127; every header codec (the dss
 dict, the native engine and fast lane, the shm and tcp frames) carries
 tags as int64.
 
-Left out: memchecker and the hang doctor's pending summary, the MPI_T
-pvars (the partitioned ``pml_partitioned_*_total`` counters among them)
-and the trace bridge (flow ids, spans, histograms; ROADMAP.md Queue 1 item
-6.9), and the fault-tolerance hooks (ULFM checks, the partitioned start's
-revocation check, incarnation fencing, respawn rebind and the
-park-and-heal retransmit, item 6.10: a frame that cannot be routed fails
-its request at once, as the JAX package does with ``pml_retry_window``
-0).
+The trace plane's sites are the JAX package's: the event bridge
+(``add_listener``; ``trace.attach_pml`` turns every event into a ``pml``
+instant), flow ids (``fl``, with the job's trace id ``tc``) in every
+eager and rendezvous match header while the timeline is armed, the
+``eager_send``/``eager_recv``/``rndv_send``/``rndv_recv`` and
+``shm_drain_batch`` spans, the ``pml_*`` counters (zero-copy and packed
+sends, the partitioned starts and Preadys), the ``pml_eager_send_ns``
+and ``pml_rndv_send_ns`` histograms, ``pending_summary`` (what the hang
+doctor's capture reads) and the memchecker gates (``--mca memchecker
+enable 1``).
+
+Left out: the fault-tolerance hooks (ROADMAP.md Queue 1 item 6.10: ULFM
+checks, the partitioned start's revocation check, incarnation fencing,
+respawn rebind and the park-and-heal retransmit; a frame that cannot be
+routed fails its request at once, as the JAX package does with
+``pml_retry_window`` 0).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -68,6 +77,7 @@ from ompi_tpu_torch.core.buffer import (BufferKind, BufferLocationError,
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.core.mca import Component, Framework
 from ompi_tpu_torch.mpi import datatype as dt_mod
+from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.btl import BtlEndpoint
 from ompi_tpu_torch.mpi.constants import (
     ANY_SOURCE, ANY_TAG, ERR_TRUNCATE, PROC_NULL, MPIException,
@@ -135,6 +145,8 @@ class RecvRequest(Request):
         self.cid = cid
         self.rid = -1  # receiver-side id for rendezvous
         self._pml = None  # set by PmlOb1.irecv; enables real cancel
+        # post time (monotonic): the hang doctor's pending-recv age
+        self.t_posted = time.monotonic()
         # set BEFORE delivery can complete the request: the status.source
         # value _deliver should report instead of the wire peer (a
         # communicator's group rank when it differs from the world rank).
@@ -242,6 +254,9 @@ class _SendState:
         self.peer = peer
         self.payload = payload   # bytes or zero-copy memoryview of user buf
         self.on_done = on_done   # e.g. bsend-pool release
+        self.fl = 0              # flow id (tracing): rides the rndv_send span
+        # creation time (monotonic): the hang doctor's pending-send age
+        self.t_posted = time.monotonic()
 
 
 class _RecvState:
@@ -265,6 +280,8 @@ class _RecvState:
         self.received = 0
         self.src_hdr = src_hdr
         self.peer = peer
+        # flight-recorder span: CTS sent → last fragment landed
+        self.trace_t0 = trace_mod.begin() if trace_mod.active else 0
 
 
 class BsendPool:
@@ -357,6 +374,12 @@ class _WireWatch(Request):
             state.req.fail(exc)
 
 
+#: flow-id namespace stride: ids are ``rank * stride + local counter`` —
+#: globally unique without coordination (a rank emitting 2^40 frames in
+#: one trace window would wrap the ring thousands of times over first)
+_FLOW_STRIDE = 1 << 40
+
+
 class _Matching:
     """Per-communicator matching engine (posted + unexpected queues)."""
 
@@ -408,6 +431,17 @@ class PmlOb1:
         self._qlock = threading.Lock()   # _queued has its own lock:
         # _enqueue_frame runs from handlers that already hold self._lock
         self._sendq: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        # memchecker gate read ONCE (off-by-default debug feature — the
+        # hot path must not pay a registry lookup per message; toggle it
+        # before creating communicators, like the reference's build flag)
+        from ompi_tpu_torch.core import memchecker
+
+        self._memcheck = memchecker.enabled()
+        # every posted recv, weakly (engine-agnostic: the native matching
+        # engine owns the real posted queue) — what the hang doctor's
+        # pending_summary walks; completed requests filter out on done()
+        self._doctor_recvs: "weakref.WeakSet[RecvRequest]" = \
+            weakref.WeakSet()
         self._listeners: list = []   # peruse/monitoring subscribers
         self._events: "collections.deque[tuple]" = collections.deque()
         self.bsend_pool = BsendPool()  # per-PML, like every other send state
@@ -487,6 +521,55 @@ class PmlOb1:
             m = self._matching[cid] = _Matching()
         return m
 
+    def pending_summary(self, limit: int = 64) -> dict:
+        """Pending point-to-point state for the hang doctor's capture:
+        posted recvs (peer/tag/cid/age), sends awaiting a peer event
+        (rendezvous CTS, sync ack), in-flight rendezvous receives,
+        unexpected-queue depth and parked/queued frame counts.  Runs on
+        the doctor responder thread — dict walks under the PML lock,
+        no blocking work.  ``parked`` stays empty until the
+        park-and-heal retransmit comes with fault tolerance (ROADMAP.md
+        Queue 1 item 6.10)."""
+        now = time.monotonic()
+        recvs: list[dict] = []
+        sends: list[dict] = []
+        rndv: list[dict] = []
+        with self._lock:
+            for req in list(self._doctor_recvs):
+                if req.done():
+                    continue
+                recvs.append({
+                    "src": req.source, "tag": req.tag, "cid": req.cid,
+                    "age_s": round(now - req.t_posted, 3)})
+                if len(recvs) >= limit:
+                    break
+            for st in list(self._send_states.values()):
+                if st.req is not None and st.req.done():
+                    continue
+                payload = st.payload
+                nbytes = (getattr(payload, "nbytes", None)
+                          or (len(payload) if payload is not None else 0))
+                sends.append({
+                    "peer": st.peer, "bytes": int(nbytes),
+                    "age_s": round(now - st.t_posted, 3)})
+                if len(sends) >= limit:
+                    break
+            for st in list(self._recv_states.values()):
+                if st.req is not None and st.req.done():
+                    continue
+                rndv.append({
+                    "peer": st.peer, "bytes": len(st.data),
+                    "received": st.received})
+                if len(rndv) >= limit:
+                    break
+            unexpected = sum(len(m.unexpected)
+                             for m in self._matching.values())
+        with self._qlock:
+            queued = {p: n for p, n in self._queued.items() if n}
+        return {"recvs": recvs, "sends": sends, "rndv": rndv,
+                "unexpected": unexpected, "parked": {},
+                "queued": queued}
+
     # -- send side ---------------------------------------------------------
 
     def isend(self, buf: Any, peer: int, tag: int, cid: int,
@@ -507,10 +590,15 @@ class PmlOb1:
                 and not self._listeners
                 and datatype is None and count is None
                 and isinstance(buf, np.ndarray)
-                and buf.flags["C_CONTIGUOUS"]):
+                and buf.flags["C_CONTIGUOUS"]
+                and not self._memcheck):
             req = self._isend_fast(buf, peer, tag, cid)
             if req is not None:
                 return req
+        if self._memcheck:
+            from ompi_tpu_torch.core import memchecker
+
+            memchecker.check_send(buf, "isend")
         arr = np.asarray(buf)
         if datatype is None:
             datatype = dt_mod.from_numpy(arr.dtype)
@@ -530,12 +618,14 @@ class PmlOb1:
                 and plan.start + plan.total <= arr.nbytes):
             payload = arr.reshape(-1).view(np.uint8).data[
                 plan.start:plan.start + plan.total]
+            trace_mod.count("pml_zero_copy_sends_total")
         else:
             # non-contiguous: stage through the plan walk into a uint8
             # buffer (pack_into — no intermediate bytes)
             staged = np.empty(plan.total, np.uint8)
             datatype.pack_into(arr, count, staged)
             payload = staged.data
+            trace_mod.count("pml_packed_sends_total")
         req = Request(kind="send")
         on_done = None
         if mode == "buffered":
@@ -556,6 +646,22 @@ class PmlOb1:
                "dt": _dtype_to_wire(datatype.base_np),
                "elems": len(payload) // datatype.base_np.itemsize,
                "shp": list(arr.shape)}
+        # cross-rank trace correlation: with the flight recorder armed,
+        # every eager/rndv frame carries a globally-unique flow id — the
+        # send-side span and the matching recv-side span both record it,
+        # and trace_export turns each pair into a Perfetto flow arrow
+        # (send→recv).  Cost when tracing is off: one attribute check.
+        fl = 0
+        _fl_t0 = 0
+        if trace_mod.active:
+            hdr["fl"] = fl = self.rank * _FLOW_STRIDE + next(self._ids)
+            # the (trace_id, span_id) pair: trace_id scopes the flow id
+            # to ONE job's trace (merged timelines from a shared TMPDIR
+            # must not stitch arrows between jobs' equal flow ids)
+            hdr["tc"] = trace_mod.trace_id()
+            _fl_t0 = trace_mod.begin()
+        # eager completion latency (histogram plane, timeline-independent)
+        _h_t0 = time.monotonic_ns() if trace_mod.hist_active else 0
         if self._listeners:
             self._emit(EVT_SEND_POST, peer=peer, tag=tag, cid=cid,
                        nbytes=len(payload))
@@ -572,6 +678,7 @@ class PmlOb1:
                     and self.endpoint.try_send_inline(peer, hdr, payload)):
                 self._enqueue_frame(peer, hdr, payload,
                                     _WireWatch(self, sid))
+            self._trace_eager_send(_h_t0, fl, _fl_t0, peer, len(payload))
         elif eager:
             hdr["t"] = "eager"
             # sendi fast path (≈ pml_ob1_isend.c:89-119): the frame goes
@@ -588,6 +695,7 @@ class PmlOb1:
                 req.complete(None)  # local completion
             else:
                 self._enqueue_frame(peer, hdr, payload, req)
+            self._trace_eager_send(_h_t0, fl, _fl_t0, peer, len(payload))
         else:
             sid = next(self._ids)
             hdr.update(t="rndv", size=len(payload), sid=sid)
@@ -600,12 +708,27 @@ class PmlOb1:
                 state_req = wire
                 req.complete(None)  # local completion; pool holds the copy
             with self._lock:
-                self._send_states[sid] = _SendState(
+                state = _SendState(
                     state_req, peer, payload,
                     None if mode == "buffered" else on_done)
+                state.fl = fl  # rndv_send span (send worker) records it
+                self._send_states[sid] = state
             self._enqueue_frame(peer, hdr, b"", _WireWatch(self, sid))
         self._drain_events()
         return req
+
+    def _trace_eager_send(self, h_t0: int, fl: int, fl_t0: int, peer: int,
+                          nbytes: int) -> None:
+        """The eager send's histogram sample and, with a flow id, its
+        ``eager_send`` span (the send half of the flow arrow)."""
+        if h_t0 and trace_mod.hist_active:
+            trace_mod.record_hist("pml_eager_send_ns",
+                                  time.monotonic_ns() - h_t0)
+        if fl and trace_mod.active:
+            trace_mod.complete("pml", "eager_send", fl_t0,
+                               rank=self.rank, peer=peer,
+                               nbytes=nbytes, fl=fl,
+                               tc=trace_mod.trace_id())
 
     def _isend_fast(self, arr: np.ndarray, peer: int, tag: int,
                     cid: int) -> Optional[Request]:
@@ -634,6 +757,7 @@ class PmlOb1:
             seq = self._seq.get(seq_key, 0)
             self._seq[seq_key] = seq + 1
         payload = arr.reshape(-1).view(np.uint8).data
+        trace_mod.count("pml_zero_copy_sends_total")
         req = Request(kind="send")
         dt = _dtype_to_wire(arr.dtype)
         if proc_ok and ep.proc_btl.send_fast(peer, tag, cid, seq, payload,
@@ -700,6 +824,10 @@ class PmlOb1:
         if buf is not None:
             _reject_device(buf, "irecv")
             buf = np.asarray(buf)
+            if self._memcheck:
+                from ompi_tpu_torch.core import memchecker
+
+                memchecker.prepare_recv(buf, "irecv")
             if datatype is None:
                 datatype = dt_mod.from_numpy(buf.dtype)
             if count is None:
@@ -712,6 +840,10 @@ class PmlOb1:
         if self._listeners:
             self._emit(EVT_RECV_POST, peer=source, tag=tag, cid=cid)
         with self._lock:
+            # under the PML lock: pending_summary() iterates this set
+            # under the same lock, and a WeakSet is not safe against a
+            # concurrent add mid-iteration
+            self._doctor_recvs.add(req)
             if self._eng is not None:
                 barr = None
                 if (buf is not None and datatype is not None
@@ -838,6 +970,7 @@ class PmlOb1:
         after the lock drops."""
         eng = self._eng
         punts = None
+        _t0 = trace_mod.begin() if trace_mod.active else 0
         try:
             with self._lock:
                 new_tail, n, acts = eng.drain_ring(
@@ -852,8 +985,13 @@ class PmlOb1:
                         self._apply_action(act)
         except self._fast.Unsupported:
             # a header tag only the python codec knows: drain this batch
-            # through the python framing path instead
-            return reader.poll(self._on_frame)
+            # through the python framing path instead (same counter +
+            # span accounting as the fused path — frames delivered here
+            # must not read as lost in the publish/drain pvar pair)
+            n = reader.poll(self._on_frame)
+            if n:
+                self._trace_drain(_t0, reader.peer, n)
+            return n
         except ValueError as e:
             # corrupt stream: same recovery as ShmRingReader.poll —
             # nothing trustworthy to advance by; discard and surface
@@ -868,8 +1006,17 @@ class PmlOb1:
             for _k, hdr, payload in punts:
                 self._on_frame(reader.peer, hdr, payload)
         if n:
+            self._trace_drain(_t0, reader.peer, n)
             self._drain_events()
         return n
+
+    def _trace_drain(self, t0: int, peer: int, n: int) -> None:
+        """The fused drain's ``btl_shm_drained_total`` and, when armed,
+        its ``shm_drain_batch`` span."""
+        trace_mod.count("btl_shm_drained_total", n)
+        if t0 and trace_mod.active:
+            trace_mod.complete("pml", "shm_drain_batch", t0,
+                               rank=self.rank, peer=peer, frames=n)
 
     # -- probe -------------------------------------------------------------
 
@@ -999,6 +1146,10 @@ class PmlOb1:
         if buf is not None:
             _reject_device(buf, "imrecv")
             buf = np.asarray(buf)
+            if self._memcheck:
+                from ompi_tpu_torch.core import memchecker
+
+                memchecker.prepare_recv(buf, "imrecv")
             if datatype is None:
                 datatype = dt_mod.from_numpy(buf.dtype)
             if count is None:
@@ -1257,6 +1408,15 @@ class PmlOb1:
             if done:
                 del self._recv_states[hdr["rid"]]
         if done:
+            if state.trace_t0 and trace_mod.active:
+                _fl = state.src_hdr.get("fl", 0)
+                _tc = state.src_hdr.get("tc")
+                trace_mod.complete(
+                    "pml", "rndv_recv", state.trace_t0, rank=self.rank,
+                    peer=state.peer, nbytes=len(state.data),
+                    direct=state.direct,
+                    **({"fl": _fl} if _fl else {}),
+                    **({"tc": _tc} if _tc is not None else {}))
             if state.direct:
                 self._complete_direct(state)
             else:
@@ -1280,6 +1440,11 @@ class PmlOb1:
     def _deliver(self, req: RecvRequest, peer: int, hdr: dict,
                  payload: bytes) -> None:
         """Unpack payload into the request's buffer and complete it."""
+        # flow correlation: the recv half of an eager frame's arrow (the
+        # rndv path records fl on its rndv_recv span instead)
+        _fl = (hdr.get("fl", 0)
+               if trace_mod.active and hdr.get("t") == "eager" else 0)
+        _fl_t0 = trace_mod.begin() if _fl else 0
         datatype = req.datatype
         if datatype is not None and req.count is not None:
             expected = req.count * datatype.size
@@ -1328,6 +1493,13 @@ class PmlOb1:
         req.status.count = len(payload) // elem_size
         req.status.count_bytes = len(payload)
         req.complete(out)
+        if _fl and trace_mod.active:
+            _tc = hdr.get("tc")
+            trace_mod.complete("pml", "eager_recv", _fl_t0,
+                               rank=self.rank, peer=peer,
+                               nbytes=len(payload), fl=_fl,
+                               **({"tc": _tc} if _tc is not None
+                                  else {}))
 
     # -- send worker (the only thread that writes payloads) ----------------
 
@@ -1359,6 +1531,9 @@ class PmlOb1:
                 elif job[0] == "rndv_data":
                     _, state, rid = job
                     data = state.payload
+                    _t0 = (trace_mod.begin()
+                           if trace_mod.active or trace_mod.hist_active
+                           else 0)
                     offs = list(range(0, len(data), frag))
                     for i, off in enumerate(offs):
                         last = i == len(offs) - 1
@@ -1375,6 +1550,18 @@ class PmlOb1:
                                     "rendezvous fragment could not be "
                                     "delivered"))
                             break
+                    if _t0 and trace_mod.hist_active:
+                        trace_mod.record_hist(
+                            "pml_rndv_send_ns",
+                            time.monotonic_ns() - _t0)
+                    if _t0 and trace_mod.active:
+                        trace_mod.complete(
+                            "pml", "rndv_send", _t0, rank=self.rank,
+                            peer=state.peer, nbytes=len(data),
+                            fragments=len(offs),
+                            **({"fl": state.fl, "tc":
+                                trace_mod.trace_id()}
+                               if state.fl else {}))
             except Exception:  # noqa: BLE001 — the worker must survive
                 _log.error("send worker: unexpected error\n%s",
                            __import__("traceback").format_exc())
@@ -1555,6 +1742,7 @@ class PartitionedSendRequest(_PartitionedBase):
                          offset=offset, kind="psend")
 
     def _activate(self) -> Request:
+        trace_mod.count("pml_partitioned_starts_total")
         with self._plock:
             self._readied = [False] * self._npart
             self._preqs = [None] * self._npart
@@ -1581,6 +1769,7 @@ class PartitionedSendRequest(_PartitionedBase):
                 raise MPIException(
                     f"Pready: partition {i} already readied this start")
             self._readied[i] = True
+        trace_mod.count("pml_partitioned_pready_total")
         if self._peer is None:
             return
         req = self._pml.isend(self._parts[i], self._peer, self._ptag(i),
@@ -1627,6 +1816,7 @@ class PartitionedRecvRequest(_PartitionedBase):
         return self._arr
 
     def _activate(self) -> Request:
+        trace_mod.count("pml_partitioned_starts_total")
         with self._plock:
             self._preqs = [None] * self._npart
             self._ndone = 0

@@ -12,9 +12,16 @@ group), PML selection (:655), the modex business-card exchange
 Outside tpurun (no rendezvous URI) init degenerates to a singleton world,
 like mpirun-less ./a.out singleton init in the reference.
 
-Left out (ROADMAP.md Queue 1 item 6): the flight recorder and metrics
-push, the hang-doctor responder, fault-tolerance attach and the respawn
-branch, and the thread-level and pcontrol queries.
+The trace plane's hooks are the JAX package's: init arms the flight
+recorder (``tpurun --trace`` / ``OMPI_TPU_TRACE=1``, with the SIGTERM
+flush under a launcher), bridges the PML's events onto the timeline,
+re-reads ``trace_hist_enable``, starts the metrics push when an
+``OMPI_TPU_METRICS_URI`` is set and arms the hang-doctor responder under
+a launcher; finalize stops the responder and the push and flushes the
+dump; ``abort`` writes the crash dump.
+
+Left out (ROADMAP.md Queue 1 item 6.10): fault-tolerance attach and the
+respawn branch; and the thread-level and pcontrol queries.
 """
 
 from __future__ import annotations
@@ -78,6 +85,40 @@ def init() -> Communicator:
 
         pml = pml_framework.select().create(rank)
 
+        # flight recorder (tpurun --trace / OMPI_TPU_TRACE=1): arm the
+        # per-rank ring buffer, bridge the PML's PERUSE hooks onto the
+        # timeline, and install the SIGTERM flush so the launcher's
+        # abort path (SIGTERM → grace → SIGKILL) still yields a readable
+        # trace from every rank
+        from ompi_tpu_torch.mpi import trace as _trace
+
+        jobid = int(os.environ.get(pmix.ENV_JOBID, "0") or 0)
+        if _trace.env_enabled() or _trace.active:
+            # enable() is idempotent and stamps rank/jobid onto an
+            # already-armed recorder; a NEW pml per init epoch needs its
+            # own bridge (finalize detached the previous epoch's)
+            _trace.enable(rank=rank, jobid=jobid,
+                          install_signal=under_launcher)
+            _trace.attach_pml(pml)
+            _trace.instant("runtime", "init", rank=rank, size=size)
+
+        # latency-histogram plane: re-read trace_hist_enable into the
+        # module flag the record sites check
+        _trace.refresh_hist_enable()
+
+        # metrics uplink (independent of the timeline): armed when a
+        # collector URI was exported and the push period is on
+        _trace.start_metrics_push(jobid, rank)
+
+        # hang-doctor responder: the rank-side capture endpoint (UDP,
+        # port registered with the PMIx server via the 'doctor' RPC),
+        # armed under a launcher only
+        if under_launcher:
+            from ompi_tpu_torch.runtime import doctor as _doctor
+
+            _doctor.start_responder(rank, jobid=jobid, pml=pml,
+                                    client=client)
+
         if size > 1:
             assert client is not None
             # modex: publish my BTL business card, fence, learn everyone's
@@ -134,8 +175,26 @@ def finalize(_collective: bool = True) -> None:
             if _collective:
                 multihost.shutdown()
         finally:
-            if _state["pml"] is not None:
-                _state["pml"].close()
+            from ompi_tpu_torch.mpi import trace as _trace
+            from ompi_tpu_torch.runtime import doctor as _doctor
+
+            _doctor.stop_responder()   # re-armed by a later init epoch
+            # final full metrics push: a short job's last counter state
+            # still reaches the collector before the rank is gone
+            _trace.stop_metrics_push(flush=True)
+            pml = _state["pml"]
+            if _trace.active:
+                # a clean teardown flushes too: a tpurun --trace run
+                # reads the per-rank dumps after a clean exit
+                _trace.instant("runtime", "finalize",
+                               rank=getattr(pml, "rank", -1))
+                try:
+                    _trace.flush()
+                except Exception:  # noqa: BLE001 — teardown continues
+                    pass
+                _trace.detach_pml(pml)   # a re-init epoch re-arms fresh
+            if pml is not None:
+                pml.close()
             client = _state["client"]
             if client is not None:
                 try:
@@ -170,6 +229,12 @@ def abort(errorcode: int = 1, msg: str = "") -> None:
     """
     client = _state.get("client")
     _log.error("MPI_Abort(%d)%s", errorcode, f": {msg}" if msg else "")
+    from ompi_tpu_torch.mpi import trace as _trace
+
+    if _trace.active:
+        # flush THIS rank's flight recorder before teardown; peers flush
+        # from the SIGTERM the launcher's abort fans out
+        _trace.crash_dump(reason=f"MPI_Abort({errorcode})")
     if client is not None:
         try:
             client.abort(msg or f"MPI_Abort({errorcode})",

@@ -9,10 +9,12 @@ listening address, chip binding) and fencing — is exactly the reference's
 PMIx_Put/Commit/Fence flow from ompi_mpi_init.c:673-703.
 
 The env names, the commands and the wire format are the JAX package's.
-Left out (ROADMAP.md Queue 1 item 6, errmgr respawn/selfheal and FT): the
-failure reports and the dead-set query of the ULFM detector, revived
-lives and their stale-report gate, the FT event timeline, the hang
-doctor's ports, and the registration-free readiness probes
+The hang doctor's ports are kept: a rank registers its responder's UDP
+port (``doctor``), and ``doctor_ports``/``query_doctor_ports`` read them
+back.  Left out (ROADMAP.md Queue 1 item 6.10, errmgr respawn/selfheal
+and FT): the failure reports and the dead-set query of the ULFM
+detector, revived lives and their stale-report gate and the FT event
+timeline; and (item 6.15) the registration-free readiness probes
 (``query_regstate``/``query_regcount``).
 
 Wire protocol: 4-byte LE length + DSS-packed (cmd, *args) tuple per message,
@@ -31,7 +33,7 @@ from typing import Any, Callable, Optional
 
 from ompi_tpu_torch.core import dss, output
 
-__all__ = ["PMIxServer", "PMIxClient", "PMIxError"]
+__all__ = ["PMIxServer", "PMIxClient", "PMIxError", "query_doctor_ports"]
 
 _log = output.get_stream("pmix")
 
@@ -84,6 +86,7 @@ class PMIxServer:
         self._dead: set[int] = set()
         self._registered: set[int] = set()  # ranks whose client connected
         self._ready: set[int] = set()   # ranks that left init
+        self._doctor_ports: dict[int, int] = {}  # rank → responder port
         self._aborted: Optional[tuple[int, int, str]] = None
         self._listener = socket.create_server((host, 0))
         self._port = self._listener.getsockname()[1]
@@ -186,6 +189,16 @@ class PMIxServer:
             with self._cv:
                 self._ready.add(int(args[0]))
             return ("ok",)
+        if cmd == "doctor":
+            # hang-doctor responder registration: the rank's capture
+            # endpoint (UDP port, loopback on the rank's host)
+            rank, port = int(args[0]), int(args[1])
+            with self._cv:
+                self._doctor_ports[rank] = port
+            return ("ok",)
+        if cmd == "doctor_ports":
+            with self._cv:
+                return ("ok", dict(self._doctor_ports))
         if cmd == "fin":
             return ("ok",)
         raise PMIxError(f"unknown command {cmd!r}")
@@ -286,8 +299,57 @@ class PMIxClient:
     def abort(self, msg: str = "", status: int = 1) -> None:
         self._rpc("abort", self.rank, int(status), msg)
 
+    def register_doctor(self, port: int) -> None:
+        """Register this rank's hang-doctor responder UDP port with the
+        control plane."""
+        self._rpc("doctor", self.rank, int(port))
+
+    def doctor_ports(self) -> dict[int, int]:
+        """Every registered hang-doctor responder port by rank (the
+        registration-free probe non-rank callers must use is
+        :func:`query_doctor_ports`)."""
+        return {int(r): int(p)
+                for r, p in dict(self._rpc("doctor_ports")[1]).items()}
+
     def finalize(self) -> None:
         try:
             self._rpc("fin", self.rank)
         finally:
             self._sock.close()
+
+
+def _oneshot_query(uri: str, cmd: str,
+                   timeout: float) -> Optional[tuple]:
+    """One transient connection, one command, one "ok" reply — the
+    skeleton of a registration-free probe (a non-rank caller must NOT
+    send "reg").  None when the server is unreachable or the reply is
+    not ok."""
+    host, port = uri.removeprefix("tcp://").rsplit(":", 1)
+    try:
+        with socket.create_connection((host, int(port)),
+                                      timeout=timeout) as sock:
+            sock.settimeout(timeout)
+            _send_frame(sock, dss.pack((cmd,)))
+            payload = _recv_frame(sock)
+        if payload is None:
+            return None
+        reply = dss.unpack(payload, n=1)[0]
+        if reply[0] != "ok":
+            return None
+        return tuple(reply[1:])
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def query_doctor_ports(uri: str,
+                       timeout: float = 2.0) -> Optional[dict[int, int]]:
+    """One-shot, registration-free probe of the registered hang-doctor
+    responder ports → {rank: udp_port}.  None when the server is
+    unreachable."""
+    reply = _oneshot_query(uri, "doctor_ports", timeout)
+    if reply is None or not reply:
+        return None
+    try:
+        return {int(r): int(p) for r, p in dict(reply[0]).items()}
+    except (TypeError, ValueError):
+        return None

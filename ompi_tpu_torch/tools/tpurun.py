@@ -11,10 +11,13 @@ output, propagate the first failure's exit code.
 
 ``--gpu`` maps ranks 1:1 onto the local CUDA cards (the counterpart of the
 JAX package's ``--tpu``) and joins them into one ``torch.distributed``
-process group at ``init()``.  Left out (ROADMAP.md Queue 1 item 6):
-multi-host launch (``--plm sim|ssh``, ``--hosts``, ``--hostfile``,
-``--map-by``), the persistent DVM (``--dvm-*``), the flight recorder
-(``--trace``) and ``--clean``.
+process group at ``init()``.  ``--trace`` arms every rank's flight
+recorder; each rank flushes ``$TMPDIR/ompi_tpu_trace_<jobid>_rank<r>.json``
+at finalize or abort (merge them with ``python -m
+ompi_tpu_torch.tools.trace_export``).  Left out (ROADMAP.md Queue 1 item
+6.15): multi-host launch (``--plm sim|ssh``, ``--hosts``, ``--hostfile``,
+``--map-by``), the persistent DVM (``--dvm-*``, with ``--metrics-port``)
+and ``--clean``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gpu", action="store_true",
                    help="map ranks 1:1 onto local CUDA cards and join "
                         "them into one torch.distributed process group")
+    p.add_argument("--trace", action="store_true",
+                   help="arm the per-rank flight recorder "
+                        "(OMPI_TPU_TRACE=1 in every rank); each rank "
+                        "flushes a Chrome-trace JSON to "
+                        "$TMPDIR/ompi_tpu_trace_<jobid>_rank<r>.json at "
+                        "finalize/abort — merge with python -m "
+                        "ompi_tpu_torch.tools.trace_export")
     p.add_argument("--timeout", type=float, default=None, metavar="SECS",
                    help="kill the job and exit 124 after SECS seconds "
                         "(mpirun --timeout; CI hang guard)")
@@ -75,6 +85,8 @@ def main(argv: list[str] | None = None) -> int:
     # bare framework name (e.g. --mca btl self,tcp → synonym of btl_).
     # They are also exported to the environment so app processes inherit
     # them — most frameworks (pml/coll/btl) select inside the app.
+    if args.trace:
+        os.environ["OMPI_TPU_TRACE"] = "1"
     var_registry.load_cli([(k, v) for k, v in args.mca])
     for k, v in args.mca:
         os.environ[var_registry.ENV_PREFIX + k] = v

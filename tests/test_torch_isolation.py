@@ -110,16 +110,38 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.mpi.topo",
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
-                "ompi_tpu_torch.examples.cart_halo"):
+                "ompi_tpu_torch.examples.cart_halo",
+                *_TRACE_PLANE):
         assert mod in res["imported"]
+
+
+#: the trace plane's modules, tools and example: none imports torch
+_TRACE_PLANE = ("ompi_tpu_torch.mpi.mpit", "ompi_tpu_torch.mpi.trace",
+                "ompi_tpu_torch.mpi.monitoring",
+                "ompi_tpu_torch.core.memchecker",
+                "ompi_tpu_torch.runtime.doctor",
+                "ompi_tpu_torch.runtime.metrics",
+                "ompi_tpu_torch.runtime.timeline",
+                "ompi_tpu_torch.runtime.clocksync",
+                "ompi_tpu_torch.tools.trace_export",
+                "ompi_tpu_torch.tools.hang_doctor",
+                "ompi_tpu_torch.tools.timeline",
+                "ompi_tpu_torch.tools.straggler_report",
+                "ompi_tpu_torch.examples.trace_demo")
 
 
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
     native executors) runs a 3-rank in-process job without importing
-    torch, JAX or the JAX package."""
+    torch, JAX or the JAX package, and so do the trace plane's modules,
+    tools and example (imported here, with the timeline armed over the
+    job)."""
     probe = (
-        "import sys, numpy as np\n"
+        "import importlib, sys, numpy as np\n"
+        f"for m in {_TRACE_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from ompi_tpu_torch.mpi import trace\n"
+        "trace.enable(rank=0)\n"
         "from tests.torch_host_harness import run_ranks\n"
         "from ompi_tpu_torch import _native\n"
         "assert _native.available() and _native.arena_available()\n"
@@ -133,6 +155,7 @@ def test_host_plane_loads_neither_torch_nor_jax():
         "            c.pml.endpoint.route((c.rank + 1) % c.size),\n"
         "            c.pml._eng is not None, r.tolist())\n"
         "print(run_ranks(3, body, btl='^proc'))\n"
+        "assert trace.disable().events_total > 0\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,

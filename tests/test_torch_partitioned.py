@@ -457,3 +457,20 @@ def test_new_p2p_entry_points_refuse_a_tensor():
             "pml.precv_init", "pml.psend_init", "pml.precv_init"]
         assert chans == {}
     assert np.array_equal(got, np.arange(4.0))
+
+
+def test_partitioned_pvars_account():
+    """Mirror of the JAX package's test of the same name: 4 send starts
+    + 4 recv starts and 4 iters x 3 partitions readied, counted by each
+    package's ``pml_partitioned_{starts,pready}_total``."""
+    from ompi_tpu.mpi import trace as jtrace
+    from ompi_tpu_torch.mpi import trace as ptrace
+
+    keys = ("pml_partitioned_starts_total", "pml_partitioned_pready_total")
+    j0 = [jtrace.counters[k] for k in keys]
+    p0 = [ptrace.counters[k] for k in keys]
+    jax_res, port_res = both(2, _pair(3, 9, iters=4, seed=0))
+    _same(jax_res, port_res)
+    jd = [jtrace.counters[k] - v for k, v in zip(keys, j0)]
+    pd = [ptrace.counters[k] - v for k, v in zip(keys, p0)]
+    assert pd == jd == [8, 12]

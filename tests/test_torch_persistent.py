@@ -785,24 +785,45 @@ def test_segpar_crossover_core_gate(monkeypatch):
         assert port_res == jax_res == [want, want]
 
 
-def test_segpar_native_folds_on_every_rank(segpar_forced, monkeypatch):
+def test_bind_and_start_pvars_account():
+    """Mirror of the JAX package's test of the same name: one bind per
+    rank and one Start per iteration per rank, counted by each package's
+    ``coll_persistent_{binds,starts}_total``."""
+    from ompi_tpu.mpi import trace as jtrace
+    from ompi_tpu_torch.mpi import trace as ptrace
+
+    N, iters = 2, 7
+    keys = ("coll_persistent_binds_total", "coll_persistent_starts_total")
+
+    def body(comm, M):
+        req = comm.allreduce_init(np.ones(4))
+        outs = []
+        for _ in range(iters):
+            req.start()
+            outs.append(np.copy(req.wait()))
+        return outs
+
+    j0 = [jtrace.counters[k] for k in keys]
+    p0 = [ptrace.counters[k] for k in keys]
+    jax_res, port_res = both(N, body)
+    _same(jax_res, port_res)
+    jd = [jtrace.counters[k] - v for k, v in zip(keys, j0)]
+    pd = [ptrace.counters[k] - v for k, v in zip(keys, p0)]
+    assert pd == jd == [N, N * iters]
+
+
+def test_segpar_native_folds_on_every_rank(segpar_forced):
     """The cooperative shape's defining property: every rank folds (the
     root fold: one) — one native fold per rank per op in both
-    packages, counted at the fold call."""
+    packages, counted by each package's ``coll_shm_native_folds_total``
+    (the trace plane's counter, bumped at the fold call)."""
+    from ompi_tpu.mpi import trace as jtrace
     from ompi_tpu_torch import _native
+    from ompi_tpu_torch.mpi import trace as ptrace
 
     if not _native.arena_available():
         pytest.skip("the native arena executor did not build")
     _set("coll_shm_native", True)
-    counts = {}
-    for mod, key in ((jshm, "jax"), (pshm, "port")):
-        orig = mod._native_fold
-
-        def counted(*a, _orig=orig, _key=key, **kw):
-            counts[_key] = counts.get(_key, 0) + 1
-            return _orig(*a, **kw)
-
-        monkeypatch.setattr(mod, "_native_fold", counted)
     p, iters = 4, 3
 
     def body(comm, M):
@@ -815,9 +836,13 @@ def test_segpar_native_folds_on_every_rank(segpar_forced, monkeypatch):
         req.free()
         return outs
 
+    key = "coll_shm_native_folds_total"
+    j0, p0 = jtrace.counters[key], ptrace.counters[key]
     jax_res, port_res = both(p, body)
     _same(jax_res, port_res)
-    assert counts["port"] == counts["jax"] >= p * iters
+    folds = {"jax": jtrace.counters[key] - j0,
+             "port": ptrace.counters[key] - p0}
+    assert folds["port"] == folds["jax"] >= p * iters
 
 
 def test_segpar_timeout_names_the_wait_order_contract(segpar_forced):
@@ -926,7 +951,8 @@ def test_persistent_coll_example_under_the_launcher(shm):
         "provider=nbc algorithm=None"
     lines = sorted(ln for ln in out.stdout.splitlines() if ln.strip())
     assert lines == sorted(
-        [f"rank {r}: persistent ok sum=12288 {prov} starts=16"
+        [f"rank {r}: persistent ok sum=12288 {prov} binds=1 starts=16 "
+         f"fallback=0"
          for r in range(4)] + [f"rank {r}: partitioned ok"
                                for r in range(4)])
 
