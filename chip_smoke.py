@@ -169,6 +169,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 ← 2, each of a new value, compared on the card after every call
    (0 mismatches); a device collective over the ranks (which share the
    card) must raise;
+18a. ft (after rma_ranks, before the flagship's parameters are drawn, so
+   this process holds no card memory beside its context) — fault
+   tolerance: (a) the dense 468M model at phase train's config trained
+   6 steps by one rank on ``cuda:0`` through the port's launcher
+   (``--gpu``, ``errmgr respawn``; the rank binds its card and joins no
+   process group), an async ``CheckpointManager`` snapshot every 2 steps
+   (~5.6 GB: f32 params and moments, pinned host copies), once
+   uninterrupted and once with ``rank=0:kill@step=5``: the revived life
+   (``OMPI_TPU_RESTART=1``) finds at least 70 GB of the card free,
+   restores the latest committed snapshot onto the card
+   (``auto_restore``), resumes from it and ends with every param and
+   moment leaf bit for bit the uninterrupted job's (by a digest of the
+   bits each job prints; should they differ, a second uninterrupted job
+   and the nondeterministic op decide, as in phase ckpt); the flash
+   kernels run in both lives; the seconds from the kill to the revived
+   life's first step split into reap, respawn, interpreter with torch
+   and CUDA init and restore (the launcher's FT events and the ranks'
+   stamps), the snapshot's GB, the host copy's ms, GB/s written, and the
+   step's ms with and without a save in flight; (b) ``tpurun -np 4
+   --mca errmgr notify`` of ``examples/shrink_allreduce`` with
+   ``rank=2:kill@step=3``: every survivor's final acc equals the
+   recomputed expectation; the seconds from the kill to the first
+   ERR_PROC_FAILED, revoke to shrink in ms, and ``agree``'s µs a call at
+   n = 4 over 1000 calls; (c) 4 host ranks under ``errmgr selfheal``
+   with ``rank=2:kill@coll=5`` over a 1 MiB allreduce loop through the
+   coll/shm arena: the rank revived, every result equal to numpy's, each
+   survivor's ``coll_rejoin_total`` at least 1, exit 0, and the seconds
+   from the kill to the revived life's first collective; (d) ``tpurun
+   -np 2 --gpu --mca errmgr notify`` with ``rank=1:kill@step=1`` (both
+   ranks on card 0, one gloo group): rank 0 revokes, shrinks and
+   finishes on the host route and its finalize ends inside the 10 s
+   watchdog; (b)–(d) run side by side after (a);
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -3745,6 +3777,647 @@ def phase_ckpt(fa, card, params_np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase ft: fault tolerance on the card
+# ---------------------------------------------------------------------------
+
+FT_STEPS = 6                 # (a) optimizer steps in each job
+FT_KILL_STEP = 5             # (a) rank=0:kill@step=5, after snapshots 2, 4
+FT_SNAP_EVERY = 2            # (a) a CheckpointManager snapshot every 2 steps
+FT_FREE_BYTES = 70e9         # (a) card memory free when the new life starts
+FT_JOB_TIMEOUT = 300         # every ft job's launcher timeout (exit 124)
+FT_SHRINK = dict(np=4, victim=2, kill_step=3, steps=6)     # (b)
+FT_AGREE_CALLS = 1000        # (b) agree calls at n = 4, no failure
+FT_COLL = dict(np=4, victim=2, kill_coll=5, steps=10, elems=1 << 18)  # (c)
+FT_WATCHDOG_S = 10.0         # (d) multihost.shutdown's bound
+#: code the (a) rank runs before its body (a rehearsal on the CPU sets
+#: the small shapes and DEVICE there)
+FT_RANK_PRELUDE = ""
+
+
+def _ft_digest(params, state) -> dict:
+    """{leaf: [sum of the bits, index-weighted sum of the bits]} of every
+    parameter and moment leaf and the step count, computed on the card:
+    two runs whose leaves agree bit for bit give equal digests."""
+    import torch
+
+    leaves = {f"p_{k}": v for k, v in params.items()}
+    leaves.update({f"mu_{k}": v for k, v in state.mu.items()})
+    leaves.update({f"nu_{k}": v for k, v in state.nu.items()})
+    out = {"count": int(state.count)}
+    for k in sorted(leaves):
+        t = leaves[k].detach().contiguous().reshape(-1)
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int16).to(torch.int64)
+        w = (torch.arange(bits.numel(), device=t.device, dtype=torch.int64)
+             * 2654435761) % 4294967291 + 1
+        out[k] = [int(bits.sum()), int((bits * w).sum())]
+        del bits, w
+    return out
+
+
+def _proc_start_wall() -> float:
+    """This process's start (fork/exec) as wall time, from /proc."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f
+                     if ln.startswith("btime"))
+    return btime + start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def ft_train_rank(ckpt_dir: str) -> None:
+    """Rank body of phase ft (a), one life: the flagship's training at
+    phase train's config on ``cuda:0``; a snapshot every 2 steps through
+    an async ``CheckpointManager``; a revived life restores the latest
+    committed snapshot onto the card and resumes from it.  Prints
+    ``FT_LIFE``, a ``FT_STEP`` line before each step (the fault plan's
+    kill fires in ``faultinject.step()`` right after) and ``FT_RESULT``
+    with the final digest."""
+    t_py = time.time()
+    import torch
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.ckpt import CheckpointManager, SnapshotStore
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params,
+                                                   make_train_step)
+    from ompi_tpu_torch.models.weights import (from_jax_params,
+                                               from_train_state, train_state)
+    from ompi_tpu_torch.parallel import multihost
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+    from ompi_tpu_torch.testing import faultinject
+
+    fa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
+    life = int(os.environ.get("OMPI_TPU_RESTART") or 0)
+    comm = ompi_tpu_torch.init()
+    check(not multihost.is_initialized(),
+          "ft: a rank under respawn joined the process group")
+    if DEVICE == "cuda":
+        check(torch.cuda.is_available() and torch.cuda.current_device() == 0,
+              "ft: the rank is not on cuda:0")
+        free, total = torch.cuda.mem_get_info()
+        name = torch.cuda.get_device_name(0)
+    else:
+        free, total, name = 0, 0, DEVICE
+    t_init = time.time()
+    print("FT_LIFE " + json.dumps({
+        "life": life, "free_bytes": free, "total_bytes": total,
+        "device": name, "t_spawn":
+        _proc_start_wall(), "t_py": t_py, "t_init": t_init}), flush=True)
+    var_registry.set("ops_flash_bwd_kernel", True)
+    cfg = TransformerConfig(**FLAGSHIP, seq=TRAIN["seq"], attention="flash",
+                            compute_dtype="bfloat16", remat="dots",
+                            ce_chunk=TRAIN["ce_chunk"])
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
+    step, init = make_train_step(cfg, mesh, lr=1e-3)
+    store = SnapshotStore(ckpt_dir, job="ft")
+    mgr = CheckpointManager(comm, store, interval=FT_SNAP_EVERY,
+                            keep_last=1, async_save=True)
+    restored = mgr.auto_restore(restore_fn=lambda k, t: t.to(DEVICE))
+    if restored is None:
+        check(life == 0, "ft: a revived life found no committed snapshot")
+        params = from_jax_params(init_params(cfg, seed=0), cfg, DEVICE,
+                                 train=True, mesh=mesh)
+        state = init(params)
+        start = 0
+    else:
+        start, blobs = restored
+        check(all(v.device.type == DEVICE for v in blobs.values()
+                  if hasattr(v, "device")),
+              "ft: restore_fn left a leaf off the card")
+        params, state = from_train_state(blobs, cfg, DEVICE, mesh=mesh)
+        del blobs
+        check(int(state.count) == start,
+              f"ft: restored step count {int(state.count)} != {start}")
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t_restore = time.time()
+    rng = np.random.default_rng(12)
+    toks = [rng.integers(0, cfg.vocab, size=(TRAIN["batch"], cfg.seq))
+            .astype(np.int32) for _ in range(FT_STEPS)]
+    if os.environ.get("FT_NAME_OP"):
+        torch.use_deterministic_algorithms(True)
+        try:
+            step(params, state, toks[start])
+            op = None
+        except RuntimeError as e:    # the op with no deterministic form
+            op = str(e).splitlines()[0]
+        print("FT_OP " + json.dumps({"op": op}), flush=True)
+        ompi_tpu_torch.finalize()
+        return
+    zero_counts(fa)
+    steps_ms, host_ms, losses = [], [], []
+    t_first = None
+    for s in range(start, FT_STEPS):
+        in_flight = mgr._pending is not None and mgr._pending.is_alive()
+        print("FT_STEP " + json.dumps({
+            "life": life, "step": s, "t": time.time(),
+            "launches": counts(fa)}), flush=True)
+        faultinject.step()          # the plan's kill@step fires here
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, toks[s])
+        losses.append(loss.item())  # synchronizes the step
+        steps_ms.append(((time.perf_counter() - t0) * 1e3, in_flight))
+        if t_first is None:
+            t_first = time.time()
+        if (s + 1) % FT_SNAP_EVERY == 0:
+            # the save in three parts: waiting out the previous save (one
+            # outstanding at most), train_state (the moments to pageable
+            # numpy), the manager's host copy (params into pinned
+            # buffers, the numpy leaves copied) before save returns
+            t0 = time.perf_counter()
+            mgr.wait()
+            t1 = time.perf_counter()
+            snap = train_state(params, state, cfg, mesh=mesh)
+            t2 = time.perf_counter()
+            mgr.save(s + 1, snap)
+            t3 = time.perf_counter()
+            host_ms.append({"wait_previous": (t1 - t0) * 1e3,
+                            "train_state": (t2 - t1) * 1e3,
+                            "manager_copy": (t3 - t2) * 1e3})
+            del snap
+            if s + 1 == FT_STEPS:
+                mgr.wait()
+                write_s = time.perf_counter() - t3
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                 os.walk(store.snapshot_dir(FT_STEPS)) for f in fs)
+    print("FT_RESULT " + json.dumps({
+        "life": life, "start": start, "t_restore": t_restore,
+        "t_first_step": t_first, "losses": losses, "steps_ms": steps_ms,
+        "host_copy_ms": host_ms, "snapshot_bytes": nbytes,
+        "final_save_s": write_s, "launches": counts(fa),
+        "digest": _ft_digest(params, state)}), flush=True)
+    var_registry.set("ops_flash_bwd_kernel", False)
+    ompi_tpu_torch.finalize()
+
+
+def _ft_train_job(ckpt_dir: str, plan: str = "", extra_env=None):
+    """One job of the (a) body: the port's launcher in this process (the
+    API ``tpurun`` calls), ``--gpu``, ``errmgr respawn``, one rank; its
+    tagged output lines, rc and the launcher's FT event timeline."""
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.runtime import ftevents
+    from ompi_tpu_torch.runtime.job import AppContext, Job
+    from ompi_tpu_torch.runtime.launcher import LocalLauncher
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {"OMPI_TPU_MCA_errmgr": "respawn", **(extra_env or {})}
+    if plan:
+        env["OMPI_TPU_FAULT_PLAN"] = plan
+    code = "\n".join(("import chip_smoke as C", FT_RANK_PRELUDE,
+                      f"C.ft_train_rank({ckpt_dir!r})"))
+    job = Job([AppContext(argv=[sys.executable, "-c", code], np=1,
+                          env=env, cwd=here)])
+    lines: list = []
+    lock = threading.Lock()
+
+    class _Sink:
+        def __init__(self):
+            self.buf = ""
+
+        def write(self, s):
+            with lock:
+                self.buf += s
+                while "\n" in self.buf:
+                    ln, self.buf = self.buf.split("\n", 1)
+                    lines.append((time.time(), ln))
+
+        def flush(self):
+            pass
+
+    ftevents.log.clear()
+    # respawn with one revive and no min-uptime reset: a life that
+    # fails on its own ends the job instead of reviving until timeout
+    policy = {"errmgr_": "respawn", "errmgr_max_restarts": 1,
+              "errmgr_min_uptime_s": 0.0}
+    old = {k: var_registry.get(k) for k in policy}
+    for k, v in policy.items():
+        var_registry.set(k, v)
+    out, err = sys.stdout, sys.stderr
+    sys.stdout = sys.stderr = _Sink()
+    try:
+        rc = LocalLauncher(want_gpu=DEVICE == "cuda",
+                           timeout=FT_JOB_TIMEOUT).run(job)
+    finally:
+        sys.stdout, sys.stderr = out, err
+        for k, v in old.items():
+            var_registry.set(k, v)
+    return rc, lines, ftevents.log.snapshot(job.jobid)
+
+
+def _tagged(lines, tag: str) -> list[dict]:
+    return tagged_json("\n".join(ln for _t, ln in lines), tag)
+
+
+def _ft_spread_check(dirs: dict) -> dict:
+    """The resumed job's final snapshot against the reference's, leaf by
+    leaf, held at the spread of two uninterrupted runs (ref, ref2)."""
+    from ompi_tpu_torch.ckpt import SnapshotStore
+
+    def load(d):
+        st = SnapshotStore(d, job="ft")
+        return st.load_rank(st.latest(), 0)
+
+    ref, ref2, got = load(dirs["ref"]), load(dirs["ref2"]), load(dirs["fault"])
+    worse = {}
+    spread_max = 0.0
+    for k in ref:
+        a = ref[k].double()
+        spread = float((a - ref2[k].double()).abs().max())
+        off = float((a - got[k].double()).abs().max())
+        spread_max = max(spread_max, spread)
+        if off > spread:
+            worse[k] = (off, spread)
+    check(not worse, f"ft: the revived run is off by more than two "
+          f"uninterrupted runs differ: {worse}")
+    return {"spread_max": spread_max}
+
+
+def _ft_flagship(card) -> dict:
+    """(a): the flagship's training killed at step 5 and revived in place
+    on the card, against an uninterrupted job of the same body."""
+    import shutil
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "ft_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    need = 3 * 5.7e9                      # three jobs' final snapshots
+    free_disk = shutil.disk_usage(base).free
+    check(free_disk >= need, f"ft: {free_disk / 1e9:.1f} GB free under "
+          f"{base}, the jobs' snapshots take {need / 1e9:.1f} GB")
+    dirs = {k: os.path.join(base, k) for k in ("ref", "fault", "ref2")}
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    res: dict = {"main_process_allocated_bytes":
+                 torch.cuda.memory_allocated() if DEVICE == "cuda" else 0}
+    try:
+        rc, ref_lines, _ = _ft_train_job(dirs["ref"])
+        check(rc == 0, f"ft: the uninterrupted job failed (rc {rc}):\n"
+              + "\n".join(ln for _t, ln in ref_lines[-40:]))
+        ref = _tagged(ref_lines, "FT_RESULT")[-1]
+        check(ref["life"] == 0 and ref["start"] == 0,
+              f"ft: the uninterrupted job was revived: {ref['life']}")
+        plan = f"rank=0:kill@step={FT_KILL_STEP}"
+        rc, lines, events = _ft_train_job(dirs["fault"], plan)
+        check(rc == 0, f"ft: the job with {plan} failed (rc {rc}):\n"
+              + "\n".join(ln for _t, ln in lines[-60:]))
+        lives = {d["life"]: d for d in _tagged(lines, "FT_LIFE")}
+        steps = _tagged(lines, "FT_STEP")
+        results = _tagged(lines, "FT_RESULT")
+        check(sorted(lives) == [0, 1] and len(results) == 1
+              and results[0]["life"] == 1,
+              f"ft: expected two lives and a result from the second, got "
+              f"lives {sorted(lives)}, results {len(results)}")
+        got = results[0]
+        check(all(d["device"] == lives[0]["device"] for d in lives.values()),
+              f"ft: the lives ran on different cards: {lives}")
+        check(lives[1]["free_bytes"] >= FT_FREE_BYTES,
+              f"ft: only {lives[1]['free_bytes'] / 1e9:.1f} GB of the card "
+              f"free when the revived life started")
+        kill = [d for d in steps if d["life"] == 0][-1]
+        check(kill["step"] == FT_KILL_STEP,
+              f"ft: life 0 reached step {kill['step']}, not the kill's")
+        check(DEVICE != "cuda" or (
+            kill["launches"]["flash_fwd"] > 0
+            and got["launches"]["flash_fwd"] > 0
+            and got["launches"]["flash_bwd_dq"] > 0
+            and got["launches"]["flash_bwd_dkv"] > 0),
+              f"ft: the flash kernels did not run in both lives: "
+              f"{kill['launches']} / {got['launches']}")
+        check(got["start"] in range(FT_SNAP_EVERY, FT_KILL_STEP + 1,
+                                    FT_SNAP_EVERY),
+              f"ft: the revived life resumed at {got['start']}")
+        detect = next(e for e in events if e["kind"] == "detect")
+        revive = next(e for e in events if e["kind"] == "revive")
+        t_kill = kill["t"]
+        l1 = lives[1]
+        res["timeline_s"] = {
+            "reap": detect["wall"] - t_kill,
+            "respawn": revive["wall"] - detect["wall"],
+            "interpreter_torch_cuda_init": l1["t_init"] - revive["wall"],
+            "of_which_process_start_to_python": l1["t_py"] - l1["t_spawn"],
+            "restore": got["t_restore"] - l1["t_init"],
+            "kill_to_first_step_start": got["t_restore"] - t_kill,
+            "first_step": got["t_first_step"] - got["t_restore"],
+            "kill_to_first_step_done": got["t_first_step"] - t_kill}
+        if got["digest"] == ref["digest"]:
+            check(got["losses"] == ref["losses"][got["start"]:],
+                  f"ft: equal leaves, different losses: {got['losses']} "
+                  f"vs {ref['losses']}")
+            res["resume"] = "bitwise"
+        else:
+            rc, lines2, _ = _ft_train_job(dirs["ref2"])
+            check(rc == 0, f"ft: the second uninterrupted job failed ({rc})")
+            ref2 = _tagged(lines2, "FT_RESULT")[-1]
+            check(ref2["digest"] != ref["digest"],
+                  "ft: the revived run differs from two identical "
+                  "uninterrupted runs")
+            res.update(_ft_spread_check(dirs))
+            rc, lines3, _ = _ft_train_job(dirs["ref2"], "",
+                                          {"FT_NAME_OP": "1"})
+            res["nondeterministic_op"] = _tagged(lines3, "FT_OP")[-1]["op"]
+            res["resume"] = "within the spread of two uninterrupted runs"
+        in_flight = [ms for ms, f in ref["steps_ms"][1:] if f]
+        idle = [ms for ms, f in ref["steps_ms"][1:] if not f]
+        res.update(
+            lives=2, resumed_at=got["start"],
+            killed_at=FT_KILL_STEP, losses_reference=ref["losses"],
+            losses_revived=got["losses"],
+            free_gb_at_revived_start=l1["free_bytes"] / 1e9,
+            snapshot_gb=ref["snapshot_bytes"] / 1e9,
+            host_copy_ms=ref["host_copy_ms"],
+            host_copy="pinned host buffers, one a key, reused by every "
+                      "save (train_state moves the moments to pageable "
+                      "numpy first)",
+            final_write_s=ref["final_save_s"],
+            write_GBps=ref["snapshot_bytes"] / ref["final_save_s"] / 1e9,
+            step_ms_save_in_flight=in_flight,
+            step_ms_no_save_in_flight=idle,
+            first_step_ms_reference=ref["steps_ms"][0][0],
+            launches={"life0_before_kill": kill["launches"],
+                      "life1": got["launches"]})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
+def _timed_tpurun(args, env=None) -> tuple:
+    """A job of the port's launcher with each output line's arrival
+    time: (rc, [(wall, line)])."""
+    p = subprocess.Popen(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "--timeout",
+         str(FT_JOB_TIMEOUT), *args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **(env or {})})
+    lines = [(time.time(), ln.rstrip("\n")) for ln in p.stdout]
+    return p.wait(), lines
+
+
+def _fault_ts(log_dir: str, rank: int) -> float:
+    with open(os.path.join(log_dir, f"faults_rank{rank}.json")) as f:
+        return json.load(f)["ts"]
+
+
+FT_AGREE_APP = """
+import time, json
+import ompi_tpu_torch
+comm = ompi_tpu_torch.init()
+comm.agree(True)
+t0 = time.perf_counter()
+for _ in range({n}):
+    assert comm.agree(True) is True
+us = (time.perf_counter() - t0) / {n} * 1e6
+print("FT_AGREE " + json.dumps({{"rank": comm.rank, "us": us}}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+
+def _ft_shrink(card) -> dict:
+    """(b): the ULFM recipe, ``examples/shrink_allreduce`` under notify
+    with rank 2 killed at step 3; then agree's cost with no failure."""
+    import shutil
+    import tempfile
+
+    S = FT_SHRINK
+    tmp = tempfile.mkdtemp(prefix="ft_shrink_",
+                           dir=os.path.join(os.path.dirname(
+                               os.path.abspath(__file__)), "build"))
+    try:
+        rc, lines = _timed_tpurun(
+            ["-np", str(S["np"]), "--mca", "errmgr", "notify",
+             "--mca", "faultinject_plan",
+             f"rank={S['victim']}:kill@step={S['kill_step']}",
+             "-x", f"CKPT_DIR={tmp}/ckpt", "-x",
+             f"OMPI_TPU_FAULT_LOG_DIR={tmp}", "--", sys.executable, "-m",
+             "ompi_tpu_torch.examples.shrink_allreduce"])
+        out = "\n".join(ln for _t, ln in lines)
+        check(rc == 0, f"ft shrink_allreduce rc {rc}:\n{out[-3000:]}")
+        want = 0
+        for s in range(S["steps"]):
+            want += sum(i * 10 + s for i in range(S["np"])
+                        if s < S["kill_step"] or i != S["victim"])
+        survivors = [i for i in range(S["np"]) if i != S["victim"]]
+        for r in survivors:
+            line = (f"[1,{r}]id {r} final acc={want} size={len(survivors)}"
+                    f" shrinks=1")
+            check(line in out, f"ft: missing {line!r}:\n{out[-3000:]}")
+        t_kill = _fault_ts(tmp, S["victim"])
+        detect = {r: t for t, ln in lines for r in survivors
+                  if ln.startswith(f"[1,{r}]id {r} detect_dt=")}
+        check(sorted(detect) == survivors,
+              f"ft: survivors' detect lines {detect}")
+        # revoke -> shrink, timed on a run without snapshots: with them
+        # the shrink line follows the snapshot's load, which imports
+        # torch in the host rank (the store loads CPU tensors)
+        rc, lines = _timed_tpurun(
+            ["-np", str(S["np"]), "--mca", "errmgr", "notify",
+             "--mca", "faultinject_plan",
+             f"rank={S['victim']}:kill@step={S['kill_step']}", "--",
+             sys.executable, "-m",
+             "ompi_tpu_torch.examples.shrink_allreduce"])
+        check(rc == 0, f"ft shrink_allreduce without snapshots rc {rc}")
+        bare = sum(i * 10 + s for s in range(S["steps"])
+                   for i in survivors)
+        got = "\n".join(ln for _t, ln in lines)
+        for r in survivors:
+            check(f"[1,{r}]id {r} final acc={bare} " in got,
+                  f"ft: survivor {r} without snapshots:\n{got[-2000:]}")
+        rdet = {r: t for t, ln in lines for r in survivors
+                if ln.startswith(f"[1,{r}]id {r} detect_dt=")}
+        shrank = {r: t for t, ln in lines for r in survivors
+                  if ln.startswith(f"[1,{r}]id {r}: shrank")}
+        check(sorted(rdet) == survivors and sorted(shrank) == survivors,
+              f"ft: survivors' detect/shrink lines {rdet} {shrank}")
+        rc, lines = _timed_tpurun(
+            ["-np", "4", "--", sys.executable, "-c",
+             FT_AGREE_APP.format(n=FT_AGREE_CALLS)])
+        check(rc == 0, f"ft agree job rc {rc}")
+        agree = {d["rank"]: d["us"] for d in _tagged(lines, "FT_AGREE")}
+        check(sorted(agree) == [0, 1, 2, 3], f"ft agree rows {agree}")
+        return {"expected_acc": want,
+                "kill_to_first_err_proc_failed_s":
+                    min(detect.values()) - t_kill,
+                "revoke_to_shrink_ms": {r: (shrank[r] - rdet[r]) * 1e3
+                                        for r in survivors},
+                "agree_us_a_call_n4": agree,
+                "agree_calls": FT_AGREE_CALLS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+FT_COLL_APP = r"""
+import json, os, time
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.ckpt import snapc
+from ompi_tpu_torch.ckpt.store import SnapshotStore
+from ompi_tpu_torch.mpi import trace
+from ompi_tpu_torch.mpi.constants import ERR_PROC_FAILED, MPIException
+
+comm = ompi_tpu_torch.init()
+rank, size = comm.rank, comm.size
+life = snapc.restart_incarnation()
+store = SnapshotStore(os.environ["CKPT_DIR"], job=f"rank{rank}")
+start = 0
+restored = snapc.auto_restore(comm, store, rank=0)
+if restored is not None:
+    start = int(restored[1]["step"]) + 1
+
+def heal_retry(fn):
+    # a failed attempt completed on NO rank (the arena is atomic at the
+    # app level): re-running the whole op is the retry unit
+    while True:
+        try:
+            return fn()
+        except MPIException as e:
+            if e.error_class != ERR_PROC_FAILED:
+                raise
+            time.sleep(0.05)
+
+from ompi_tpu_torch.testing import faultinject
+n, steps = int(os.environ["FT_ELEMS"]), int(os.environ["FT_STEPS"])
+ok, t_first = 0, None
+for step in range(start, steps):
+    faultinject.step()
+    x = np.arange(n, dtype=np.float32) % 251 + float(rank * 100 + step)
+    t0 = time.time()
+    out = heal_retry(lambda: comm.allreduce(x))
+    if t_first is None:
+        t_first = t0
+    want = sum(np.arange(n, dtype=np.float32) % 251
+               + np.float32(r * 100 + step) for r in range(size))
+    ok += int(np.array_equal(out, want))
+    store.write_rank(step, 0, {"step": np.int64(step)})
+    store.commit(step, 1)
+st = comm._coll_shm_state
+print("FT_COLL " + json.dumps({
+    "rank": rank, "life": life, "start": start, "steps": steps - start,
+    "equal": ok, "t_first_coll": t_first, "mode": getattr(st, "mode", "?"),
+    "rejoins": trace.counters["coll_rejoin_total"],
+    "provider": comm.coll.providers.get("allreduce")}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+
+def _ft_selfheal(card) -> dict:
+    """(c): selfheal through the arena — rank 2 killed inside its 5th
+    collective of a 1 MiB allreduce loop over coll/shm, revived."""
+    import shutil
+    import tempfile
+
+    C = FT_COLL
+    tmp = tempfile.mkdtemp(prefix="ft_coll_",
+                           dir=os.path.join(os.path.dirname(
+                               os.path.abspath(__file__)), "build"))
+    try:
+        rc, lines = _timed_tpurun(
+            ["-np", str(C["np"]), "--mca", "errmgr", "selfheal",
+             "--mca", "faultinject_plan",
+             f"rank={C['victim']}:kill@coll={C['kill_coll']}",
+             "-x", f"CKPT_DIR={tmp}/ckpt", "-x",
+             f"OMPI_TPU_FAULT_LOG_DIR={tmp}", "-x",
+             f"FT_ELEMS={C['elems']}", "-x", f"FT_STEPS={C['steps']}",
+             "--", sys.executable, "-c", FT_COLL_APP])
+        out = "\n".join(ln for _t, ln in lines)
+        check(rc == 0, f"ft selfheal job rc {rc}:\n{out[-3000:]}")
+        rows = {d["rank"]: d for d in _tagged(lines, "FT_COLL")}
+        check(sorted(rows) == list(range(C["np"])),
+              f"ft selfheal rows {sorted(rows)}:\n{out[-3000:]}")
+        victim = rows[C["victim"]]
+        check(victim["life"] == 1, f"ft: rank {C['victim']} not revived: "
+              f"{victim}")
+        for r, d in rows.items():
+            check(d["equal"] == d["steps"],
+                  f"ft: rank {r}'s allreduce differs from numpy: {d}")
+            check(d["provider"] == "shm" and d["mode"] == "arena",
+                  f"ft: rank {r} left the arena: {d}")
+            if r != C["victim"]:
+                check(d["rejoins"] >= 1 and d["start"] == 0
+                      and d["steps"] == C["steps"],
+                      f"ft: survivor {r} did not rejoin: {d}")
+        t_kill = _fault_ts(tmp, C["victim"])
+        return {"rows": rows,
+                "kill_to_revived_first_collective_s":
+                    victim["t_first_coll"] - t_kill}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+FT_GPU_NOTIFY_APP = r"""
+import json, time
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.mpi.constants import (ERR_PROC_FAILED, ERR_REVOKED,
+    MPIException)
+from ompi_tpu_torch.parallel import multihost
+from ompi_tpu_torch.testing import faultinject
+
+comm = ompi_tpu_torch.init()
+me, group = comm.rank, multihost.is_initialized()
+acc, shrunk = 0.0, None
+for step in range(4):
+    faultinject.step()
+    try:
+        acc += float(comm.allreduce(np.array([1.0 + step]))[0])
+    except MPIException as e:
+        if e.error_class not in (ERR_PROC_FAILED, ERR_REVOKED):
+            raise
+        comm.revoke()
+        comm = comm.shrink()
+        shrunk = step
+        acc += float(comm.allreduce(np.array([1.0 + step]))[0])
+t0 = time.monotonic()
+ompi_tpu_torch.finalize()
+print("FT_GPU " + json.dumps({"rank": me, "group": group, "acc": acc,
+      "shrunk_at": shrunk, "finalize_s": time.monotonic() - t0}),
+      flush=True)
+"""
+
+
+def _ft_gpu_notify(card) -> dict:
+    """(d): a ``--gpu`` notify job (both ranks on card 0, one gloo group)
+    that loses rank 1; rank 0 finishes on the host route and leaves."""
+    t0 = time.perf_counter()
+    rc, lines = _timed_tpurun(
+        ["-np", "2", "--gpu", "--mca", "errmgr", "notify",
+         "--mca", "faultinject_plan", "rank=1:kill@step=1", "--",
+         sys.executable, "-c", FT_GPU_NOTIFY_APP])
+    wall = time.perf_counter() - t0
+    out = "\n".join(ln for _t, ln in lines)
+    check(rc == 0, f"ft --gpu notify job rc {rc}:\n{out[-3000:]}")
+    rows = {d["rank"]: d for d in _tagged(lines, "FT_GPU")}
+    check(sorted(rows) == [0], f"ft --gpu notify rows {rows}")
+    r0 = rows[0]
+    check(r0["group"] and r0["shrunk_at"] == 1 and r0["acc"] == 11.0,
+          f"ft --gpu notify: {r0}")
+    check(r0["finalize_s"] < FT_WATCHDOG_S,
+          f"ft: rank 0's finalize took {r0['finalize_s']:.1f} s")
+    return {"rank0": r0, "job_wall_s": wall}
+
+
+def phase_ft(card):
+    """Fault tolerance on the card: (a) the flagship's training revived in
+    place, (b) the ULFM recipe, (c) selfheal through the arena, (d) a
+    ``--gpu`` notify job with a dead member."""
+    t0 = time.perf_counter()
+    flagship = _ft_flagship(card)
+    secs_a = time.perf_counter() - t0
+    with ThreadPoolExecutor(3) as ex:
+        b = ex.submit(_ft_shrink, card)
+        c = ex.submit(_ft_selfheal, card)
+        d = ex.submit(_ft_gpu_notify, card)
+        shrink, selfheal, gpu = b.result(), c.result(), d.result()
+    emit("ft", flagship=flagship, shrink=shrink, selfheal=selfheal,
+         gpu_notify=gpu, seconds_a=secs_a,
+         seconds_bcd=time.perf_counter() - t0 - secs_a, card=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3790,6 +4463,7 @@ def main() -> int:
     ring = run("ring", phase_ring, fa, card)
     rma = run("rma_kernel", phase_rma_kernel, rd, card)
     rma_launches = run("rma_ranks", phase_rma_ranks, card)
+    run("ft", phase_ft, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

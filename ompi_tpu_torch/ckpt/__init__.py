@@ -10,15 +10,24 @@ filem/raw), as the JAX package's ``ompi_tpu.ckpt``:
 - ``DcpStore`` (``ckpt.dcp_store``): the counterpart of the JAX package's
   ``OrbaxStore`` over ``torch.distributed.checkpoint`` (OrbaxStore →
   DcpStore, ``abstract_state`` → ``template``, a sharded jax.Array → a
-  DTensor made by ``sharded``).
+  DTensor made by ``sharded``);
+- ``snapc`` (``ckpt.snapc``): coordinated ``checkpoint``/``restart``,
+  ``auto_restore`` of an errmgr-revived life and the step-driven
+  ``CheckpointManager``;
+- ``msglog`` (``ckpt.msglog``): the pessimist message log
+  (``MessageLog``) and the wildcard match order (``EventLog``).
 
-Left out until their dependencies are ported (ROADMAP.md Queue 1 item
-6): ``ShardedSnapshotStore`` (collective MPI-IO, item 6.12), and
-``snapc`` (coordinated checkpoint/restart) and ``msglog`` (message
-logging), which need the trace and fault-tolerance layers (item 6.10).
+Left out until its dependency is ported: ``ShardedSnapshotStore``
+(collective MPI-IO, ROADMAP.md Queue 1 item 6.12).
 """
 
 from ompi_tpu_torch.ckpt.dcp_store import DcpStore, sharded
+from ompi_tpu_torch.ckpt.msglog import EventLog, MessageLog
+from ompi_tpu_torch.ckpt.snapc import (CheckpointManager, auto_restore,
+                                       checkpoint, restart,
+                                       restart_incarnation)
 from ompi_tpu_torch.ckpt.store import SnapshotStore, StagedStore
 
-__all__ = ["SnapshotStore", "StagedStore", "DcpStore", "sharded"]
+__all__ = ["SnapshotStore", "StagedStore", "DcpStore", "sharded",
+           "checkpoint", "restart", "auto_restore", "restart_incarnation",
+           "CheckpointManager", "MessageLog", "EventLog"]

@@ -73,8 +73,10 @@ def from_jax_params(params: dict, cfg: TransformerConfig, device="cuda",
     dev = resolve_device(device)
     if mesh is not None:
         specs = param_specs(cfg, mesh)
-        params = {name: local_block(np.asarray(arr), mesh,
-                                    specs.get(name, ()))
+        # a tensor (on any device) is cut where it lies
+        params = {name: local_block(
+            arr if isinstance(arr, torch.Tensor) else np.asarray(arr),
+            mesh, specs.get(name, ()))
                   for name, arr in params.items()}
     if train:
         store = torch_dtype(cfg.param_dtype or "float32")
@@ -160,7 +162,7 @@ def from_jax_opt_state(leaves, cfg: TransformerConfig, like: dict,
     if len(rest) not in (1 + 2 * nk, 2 + 2 * nk):
         raise ValueError(f"{len(leaves)} leaves do not hold an AdamW state "
                          f"of {nk} parameters")
-    count = torch.tensor(int(np.asarray(rest[0])), dtype=torch.int32)
+    count = torch.tensor(int(rest[0]), dtype=torch.int32)
 
     def mine(k, leaf, dtype):
         t = _tensor(leaf)

@@ -32,10 +32,13 @@ the receive buffer, and receiver-pull progress for a blocked recv).
 The trace plane's sites are the JAX package's: the ``send`` and
 ``send_inline`` instants, the tcp plane's ``btl_tcp_native_*_total``
 counters (writes, batched frames, parks) and its ``btl_tcp_write_ns``
-histogram.  Left out: the fault-injection hook and the fault-tolerance
-checks between parks (ROADMAP.md Queue 1 item 6.10), and the identity
-aliasing and rebind of dynamic process management and respawn (items
-6.13 and 6.10).
+histogram.  The fault-tolerance sites are the JAX package's too: the
+fault injector's frame hook at the endpoint (``send`` and
+``try_send_inline``, so every transport below it, python or native tcp,
+the shm rings and proc, carries the same verdicts), the ``ft_check``
+contract the native tcp plane re-runs between bounded parks, and the
+endpoint's ``rebind`` to a respawned peer's new card.  Left out: the
+identity aliasing of dynamic process management (item 6.13).
 
 Device buffers never travel through a BTL: the device path is the bound
 ``DeviceCommunicator`` (NCCL on the card).
@@ -193,8 +196,8 @@ class _TxRing:
 
     def __init__(self) -> None:
         self.mu = threading.Lock()
-        # (parts tuple, nbytes, ticket) — parts are the wire segments
-        # in order
+        # (parts tuple, nbytes, ticket, cid) — parts are the wire
+        # segments in order; cid rides along for mid-park FT checks
         self.entries: collections.deque = collections.deque()
         self.pending_bytes = 0
         self.enq = 0                       # tickets issued
@@ -297,8 +300,9 @@ class TcpBTL:
         self._wake_r = self._wake_w = -1       # poller wake pipe (lazy)
         self._scan_out = (ctypes.c_uint64 * (3 * _SCAN_MAX))()
         self._scan_addr = ctypes.addressof(self._scan_out)
-        # zero-copy landing hooks, installed by the owning PML (None ⇒
-        # staged landing)
+        # FT contract + zero-copy landing hooks, installed by the owning
+        # PmlFT / PML (None ⇒ stop-flag-only parks, staged landing)
+        self.ft_check: Optional[Callable[[int, Optional[int]], None]] = None
         self.recv_sink: Optional[Callable[[dict, int], object]] = None
         self.recv_sink_done: Optional[Callable[[dict, int], None]] = None
         t = threading.Thread(target=self._accept_loop, name=f"btl-accept-{rank}",
@@ -326,7 +330,8 @@ class TcpBTL:
         total = len(hdr) + len(payload)
         prefix = struct.pack("<II", total, len(hdr))
         if self._native_ok and var_registry.get("btl_tcp_native"):
-            self._send_native(peer, prefix, hdr, payload, sock, lock)
+            self._send_native(peer, header.get("cid"), prefix, hdr,
+                              payload, sock, lock)
             return
         with lock:
             # FIFO across plane flips: anything the native plane still
@@ -375,13 +380,15 @@ class TcpBTL:
             if ring.entries and ring.pending_bytes + nb > cap:
                 return False
             ring.enq += 1
-            ring.entries.append((parts, nb, ring.enq))
+            ring.entries.append((parts, nb, ring.enq,
+                                 header.get("cid")))
             ring.pending_bytes += nb
         self._kick_writer()
         return True
 
     def _direct_write(self, peer: int, ring: _TxRing, parts,
-                      raise_errors: bool, sl=None) -> Optional[bool]:
+                      raise_errors: bool, cid: Optional[int] = None,
+                      sl=None) -> Optional[bool]:
         """Opportunistic same-thread drain — the latency path.  When
         the peer's ring is idle and the out lock is free, the frame
         goes on the wire right here in GIL-released writev calls: no
@@ -493,9 +500,9 @@ class TcpBTL:
                 if written == 0:
                     return None   # not writable at all: ring + writer
                 # mid-frame backpressure: the frame MUST complete (a
-                # torn frame desyncs the stream) — park bounded, and on
-                # abandonment kill the socket so the receiver sees EOF
-                # instead of a desynced stream
+                # torn frame desyncs the stream) — park bounded, re-run
+                # the FT contract, and on abandonment kill the socket
+                # so the receiver sees EOF instead of a desynced stream
                 trace_mod.count("btl_tcp_native_parks_total")
                 if self._stop.is_set():
                     err = ConnectionError("endpoint closed mid-write")
@@ -507,6 +514,20 @@ class TcpBTL:
                     if raise_errors:
                         raise err
                     return False
+                ft = self.ft_check
+                if ft is not None:
+                    try:
+                        ft(peer, cid)
+                    except BaseException:
+                        self._fail_ring(ring, ConnectionError(
+                            "FT verdict mid-write"))
+                        try:
+                            sock.close()
+                        except OSError:
+                            pass
+                        if raise_errors:
+                            raise
+                        return False
             del keep
             trace_mod.count("btl_tcp_native_writes_total", calls)
             trace_mod.count("btl_tcp_native_batched_frames_total")
@@ -517,13 +538,13 @@ class TcpBTL:
         finally:
             lock.release()
 
-    def _send_native(self, peer: int, prefix: bytes, hdr: bytes, payload,
-                     sock=None, lock=None) -> None:
+    def _send_native(self, peer: int, cid: Optional[int], prefix: bytes,
+                     hdr: bytes, payload, sock=None, lock=None) -> None:
         """Ring enqueue with the buffer-reuse contract: bytes payloads
         are immutable and ride as-is (send returns immediately — the
         batching win); small views are copied into the entry; large
-        views ride zero-copy and the sender parks, in bounded slices,
-        until its drained ticket is reached."""
+        views ride zero-copy and the sender parks until its drained
+        ticket is reached, FT-checked between bounded slices."""
         nbytes = len(payload)
         ring = self._ring(peer)
         parts = (prefix, hdr, payload) if nbytes else (prefix, hdr)
@@ -532,6 +553,7 @@ class TcpBTL:
             # the pingpong latency path.  Synchronous, so views of any
             # size go zero-copy with no drain wait.
             if self._direct_write(peer, ring, parts, raise_errors=True,
+                                  cid=cid,
                                   sl=(sock, lock) if lock else None):
                 return
         await_drain = False
@@ -554,11 +576,11 @@ class TcpBTL:
                 if not ring.entries or ring.pending_bytes + nb <= cap:
                     ring.enq += 1
                     ticket = ring.enq
-                    ring.entries.append((parts, nb, ticket))
+                    ring.entries.append((parts, nb, ticket, cid))
                     ring.pending_bytes += nb
                     break
                 seen = ring.ctr[0]
-            self._park_ring(ring, seen)   # ring full
+            self._park_ring(peer, cid, ring, seen)   # ring full
         self._kick_writer()
         if not await_drain:
             return
@@ -571,12 +593,13 @@ class TcpBTL:
                 seen = ring.ctr[0]
             if seen >= ticket:
                 return
-            self._park_ring(ring, seen)
+            self._park_ring(peer, cid, ring, seen)
 
-    def _park_ring(self, ring: _TxRing, seen: int) -> None:
+    def _park_ring(self, peer: int, cid: Optional[int], ring: _TxRing,
+                   seen: int) -> None:
         """One bounded GIL-released park on the ring's drained counter,
-        then the stop-flag check — Arena._wait's discipline on the send
-        side."""
+        then the stop-flag check and the full Python FT contract —
+        Arena._wait's discipline on the send side."""
         ar = _park_lib()
         if ar is not None:
             ar.ompi_tpu_arena_wait_change(ring.ctr_addr, seen, 0,
@@ -586,6 +609,19 @@ class TcpBTL:
         trace_mod.count("btl_tcp_native_parks_total")
         if self._stop.is_set():
             raise ConnectionError("btl/tcp: endpoint closed mid-send")
+        ft = self.ft_check
+        if ft is not None:
+            ft(peer, cid)
+
+    def drop_ring(self, peer: int) -> None:
+        """Rebind/teardown path: fail and forget the peer's submission
+        ring — parked senders wake into ConnectionError (the PML's
+        park-and-heal classes), and the next send to the peer's new
+        incarnation starts a fresh ring."""
+        with self._lock:
+            ring = self._rings.pop(peer, None)
+        if ring is not None:
+            self._fail_ring(ring, ConnectionError("peer rebound"))
 
     def _ring(self, peer: int) -> _TxRing:
         with self._lock:
@@ -642,7 +678,7 @@ class TcpBTL:
             with ring.mu:
                 if ring.error is not None or not ring.entries:
                     return
-                parts, nb, ticket = ring.entries.popleft()
+                parts, nb, ticket, _cid = ring.entries.popleft()
                 ring.pending_bytes -= nb
             try:
                 _send_all(sock, *parts)
@@ -719,7 +755,7 @@ class TcpBTL:
             # give zero-copy addresses for read-only bytes too
             keep = []       # buffer refs pinned for the native call
             flat = []
-            for parts, _nb, _ticket in batch:
+            for parts, _nb, _ticket, _cid in batch:
                 for p in parts:
                     if len(p):
                         v = np.frombuffer(p, np.uint8)
@@ -756,17 +792,24 @@ class TcpBTL:
                         idx += 1
                     continue
                 # slice expired without progress (peer backpressure):
-                # check the stop flag, then wait again
+                # re-run the FT contract, then wait again
                 trace_mod.count("btl_tcp_native_parks_total")
                 if self._stop.is_set():
                     self._fail_ring(ring, ConnectionError(
                         "endpoint closed mid-drain"))
                     return written > 0
+                ft = self.ft_check
+                if ft is not None:
+                    try:
+                        ft(peer, None)
+                    except Exception as e:  # noqa: BLE001 — FT verdict
+                        self._fail_ring(ring, e)
+                        return written > 0
             del keep
             # the whole batch is on the wire: retire + publish tickets
             with ring.mu:
                 last = 0
-                for _parts, nb, ticket in batch:
+                for _parts, nb, ticket, _cid in batch:
                     if not ring.entries:
                         break   # a concurrent _fail_ring cleared us
                     ring.entries.popleft()
@@ -1378,6 +1421,16 @@ class BtlEndpoint:
         self._shm_ok: set[int] = set()     # peers with a live shm route
         self._proc_ok: set[int] = set()    # peers in my address space
         self._proc_no: set[int] = set()    # known peers that are NOT
+        # deterministic chaos (ompi_tpu_torch.testing.faultinject): when a
+        # fault plan is armed, every header-path frame gets a seeded
+        # drop/delay/dup verdict at this boundary, whichever transport
+        # (proc, shm rings, python or native tcp) then carries it.  None
+        # in production — the hot path pays one attribute check.
+        self._fault = None
+        from ompi_tpu_torch.testing import faultinject
+
+        if faultinject.active():
+            self._fault = faultinject.injector_for(rank)
 
     @property
     def address(self) -> str:
@@ -1441,6 +1494,14 @@ class BtlEndpoint:
         the ring has room, the native tcp ring when it does.  False ⇒
         caller enqueues for the send worker.  Safe to mix with queued
         sends: the PML reorders by per-(peer,cid) sequence."""
+        if self._fault is not None and peer != self.rank:
+            verdict = self._fault.on_frame(peer, header)
+            if verdict != "send":
+                # the verdict is identity-hashed: the worker path would
+                # draw the SAME verdict, so resolve it here (True = the
+                # frame's fate is sealed; nothing for the worker to do)
+                self._apply_fault(verdict, peer, header, payload)
+                return True
         ok = self._try_send_inline(peer, header, payload)
         if ok and trace_mod.active:
             # AFTER success only: a declined inline attempt is re-sent by
@@ -1479,6 +1540,50 @@ class BtlEndpoint:
         return False
 
     def send(self, peer: int, header: dict, payload: bytes = b"") -> None:
+        if self._fault is not None and peer != self.rank:
+            verdict = self._fault.on_frame(peer, header)
+            if verdict != "send":
+                self._apply_fault(verdict, peer, header, payload)
+                return
+        self._send_routed(peer, header, payload)
+
+    def _apply_fault(self, verdict, peer: int, header: dict,
+                     payload) -> None:
+        """Execute a non-"send" chaos verdict.  drop: the frame vanishes
+        (the caller believes it was sent — exactly a lossy wire).  dup:
+        delivered twice (the PML's seq gate holds the duplicate).  delay:
+        re-sent later off a timer, payload copied first (zero-copy views
+        alias user buffers the caller is free to reuse at completion).
+
+        Never raises: callers include try_send_inline, whose contract is
+        a non-raising bool — a verdict-sealed frame that then hits a
+        dead route degrades to a drop (the lossy-wire semantics the
+        verdict already committed to), it does not surface a raw
+        ConnectionError into application code."""
+        if verdict == "drop":
+            return
+        if verdict == "dup":
+            try:
+                self._send_routed(peer, header, payload)
+                self._send_routed(peer, header, payload)
+            except Exception:  # noqa: BLE001 — degrade to drop
+                pass
+            return
+        _, ms = verdict
+        data = bytes(payload)
+
+        def later() -> None:
+            try:
+                self._send_routed(peer, header, data)
+            except Exception:  # noqa: BLE001 — a dead route ends the delay
+                pass
+
+        t = threading.Timer(ms / 1000.0, later)
+        t.daemon = True
+        t.start()
+
+    def _send_routed(self, peer: int, header: dict,
+                     payload: bytes = b"") -> None:
         if trace_mod.active:
             trace_mod.instant("btl", "send", rank=self.rank, peer=peer,
                               nbytes=len(payload), t=header.get("t"))
@@ -1502,12 +1607,13 @@ class BtlEndpoint:
                 except FrameTooBig as e:
                     oversize = e   # oversize frame rides tcp; PML reorders
                 except PeerDeadError:
-                    # stale ring of a dead peer: drop the route and fail
-                    # the send — the frame must NOT be silently lost in
-                    # the orphaned mapping
+                    # stale ring of a dead/respawning peer: drop the route
+                    # and surface a retryable failure — the frame must NOT
+                    # be silently lost in the orphaned mapping
                     self._drop_shm(peer)
                     raise ConnectionError(
-                        f"rank {peer} died (shm ring orphaned)")
+                        f"rank {peer} died (shm ring orphaned); routes "
+                        f"dropped pending rebind")
         if self.tcp_btl is None:
             if oversize is not None:
                 raise MPIException(
@@ -1544,6 +1650,33 @@ class BtlEndpoint:
             # set lookup
             self._proc_no.add(peer)
         return False
+
+    def rebind(self, peer: int, card: str) -> None:
+        """Re-point every transport at a peer's NEW business card (the
+        peer was respawned by errmgr/respawn and re-announced itself).
+        Stale sockets/rings are dropped; the next send redials lazily."""
+        self._cards[peer] = card
+        tcp_addr, _, _ = self._split_card(card)
+        if self.tcp_btl is not None:
+            with self.tcp_btl._lock:
+                self.tcp_btl._peers[peer] = tcp_addr
+                sock = self.tcp_btl._out.pop(peer, None)
+                self.tcp_btl._out_locks.pop(peer, None)
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+            # fail+forget the native submission ring: parked senders
+            # wake into ConnectionError and the new incarnation gets a
+            # fresh ring on first send
+            self.tcp_btl.drop_ring(peer)
+        if self.shm_btl is not None:
+            self._drop_shm(peer)
+        if self.proc_btl is not None:
+            self._proc_ok.discard(peer)
+            self._proc_no.discard(peer)
+            self.proc_btl._peer_tokens.pop(peer, None)
 
     def close(self) -> None:
         if self.tcp_btl is not None:

@@ -24,8 +24,9 @@ Every dispatch, host route and device route alike, passes the one
 choke point ``_run_recorded``: the collective flight recorder's post and
 done/err (always on), the ``coll_dispatch_ns`` histogram labelled slot,
 provider and log2 size bucket, and the ``coll`` span with cid and seq
-when the timeline is armed.  Left out of the JAX package's dispatch: the
-fault injector's ``@coll`` triggers (ROADMAP.md Queue 1 item 6.10).
+when the timeline is armed, and the fault injector's ``@coll`` triggers
+(``kill``, ``stall`` and ``mismatch@coll=N`` of ``testing/faultinject``,
+counted over top-level dispatches only).
 
 Buffer-location dispatch: each table slot is a dispatcher that routes by
 ``core.buffer.classify()`` — HOST buffers to the best host-capable
@@ -78,6 +79,17 @@ def _handles(comp: Component) -> frozenset:
     return getattr(comp, "HANDLES", frozenset({"host"}))
 
 
+#: per-rank chaos injector for the @coll=N triggers, resolved once per
+#: rank (None = no armed plan / no coll faults — ONE dict hit per
+#: dispatch after the first)
+_fi_cache: dict[int, object] = {}
+
+#: per-rank BLOCKING dispatch depth (maintained only while an injector
+#: with coll faults is armed): distinguishes a composed collective's
+#: nested sub-dispatch from a genuine top-level one without being
+#: confused by outstanding nonblocking schedules
+_depth: dict[int, int] = {}
+
 #: position of the root argument within a dispatcher's ``*args`` (after
 #: the buffer) — mirrors Communicator's positional call shapes so the
 #: recorder signature catches divergent-root mismatches
@@ -85,19 +97,59 @@ _ROOT_ARG = {"bcast": 0, "gather": 0, "scatter": 0, "gatherv": 0,
              "scatterv": 0, "reduce": 1}
 
 
+def _coll_injector(rank: int):
+    from ompi_tpu_torch.testing import faultinject
+
+    inj = faultinject.injector_for(rank) if faultinject.active() else None
+    if inj is not None and not inj.coll_faults():
+        inj = None
+    _fi_cache[rank] = inj
+    return inj
+
+
 def _run_recorded(comm, slot: str, kind: str, sig: int,
                   provider: Optional[str], nbytes: int, fn, fargs, fkw):
     """The ONE choke point: flight-recorder post/done (always-on, the
-    hang doctor's evidence), the per-collective span (timeline) and the
+    hang doctor's evidence), the injected @coll kill/stall/mismatch
+    triggers, the per-collective span (timeline) and the
     dispatch-latency histogram labeled provider + log2 size bucket
     (szb).  A device-only communicator (no PML) records under its world
     rank."""
     pml = comm.pml
     rank = pml.rank if pml is not None else comm._world_rank
+    inj = (_fi_cache[rank] if rank in _fi_cache
+           else _coll_injector(rank))
+    act = None
+    ordinal = -1
+    depth = _depth.get(rank, 0)
+    if inj is not None and depth == 0:
+        # TOP-LEVEL dispatches only: a composed collective's nested
+        # sub-dispatches must neither advance the @coll ordinal nor
+        # fire inside infrastructure phases (arena build, hierarchy
+        # gates) that no timeout bounds.  The BLOCKING dispatch depth
+        # decides it — an outstanding nonblocking schedule on the side
+        # must not freeze the ordinal
+        act, ordinal = inj.coll_op()
+        if act == "mismatch":
+            # the seeded collective mismatch: this rank records a
+            # DIVERGENT kind at the same (cid, op_seq) its peers
+            # dispatch the real one — the MUST-class application error,
+            # reproduced on demand
+            kind = "bcast" if slot != "bcast" else "barrier"
+            sig = trace_mod.collrec_sig(kind, None, 0)
     seq = trace_mod.coll_post(rank, comm.cid, kind, sig, provider,
                               nbytes)
+    if act is not None:
+        trace_mod.push_now()     # the divergent/stalled/dying head must
+        # be visible even though this rank never completes (kill@coll
+        # exits inside fire_coll: the victim dies after the recorder
+        # post, before the collective body publishes — the deterministic
+        # mid-collective death the selfheal rejoin keys on)
+        inj.fire_coll(act, ordinal, seq)
     t0 = (trace_mod.begin()
           if trace_mod.hist_active or trace_mod.active else 0)
+    if inj is not None:
+        _depth[rank] = depth + 1
     try:
         ret = fn(comm, *fargs, **fkw)
         trace_mod.coll_done(rank, comm.cid, seq, kind)
@@ -106,6 +158,8 @@ def _run_recorded(comm, slot: str, kind: str, sig: int,
         trace_mod.coll_err(rank, comm.cid, seq, kind, type(e).__name__)
         raise
     finally:
+        if inj is not None:
+            _depth[rank] = depth
         # span + histogram land on the raise path too: the one
         # collective that FAILED is exactly the sample a postmortem
         # trace needs

@@ -55,13 +55,17 @@ the ``coll_pstart_ns`` and ``coll_ppublish_ns`` histograms, and the
 flight recorder's ``p<kind>`` post and done/err for every Start with
 its ``pub`` and ``fold`` phase records.
 
-Left out: fault tolerance (ROADMAP.md Queue 1 item 6.10: the Start
-gate's revocation and dead-member checks, and the auto-rebind after a
-member is revived).
-Every bind still runs the incarnation agreement (``_agree_incs``) on
-the all-zero snapshot, so a bind's collective sequence — and the cids
-and tags after it — stays in step with the JAX package's, and item
-6.10 can plug ``member_incs`` in.
+FT contract (the JAX package's): Start on a revoked communicator raises
+``ERR_REVOKED``; a detector-declared-dead member fails the Start fast
+(``ERR_PROC_FAILED``); ``*_init`` on a revoked communicator raises; a
+selfheal-revived member invalidates plans that pinned its slot (the
+dead life's mapping is gone) — the next Start detects the stale
+(bind-agreed) incarnation snapshot and **auto-rebinds**: the plan
+recompiles collectively (the revived life's fresh ``*_init`` pairs with
+the survivors' rebinds) with no user-visible error, counted by
+``coll_persistent_rebinds_total``.  The coll/shm rejoin rebinds every
+stale inactive plan of the communicator eagerly (``_rebind_if_stale``),
+in bind order.
 """
 
 from __future__ import annotations
@@ -73,9 +77,12 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.config import var_registry
 from ompi_tpu_torch.mpi import trace as trace_mod
-from ompi_tpu_torch.mpi.constants import MPIException
+from ompi_tpu_torch.mpi.constants import (
+    ERR_PROC_FAILED, ERR_REVOKED, MPIException,
+)
 from ompi_tpu_torch.mpi.pml import _reject_device, _reject_device_parts
 from ompi_tpu_torch.mpi.request import (
     CompletedRequest, PersistentRequest, Request,
@@ -85,6 +92,8 @@ __all__ = ["PersistentCollRequest", "barrier_init", "bcast_init",
            "reduce_init", "allreduce_init", "allgather_init",
            "alltoall_init", "alltoallv_init", "reduce_scatter_init",
            "neighbor_alltoall_init", "neighbor_alltoallv_init"]
+
+_log = output.get_stream("coll")
 
 # persistent plans draw tags from their own reserved window starting at
 # 10000 — far above the blocking-collective tags (1-16), the nbc
@@ -112,19 +121,47 @@ def _next_ptag(comm) -> int:
 # the bind's incarnation agreement
 # ---------------------------------------------------------------------------
 
+def _check_start(comm) -> None:
+    """The FT fail-fast gate every Start runs: revoked communicator or
+    detector-declared-dead member raises NOW, mirroring the PML's
+    check_send discipline (a publish toward a corpse can never
+    complete)."""
+    if comm.is_revoked():
+        raise MPIException(
+            f"Start on revoked communicator {comm.name} "
+            f"(cid {comm.cid})", error_class=ERR_REVOKED)
+    ft = getattr(comm.pml, "ft", None)
+    if ft is not None:
+        for w in comm.group.ranks:
+            if ft.detector.is_dead(w, poll=False):
+                raise MPIException(
+                    f"Start on {comm.name}: member rank {w} has failed "
+                    f"({ft.detector.reason(w) or 'detector-declared'})",
+                    error_class=ERR_PROC_FAILED)
+
+
 def _member_incs(comm) -> tuple:
-    """Per-member incarnation snapshot: empty (≡ all zeros) until fault
-    tolerance (ROADMAP.md Queue 1 item 6.10) can revive a member."""
-    return ()
+    """Per-member incarnation snapshot (``ft.member_incs`` — THE shared
+    adoption-merge): a bound plan pins peers' slots, and a selfheal-
+    revived peer's NEW life never mapped them (the segment name was
+    unlinked at bind) — any advance past the bind's agreed snapshot
+    means the plan is stale.  Shared with ``ft.comm_coll_epoch`` (its
+    sum) so the slots' epoch fence and this staleness gate can never
+    drift."""
+    from ompi_tpu_torch.mpi import ft as ft_mod
+
+    return ft_mod.member_incs(comm)
 
 
 def _agree_incs(comm, incs: tuple) -> tuple:
     """Element-wise MAX of the per-member incarnation snapshot over the
     communicator — run once per (re)bind, which is collective anyway.
-    The AGREED snapshot is what a Start's staleness gate compares
-    against (with item 6.10).  Rides the base p2p plane, as the JAX
-    package's does, so the bind's collective sequence stays in step
-    with it."""
+    The AGREED snapshot is what Start's staleness gate compares
+    against: without it, a member that had not yet adopted a revived
+    life at bind time would hold a lower snapshot than its peers and
+    later auto-rebind ALONE (a collective call nobody pairs).  Rides
+    the base p2p plane for the same reason the coll/shm epoch prologue
+    does — base tags pair across lives, agree seq numbers do not."""
     if comm.size <= 1:
         return incs
     from ompi_tpu_torch.mpi import op as op_mod
@@ -136,6 +173,18 @@ def _agree_incs(comm, incs: tuple) -> tuple:
     if not incs and not agreed.any():
         return ()        # keep the cheap empty form at job start
     return tuple(int(x) for x in agreed)
+
+
+def _incs_stale(cur: tuple, bound: tuple, size: int) -> bool:
+    """True when a member's CURRENT adopted incarnation exceeds the
+    bind's agreed snapshot — a revive since bind.  ``cur`` below the
+    snapshot is NOT stale: the bind already included a life this
+    process simply has not adopted yet."""
+    if cur == bound:
+        return False
+    c = cur or (0,) * size
+    b = bound or (0,) * size
+    return any(x > y for x, y in zip(c, b))
 
 
 def _land(recvbuf: Optional[np.ndarray], out: Any) -> Any:
@@ -696,6 +745,10 @@ def _bind(comm, kind: str, buf=None, op=None, root: int = 0,
     """Compile one frozen plan — collective over ``comm``."""
     from ompi_tpu_torch.mpi.coll import nbc as nbc_mod
 
+    if comm.is_revoked():
+        raise MPIException(
+            f"{kind}_init on revoked communicator {comm.name}",
+            error_class=ERR_REVOKED)
     if kind in ("bcast", "reduce") and not 0 <= root < comm.size:
         raise MPIException(
             f"{kind}_init: root {root} out of range for {comm.name} "
@@ -935,7 +988,13 @@ def _bind_dense(comm, kind: str, buf=None, op=None):
     precompiled schedule, and it is already epoch-fenced.  The bind
     therefore freezes the ROUTE (arena vs hier vs host) plus the
     host-side algorithm pick, and Start is one dispatch against the
-    frozen provider."""
+    frozen provider.  A revived member invalidates the agreed
+    incarnation snapshot exactly like the slot-backed kinds
+    (``_incs_stale`` in ``_launch`` → auto-rebind)."""
+    if comm.is_revoked():
+        raise MPIException(
+            f"{kind}_init on revoked communicator {comm.name}",
+            error_class=ERR_REVOKED)
 
     # size-1: ≈ coll/self's dense contracts
     if comm.size == 1:
@@ -994,6 +1053,10 @@ def _bind_neighbor(comm, kind: str, parts):
     tag window."""
     from ompi_tpu_torch.mpi import topo as topo_mod
 
+    if comm.is_revoked():
+        raise MPIException(
+            f"{kind}_init on revoked communicator {comm.name}",
+            error_class=ERR_REVOKED)
     tag = _next_ptag(comm)
     srcs, send_meta, recvs = topo_mod._edge_meta(comm, len(parts), tag)
 
@@ -1019,8 +1082,8 @@ class PersistentCollRequest(PersistentRequest):
     """A bound persistent collective: created inactive by ``*_init``,
     armed by start()/Startall, waited like any persistent request.
     The plan (provider, slots, schedule, decisions) is compiled once
-    in the constructor; each start() re-runs only the provider's
-    publish."""
+    in the constructor; each start() re-runs only the FT gate, the
+    staleness check, and the provider's publish."""
 
     def __init__(self, comm, kind: str,
                  binder: Callable[[], Any]) -> None:
@@ -1043,12 +1106,14 @@ class PersistentCollRequest(PersistentRequest):
         # the staleness snapshot is AGREED across the members (element-
         # wise MAX — one base allreduce on a path that is collective
         # anyway), so every rank's Start reaches the same stale/fresh
-        # verdict once item 6.10 can revive a member
+        # verdict and the auto-rebind stays collective
         self._incs = _agree_incs(self._comm, _member_incs(self._comm))
         slots = getattr(self._plan, "_slots", None)
         if slots is not None and getattr(slots, "_fence", None) is not None:
             # re-stamp the pinned slots' epoch fence with the agreed
-            # snapshot's epoch (sum of agreed incarnations)
+            # snapshot's epoch (sum of agreed incarnations): a member
+            # that bound pre-adoption must not spuriously fence a life
+            # the bind already included
             slots._fence = (sum(self._incs), slots._fence[1])
         trace_mod.count("coll_persistent_binds_total")
         if not first:
@@ -1078,6 +1143,18 @@ class PersistentCollRequest(PersistentRequest):
                 f"Start on a freed persistent {self._ckind} plan "
                 f"(Comm.free() released its pinned slots)")
         comm = self._comm
+        _check_start(comm)
+        if _incs_stale(_member_incs(comm), self._incs, comm.size):
+            # a member was revived since bind: its pinned slot mapping
+            # is gone.  AUTO-rebind here instead of raising — Start is
+            # issued on every rank (and the revived life re-inits its
+            # plan, a fresh collective bind that pairs with these
+            # rebinds), so the recompile is collective; the revive
+            # stays invisible to the application
+            _log.verbose(1, "persistent %s on %s: member revived since "
+                         "bind — auto-rebind", self._ckind, comm.name)
+            self.rebind()
+            plan = self._plan
         trace_mod.count("coll_persistent_starts_total")
         # collective flight recorder: every Start posts under the
         # "p<kind>" name with its own (rank, cid) op_seq; completion of
@@ -1113,9 +1190,29 @@ class PersistentCollRequest(PersistentRequest):
                     labels=lb))
         return req
 
+    def _rebind_if_stale(self) -> bool:
+        """Recompile iff a member was revived since bind (the coll/shm
+        rejoin calls this for every plan on the comm, in bind order, so
+        the survivors' rebind collectives pair with the revived life's
+        re-executed prologue ``*_init`` calls).  Active or freed plans
+        are left alone — the Start-gate / wait failure paths own
+        those."""
+        if self._plan is None or self.active:
+            return False
+        comm = self._comm
+        if not _incs_stale(_member_incs(comm), self._incs, comm.size):
+            return False
+        _log.verbose(1, "persistent %s on %s: member revived since bind "
+                     "— rejoin rebind", self._ckind, comm.name)
+        self.rebind()
+        return True
+
     def rebind(self) -> "PersistentCollRequest":
         """Recompile the bound plan on the same communicator —
-        collective over it, like ``*_init``."""
+        collective over it, like ``*_init``.  Run automatically by the
+        next Start after a revived member invalidated the pinned slots
+        (the stale-snapshot gate in ``_launch``); callable explicitly
+        for eager recompilation."""
         if self.active:
             raise MPIException(
                 "rebind on an active persistent request (wait it first)")

@@ -65,25 +65,35 @@ a ``stuck`` record, ``coll_stuck_events_total`` and an immediate metrics
 push).  ``arena_states`` gives the hang doctor every live arena's
 arrive/depart counters.
 
-What the port does in place of a plane it has not ported yet, fault
-tolerance (ROADMAP.md Queue 1 item 6.10): the coll epoch every cached
-artifact is stamped with is the constant 0 (``_coll_epoch``), since no
-member can be revived yet; the stale-state check that compares a cached
-state's epoch with the communicator's, and the arena wait's epoch fence
-(``StaleCollEpoch``), stay in the code for that item to drive.  An arena
-wait still fails fast when the expected writer's process is gone (the
-shm BTL's pid probe) and at ``coll_shm_timeout``.
-
 The persistent collectives' bound plans (``mpi/coll/persistent.py``) pin
 a ``PersistentSlots`` segment of their own (``make_persistent_slots``),
 parity double-buffered; ``decide_allreduce_algo`` is their fold strategy.
-Left out with fault tolerance (item 6.10): the eager recompile of a
-communicator's stale bound plans when a revived member rejoins.
+
+Collective-capable rejoin (errmgr selfheal), as in the JAX package: the
+cached state is stamped with the communicator's **coll epoch**
+(``ft.comm_coll_epoch`` — the sum of the members' adopted
+incarnations).  A revived member's new life never mapped the old arena
+(the segment name was unlinked at build), so the first dispatch at a
+stale epoch — or a wait already parked against the dead life's flags
+(``StaleCollEpoch`` out of the FT check) — tears the state down and
+rebuilds it with the revived rank included, then eagerly recompiles the
+communicator's stale bound persistent plans.  The rebuild prologue
+MAX-agrees the epoch and the parent's cid/tag counters over the base
+p2p plane (a revived life's fresh counters would otherwise derive
+divergent split cids and the rebuild's own collectives could never
+match).  Counted by ``coll_rejoin_total`` / timed by
+``coll_rejoin_ns``; pushed to the launcher's FT timeline via the PMIx
+``coll_rejoin`` RPC.  Arena waits bypass the PML, so they re-run its
+fail-fast checks themselves between park slices: a revoked communicator
+or a detector-declared-dead member raises (``ERR_REVOKED`` /
+``ERR_PROC_FAILED``), and a writer whose process is gone is marked dead
+and reported to the runtime.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import time
 import uuid
@@ -122,22 +132,57 @@ def _arena_dtype_ok(dtype: np.dtype) -> bool:
 
 
 def _coll_epoch(comm) -> int:
-    """The communicator's collective epoch: the monotone generation every
-    cached collective artifact is fenced on.  Constant 0 until fault
-    tolerance (ROADMAP.md Queue 1 item 6.10) can revive a member."""
-    return 0
+    """The communicator's collective epoch (``ft.comm_coll_epoch``):
+    the monotone generation every cached collective artifact is fenced
+    on.  Lazy import — the FT layer must stay optional at import."""
+    from ompi_tpu_torch.mpi import ft as ft_mod
+
+    return ft_mod.comm_coll_epoch(comm)
 
 
 class StaleCollEpoch(MPIException):
-    """A cached collective artifact (arena, hierarchy split) was built at
-    an older coll epoch than the communicator's current one — a member
-    was revived since, and its new life never mapped the old segment (the
-    name was unlinked at build).  Raised out of arena waits; carries
-    ``ERR_PROC_FAILED``.  Never raised while the epoch is constant (no
-    revive exists before ROADMAP.md Queue 1 item 6.10)."""
+    """A cached collective artifact (arena, hierarchy split, pinned
+    persistent slots) was built at an older coll epoch than the
+    communicator's current one — a member was revived since, and its
+    new life never mapped the old segment (the name was unlinked at
+    build).  Raised out of arena waits and caught at the coll/shm slot
+    boundary, which tears the state down, rebuilds it with the revived
+    rank included, and re-runs the op (no rank can have completed it —
+    completion needs the life that never arrived).  Carries
+    ``ERR_PROC_FAILED`` so the rare escape (a persistent drain mid-
+    transition) flows through the FT retry handlers apps already
+    have."""
 
     def __init__(self, msg: str) -> None:
         super().__init__(msg, error_class=ERR_PROC_FAILED)
+
+
+#: retry bound for the stale-epoch rebuild loop at the slot boundary —
+#: each retry requires an actual epoch advance (another adopted
+#: revive), so hitting the bound means a bug, not a hot loop; the final
+#: attempt runs unguarded so the raise surfaces
+_MAX_REJOIN_RETRIES = 8
+
+
+def _epoch_retries(fn):
+    """Slot-boundary rejoin loop: a mid-op ``StaleCollEpoch`` (an arena
+    wait observed the epoch advance past the arena's build) re-enters
+    the slot, whose ``_route`` → ``_state`` sees the stale epoch, tears
+    down and rebuilds the hierarchy with the revived rank included, and
+    re-runs the op on fresh counters.  Safe to re-run: the raise means
+    a member's publishes can never arrive in the OLD arena, so no rank
+    completed the op; the retried publish lands in the NEW segment
+    (fresh counters), never double-bumps the old one."""
+    @functools.wraps(fn)
+    def run(self, comm, *args, **kw):
+        for _ in range(_MAX_REJOIN_RETRIES):
+            try:
+                return fn(self, comm, *args, **kw)
+            except StaleCollEpoch:
+                continue
+        return fn(self, comm, *args, **kw)
+
+    return run
 
 
 #: live arenas of this process — the hang doctor's capture walks them
@@ -171,16 +216,16 @@ def arena_states() -> list[dict]:
 # the native executor (_native/arena.c via ctypes — every call runs with
 # the GIL RELEASED, which is the entire point: a rank parked in a flag
 # wait or moving a 64 KiB slot no longer serializes the other in-process
-# threads.  Python keeps every policy decision: the epoch fence, the
-# writer probe and the deadline run between bounded native slices)
+# threads.  Python keeps every policy decision: FT checks, probes, and
+# deadlines run between bounded native slices)
 # ---------------------------------------------------------------------------
 
 #: spin burst inside one native slice (shared across the native data
 #: plane — see _native.PARK_SPINS for the small-host rationale and the
 #: measured spin sweep)
 _NATIVE_SPINS = _native.PARK_SPINS
-#: one park slice: the cadence at which the Python checks (epoch
-#: fence, writer pid probe, deadline) re-run
+#: one park slice: the cadence at which the Python FT contract
+#: (revocation, detector-dead, writer pid probe, deadline) re-runs
 _NATIVE_SLICE_NS = 2_000_000
 #: below this a ctypes call costs more than the GIL-held numpy copy
 _NATIVE_PUBLISH_MIN = 512
@@ -352,7 +397,7 @@ class Arena:
         # coll-epoch fence: (epoch this arena was built/bound at, weakref
         # to the comm the epoch is scoped to — the PARENT comm for hier
         # node arenas, so a revive anywhere in the hierarchy breaks the
-        # wait).  None ⇒ unfenced (bare test arenas).
+        # wait).  None ⇒ unfenced (bare test arenas, no FT plane).
         self._fence = fence
         # this rank's WORLD rank (the flight recorder / doctor key; the
         # arena index is node-local)
@@ -484,11 +529,11 @@ class Arena:
     def _park_native(self, ex, v: int, comm, idx: Optional[int] = None,
                      all_base: Optional[int] = None) -> None:
         """GIL-released park: bounded native slices (spin burst +
-        escalating naps in C, no interpreter involvement) with the
-        python loop's checks re-run between slices — the epoch fence,
-        the dead-writer pid probe after the grace, and the
-        coll_shm_timeout deadline, all at the same ~slice cadence the
-        escalated python loop reached them."""
+        escalating naps in C, no interpreter involvement) with the FULL
+        python-loop FT contract re-run between slices — revocation and
+        detector-dead checks, the dead-writer pid probe after the
+        grace, and the coll_shm_timeout deadline, all at the same
+        ~slice cadence the escalated python loop reached them."""
         trace_mod.count("coll_shm_native_waits_total")
         timeout = float(var_registry.get("coll_shm_timeout") or 60)
         grace = _probe_grace(timeout) if (self.world is not None
@@ -608,19 +653,58 @@ class Arena:
         if ep is None or ep.peer_alive(w) is not False:
             return
         trace_mod.count("coll_shm_writer_dead_total")
+        reason = "coll/shm: writer pid gone mid-collective (arena probe)"
+        ft = getattr(self._pml, "ft", None)
+        if ft is not None:
+            # same dead-set the PMIx path feeds: posted recvs, parked
+            # sends, and every later arena wait fail fast too
+            if ft.detector.mark_failed(w, reason):
+                # ...and the same control-plane push the gossip path
+                # makes: under errmgr selfheal the runtime reaps the
+                # corpse and revives it (the probe is a detection
+                # source of the full recovery cycle, not a local
+                # verdict), and every other rank's poll learns the
+                # death even with its own probes cold.  getattr: test
+                # harnesses install minimal detector stubs.
+                report = getattr(ft.detector, "report_to_runtime", None)
+                if report is not None:
+                    # adopted_inc, not _peer_inc: a transitive adopter's
+                    # stamp must carry the gossip-adopted life too, or
+                    # its report about a wedged life is stale-gated
+                    # forever (getattr: minimal test stubs)
+                    inc = getattr(ft, "adopted_inc", None)
+                    report(w, reason, inc(w) if inc is not None else 0)
         raise MPIException(
             f"coll/shm: rank {w} (arena writer) died mid-collective — "
             f"pid probe after {grace:.1f}s grace, not the "
             f"{timeout:.0f}s coll_shm_timeout", error_class=ERR_PROC_FAILED)
 
     def _check_ft(self, comm) -> None:
-        """The coll-epoch fence, run between wait slices: a wait parked
-        against a peer that was revived since this arena was built can
-        never be satisfied (the new life never mapped the unlinked
-        segment), so it raises StaleCollEpoch instead of spinning out
-        the timeout.  (The revocation and detector-death checks of the
-        JAX package's wait come with fault tolerance, ROADMAP.md Queue 1
-        item 6.10.)"""
+        """Arena waits bypass the PML, so they must reproduce its
+        fail-fast discipline themselves: a revoked communicator or a
+        detector-declared-dead member raises instead of spinning out
+        the full coll_shm_timeout (the ULFM recovery paths depend on
+        collectives failing promptly).  The coll-epoch fence rides the
+        same cadence: a wait parked against a peer that was revived
+        since this arena was built can never be satisfied (the new life
+        never mapped the unlinked segment) — the moment this process
+        adopts the new incarnation, the wait raises StaleCollEpoch and
+        the slot boundary rebuilds the hierarchy instead of spinning
+        out the timeout."""
+        if comm.is_revoked():
+            from ompi_tpu_torch.mpi.constants import ERR_REVOKED
+
+            raise MPIException(
+                f"coll/shm: {comm.name} revoked mid-collective",
+                error_class=ERR_REVOKED)
+        ft = getattr(comm.pml, "ft", None)
+        if ft is not None:
+            for w in comm.group.ranks:
+                if ft.detector.is_dead(w, poll=False):
+                    raise MPIException(
+                        f"coll/shm: rank {w} failed mid-collective "
+                        f"({ft.detector.reason(w) or 'detector-declared'})",
+                        error_class=ERR_PROC_FAILED)
         fence = self._fence
         if fence is not None:
             epoch, cref = fence
@@ -630,7 +714,8 @@ class Arena:
                     f"coll/shm: arena wait on "
                     f"{getattr(comm, 'name', '?')} fenced — a member "
                     f"was revived since the arena was built (coll "
-                    f"epoch {_coll_epoch(fc)} > built {epoch})")
+                    f"epoch {_coll_epoch(fc)} > built {epoch}); the "
+                    f"hierarchy rebuilds on retry")
 
     def _wait_arrive(self, r: int, v: int, comm) -> None:
         self._wait(r * 8, v, comm)
@@ -1220,8 +1305,8 @@ class PersistentSlots(Arena):
 
     The counters keep the Arena semantics (monotonic u64, single
     writer, ``memoryview.cast("Q")`` aligned stores), so every
-    inherited wait — including the dead-writer pid probe — applies
-    unchanged.
+    inherited wait — including the FT fail-fast checks and the dead
+    -writer pid probe — applies unchanged.
     """
 
     def __init__(self, seg: shmseg.SharedSegment, size: int, rank: int,
@@ -1337,9 +1422,9 @@ def _make_arena(comm, fence=None) -> Optional[Arena]:
 
 class _HostFallback:
     """Per-communicator fallback marker (no co-located ranks, no usable
-    shm dir, or arena bootstrap failed) — epoch-stamped like ``_State``,
-    so a comm that settled on host re-runs the split once its epoch
-    advances."""
+    shm dir, or arena bootstrap failed) — epoch-stamped like ``_State``
+    so a comm that settled on host BEFORE a revive re-runs the split
+    with the revived rank included instead of staying host forever."""
 
     mode = "host"
 
@@ -1368,7 +1453,7 @@ class _State:
         self.c2n = c2n                # flat: comm rank → arena rank
         self.node_blocks = node_blocks  # hier: per node, comm ranks by node rank
         self.node_idx_of = node_idx_of  # hier: comm rank → node index
-        self.epoch = epoch            # coll epoch at build
+        self.epoch = epoch            # agreed coll epoch at build
 
     def close(self) -> None:
         if self.arena is not None:
@@ -1448,14 +1533,33 @@ class ShmColl(Component):
         st = getattr(comm, "_coll_shm_state", None)
         if st is _SETUP:
             return None          # setup's own collectives ride coll/host
-        epoch = _coll_epoch(comm)
         if st is not None:
-            if getattr(st, "epoch", 0) >= epoch:
+            cur = _coll_epoch(comm)
+            if getattr(st, "epoch", 0) >= cur:
                 return st
-            # a member was revived since the build: the cached splits
-            # and arena are survivors-only artifacts — rebuild them
+            # epoch-fenced rejoin: a member was revived (its adopted
+            # incarnation advanced the coll epoch past the build's) —
+            # the cached node/leader splits, arena slot state and
+            # frozen hierarchy decisions are survivors-only artifacts
+            # now.  Tear them down (the failed op already drained: no
+            # rank can complete an op the missing life never published
+            # into) and rebuild with the revived rank included.  The
+            # pending-rejoin marker rides the COMM, not a local: if the
+            # epoch agreement below fails fast (another member dead)
+            # the dispatch retries with no cached state, and the
+            # eventual successful rebuild must still record the rejoin
+            # (first-teardown timestamp kept — honest latency).
+            if getattr(comm, "_coll_rejoin_pending", None) is None:
+                comm._coll_rejoin_pending = (getattr(st, "epoch", 0),
+                                             time.monotonic_ns())
             st.close()
             comm._coll_shm_state = st = None
+        # the epoch every rank stamps the rebuilt state with is AGREED
+        # first (MAX-allreduce on the base p2p plane, which is
+        # incarnation-transparent) — run OUTSIDE the fallback guard: a
+        # dead member fails it fast and the dispatch retries, instead
+        # of settling on host with a divergent epoch
+        epoch = self._agree_epoch(comm)
         comm._coll_shm_state = _SETUP
         built = None
         try:
@@ -1466,9 +1570,10 @@ class ShmColl(Component):
                                    rank=comm.pml.rank, cid=comm.cid,
                                    mode=built.mode, size=comm.size)
         except MPIException as e:
-            # the raise is deterministic (every rank computes the same
-            # partition), so settling on coll/host is collectively
-            # consistent
+            # e.g. a merged intercomm whose per-viewer namespace ids
+            # cannot survive split_type — the raise is deterministic
+            # (every rank computes the same partition), so settling
+            # on coll/host is collectively consistent
             _log.verbose(1, "coll/shm: setup on %s fell back to host "
                          "(%s)", comm.name, e)
         finally:
@@ -1477,7 +1582,7 @@ class ShmColl(Component):
             # clears the cache under the same comm lock): a check-then-
             # assign window would let a racing free() run to completion
             # between them and the freshly-built arena would be cached
-            # onto the freed comm
+            # onto the freed comm — the exact leak this guards against
             with comm._lock:
                 freed = getattr(comm, "_coll_freed", False)
                 if not freed:
@@ -1489,8 +1594,98 @@ class ShmColl(Component):
                 # close the half-built state instead of caching it
                 if built is not None:
                     built.close()
+                    built = None
                 comm._coll_shm_state = None
-        return comm._coll_shm_state
+        st = comm._coll_shm_state
+        pending = getattr(comm, "_coll_rejoin_pending", None)
+        if pending is not None and st is not None:
+            # record FIRST: the hierarchy rebuild itself completed, so
+            # the rejoin must be counted (and coll_rejoin_ns scoped to
+            # the rebuild, not the plan rebinds below) even if an eager
+            # plan rebind then fails fast — the dispatch retry must not
+            # double-record it
+            comm._coll_rejoin_pending = None
+            self._record_rejoin(comm, pending, st)
+            self._rebind_stale_plans(comm)
+        return st
+
+    def _rebind_stale_plans(self, comm) -> None:
+        """Eagerly recompile every stale, inactive persistent plan
+        bound on this comm as the LAST step of the rejoin, in bind
+        order.  Ordering is the point: the revived life re-executes its
+        prologue ``*_init`` calls BEFORE its first loop collective, so
+        the survivors must pair those binds HERE — inside the rejoin,
+        before the op that triggered it re-runs.  Deferring each rebind
+        to its plan's next Start (the Start-gate backstop, which still
+        covers plans used without any one-shot dispatch in between)
+        would interleave the bind collectives AFTER one-shot ops the
+        revived life has not issued yet: a collective-order divergence
+        that deadlocks mixed one-shot + persistent apps — found driving
+        exactly that app shape end-to-end."""
+        for ref in list(getattr(comm, "_persistent_colls", ())):
+            req = ref()
+            if req is None:
+                continue
+            rebind = getattr(req, "_rebind_if_stale", None)
+            if rebind is not None:
+                rebind()
+
+    def _agree_epoch(self, comm) -> int:
+        """The coll epoch the (re)built state is stamped with, agreed
+        across every member: a MAX-allreduce of the local epochs over
+        the base p2p plane.  Unconditional (epoch 0 at job start agrees
+        instantly) so participation can never diverge — a rank that has
+        not yet adopted a revived life still pairs the prologue, stamps
+        the agreed (higher) epoch, and its later adoption then reads as
+        already-included instead of spuriously re-triggering.  The
+        base-plane allreduce IS the agreement here: ``Comm.agree``'s
+        per-(cid, seq) protocol state restarts at 0 in a revived life,
+        so its sequence numbers cannot pair across lives — p2p tags
+        (incarnation-fenced, msglog-replayed) can.
+
+        The same exchange MAX-agrees the parent's deterministic-cid
+        allocator and persistent-tag counters (``_counter_merge``): a
+        revived life's fresh counters sit at their base while the
+        survivors' advanced with every earlier build, and the rebuilt
+        node/leader splits' counter-derived cids (and a re-bound nbc
+        plan's tags) MUST land identically on every member or the
+        rebuild's own collectives never match."""
+        if comm.size <= 1:
+            return _coll_epoch(comm)
+        cid_next, pseq = comm._counter_snapshot()
+        agreed = np.asarray(base.allreduce_recursive_doubling(
+            comm, np.array([_coll_epoch(comm), cid_next, pseq],
+                           np.int64), op_mod.MAX))
+        comm._counter_merge(int(agreed[1]), int(agreed[2]))
+        return int(agreed[0])
+
+    def _record_rejoin(self, comm, pending, st) -> None:
+        """One completed epoch-fenced rebuild: pvar + latency histogram
+        + flight-recorder event locally, and a best-effort one-way PMIx
+        push so the HNP's FT timeline (and the /status + --dvm-ps
+        rejoins column) shows the rejoin."""
+        old_epoch, t0 = pending
+        dur = time.monotonic_ns() - t0
+        trace_mod.count("coll_rejoin_total")
+        if trace_mod.hist_active:
+            trace_mod.record_hist("coll_rejoin_ns", dur)
+        trace_mod.coll_event(
+            comm.pml.rank, comm.cid, "rejoin",
+            {"oe": old_epoch, "ne": getattr(st, "epoch", 0),
+             "mode": getattr(st, "mode", "?")})
+        _log.verbose(1, "coll/shm: %s rebuilt the coll hierarchy at "
+                     "epoch %d (from %d, %.1f ms, mode %s)", comm.name,
+                     getattr(st, "epoch", 0), old_epoch, dur / 1e6,
+                     getattr(st, "mode", "?"))
+        ft = comm.pml.ft
+        client = ft.detector._client if ft is not None else None
+        rej = getattr(client, "coll_rejoin", None)
+        if rej is not None:
+            try:    # app thread (coll dispatch), RPC allowed; best-effort
+                rej(old_epoch, int(getattr(st, "epoch", 0)),
+                    int(dur // 1_000_000))
+            except Exception:  # noqa: BLE001 — observability, not recovery
+                pass
 
     def _build_state(self, comm, epoch: int = 0):
         node = comm.split_type(COMM_TYPE_SHARED,
@@ -1644,6 +1839,7 @@ class ShmColl(Component):
 
     # -- table slots ---------------------------------------------------------
 
+    @_epoch_retries
     def coll_barrier(self, comm) -> None:
         st, host = self._route(comm, "barrier")
         if host is not None:
@@ -1656,6 +1852,7 @@ class ShmColl(Component):
             self._host().coll_barrier(st.leader)
         self._intra_gate_out(st)
 
+    @_epoch_retries
     def coll_bcast(self, comm, buf, root: int):
         st, host = self._route(comm, "bcast")
         if host is not None:
@@ -1682,6 +1879,7 @@ class ShmColl(Component):
             data = self._intra_bcast(st, data, 0)
         return np.asarray(data)
 
+    @_epoch_retries
     def coll_reduce(self, comm, sendbuf, op: Op, root: int):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "reduce", arr.nbytes)
@@ -1716,6 +1914,7 @@ class ShmColl(Component):
                 out = out.reshape(arr.shape).astype(arr.dtype, copy=False)
         return out if comm.rank == root else None
 
+    @_epoch_retries
     def coll_allreduce(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "allreduce", arr.nbytes)
@@ -1741,6 +1940,7 @@ class ShmColl(Component):
         return np.asarray(out).reshape(arr.shape).astype(arr.dtype,
                                                          copy=False)
 
+    @_epoch_retries
     def coll_allgather(self, comm, sendbuf):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "allgather", arr.nbytes)
@@ -1797,6 +1997,7 @@ class ShmColl(Component):
     # knowledge, so multi-node v/w falls back to host rather than guess
     # a split no rank can verify collectively.
 
+    @_epoch_retries
     def coll_alltoall(self, comm, sendbuf):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "alltoall", arr.nbytes)
@@ -1863,6 +2064,7 @@ class ShmColl(Component):
             p, node.size, bb)[:, st.node.rank]
         return np.ascontiguousarray(mine).reshape(arr.shape)
 
+    @_epoch_retries
     def coll_alltoallv(self, comm, sendparts):
         st, host = self._route(comm, "alltoallv")
         if host is not None:
@@ -1892,6 +2094,7 @@ class ShmColl(Component):
         trace_mod.count("coll_shm_fanout_total")
         return got if ident else [got[int(c2n[r])] for r in range(p)]
 
+    @_epoch_retries
     def coll_alltoallw(self, comm, sendspecs, recvspecs):
         st, host = self._route(comm, "alltoallw")
         if host is not None:
@@ -1934,6 +2137,7 @@ class ShmColl(Component):
         q, rmd = divmod(n, p)
         return [r * q + min(r, rmd) for r in range(p + 1)]
 
+    @_epoch_retries
     def coll_reduce_scatter(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "reduce_scatter", arr.nbytes)
@@ -1986,6 +2190,7 @@ class ShmColl(Component):
         out = np.asarray(stack, arr.dtype).reshape(-1)[off:off + ln]
         return np.ascontiguousarray(out)
 
+    @_epoch_retries
     def coll_reduce_scatter_block(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)
         if arr.ndim == 0 or arr.shape[0] % comm.size:
@@ -1995,6 +2200,7 @@ class ShmColl(Component):
             comm, arr.reshape(arr.shape[0], -1), op)
         return np.asarray(out).reshape((rows,) + arr.shape[1:])
 
+    @_epoch_retries
     def coll_scan(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "scan", arr.nbytes)
@@ -2013,6 +2219,7 @@ class ShmColl(Component):
             return st.arena.scan(comm, arr, op, order)
         return self._scan_hier(comm, st, arr, op, exclusive=False)
 
+    @_epoch_retries
     def coll_exscan(self, comm, sendbuf, op: Op):
         arr = np.asarray(sendbuf)
         st, host = self._route(comm, "exscan", arr.nbytes)

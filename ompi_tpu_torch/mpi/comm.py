@@ -43,10 +43,13 @@ point-to-point (``send_init``/``recv_init``, ``psend_init``/
 neighbor collectives, ``mpi/topo.py``; the topology rides ``comm.topo``).
 Every one of them refuses a torch tensor with the PML's message.
 
-Left out: fault tolerance (ROADMAP.md Queue 1 item 6.10: ``revoke``,
-``agree``, ``shrink``, the failed-group queries and the revocation gates
-of the persistent and partitioned starts) and the mpi4py facade (item
-6.11).
+Fault tolerance is the JAX package's ULFM surface (``mpi/ft.py``):
+``revoke``, ``is_revoked``, ``agree``, ``shrink``, ``get_failed`` and
+``ack_failed``.  A device-route collective has no revocation gate, as in
+the JAX package's coll/xla: a device-plane job recovers by a restart
+from its snapshots.
+
+Left out: the mpi4py facade (item 6.11).
 """
 
 from __future__ import annotations
@@ -710,6 +713,54 @@ class Communicator:
 
     # -- device path binding (coll/xla) ------------------------------------
 
+    # -- fault tolerance (ULFM: ≈ MPIX_Comm_revoke/shrink/agree,
+    #    mpi/ft.py — the extension-style API shipped ahead of
+    #    standardization, MPI-Advance precedent) ---------------------------
+
+    def revoke(self) -> None:
+        """≈ MPIX_Comm_revoke: poison this communicator on every member —
+        in-flight and future operations on it raise MPI_ERR_REVOKED.
+        Not collective (any member may revoke after spotting a failure);
+        propagates by flooding.  ``agree``/``shrink`` still work."""
+        from ompi_tpu_torch.mpi import ft
+
+        ft.comm_revoke(self)
+
+    def is_revoked(self) -> bool:
+        """True once this communicator was revoked (locally known)."""
+        from ompi_tpu_torch.mpi import ft
+
+        return ft.comm_is_revoked(self)
+
+    def agree(self, flag: bool = True) -> bool:
+        """≈ MPIX_Comm_agree: fault-tolerant AND of ``flag`` over the
+        surviving members — every rank that returns gets the same value,
+        retransmitted under message loss."""
+        from ompi_tpu_torch.mpi import ft
+
+        return ft.comm_agree(self, flag)
+
+    def shrink(self, name: Optional[str] = None) -> "Communicator":
+        """≈ MPIX_Comm_shrink: agree on the failed set, return a new
+        communicator over the survivors (same deterministic-cid
+        construction as create_group; the dead need not participate)."""
+        from ompi_tpu_torch.mpi import ft
+
+        return ft.comm_shrink(self, name)
+
+    def get_failed(self) -> Group:
+        """≈ MPIX_Comm_get_failed: group of members this process knows
+        to be dead (local knowledge, monotonic — no agreement)."""
+        from ompi_tpu_torch.mpi import ft
+
+        return ft.comm_get_failed(self)
+
+    def ack_failed(self, num_to_ack: Optional[int] = None) -> int:
+        """≈ MPIX_Comm_ack_failed → how many failures are acknowledged."""
+        from ompi_tpu_torch.mpi import ft
+
+        return ft.comm_ack_failed(self, num_to_ack)
+
     def bind_device(self, device_comm) -> "Communicator":
         """Bind a DeviceCommunicator: collectives on torch tensors then
         route through coll/xla over its mesh axes (zero host copies).
@@ -740,6 +791,28 @@ class Communicator:
             cid = self._cid_next
             self._cid_next += 1
             return cid
+
+    # -- counter agreement (coll/shm epoch-sync prologue) ------------------
+
+    def _counter_snapshot(self) -> tuple[int, int]:
+        """(cid allocator position, persistent-coll tag sequence) — the
+        per-parent counters whose derived values must MATCH across
+        members for collectives to pair.  A selfheal-revived life
+        restarts both at their base; the coll/shm build prologue
+        MAX-agrees them over the members and merges back
+        (:meth:`_counter_merge`), so the rebuilt hierarchy's split cids
+        and a re-bound plan's tags land identically on survivors and
+        the revived rank."""
+        with self._lock:
+            return self._cid_next, getattr(self, "_pcoll_seq", 0)
+
+    def _counter_merge(self, cid_next: int, pcoll_seq: int) -> None:
+        """Adopt the agreed (MAX) counter positions — monotone, so a
+        stale merge can never rewind a counter."""
+        with self._lock:
+            self._cid_next = max(self._cid_next, int(cid_next))
+            self._pcoll_seq = max(getattr(self, "_pcoll_seq", 0),
+                                  int(pcoll_seq))
 
     # -- attributes, info, construction (≈ ompi/attribute, comm.c) ---------
 

@@ -50,11 +50,16 @@ and ``pml_rndv_send_ns`` histograms, ``pending_summary`` (what the hang
 doctor's capture reads) and the memchecker gates (``--mca memchecker
 enable 1``).
 
-Left out: the fault-tolerance hooks (ROADMAP.md Queue 1 item 6.10: ULFM
-checks, the partitioned start's revocation check, incarnation fencing,
-respawn rebind and the park-and-heal retransmit; a frame that cannot be
-routed fails its request at once, as the JAX package does with
-``pml_retry_window`` 0).
+The fault-tolerance hooks are the JAX package's: the ULFM gates
+(``check_send``/``check_cid`` of the ``ft`` sidecar before posting, the
+partitioned start's revocation check), the incarnation stamps ``ep``/``si``
+and their fence on receive (``note_peer_si``, ``_adopt_incarnation``, which
+also resets the native engine's wire-seq gate for the peer through
+``Engine.reset_peer``), the respawned rank's ``announce_rebind``, and
+park-and-heal (``pml_retry_window``, ``pml_heal_max_interval``): a frame
+that cannot be routed parks in a per-peer ordered list and a healer
+retries it until the peer's new life rebinds.  A revived life, or a peer
+toward a revived life, leaves the fast lane (its frames carry stamps).
 """
 
 from __future__ import annotations
@@ -80,7 +85,8 @@ from ompi_tpu_torch.mpi import datatype as dt_mod
 from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.btl import BtlEndpoint
 from ompi_tpu_torch.mpi.constants import (
-    ANY_SOURCE, ANY_TAG, ERR_TRUNCATE, PROC_NULL, MPIException,
+    ANY_SOURCE, ANY_TAG, ERR_PROC_FAILED, ERR_TRUNCATE, PROC_NULL,
+    MPIException,
 )
 from ompi_tpu_torch.mpi.datatype import Datatype
 from ompi_tpu_torch.mpi.request import (CompletedRequest, PersistentRequest,
@@ -122,6 +128,15 @@ _SMALL_HOST = (os.cpu_count() or 1) <= 2
 
 pml_framework = Framework("pml", "point-to-point messaging logic")
 
+register_var("pml", "retry_window", VarType.DOUBLE, 30.0,
+             "seconds a transiently-unroutable frame (peer dead or "
+             "mid-respawn) is retried before the send fails (0 = fail "
+             "fast); ≈ the failover PML's retransmit bound")
+register_var("pml", "heal_max_interval", VarType.DOUBLE, 1.0,
+             "cap on the exponential park-and-heal retry backoff; also "
+             "bounds how stale the dead-peer fast-fail can be (a send "
+             "to a detector-declared-dead rank fails within "
+             "rml_heartbeat_timeout + this, not the full retry window)")
 register_var("pml", "eager_limit", VarType.SIZE, 64 * 1024,
              "max payload bytes sent eagerly (larger goes rendezvous)")
 register_var("pml", "frag_size", VarType.SIZE, 1 << 20,
@@ -409,6 +424,9 @@ EVT_RECV_POST = "recv_post"        # irecv posted
 EVT_MATCH = "match"                # incoming frame matched a posted recv
 EVT_UNEXPECTED = "unexpected"      # incoming frame queued unmatched
 EVT_DELIVER = "deliver"            # payload delivered, request complete
+EVT_PEER_REVIVED = "peer_revived"  # a peer's new incarnation adopted —
+# the hook message-log replay (ckpt/msglog auto_replay) recovers sends
+# that died with the old incarnation's transport
 
 
 class PmlOb1:
@@ -426,10 +444,51 @@ class PmlOb1:
         self._seq: dict[tuple[int, int], int] = {}
         self._recv_seq: dict[tuple[int, int], int] = {}
         self._held: dict[tuple[int, int], dict[int, tuple]] = {}
-        # frames in _sendq per peer: an inline send must not overtake them
-        self._queued: dict[int, int] = {}
-        self._qlock = threading.Lock()   # _queued has its own lock:
+        # errmgr/respawn epoch fencing: my incarnation number (restarted
+        # ranks reject frames stamped for a previous life of theirs),
+        # each peer's incarnation (learned from its rebind announce OR
+        # from the "si" stamp on its first post-restart frame — whichever
+        # transport wins the race), and a re-announce guard so a lost
+        # rebind announce heals instead of dropping frames forever
+        self.incarnation = int(os.environ.get("OMPI_TPU_RESTART") or 0)
+        self._peer_epoch: dict[int, int] = {}   # what I stamp TOWARD peer
+        self._peer_inc: dict[int, int] = {}     # peer's own incarnation
+        self._reannounce_at: dict[int, float] = {}  # rate-limited heal
+        # per-peer ordered frames awaiting a route heal (park-and-heal
+        # retransmit; see _deliver_frame) + MPI_T observability for the
+        # FT path (≈ the monitoring pvar discipline for p2p counters)
+        self._parked: dict[int, list] = {}
+        self._route_gen: dict[int, int] = {}   # bumped per adopted incarnation
+        self._queued: dict[int, int] = {}      # frames in _sendq per peer
+        # header refs of frames still in _sendq, FIFO per peer: an adopt
+        # must restamp these in queue order (parked first, then these) so
+        # an isend issued after the adopt draws a LATER seq than every
+        # frame queued before it — queue order and seq order stay aligned
+        self._inqueue: dict[int, collections.deque] = {}
+        self._healing: dict[int, float] = {}   # peers with a live healer
+        # → that healer's current backoff interval (seconds)
+        self._qlock = threading.Lock()         # _queued has its own lock:
         # _enqueue_frame runs from handlers that already hold self._lock
+        from ompi_tpu_torch.mpi.mpit import Pvar, PvarClass, pvar_registry
+
+        self.pvar_parked = pvar_registry.register_or_get(Pvar(
+            f"pml_parked_frames_rank{rank}", PvarClass.COUNTER, "frames",
+            "frames parked for a route heal (peer dead or mid-respawn)"))
+        self.pvar_healed = pvar_registry.register_or_get(Pvar(
+            f"pml_healed_frames_rank{rank}", PvarClass.COUNTER, "frames",
+            "parked frames delivered after their peer's route healed"))
+        self.pvar_fenced = pvar_registry.register_or_get(Pvar(
+            f"pml_fenced_frames_rank{rank}", PvarClass.COUNTER, "frames",
+            "pre-restart frames dropped by the incarnation fence"))
+        self.pvar_heal_ticks = pvar_registry.register_or_get(Pvar(
+            "pml_heal_ticks_total", PvarClass.COUNTER, "ticks",
+            "park-and-heal retry attempts across all ranks in this "
+            "process (soak runs read this as retry pressure)"))
+        # user-level fault tolerance sidecar (ompi_tpu_torch.mpi.ft.PmlFT):
+        # revoked cids, failure detector, FT control-frame dispatch.
+        # None until the first FT API call / FT frame / runtime attach —
+        # the hot paths pay one attribute check.
+        self.ft = None
         self._sendq: "queue.Queue[Optional[tuple]]" = queue.Queue()
         # memchecker gate read ONCE (off-by-default debug feature — the
         # hot path must not pay a registry lookup per message; toggle it
@@ -509,8 +568,22 @@ class PmlOb1:
     def set_peers(self, peers: dict[int, str]) -> None:
         self.endpoint.set_peers(peers)
 
+    def announce_rebind(self, peers: dict[int, str]) -> None:
+        """Respawned-rank hello (errmgr/respawn): tell every peer my NEW
+        business card so they drop stale routes and reset the wire-seq
+        space toward me (≈ endpoint re-establishment in the reference's
+        failover pml, pml/bfo).  Rides the send worker like every other
+        control frame — safe to call from BTL reader threads; a failed
+        send is retried by the rate-limited heal in _on_frame."""
+        for peer in peers:
+            self._enqueue_frame(peer,
+                             {"t": "rebind", "card": self.address,
+                              "inc": self.incarnation}, b"", None)
+
     def close(self) -> None:
         self._closed = True
+        if self.ft is not None:
+            self.ft.close()   # detector watcher + gossip beater
         self._sendq.put(None)
         self._worker.join(timeout=2.0)
         self.endpoint.close()
@@ -527,9 +600,7 @@ class PmlOb1:
         (rendezvous CTS, sync ack), in-flight rendezvous receives,
         unexpected-queue depth and parked/queued frame counts.  Runs on
         the doctor responder thread — dict walks under the PML lock,
-        no blocking work.  ``parked`` stays empty until the
-        park-and-heal retransmit comes with fault tolerance (ROADMAP.md
-        Queue 1 item 6.10)."""
+        no blocking work."""
         now = time.monotonic()
         recvs: list[dict] = []
         sends: list[dict] = []
@@ -564,10 +635,11 @@ class PmlOb1:
                     break
             unexpected = sum(len(m.unexpected)
                              for m in self._matching.values())
+            parked = {p: len(v) for p, v in self._parked.items() if v}
         with self._qlock:
             queued = {p: n for p, n in self._queued.items() if n}
         return {"recvs": recvs, "sends": sends, "rndv": rndv,
-                "unexpected": unexpected, "parked": {},
+                "unexpected": unexpected, "parked": parked,
                 "queued": queued}
 
     # -- send side ---------------------------------------------------------
@@ -580,6 +652,12 @@ class PmlOb1:
         if mode not in ("standard", "sync", "ready", "buffered"):
             raise MPIException(
                 f"unknown send mode {mode!r} (standard/sync/ready/buffered)")
+        ft = self.ft
+        if ft is not None:
+            # ULFM fail fast: a revoked cid or a detector-declared-dead
+            # peer raises NOW (ERR_REVOKED / ERR_PROC_FAILED), not after
+            # the 30 s park-and-heal retry window expires
+            ft.check_send(peer, cid)
         _reject_device(buf, "isend")
         # compiled fast lane (same-address-space or same-host peers): a
         # plain eager contiguous send delivers straight into the peer's
@@ -588,6 +666,7 @@ class PmlOb1:
                 and self._eng is not None
                 and peer != self.rank
                 and not self._listeners
+                and self.incarnation == 0
                 and datatype is None and count is None
                 and isinstance(buf, np.ndarray)
                 and buf.flags["C_CONTIGUOUS"]
@@ -639,13 +718,19 @@ class PmlOb1:
             seq_key = (peer, cid)
             seq = self._seq.get(seq_key, 0)
             self._seq[seq_key] = seq + 1
-        with self._qlock:
-            # frames still queued for this peer: inline would overtake
-            can_inline = not self._queued.get(peer, 0)
+            epoch = self._peer_epoch.get(peer, 0)
+            # frames parked OR still queued for this peer: inline would
+            # overtake them — everything rides the worker's ordered path
+            can_inline = (peer not in self._parked
+                          and not self._queued.get(peer, 0))
         hdr = {"tag": tag, "cid": cid, "seq": seq,
                "dt": _dtype_to_wire(datatype.base_np),
                "elems": len(payload) // datatype.base_np.itemsize,
                "shp": list(arr.shape)}
+        if epoch:  # frames for a revived peer carry its incarnation
+            hdr["ep"] = epoch
+        if self.incarnation:  # revived senders stamp their own life number
+            hdr["si"] = self.incarnation
         # cross-rank trace correlation: with the flight recorder armed,
         # every eager/rndv frame carries a globally-unique flow id — the
         # send-side span and the matching recv-side span both record it,
@@ -751,7 +836,8 @@ class PmlOb1:
                     peer in ep._shm_ok or ep._shm_route(peer)):
                 return None
         with self._lock:
-            if self._queued.get(peer, 0):
+            if (peer in self._parked or self._queued.get(peer, 0)
+                    or self._peer_epoch.get(peer, 0)):
                 return None
             seq_key = (peer, cid)
             seq = self._seq.get(seq_key, 0)
@@ -788,8 +874,8 @@ class PmlOb1:
         on_fast hook).  False ⇒ sender must re-send via the header
         path — the engine consumed NOTHING."""
         eng = self._eng
-        if eng is None:
-            return False
+        if eng is None or self.incarnation:
+            return False   # post-restart fencing needs the header path
         with self._lock:
             acts = eng.incoming_fast(peer, tag, cid, seq, payload,
                                      dt, elems, shp)
@@ -837,6 +923,10 @@ class PmlOb1:
         req = RecvRequest(buf, datatype, count, source, tag, cid)
         req.rid = next(self._ids)
         req._pml = self
+        ft = self.ft
+        if ft is not None:
+            ft.check_cid(cid)   # revoked comm: fail before posting
+            ft.track_recv(req)  # a later revoke/peer-death can poison it
         if self._listeners:
             self._emit(EVT_RECV_POST, peer=source, tag=tag, cid=cid)
         with self._lock:
@@ -876,6 +966,13 @@ class PmlOb1:
                         break
                 else:
                     m.posted.append(req)
+        if (ft is not None and source >= 0 and not req.done()
+                and ft.detector.is_dead(source, poll=False)):
+            # named-source recv from a corpse that left no matching
+            # message behind: it can never complete — ULFM semantics say
+            # ERR_PROC_FAILED now, not a hang
+            ft._fail_recv(req, MPIException(
+                f"rank {source} has failed", error_class=ERR_PROC_FAILED))
         self._drain_events()
         return req
 
@@ -1021,11 +1118,17 @@ class PmlOb1:
     # -- probe -------------------------------------------------------------
 
     def iprobe(self, source: int, tag: int, cid: int) -> Optional[Status]:
+        ft = self.ft
+        if ft is not None:
+            ft.check_cid(cid)
         with self._lock:
             return self._iprobe_locked(source, tag, cid)
 
     def probe(self, source: int, tag: int, cid: int,
               timeout: Optional[float] = None) -> Status:
+        ft = self.ft
+        if ft is not None:
+            ft.check_cid(cid)
         # deadline computed ONCE: every unexpected frame notifies the cv,
         # so restarting the full timeout per wakeup would never expire
         # under unrelated traffic
@@ -1072,6 +1175,9 @@ class PmlOb1:
         queue atomically under the PML lock, so a racing recv or probe in
         another thread can never see it — the race MPI_Mprobe exists to
         close."""
+        ft = self.ft
+        if ft is not None:
+            ft.check_cid(cid)
         with self._lock:
             return self._improbe_locked(source, tag, cid)
 
@@ -1112,6 +1218,9 @@ class PmlOb1:
 
     def mprobe(self, source: int, tag: int, cid: int,
                timeout: Optional[float] = None) -> tuple[Message, Status]:
+        ft = self.ft
+        if ft is not None:
+            ft.check_cid(cid)
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while True:
@@ -1182,9 +1291,143 @@ class PmlOb1:
 
     # -- frame handling (reader threads; NEVER blocking-send here) ---------
 
+    def _adopt_incarnation(self, peer: int, inc: int) -> None:
+        """With self._lock held: reset the wire-seq space toward a peer
+        whose new incarnation we just learned about (idempotent; called
+        from the rebind frame AND from the 'si' stamp on data frames, so
+        a data frame outrunning the rebind across transports still lands
+        in the fresh seq space instead of the stale one)."""
+        if self._peer_inc.get(peer, 0) >= inc:
+            return
+        self._peer_inc[peer] = inc
+        # single choke point for "this peer came back as a new life"
+        # (reached from the rebind frame AND the si-stamp fast path);
+        # frames sent into the dead incarnation's ring are gone — the
+        # event lets a sender-side message log replay them (_emit only
+        # enqueues; dispatch happens outside this lock)
+        self._emit(EVT_PEER_REVIVED, peer=peer, incarnation=inc)
+        # frames toward the revived peer must carry ep >= its incarnation
+        # (its receiver fences lower epochs) — learned here even when the
+        # 'si' stamp outran the rebind frame that also updates the card
+        self._peer_epoch[peer] = max(self._peer_epoch.get(peer, 0), inc)
+        for key in [k for k in self._seq if k[0] == peer]:
+            del self._seq[key]
+        for key in [k for k in self._recv_seq if k[0] == peer]:
+            del self._recv_seq[key]
+        for key in [k for k in self._held if k[0] == peer]:
+            del self._held[key]
+        if self._eng is not None:   # the engine owns the recv-side gate
+            self._eng.reset_peer(peer)
+        # re-stamp parked frames NOW, under the same lock that reset the
+        # counters: they are the oldest traffic to the new incarnation and
+        # must hold the FRONT of the fresh seq space — a later isend
+        # drawing seq 0 before the heal flush restamped would deliver
+        # newer data first (non-overtaking violation).  The generation
+        # bump tells an in-flight heal delivery that its (stale-stamped)
+        # copy was fenced by the receiver and the frame must be re-sent.
+        self._route_gen[peer] = self._route_gen.get(peer, 0) + 1
+        for hdr, _payload, _req in self._parked.get(peer, []):
+            self._restamp_if_stale(peer, hdr)
+        # ...then the frames still sitting in the send queue, in FIFO
+        # order (they are younger than every parked frame — parked frames
+        # left the queue earlier).  Without this, a frame queued before
+        # the adopt would draw its fresh seq only at delivery time, AFTER
+        # a newer isend already took an earlier seq: non-overtaking
+        # violated in the respawn race window.
+        with self._qlock:
+            for qhdr in self._inqueue.get(peer, ()):
+                self._restamp_if_stale(peer, qhdr)
+
+    def note_peer_si(self, peer: int, si: int) -> tuple[bool, bool]:
+        """Reader-thread half of the incarnation fence, shared by the
+        PML data path and the FT control path so the two planes cannot
+        drift: fence a frame sent by a DEAD life of ``peer``, adopt a
+        newer life.  Returns ``(fenced, adopted)`` — ``fenced``: drop
+        the frame (stale si, or an unstamped frame from a peer whose
+        reincarnation we already adopted); ``adopted``: ``si`` is a new
+        life (the adopt TRANSITION — the caller should treat the frame
+        as revival evidence via ``ft.peer_reincarnated``, outside this
+        lock).  The lock is taken only when incarnations are in play
+        (an si stamp, or this peer's already-adopted revival): one rank
+        reviving must not put every other peer's frames on the hot PML
+        lock."""
+        if not (si or peer in self._peer_inc):
+            return False, False
+        with self._lock:
+            known = self._peer_inc.get(peer, 0)
+            if si < known:
+                return True, False
+            if si:
+                self._adopt_incarnation(peer, si)
+                return False, si > known
+        return False, False
+
+    def _restamp_if_stale(self, peer: int, hdr: dict) -> None:
+        """With self._lock held: a seq-carrying frame stamped for an older
+        incarnation of ``peer`` gets a fresh seq + the current epoch (its
+        old stamp would be fenced by the revived receiver).  Idempotent —
+        a frame whose epoch already matches is left alone."""
+        epoch = self._peer_epoch.get(peer, 0)
+        if "seq" not in hdr or not epoch or hdr.get("ep", 0) == epoch:
+            return
+        key = (peer, hdr["cid"])
+        hdr["seq"] = self._seq.get(key, 0)
+        self._seq[key] = hdr["seq"] + 1
+        hdr["ep"] = epoch
+
+    def _heal_reannounce(self, peer: int) -> None:
+        """Fence-heal half of the incarnation protocol, shared by the
+        PML data fence and the FT control fence: a peer stamping frames
+        for our dead life never processed our rebind — re-announce (via
+        the send worker; rate-limited to one per second per peer so a
+        chatty stale sender cannot flood) instead of fencing it out
+        forever."""
+        now = time.monotonic()
+        with self._lock:
+            need = now >= self._reannounce_at.get(peer, 0.0)
+            if need:
+                self._reannounce_at[peer] = now + 1.0
+        if need:
+            self.announce_rebind({peer: ""})
+
     def _on_frame(self, peer: int, hdr: dict, payload: bytes) -> None:
         t = hdr["t"]
         if t in ("eager", "rndv"):
+            if hdr.get("ep", 0) < self.incarnation:
+                # a frame addressed to a previous life of this rank (it
+                # was queued before the sender processed our rebind) —
+                # lost with the old incarnation, like any in-flight data
+                # at the failure point; holding it would park it forever.
+                # Re-announce (rate-limited, via the send worker — a
+                # blocking send would stall this reader thread) so a lost
+                # rebind announce heals instead of fencing the peer out.
+                _log.verbose(1, "dropping pre-restart frame from %d "
+                             "(ep %d < %d)", peer, hdr.get("ep", 0),
+                             self.incarnation)
+                self.pvar_fenced.inc()
+                self._heal_reannounce(peer)
+                return
+            si = hdr.get("si", 0)
+            if si:
+                # (si-gated: unstamped data frames ride the seq/ep
+                # machinery instead of the incarnation fence)
+                fenced, adopted = self.note_peer_si(peer, si)
+                if fenced:
+                    return  # residual frame from a dead incarnation
+                # an si-stamped data frame can outrun the rebind frame
+                # across transports: it is the same revival evidence, so
+                # it must also un-declare a locally-held death (and
+                # reset gossip clocks) BEFORE the drain below spawns the
+                # msglog auto-replay — the detector would otherwise fail
+                # the replay's sends, and the one-shot revive event
+                # would be lost for good.  Only on the adopt TRANSITION:
+                # a revived sender stamps si on every frame for the rest
+                # of the job, and paying two more lock acquisitions per
+                # frame on this reader thread would tax steady-state
+                # traffic forever (a same-life false local declare still
+                # heals via the reap / next detector poll)
+                if adopted and self.ft is not None:
+                    self.ft.peer_reincarnated(peer, si)
             with self._lock:
                 if self._eng is not None:
                     # seq gate + matching in the compiled engine; the
@@ -1231,6 +1474,38 @@ class PmlOb1:
                 if state.on_done:
                     state.on_done()
                 state.req.complete(None)
+        elif t == "rebind":  # peer was respawned; adopt its new identity
+            with self._lock:
+                self.endpoint.rebind(peer, hdr["card"])
+                # restart the wire-sequence space toward the revived peer
+                # (idempotent with the 'si' fast path — whichever frame
+                # arrives first wins).  Frames already stamped with old
+                # seqs (sitting in the send queue) carry ep < the peer's
+                # new incarnation and are DROPPED by its receiver —
+                # without the epoch fence they would park forever.
+                inc = hdr.get("inc", 1)
+                known = self._peer_inc.get(peer, 0)
+                self._peer_epoch[peer] = inc
+                self._adopt_incarnation(peer, inc)
+            # direct revival evidence for the failure detector: under
+            # selfheal the runtime's dead window can be shorter than a
+            # poll period, so the rebind frame itself must un-declare —
+            # and it must do so BEFORE the event dispatch below spawns
+            # the msglog auto-replay, whose sends would otherwise race
+            # a still-held local death mark.  Only on the adopt
+            # TRANSITION, like the si paths: rebind frames are also the
+            # rate-limited fence-heal re-announce of an ESTABLISHED
+            # life, and an in-flight re-announce from a life that has
+            # since been declared hung must not cancel that (newer)
+            # suspicion — nor its stale-gated wedge-escape retry
+            if inc > known and self.ft is not None:
+                self.ft.peer_reincarnated(peer, inc)
+            # the adopt enqueued EVT_PEER_REVIVED — dispatch NOW (outside
+            # the lock, per the listener contract): a blocked survivor
+            # may never issue another call that would drain, and the
+            # msglog auto-replay hanging off this event is what unblocks
+            # the revived peer
+            self._drain_events()
         elif t == "rnack":  # ready send found no posted recv
             with self._lock:
                 state = self._send_states.pop(hdr["sid"], None)
@@ -1240,6 +1515,14 @@ class PmlOb1:
                 state.req.fail(MPIException(
                     "rsend: no matching receive was posted at the peer",
                     error_class=4))
+        elif t == "ft":  # ULFM control plane (revoke / agree / gossip)
+            from ompi_tpu_torch.mpi import ft as ft_mod
+
+            ft_mod.pml_ft(self).on_ft_frame(peer, hdr)
+            # the FT plane may have adopted a revived peer's incarnation
+            # (si stamp outrunning the rebind frame): dispatch the
+            # enqueued EVT_PEER_REVIVED now so msglog auto-replay runs
+            self._drain_events()
         else:
             _log.error("unknown frame type %r from %d", t, peer)
 
@@ -1506,10 +1789,15 @@ class PmlOb1:
     def _enqueue_frame(self, peer, hdr, payload, req) -> None:
         """Queue one frame for the send worker, tracking the per-peer
         in-queue count: inline sendi must not run while ANY frame for the
-        peer is still queued, or it would overtake it.  Uses its own lock —
+        peer is still queued, or it would overtake (the queued frame may
+        be restamped into a later seq at delivery).  Uses its own lock —
         several callers already hold self._lock."""
         with self._qlock:
             self._queued[peer] = self._queued.get(peer, 0) + 1
+            self._inqueue.setdefault(peer, collections.deque()).append(hdr)
+            # the put stays inside _qlock so _inqueue's FIFO order matches
+            # _sendq's consumption order (the worker popleft must see the
+            # same hdr it just dequeued)
             self._sendq.put(("frame", peer, hdr, payload, req))
 
     def _send_loop(self) -> None:
@@ -1521,12 +1809,6 @@ class PmlOb1:
             try:
                 if job[0] == "frame":
                     _, peer, hdr, payload, req = job
-                    with self._qlock:
-                        n = self._queued.get(peer, 0)
-                        if n > 1:
-                            self._queued[peer] = n - 1
-                        else:
-                            self._queued.pop(peer, None)
                     self._deliver_frame(peer, hdr, payload, req)
                 elif job[0] == "rndv_data":
                     _, state, rid = job
@@ -1537,12 +1819,13 @@ class PmlOb1:
                     offs = list(range(0, len(data), frag))
                     for i, off in enumerate(offs):
                         last = i == len(offs) - 1
-                        ok = self._deliver_frame(
+                        out = self._deliver_frame(
                             state.peer,
                             {"t": "data", "rid": rid, "off": off},
                             data[off:off + frag],
-                            state.req if last else None)
-                        if not ok:
+                            state.req if last else None,
+                            tracked=False)
+                        if out == "failed":
                             # a hole in the stream: the request must FAIL,
                             # not complete on a later fragment
                             if not last:
@@ -1566,20 +1849,92 @@ class PmlOb1:
                 _log.error("send worker: unexpected error\n%s",
                            __import__("traceback").format_exc())
 
-    def _deliver_frame(self, peer, hdr, payload, req) -> bool:
-        """Send-worker delivery; a frame that cannot be routed fails its
-        request (no park-and-heal retransmit in the port)."""
+    def _dequeue_tracking(self, peer, hdr) -> None:
+        """With self._qlock held: retire one frame from the per-peer
+        in-queue accounting (count + the restampable header list)."""
+        n = self._queued.get(peer, 0)
+        if n > 1:
+            self._queued[peer] = n - 1
+        else:
+            self._queued.pop(peer, None)
+        q = self._inqueue.get(peer)
+        if q:
+            head = q.popleft()
+            if head is not hdr:  # defensive: FIFO invariant broken
+                q.appendleft(head)
+                try:
+                    q.remove(hdr)
+                except ValueError:
+                    pass
+            if not q:
+                self._inqueue.pop(peer, None)
+
+    def _deliver_frame(self, peer, hdr, payload, req, tracked=True) -> str:
+        """Send-worker delivery with park-and-heal (≈ pml/bfo's failover
+        retransmit): a frame that cannot be routed (peer dead or
+        mid-respawn) parks in a per-peer ordered list; a healer retries
+        within ``pml_retry_window``; once routes heal (the revived peer's
+        rebind reset the seq space and re-stamped the parked frames) the
+        healer flushes them in order.  Returns "sent" | "parked" |
+        "failed" so multi-fragment callers can react to holes.
+
+        ``tracked`` is False for rendezvous data fragments: they never
+        passed through _enqueue_frame, so they must not decrement the
+        per-peer queued count (which would let an inline sendi overtake
+        frames that ARE still queued)."""
+        with self._lock:
+            # a frame stamped before an adopt (still queued while the
+            # peer re-incarnated) carries a fenced epoch — restamp at
+            # delivery, in queue order, so seqs stay monotone with the
+            # frames the adopt already restamped in the parked list.
+            # Restamp BEFORE retiring the frame from _inqueue (both under
+            # self._lock) so an adopt either restamps it in the queue or
+            # observes it already restamped — never neither.
+            self._restamp_if_stale(peer, hdr)
+            if tracked:
+                with self._qlock:
+                    self._dequeue_tracking(peer, hdr)
+            if peer in self._parked:     # keep order behind parked frames
+                self._parked[peer].append((hdr, payload, req))
+                self.pvar_parked.inc()
+                return "parked"
         try:
             self.endpoint.send(peer, hdr, payload)
+        except ConnectionError as e:
+            ft = self.ft
+            if (ft is not None and hdr.get("t") != "ft"
+                    and ft.detector.is_dead(peer, poll=False)):
+                # the detector already declared the peer dead: parking
+                # would only delay the inevitable ERR_PROC_FAILED by the
+                # whole retry window
+                self._fail_req(req, MPIException(
+                    f"rank {peer} has failed ({e})",
+                    error_class=ERR_PROC_FAILED))
+                return "failed"
+            window = float(var_registry.get("pml_retry_window") or 0)
+            if window <= 0 or self._closed:
+                self._fail_req(req, e)
+                return "failed"
+            _log.verbose(1, "route to %d failed (%s); parking %r for "
+                         "up to %.0fs", peer, e,
+                         {k: hdr[k] for k in ("t", "tag", "seq", "cid")
+                          if k in hdr}, window)
+            with self._lock:
+                self._restamp_if_stale(peer, hdr)
+                self._parked.setdefault(peer, []).append(
+                    (hdr, payload, req))
+            self.pvar_parked.inc()
+            self._schedule_heal(peer, time.monotonic() + window)
+            return "parked"
         except Exception as e:  # noqa: BLE001 — must not kill the loop
             self._fail_req(req, e)
-            return False
+            return "failed"
         self._complete_safely(req)
-        return True
+        return "sent"
 
     def _complete_safely(self, req) -> None:
         """Completion callbacks are user-extensible — an exception there
-        must not kill the singleton send worker."""
+        must not kill the singleton send worker or a healer thread."""
         if req is None:
             return
         try:
@@ -1587,6 +1942,132 @@ class PmlOb1:
         except Exception:  # noqa: BLE001
             _log.error("send-completion callback raised\n%s",
                        __import__("traceback").format_exc())
+
+    _HEAL_BASE_INTERVAL = 0.1
+
+    def _schedule_heal(self, peer: int, deadline: float) -> None:
+        # singleton healer per peer: two concurrent heal loops would
+        # interleave their sends (the receiver's seq reorder absorbs it,
+        # but there is no reason to create the race)
+        with self._qlock:
+            if peer in self._healing:
+                return
+            self._healing[peer] = self._HEAL_BASE_INTERVAL
+        self._arm_heal(peer, deadline, self._HEAL_BASE_INTERVAL)
+
+    def _arm_heal(self, peer: int, deadline: float,
+                  interval: float) -> None:
+        """One heal tick after ``interval`` (±15% jitter so a whole
+        job's healers toward one dead rank don't fire in lockstep)."""
+        import random
+
+        delay = interval * random.uniform(0.85, 1.15)
+        t = threading.Timer(delay, self._run_heal, args=(peer, deadline))
+        t.daemon = True
+        t.start()
+
+    def _run_heal(self, peer: int, deadline: float) -> None:
+        self.pvar_heal_ticks.inc()
+        try:
+            retry = self._heal_peer(peer, deadline)
+        except Exception:  # noqa: BLE001 — healer must not die holding the guard
+            _log.error("healer for %d raised\n%s", peer,
+                       __import__("traceback").format_exc())
+            retry = False
+        if retry:
+            # Chain the continuation WITHOUT leaving _healing: exactly
+            # one healer chain may exist per peer.  Two concurrent loops
+            # would both read parked[0] (duplicate frame on the wire)
+            # and each pop one entry, silently dropping a never-sent
+            # frame.  Exponential backoff + jitter, capped at
+            # pml_heal_max_interval: most respawns heal in well under a
+            # second, but a rank that stays down for its whole retry
+            # window must not be probed 300 times.
+            cap = float(var_registry.get("pml_heal_max_interval")
+                        or self._HEAL_BASE_INTERVAL)
+            with self._qlock:
+                interval = self._healing.get(peer,
+                                             self._HEAL_BASE_INTERVAL)
+                nxt = min(max(interval * 2, self._HEAL_BASE_INTERVAL),
+                          cap)
+                self._healing[peer] = nxt
+            self._arm_heal(peer, deadline, nxt)
+            return
+        with self._qlock:
+            self._healing.pop(peer, None)
+        # frames parked between the healer draining and the discard
+        # need a new healer
+        with self._lock:
+            leftovers = bool(self._parked.get(peer))
+        if leftovers:
+            self._schedule_heal(peer, deadline)
+
+    def _heal_peer(self, peer: int, deadline: float) -> bool:
+        """Drain peer's parked frames.  Returns True when the caller
+        (_run_heal) should chain another attempt after a backoff — the
+        route is still down but the retry window is open."""
+        ft = self.ft
+        if ft is not None and ft.detector.is_dead(peer):
+            # the runtime declared the peer dead mid-park: fail the
+            # user-data frames NOW (ERR_PROC_FAILED), keep nothing —
+            # except under respawn the peer may come back, but then the
+            # detector never declared it (respawn revives before the
+            # errmgr reports a death to the control plane)
+            with self._lock:
+                dead = self._parked.pop(peer, [])
+            for _h, _p, r in dead:
+                self._fail_req(r, MPIException(
+                    f"rank {peer} has failed "
+                    f"({ft.detector.reason(peer) or 'detector-declared'})",
+                    error_class=ERR_PROC_FAILED))
+            return False
+        while True:
+            with self._lock:
+                parked = self._parked.get(peer)
+                if not parked:
+                    self._parked.pop(peer, None)
+                    return False
+                # seq re-stamping happened in _adopt_incarnation (under
+                # the lock that reset the counters).  Serialize a COPY of
+                # the header and remember the route generation: an adopt
+                # racing this delivery restamps the in-list dict and the
+                # stale copy is fenced by the receiver — the generation
+                # check below detects that and re-sends instead of
+                # completing a lost frame.
+                hdr, payload, req = parked[0]
+                wire_hdr = dict(hdr)
+                gen = self._route_gen.get(peer, 0)
+            try:
+                self.endpoint.send(peer, wire_hdr, payload)
+            except ConnectionError as e:
+                _log.verbose(1, "heal tick for %d failed: %s", peer, e)
+                if time.monotonic() > deadline or self._closed:
+                    with self._lock:
+                        dead = self._parked.pop(peer, [])
+                    for _h, _p, r in dead:
+                        self._fail_req(r, MPIException(
+                            f"no route to rank {peer} within the retry "
+                            f"window: {e}"))
+                    return False
+                return True
+            except Exception as e:  # noqa: BLE001
+                with self._lock:
+                    parked = self._parked.get(peer)
+                    if parked and parked[0][2] is req:
+                        parked.pop(0)
+                self._fail_req(req, e)
+                continue
+            with self._lock:
+                if self._route_gen.get(peer, 0) != gen:
+                    # the peer re-incarnated mid-send: the copy we just
+                    # delivered carried the fenced epoch — keep the frame
+                    # (already restamped by the adopt) and go around
+                    continue
+                parked = self._parked.get(peer)
+                if parked:
+                    parked.pop(0)
+            self.pvar_healed.inc()
+            self._complete_safely(req)
 
     def _fail_req(self, req, e) -> None:
         if req is not None:
@@ -1711,6 +2192,12 @@ class _PartitionedBase(PersistentRequest):
         return (_PART_WIRE_BASE - self._tag * _PART_TAG_STRIDE
                 - (self._off + i))
 
+    def _check_started(self) -> None:
+        ft = self._pml.ft
+        if ft is not None:
+            ft.check_cid(self._cid)
+        trace_mod.count("pml_partitioned_starts_total")
+
     def _part_done(self, r: Request) -> None:
         op = self._op
         with self._plock:
@@ -1742,7 +2229,7 @@ class PartitionedSendRequest(_PartitionedBase):
                          offset=offset, kind="psend")
 
     def _activate(self) -> Request:
-        trace_mod.count("pml_partitioned_starts_total")
+        self._check_started()
         with self._plock:
             self._readied = [False] * self._npart
             self._preqs = [None] * self._npart
@@ -1816,7 +2303,7 @@ class PartitionedRecvRequest(_PartitionedBase):
         return self._arr
 
     def _activate(self) -> Request:
-        trace_mod.count("pml_partitioned_starts_total")
+        self._check_started()
         with self._plock:
             self._preqs = [None] * self._npart
             self._ndone = 0

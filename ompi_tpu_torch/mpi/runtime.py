@@ -20,8 +20,17 @@ re-reads ``trace_hist_enable``, starts the metrics push when an
 a launcher; finalize stops the responder and the push and flushes the
 dump; ``abort`` writes the crash dump.
 
-Left out (ROADMAP.md Queue 1 item 6.10): fault-tolerance attach and the
-respawn branch; and the thread-level and pcontrol queries.
+The fault-tolerance branches are the JAX package's: under the ``notify``
+or ``selfheal`` errmgr policy, or ``ft_enable``, init arms the ULFM
+failure detector (``ft.attach_runtime``); a respawned life
+(``OMPI_TPU_RESTART``) binds its card without rejoining the process
+group, re-announces its business card to the survivors
+(``announce_rebind``) and skips the init barrier they passed in its
+previous life; finalize rendezvouses on the PMIx fence and leaves the
+process group gracefully (under a watchdog) only when no death or
+revival was seen.
+
+Left out: the thread-level and pcontrol queries.
 """
 
 from __future__ import annotations
@@ -78,10 +87,24 @@ def init() -> Communicator:
         # job-wide device view: bind the rank's card and join the job's
         # process group (≈ the modex feeding transport bring-up,
         # pmix.h:384-407), before any CUDA work of this process; a no-op
-        # unless the launcher exported a coordinator (tpurun --gpu)
+        # unless the launcher exported a coordinator (tpurun --gpu).
+        # A RESPAWNED rank must NOT rejoin: the group's store slot and
+        # NCCL's communicator cannot take a new incarnation of a member.
+        # The revived rank binds its card and runs on its own; the device
+        # plane heals at the next job (or a restart from its snapshots).
+        from ompi_tpu_torch.core.config import var_registry as _vars
         from ompi_tpu_torch.parallel import multihost
 
-        multihost.initialize_from_env()
+        restarted = bool(os.environ.get("OMPI_TPU_RESTART"))
+        if restarted or not _vars.get("multihost_auto_init"):
+            if multihost.is_multihost_env():
+                _log.verbose(1, "%s: skipping the process group's join "
+                             "(card bound, one-process device view)",
+                             "respawned rank" if restarted
+                             else "multihost_auto_init 0")
+            multihost.bind_card_from_env()
+        else:
+            multihost.initialize_from_env()
 
         pml = pml_framework.select().create(rank)
 
@@ -125,9 +148,35 @@ def init() -> Communicator:
             # (≈ ompi_mpi_init.c:673-703)
             client.put("btl.addr", pml.address)
             cards = client.fence(collect=True)
-            pml.set_peers({
+            peers = {
                 r: cards[f"btl.addr@{r}"] for r in range(size) if r != rank
-            })
+            }
+            pml.set_peers(peers)
+            if restarted:
+                # errmgr/respawn revival: survivors hold my DEAD
+                # incarnation's card — re-announce so they re-route and
+                # reset the wire-seq space toward me
+                pml.announce_rebind(peers)
+            # ULFM failure detector: under the notify or selfheal errmgr
+            # policies (or forced via ft_enable) peer deaths reported by
+            # the control plane surface as MPI_ERR_PROC_FAILED instead
+            # of a hang / full retry-window stall — and under selfheal
+            # the same detector's revive listeners flip the peer back
+            # alive when the errmgr's revive lands.  Off under plain
+            # respawn by default: its dead-set is transient while a rank
+            # revives and nothing user-visible consumes it.
+            # both modules register their config vars on import — the
+            # launcher has them, this app process may not yet
+            from ompi_tpu_torch.mpi import ft as ft_mod
+            from ompi_tpu_torch.runtime import errmgr as _errmgr_mod  # noqa: F401
+
+            # token match, not substring: the selection var supports
+            # comma lists and ^exclusion ("--mca errmgr ^notify" must
+            # NOT arm the detector)
+            selected = {t.strip()
+                        for t in str(_vars.get("errmgr") or "").split(",")}
+            if _vars.get("ft_enable") or selected & {"notify", "selfheal"}:
+                ft_mod.attach_runtime(pml, client)
 
         world = Communicator(Group(range(size)), cid=0, my_world_rank=rank,
                              name="WORLD", pml=pml)
@@ -137,8 +186,11 @@ def init() -> Communicator:
         COMM_WORLD, COMM_SELF = world, selfc
         _log.verbose(1, "init complete: rank %d/%d", rank, size)
 
-        # final barrier: everyone reachable before user code runs
-        if size > 1:
+        # final barrier: everyone reachable before user code runs.  A
+        # RESPAWNED rank skips it — the survivors passed this barrier in a
+        # previous epoch and will not pair it again (they rendezvous with
+        # the revived rank at the finalize fence instead).
+        if size > 1 and not restarted:
             world.barrier()
         if client is not None:
             client.ready()
@@ -162,19 +214,45 @@ def finalize(_collective: bool = True) -> None:
             return
         from ompi_tpu_torch.parallel import multihost
 
+        # a death or a respawn anywhere in the job means one member of
+        # the process group is gone or never rejoined — its teardown
+        # could wait on it.  Decided AFTER the final rendezvous (whose
+        # frames carry a revived peer's incarnation stamp); ranks can
+        # still disagree in narrow races, which multihost.shutdown's
+        # watchdog bounds: the worst case is a logged delay, not a hang.
+        pml = _state["pml"]
+
+        def graceful() -> bool:
+            ft = getattr(pml, "ft", None)
+            return not (getattr(pml, "incarnation", 0)
+                        or any(getattr(pml, "_peer_inc", {}).values())
+                        or (ft is not None
+                            and ft.detector.dead_ranks()))
+
         try:
             if world.size > 1 and _collective:
-                # rendezvous on the PMIx control plane (the JAX package
-                # does so unconditionally), then leave the process group
-                # while every rank is still alive
                 client = _state["client"]
+                # Rendezvous on the PMIx CONTROL PLANE, not a p2p
+                # barrier: after a respawn, a barrier frame stamped
+                # before its sender adopted a LATE revival's incarnation
+                # is epoch-fenced (or died in the old incarnation's
+                # inbox), and finalize's barrier is the one collective
+                # that cannot be re-run.  The control plane tracked every
+                # death and revival (fences re-evaluate on death; a
+                # revived rank re-ran the init fence, so epoch counters
+                # align) — the reference's runtime-mediated shutdown.
                 if client is not None:
                     client.fence()
                 else:
                     world.barrier()
             if _collective:
-                multihost.shutdown()
+                # leave the process group while every live rank is still
+                # here (post-rendezvous)
+                multihost.shutdown(graceful=graceful())
         finally:
+            # no-op if already left (a non-collective finalize skips the
+            # group's teardown: a peer may be gone)
+            multihost.shutdown(graceful=False)
             from ompi_tpu_torch.mpi import trace as _trace
             from ompi_tpu_torch.runtime import doctor as _doctor
 

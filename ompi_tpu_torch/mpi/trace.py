@@ -8,10 +8,9 @@ The port differs in one place: :func:`collrec_sig` signs a torch dtype
 the numpy dtype it stands for (``_TORCH_DTYPE_NUM``), read from the
 dtype's name, so a bf16 or f32 collective signs the same in both
 packages; this module imports neither torch nor numpy.  The emit sites
-of the fault-tolerance plane (ROADMAP.md Queue 1 item 6.10), of MPI-IO
-and the host windows (items 6.12 and 6.14) and the orted's metrics hop
-(item 6.15) come with those items; their counter names are declared here
-already, as in the JAX package.
+of MPI-IO and the host windows (items 6.12 and 6.14) and the orted's
+metrics hop (item 6.15) come with those items; their counter names are
+declared here already, as in the JAX package.
 
 ≈ the reference's PERUSE event hooks and the MPI_T pvar discipline, but
 with the time axis the counters lack: a fixed-size, lock-cheap ring

@@ -23,6 +23,21 @@ Where the JAX package joins ``jax.distributed`` (one process drives its
 chips, so a multi-host job is the only case), a PyTorch rank owns one
 card, so the port joins the group for every ``--gpu`` job, one host
 included.
+
+The card binding and the group's join are two steps
+(:func:`bind_card_from_env`, then the join), because a group cannot take
+a member's new life: the TCPStore's rank slot and NCCL's communicator
+are fixed at the join, as the JAX package's coordination service refuses
+a reconnecting incarnation.  Under a reviving errmgr policy (respawn,
+selfheal) the launcher exports ``multihost_auto_init`` 0
+(``errmgr.apply_host_plane_policy``), and a revived life
+(``OMPI_TPU_RESTART``) never rejoins: such a rank still binds its card
+and runs the one-process mesh on it (``make_mesh()`` then spans one
+rank), and a device-plane job recovers by a restart from its
+``ckpt`` snapshots.  :func:`shutdown` leaves the group under a 10 s
+watchdog, or not at all (``graceful=False``) when a member is known dead
+or revived: ``destroy_process_group`` on a group with a dead member can
+block.
 """
 
 from __future__ import annotations
@@ -35,7 +50,8 @@ from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 
 __all__ = ["ENV_COORD", "ENV_NHOSTS", "ENV_CHIP", "is_multihost_env",
-           "initialize_from_env", "is_initialized", "shutdown"]
+           "bind_card_from_env", "initialize_from_env", "is_initialized",
+           "shutdown"]
 
 _log = output.get_stream("multihost")
 
@@ -46,6 +62,12 @@ ENV_CHIP = "OMPI_TPU_CHIP"
 register_var("multihost", "init_timeout", VarType.DOUBLE, 60.0,
              "seconds to wait for all ranks to join the job's "
              "torch.distributed process group")
+register_var("multihost", "auto_init", VarType.BOOL, True,
+             "join the job-wide device view during MPI init when the "
+             "launcher exported a coordinator address")
+
+#: seconds the graceful leave may take before it is abandoned
+_SHUTDOWN_WATCHDOG_S = 10.0
 
 _lock = threading.Lock()
 _state = {"initialized": False}
@@ -54,6 +76,23 @@ _state = {"initialized": False}
 def is_multihost_env() -> bool:
     """Did the launcher export a rendezvous for this job's device view?"""
     return ENV_COORD in os.environ
+
+
+def bind_card_from_env() -> bool:
+    """Bind this process to the card the launcher gave it
+    (``OMPI_TPU_CHIP``), without joining any group.  True when a card was
+    bound; a rank with no card binding (a host-plane job) never imports
+    torch here."""
+    chip = os.environ.get(ENV_CHIP)
+    if chip is None:
+        return False
+    import torch
+
+    if not torch.cuda.is_available():
+        return False
+    torch.cuda.set_device(int(chip))
+    _log.verbose(1, "multihost: bound card %s", chip)
+    return True
 
 
 def initialize_from_env() -> bool:
@@ -68,15 +107,13 @@ def initialize_from_env() -> bool:
             return True
         if not is_multihost_env():
             return False
-        import torch
         import torch.distributed as dist
 
         coord = os.environ[ENV_COORD]
         rank = int(os.environ.get("OMPI_TPU_RANK", "0"))
         size = int(os.environ.get("OMPI_TPU_SIZE", "1"))
         chip = os.environ.get(ENV_CHIP)
-        if chip is not None and torch.cuda.is_available():
-            torch.cuda.set_device(int(chip))
+        bind_card_from_env()
         timeout = float(var_registry.get("multihost_init_timeout") or 60)
         dist.init_process_group(
             "gloo", init_method=f"tcp://{coord}", rank=rank,
@@ -91,17 +128,38 @@ def is_initialized() -> bool:
     return _state["initialized"]
 
 
-def shutdown() -> None:
-    """Leave the process group (call after the final barrier, so every
-    rank leaves before rank 0's rendezvous store goes away)."""
+def shutdown(graceful: bool = True) -> None:
+    """Leave the process group (call after the final rendezvous, so every
+    rank leaves before rank 0's rendezvous store goes away).
+
+    ``graceful=False`` skips ``destroy_process_group``: a member that died
+    or was respawned mid-job never leaves, and the teardown could wait on
+    it.  Process exit reclaims the group.  A graceful leave runs under a
+    10 s watchdog, so ranks that disagree about a death (a report racing
+    finalize) cost a logged delay, never a hang.
+    """
     with _lock:
         if not _state["initialized"]:
             return
         _state["initialized"] = False
-    import torch.distributed as dist
+    if not graceful:
+        _log.verbose(1, "multihost: skipping the group's teardown (a "
+                     "member died or was respawned)")
+        return
 
-    if dist.is_initialized():
-        try:
-            dist.destroy_process_group()
-        except Exception as e:  # noqa: BLE001 — teardown best-effort
-            _log.verbose(1, "multihost shutdown: %r", e)
+    def _do() -> None:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            try:
+                dist.destroy_process_group()
+            except Exception as e:  # noqa: BLE001 — teardown best-effort
+                _log.verbose(1, "multihost shutdown: %r", e)
+
+    t = threading.Thread(target=_do, daemon=True)
+    t.start()
+    t.join(timeout=_SHUTDOWN_WATCHDOG_S)
+    if t.is_alive():
+        _log.error("multihost: the process group's teardown did not "
+                   "complete in %.0fs (a member gone?); abandoning the "
+                   "wait", _SHUTDOWN_WATCHDOG_S)

@@ -16,10 +16,21 @@ hosts the ``torch.distributed`` rendezvous) and ``OMPI_TPU_NHOSTS=1``, as
 the JAX package's multi-host plm exports them; ``init()`` then joins the
 ranks into one process group (``parallel/multihost.py``).
 
-Left out (ROADMAP.md Queue 1 item 6): every errmgr policy but the default
-abort (respawn, continue, notify and selfheal wait, with the PMIx server's
-failure reports), cpu binding of the children (rtc), the notifier, and
-multi-host launch (plm sim/ssh, the DVM).
+A rank's abnormal exit goes to the selected errmgr policy
+(``runtime/errmgr.py``: ``abort`` by default, ``continue``, ``notify``,
+``respawn``, ``selfheal``; ``tpurun --mca errmgr <name>``).  The reviving
+policies call :meth:`LocalLauncher.respawn_proc`: the same rank and env
+plus ``OMPI_TPU_RESTART=<life>`` (a monotone life number), adopted by
+the running reap loop.  A ``--gpu`` rank's new life keeps its card
+(``OMPI_TPU_CHIP``) and gets no ``OMPI_TPU_COORD``: a process group
+cannot take a member's new life, so it runs on its card alone.  The
+uptime clock of the crash-loop governor starts at the life's PMIx
+registration, and a rank the ranks' gossip reports hung is SIGKILLed so
+the reap loop sees its exit.
+
+Left out (ROADMAP.md Queue 1 item 6.15): cpu binding of the children
+(rtc) and multi-host launch (plm sim/ssh, the DVM, the orted tree's
+``TAG_RESPAWN``).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from typing import Optional
 
 from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
+from ompi_tpu_torch.runtime import errmgr as errmgr_mod
 from ompi_tpu_torch.runtime import pmix, ras, rmaps
 from ompi_tpu_torch.runtime.job import (AppContext, Job, JobState, Proc,
                                         ProcState)
@@ -137,8 +149,10 @@ class LocalLauncher:
         self.coord: Optional[str] = None
         self._popen: dict[int, subprocess.Popen] = {}
         self._iof_threads: list[threading.Thread] = []
+        self._errmgr = errmgr_mod.errmgr_framework.select(**select_ctx)
         self._kill_lock = threading.Lock()
         self._stdin_sinks: dict[int, _StdinWriter] = {}
+        self._respawned: set[int] = set()  # ranks revived since last reap
 
     # -- state handlers (the launch DAG) ---------------------------------
 
@@ -159,6 +173,7 @@ class LocalLauncher:
         app = job.apps[proc.app_idx]
         env = dict(os.environ)
         env.update(app.env)
+        errmgr_mod.apply_host_plane_policy(self._errmgr, env)
         pypath = env.get("PYTHONPATH", "")
         if root not in pypath.split(os.pathsep):
             env["PYTHONPATH"] = (
@@ -170,14 +185,20 @@ class LocalLauncher:
         env[pmix.ENV_LOCAL_RANK] = str(proc.local_rank)
         if proc.chip is not None:
             env[pmix.ENV_CHIP] = str(proc.chip)
-        if self.coord is not None:
+        if self.coord is not None and not proc.lives:
+            # a revived life never rejoins the process group (it cannot
+            # take a new incarnation of a member): no rendezvous for it
             env[ENV_COORD] = self.coord
             env[ENV_NHOSTS] = "1"
+        if proc.lives:
+            env["OMPI_TPU_RESTART"] = str(proc.lives)
+        else:
+            env.pop("OMPI_TPU_RESTART", None)
         return env
 
     def _launch_proc(self, job: Job, proc: Proc) -> bool:
-        """Fork/exec one rank; False on failure to start (proc.state
-        records why)."""
+        """Fork/exec one rank (first launch or errmgr respawn); False on
+        failure to start (proc.state records why)."""
         app = job.apps[proc.app_idx]
         want_stdin = (self.stdin_target == "all"
                       or self.stdin_target == str(proc.rank))
@@ -198,23 +219,62 @@ class LocalLauncher:
             return False
         proc.pid = p.pid
         proc.state = ProcState.RUNNING
+        # uptime clock (errmgr crash-loop governor) starts at the rank's
+        # PMIx registration, not here — interpreter and framework boot
+        # must not count toward errmgr_min_uptime_s
+        proc.launched_at = None
         with self._kill_lock:  # kill_job may iterate concurrently
             self._popen[proc.rank] = p
         if want_stdin:
+            # a respawned rank replaces its dead incarnation's writer —
+            # retire the old one (its pipe is broken anyway) so sinks and
+            # threads don't accumulate per restart
+            old = self._stdin_sinks.pop(proc.rank, None)
+            if old is not None:
+                old.feed(None)
             self._stdin_sinks[proc.rank] = _StdinWriter(proc.rank, p.stdin)
         self._start_iof(job, proc, p)
+        return True
+
+    def respawn_proc(self, job: Job, proc: Proc) -> bool:
+        """errmgr/respawn hook: revive a failed rank in place (same rank,
+        same env plus OMPI_TPU_RESTART=<n>).  The running reap loop picks
+        the new child up; the PMIx server counts the rank live again."""
+        from ompi_tpu_torch.runtime import ftevents
+
+        proc.restarts += 1   # budget burn (governor may reset it)
+        proc.lives += 1      # identity: monotone, survives budget resets
+        proc.exit_code = None
+        if not self._launch_proc(job, proc):
+            return False
+        ftevents.record("revive", jobid=job.jobid, rank=proc.rank,
+                        lives=proc.lives)
+        if self.server is not None:
+            self.server.proc_revived(proc.rank, proc.lives)
+        with self._kill_lock:
+            self._respawned.add(proc.rank)
         return True
 
     def _st_launch(self, sm: StateMachine, job: Job) -> JobState:
         self.server = pmix.PMIxServer(
             size=job.np, on_abort=lambda r, s, m: self._on_abort(job, r, s, m))
+        # rank-plane gossip feedback: a client-reported hung rank (alive
+        # pid, silent to its peers) gets its pid reaped so the reap loop
+        # sees a real exit and the errmgr policy runs
+        self.server.on_failed_report = \
+            lambda r, reason: self._reap_reported(r, reason)
+        # the rank's first PMIx contact starts its uptime clock — the
+        # crash-loop governor must not count interpreter boot as uptime
+        self.server.on_client_contact = \
+            lambda r: self._mark_contact(job, r)
         if self.want_gpu:
             # one rendezvous for the job's process group; rank 0 serves it
             self.coord = f"127.0.0.1:{_free_port()}"
         for proc in job.procs:
             if not self._launch_proc(job, proc):
-                # Failure to start is fatal: the job never assembled.
-                # Record the abort and reap what launched.
+                # Failure to start is fatal regardless of errmgr policy —
+                # the job never assembled, so no policy (not even respawn)
+                # is consulted: record the abort and reap what launched.
                 if job.aborted_proc is None:
                     job.aborted_proc = proc
                     job.abort_reason = f"rank {proc.rank} failed to start"
@@ -225,8 +285,7 @@ class LocalLauncher:
         return JobState.RUNNING
 
     def _st_running(self, sm: StateMachine, job: Job) -> Optional[JobState]:
-        # Reap children; the first abnormal exit aborts the job (the
-        # default errmgr policy).
+        # Reap children; an abnormal exit triggers the errmgr policy.
         with self._kill_lock:
             pending = dict(self._popen)
         deadline = (None if self.timeout is None
@@ -249,14 +308,25 @@ class LocalLauncher:
                     pass  # we killed it during abort
                 elif rc == 0:
                     proc.state = ProcState.TERMINATED
+                    # late gossip suspicions about a clean finisher
+                    # (its beats stopped with its transports) must not
+                    # read as failures — tell the report_failed gate
+                    if self.server is not None:
+                        self.server.proc_finished(rank)
                 else:
                     proc.state = ProcState.ABORTED
                     # wake fence/get waiters so surviving ranks don't hang
-                    # on a dead peer
+                    # on a dead peer (matters under errmgr/continue)
                     if self.server is not None:
                         self.server.proc_died(rank)
-                    self._proc_failed(job, proc)
+                    self._errmgr.proc_failed(self, job, proc)
                 del pending[rank]
+            # adopt ranks the errmgr revived (≈ rmaps/resilient re-map +
+            # relaunch: same rank, fresh pid, reap continues seamlessly)
+            with self._kill_lock:
+                while self._respawned:
+                    r = self._respawned.pop()
+                    pending[r] = self._popen[r]
             if pending:
                 time.sleep(0.01)
         for t in self._iof_threads:
@@ -265,17 +335,6 @@ class LocalLauncher:
             self.server.close()
         return (JobState.ABORTED if job.aborted_proc is not None
                 else JobState.TERMINATED)
-
-    def _proc_failed(self, job: Job, proc: Proc) -> None:
-        """The errmgr's default abort policy (≈ errmgr_default_hnp): the
-        first failure aborts the job and takes the other ranks down."""
-        if job.aborted_proc is None:
-            job.aborted_proc = proc
-            job.abort_reason = (
-                f"rank {proc.rank} {proc.state.value} "
-                f"(exit code {proc.exit_code})")
-        _log.verbose(1, "aborting job %d: %s", job.jobid, job.abort_reason)
-        self.kill_job(job, exclude=proc)
 
     # -- IOF --------------------------------------------------------------
 
@@ -318,6 +377,32 @@ class LocalLauncher:
                 w.feed(None)  # EOF
 
         threading.Thread(target=pump, daemon=True).start()
+
+    def _mark_contact(self, job: Job, rank: int) -> None:
+        """PMIx server hook: the rank's current life registered — start
+        its uptime clock (errmgr_min_uptime_s measures from here, so a
+        slow boot can't earn the crash-loop budget back)."""
+        if 0 <= rank < len(job.procs):
+            job.procs[rank].launched_at = time.monotonic()
+
+    def _reap_reported(self, rank: int, reason: str) -> None:
+        """SIGKILL one reported-dead rank (it is hung, not exited — a
+        SIGSTOP'd or deadlocked pid never reports on its own).  The reap
+        loop then accounts the exit and the errmgr policy decides."""
+        with self._kill_lock:
+            p = self._popen.get(rank)
+        if p is None or p.poll() is not None:
+            return
+        from ompi_tpu_torch.runtime import ftevents
+
+        _log.verbose(1, "reaping reported-dead rank %d (pid %d): %s",
+                     rank, p.pid, reason or "gossip-declared")
+        ftevents.record("reap", rank=rank,
+                        reason=reason or "gossip-declared")
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
 
     # -- abort path --------------------------------------------------------
 
@@ -366,6 +451,10 @@ class LocalLauncher:
         if self.timed_out:
             return 124
         if job.aborted_proc is not None:
+            from ompi_tpu_torch.runtime.notifier import Severity, notify
+
+            notify(Severity.ERROR, "job-abort",
+                   f"job {job.jobid}: {job.abort_reason or 'unknown'}")
             output.show_help(
                 "launcher", "job-aborted",
                 jobid=job.jobid, reason=job.abort_reason or "unknown")

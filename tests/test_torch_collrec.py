@@ -10,8 +10,8 @@ timestamps.  The device route's records are the port's own: a torch
 tensor's collective signs with the numpy type code and itemsize of the
 dtype the JAX package signs for the same collective, bf16 included
 (ml_dtypes' registration, 256), and each dtype is held against
-``np.dtype(jnp.<t>)``.  The fault injector's ``@coll`` triggers come
-with ROADMAP.md Queue 1 item 6.10 and are not mirrored.
+``np.dtype(jnp.<t>)``.  The fault injector's ``@coll`` mismatch trigger
+is mirrored in ``tests/test_torch_faultinject.py``.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ both packages.  Two launched jobs close the loop: a collective mismatch
 and a straggler, each ended by ``tpurun --timeout``, named from the
 ranks' crash dumps.  The live modes (the orted's TAG_DOCTOR fan-out and
 ``--uri``) come with ROADMAP.md Queue 1 item 6.15; the PMIx revive that
-drops a dead life's port comes with item 6.10.
+drops a dead life's port is held in ``tests/test_torch_selfheal.py``.
 """
 
 from __future__ import annotations

@@ -111,7 +111,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
-                *_TRACE_PLANE):
+                *_TRACE_PLANE, *_FT_PLANE):
         assert mod in res["imported"]
 
 
@@ -130,15 +130,25 @@ _TRACE_PLANE = ("ompi_tpu_torch.mpi.mpit", "ompi_tpu_torch.mpi.trace",
                 "ompi_tpu_torch.examples.trace_demo")
 
 
+#: the fault-tolerance plane's modules and example: none imports torch
+#: (the snapshot store's restore path imports it only to load tensors)
+_FT_PLANE = ("ompi_tpu_torch.mpi.ft", "ompi_tpu_torch.runtime.errmgr",
+             "ompi_tpu_torch.runtime.notifier",
+             "ompi_tpu_torch.runtime.ftevents",
+             "ompi_tpu_torch.testing.faultinject",
+             "ompi_tpu_torch.ckpt.snapc", "ompi_tpu_torch.ckpt.msglog",
+             "ompi_tpu_torch.examples.shrink_allreduce")
+
+
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
     native executors) runs a 3-rank in-process job without importing
-    torch, JAX or the JAX package, and so do the trace plane's modules,
-    tools and example (imported here, with the timeline armed over the
-    job)."""
+    torch, JAX or the JAX package, and so do the trace plane's and the
+    fault-tolerance plane's modules, tools and examples (imported here,
+    with the timeline armed over the job)."""
     probe = (
         "import importlib, sys, numpy as np\n"
-        f"for m in {_TRACE_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import trace\n"
         "trace.enable(rank=0)\n"
