@@ -121,8 +121,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    card and the same 2 steps, twice; the losses and every param and
    moment leaf bit for bit (or, should the two continuations differ, the
    nondeterministic op named and the resume held at their spread);
-   through ``ckpt.SnapshotStore`` and then ``ckpt.DcpStore``, each with
-   its bytes, write and read s and GB/s; then the small bf16 config
+   through ``ckpt.SnapshotStore``, ``ckpt.DcpStore`` and
+   ``ckpt.ShardedSnapshotStore`` (one ``.bin`` a leaf and a
+   ``sharded-file`` metadata.json, written by collective MPI-IO over a
+   one-rank world of ``init()``; the fcoll component that ran), each
+   with its bytes, write and read s and GB/s; then the small bf16 config
    (bf16 params and moments, grad_accum 2) through SnapshotStore, which
    puts the bf16 manifest to work without ml_dtypes; the snapshots are
    removed;
@@ -201,6 +204,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ranks on card 0, one gloo group): rank 0 revokes, shrinks and
    finishes on the host route and its finalize ends inside the 10 s
    watchdog; (b)–(d) run side by side after (a);
+18b. io (after ft) — MPI-IO through the port's launcher: (a)
+   ``examples/mpiio_darray`` at -np 4 prints its marker; (b) 4 host
+   ranks write an 8192 × 8192 f32 matrix (256 MiB, one file) through a
+   block × block darray view with one ``write_at_all`` and read it with
+   one ``read_at_all`` under each fcoll component and the auto decision,
+   then a 4096² block × cyclic(256) darray under two_phase and
+   individual: rank 0 holds every file bitwise to the matrix made with
+   numpy and every rank its read-back; 64 ``write_shared`` records of
+   1 MiB a rank under sm and lockedfile (each record once and whole) and
+   a 16 MiB ``write_ordered`` a rank (rank order); GB/s, records/s, the
+   fs type and the auto decision's component; (c) 4 ``--gpu`` ranks on
+   card 0 hold ragged row cuts of every leaf of the flagship's
+   parameters and a bf16 copy on the card, save them collectively
+   through ``ShardedSnapshotStore`` (rank 0's save in a profiler window:
+   one device-to-host copy a leaf beside one control copy) and load
+   their own block and a neighbour's, every leaf ``torch.equal`` on the
+   card to the expected cut, bf16 as ``torch.bfloat16``, the metadata's
+   ragged shapes; save and load GB/s;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -235,6 +256,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -3611,9 +3633,11 @@ def _dir_bytes(path: str) -> int:
 def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
             more: int):
     """Train ``snap_at`` steps, snapshot through the ``kind`` store
-    (``npz``: SnapshotStore write_rank + commit, ``dcp``: DcpStore), train
-    ``more`` steps (the uninterrupted reference), then restore into fresh
-    tensors on the card twice and train the same ``more`` steps from each.
+    (``npz``: SnapshotStore write_rank + commit, ``dcp``: DcpStore,
+    ``sharded``: ShardedSnapshotStore's collective save over a one-rank
+    world, ``init()`` as a singleton), train ``more`` steps (the
+    uninterrupted reference), then restore into fresh tensors on the card
+    twice and train the same ``more`` steps from each.
     Bitwise equality with the reference is demanded when the two
     continuations agree bit for bit; when they do not, the step has a
     nondeterministic op, named by a run under
@@ -3623,7 +3647,8 @@ def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
 
     import torch
 
-    from ompi_tpu_torch.ckpt import DcpStore, SnapshotStore
+    from ompi_tpu_torch.ckpt import (DcpStore, ShardedSnapshotStore,
+                                     SnapshotStore)
     from ompi_tpu_torch.models.transformer import make_train_step
     from ompi_tpu_torch.models.weights import (from_jax_params,
                                                from_train_state, train_state)
@@ -3643,24 +3668,44 @@ def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     snap = train_state(params, state, cfg, mesh=mesh)
+    fcoll: list = []
     if kind == "npz":
         store = SnapshotStore(base, job="ckpt")
         store.write_rank(0, 0, snap)
         store.commit(0, nranks=1, extra={"step": snap_at})
+    elif kind == "sharded":
+        import ompi_tpu_torch
+
+        store = ShardedSnapshotStore(base, ompi_tpu_torch.init(), job="ckpt")
+        with fcoll_recorded(fcoll):
+            store.save(0, snap, extra={"step": snap_at})
     else:
         store = DcpStore(base, job="ckpt")
         store.save(0, snap)
     write_s = time.perf_counter() - t0
+    leaves = sorted(snap)
     del snap
     nbytes = _dir_bytes(store.snapshot_dir(0))
+    if kind == "sharded":
+        files = sorted(os.listdir(store.snapshot_dir(0)))
+        meta = store.metadata(0)
+        check(files == sorted([f"{k}.bin" for k in leaves]
+                              + ["metadata.json"])
+              and meta.get("layout") == "sharded-file"
+              and sorted(meta["arrays"]) == leaves,
+              f"sharded: the snapshot directory holds {files}, layout "
+              f"{meta.get('layout')!r}")
     ref_losses, params, state = steps(params, state,
                                       toks[snap_at:snap_at + more])
     ref = (params, state)
 
     def restored():
         t0 = time.perf_counter()
-        blobs = (store.load_rank(store.latest(), 0) if kind == "npz"
-                 else store.restore(store.latest()))
+        if kind == "dcp":
+            blobs = store.restore(store.latest())
+        else:
+            with fcoll_recorded(fcoll):
+                blobs = store.load_rank(store.latest(), 0)
         p, s = from_train_state(blobs, cfg, DEVICE, mesh=mesh)
         torch.cuda.synchronize()
         return p, s, time.perf_counter() - t0
@@ -3676,12 +3721,17 @@ def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
     spread = _leaves_equal((p1, s1), (p2, s2))
     del p1, s1, p2, s2
     shutil.rmtree(store.base)
+    if kind == "sharded":
+        ompi_tpu_torch.finalize()       # the one-rank world's transports
     deterministic = got1 == got2 and not any(spread.values())
     res = {"bytes": nbytes, "write_s": write_s, "read_s": read_s,
            "write_GBps": nbytes / write_s / 1e9,
            "read_GBps": nbytes / read_s / 1e9,
            "losses_reference": ref_losses, "losses_resumed": got1,
            "losses_resumed_again": got2, "deterministic": deterministic}
+    if kind == "sharded":
+        res["fcoll"] = sorted(set(fcoll))
+        res["files"] = len(leaves) + 1
     if deterministic:
         check(got1 == ref_losses and not any(vs_ref.values()),
               f"{kind}: the resumed run differs from the uninterrupted "
@@ -3708,12 +3758,34 @@ def _resume(cfg, mesh, params_np, toks, kind: str, base: str, snap_at: int,
     return res
 
 
+@contextlib.contextmanager
+def fcoll_recorded(into: list):
+    """A context in which every collective IO call of ``mpi.io`` appends
+    the fcoll component it chose to ``into``."""
+    from ompi_tpu_torch.mpi import io as mio
+
+    orig = mio.File._fcoll_component
+
+    def rec(self, *a):
+        comp = orig(self, *a)
+        into.append(comp)
+        return comp
+
+    mio.File._fcoll_component = rec
+    try:
+        yield into
+    finally:
+        mio.File._fcoll_component = orig
+
+
 def phase_ckpt(fa, card, params_np):
     """Checkpoint/restart of the flagship's training state on the card:
     the dense 468M model at phase train's config and batch, one rank;
     2 steps, a snapshot (params, f32 moments and the step count: ~5.6 GB),
     2 steps as the reference, a restore into fresh tensors and the same
-    2 steps, bitwise, through SnapshotStore and then DcpStore; then the
+    2 steps, bitwise, through SnapshotStore, DcpStore and
+    ShardedSnapshotStore (one file per leaf through collective MPI-IO,
+    over a one-rank world of ``init()``); then the
     small bf16 config (bf16 params and moments, grad_accum 2) through
     SnapshotStore, which puts the bf16 manifest to work without
     ml_dtypes.  Returns the flash kernels' launches on this path."""
@@ -3747,7 +3819,7 @@ def phase_ckpt(fa, card, params_np):
     L = cfg.n_layers
     try:
         zero_counts(fa)
-        for kind in ("npz", "dcp"):
+        for kind in ("npz", "dcp", "sharded"):
             stores[kind] = _resume(cfg, mesh, params_np, toks, kind, base,
                                    snap_at=2, more=2)
             torch.cuda.empty_cache()
@@ -3765,7 +3837,7 @@ def phase_ckpt(fa, card, params_np):
         var_registry.set("ops_flash_bwd_kernel", False)
         shutil.rmtree(base, ignore_errors=True)
     # 2 + 2 + 2 + 2 steps a store: the reference and two continuations
-    n_steps = 2 * 8
+    n_steps = 3 * 8
     check(launches == {"flash_fwd": 2 * L * n_steps,
                        "flash_bwd_dq": L * n_steps,
                        "flash_bwd_dkv": L * n_steps},
@@ -3875,7 +3947,8 @@ def ft_train_rank(ckpt_dir: str) -> None:
     store = SnapshotStore(ckpt_dir, job="ft")
     mgr = CheckpointManager(comm, store, interval=FT_SNAP_EVERY,
                             keep_last=1, async_save=True)
-    restored = mgr.auto_restore(restore_fn=lambda k, t: t.to(DEVICE))
+    restored = mgr.auto_restore(
+        restore_fn=lambda k, t: torch.as_tensor(t).to(DEVICE))
     if restored is None:
         check(life == 0, "ft: a revived life found no committed snapshot")
         params = from_jax_params(init_params(cfg, seed=0), cfg, DEVICE,
@@ -4014,6 +4087,8 @@ def _tagged(lines, tag: str) -> list[dict]:
 def _ft_spread_check(dirs: dict) -> dict:
     """The resumed job's final snapshot against the reference's, leaf by
     leaf, held at the spread of two uninterrupted runs (ref, ref2)."""
+    import torch
+
     from ompi_tpu_torch.ckpt import SnapshotStore
 
     def load(d):
@@ -4023,10 +4098,13 @@ def _ft_spread_check(dirs: dict) -> dict:
     ref, ref2, got = load(dirs["ref"]), load(dirs["ref2"]), load(dirs["fault"])
     worse = {}
     spread_max = 0.0
+    def f64(v):
+        return torch.as_tensor(v).double()
+
     for k in ref:
-        a = ref[k].double()
-        spread = float((a - ref2[k].double()).abs().max())
-        off = float((a - got[k].double()).abs().max())
+        a = f64(ref[k])
+        spread = float((a - f64(ref2[k])).abs().max())
+        off = float((a - f64(got[k])).abs().max())
         spread_max = max(spread_max, spread)
         if off > spread:
             worse[k] = (off, spread)
@@ -4213,8 +4291,7 @@ def _ft_shrink(card) -> dict:
         check(sorted(detect) == survivors,
               f"ft: survivors' detect lines {detect}")
         # revoke -> shrink, timed on a run without snapshots: with them
-        # the shrink line follows the snapshot's load, which imports
-        # torch in the host rank (the store loads CPU tensors)
+        # the shrink line follows the snapshot's load
         rc, lines = _timed_tpurun(
             ["-np", str(S["np"]), "--mca", "errmgr", "notify",
              "--mca", "faultinject_plan",
@@ -4418,6 +4495,365 @@ def phase_ft(card):
          seconds_bcd=time.perf_counter() - t0 - secs_a, card=card)
 
 
+# ---------------------------------------------------------------------------
+# phase io: MPI-IO through the port's launcher
+# ---------------------------------------------------------------------------
+
+IO_NP = 4                    # ranks of (b) and (c)
+#: (b) side of the f32 matrix: 256 MiB in one file (16384, 1 GiB, took
+#: 9–12 s an aggregating collective call on the H100 machine's 9p
+#: filesystem, 136 s for (b))
+IO_MATRIX = 8192
+IO_CYCLIC = (4096, 256)      # (b) side and cyclic block of the 2nd darray
+IO_FCOLL = ("individual", "two_phase", "dynamic", "static", "dynamic_gen2",
+            "")              # (b) forced components, then the auto decision
+IO_CYCLIC_FCOLL = ("two_phase", "individual")
+IO_SHARED = dict(records=64, record_bytes=1 << 20, ordered_bytes=16 << 20)
+#: code the io ranks run before their body (a rehearsal on the CPU sets
+#: the small shapes there)
+IO_RANK_PRELUDE = ""
+
+
+def _io_record(rank: int, i: int, nbytes: int) -> np.ndarray:
+    """Record i of a rank for the shared-pointer writes: (rank, i) in its
+    first 16 bytes, a pattern of both after them."""
+    rec = np.empty(nbytes, np.uint8)
+    rec[:16] = np.array([rank, i], np.int64).view(np.uint8)
+    rec[16:] = (np.arange(nbytes - 16) + rank * 131 + i * 7) % 251
+    return rec
+
+
+def io_collective_rank(cfg: dict) -> None:
+    """Rank body of phase io (b), a host rank: a 2-d darray view of one
+    f32 matrix written with one ``write_at_all`` and read with one
+    ``read_at_all`` under each fcoll component and the auto decision,
+    a block × cyclic darray under two_phase and individual, then the
+    shared file pointer (``write_shared`` under sm and lockedfile) and
+    ``write_ordered``.  Rank 0 checks each file on disk against the
+    matrix assembled with numpy; every rank checks its read-back.
+    Prints one ``IO_B`` line a rank."""
+    import math
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.mpi import datatype as dt
+    from ompi_tpu_torch.mpi import io as mio
+    from ompi_tpu_torch.mpi import op as op_mod
+
+    comm = ompi_tpu_torch.init()
+    r, n = comm.rank, comm.size
+    q = math.isqrt(n)
+    check(q * q == n, f"io: {n} ranks make no square grid")
+    d = cfg["dir"]
+    row = {"rank": r, "fs_type": mio._fs_type(d), "darray": {},
+           "cyclic": {}, "shared": {}}
+
+    def agree(ok: bool) -> bool:
+        return bool(int(np.asarray(comm.allreduce(
+            np.array([int(ok)], np.int32), op=op_mod.MIN))[0]))
+
+    def roundtrip(path, view, local, whole, comp):
+        """One write_at_all and one read_at_all of ``local`` through
+        ``view`` under ``comp`` ('' = auto); rank 0 holds the file to
+        ``whole``."""
+        var_registry.set("io_fcoll", comp)
+        chose: list = []
+        try:
+            f = mio.File.open(comm, path, mio.MODE_RDWR | mio.MODE_CREATE)
+            f.set_view(0, dt.FLOAT32, view)
+            with fcoll_recorded(chose):
+                comm.barrier()
+                t0 = time.perf_counter()
+                f.write_at_all(0, local)
+                comm.barrier()
+                t1 = time.perf_counter()
+                back = f.read_at_all(0, local.size)
+                comm.barrier()
+                t2 = time.perf_counter()
+            f.close()
+        finally:
+            var_registry.set("io_fcoll", "")
+        ok = back.tobytes() == local.tobytes()
+        if r == 0:
+            ok = ok and np.fromfile(path, np.uint8).tobytes() \
+                == whole.tobytes()
+            os.unlink(path)
+        gb = whole.nbytes / 1e9
+        return {"chose": sorted(set(chose)), "ok": agree(ok),
+                "write_s": t1 - t0, "read_s": t2 - t1,
+                "write_GBps": gb / (t1 - t0), "read_GBps": gb / (t2 - t1)}
+
+    # (b1) block x block on the q x q grid
+    side = cfg["side"]
+    whole = np.random.default_rng(21).random((side, side), np.float32)
+    pr, pc = divmod(r, q)
+    b = side // q
+    local = np.ascontiguousarray(whole[pr * b:(pr + 1) * b,
+                                       pc * b:(pc + 1) * b])
+    view = dt.create_darray(n, r, [side, side],
+                            [dt.DISTRIBUTE_BLOCK, dt.DISTRIBUTE_BLOCK],
+                            [dt.DISTRIBUTE_DFLT_DARG] * 2, [q, q],
+                            dt.FLOAT32).commit()
+    for comp in cfg["fcoll"]:
+        row["darray"][comp or "auto"] = roundtrip(
+            os.path.join(d, f"block_{comp or 'auto'}.bin"), view, local,
+            whole, comp)
+    del whole, local
+    # (b2) block x cyclic(blk)
+    side2, blk = cfg["cyclic"]
+    whole = np.random.default_rng(22).random((side2, side2), np.float32)
+    b = side2 // q
+    rows = np.arange(pr * b, (pr + 1) * b)
+    cols = np.array([c for c in range(side2) if (c // blk) % q == pc])
+    local = np.ascontiguousarray(whole[np.ix_(rows, cols)])
+    view = dt.create_darray(n, r, [side2, side2],
+                            [dt.DISTRIBUTE_BLOCK, dt.DISTRIBUTE_CYCLIC],
+                            [dt.DISTRIBUTE_DFLT_DARG, blk], [q, q],
+                            dt.FLOAT32).commit()
+    for comp in cfg["cyclic_fcoll"]:
+        row["cyclic"][comp] = roundtrip(
+            os.path.join(d, f"cyclic_{comp}.bin"), view, local, whole, comp)
+    del whole, local
+    # (b3) the shared file pointer, then the ordered write
+    S = cfg["shared"]
+    recs, nb = S["records"], S["record_bytes"]
+    mine = [_io_record(r, i, nb) for i in range(recs)]
+    for comp in ("sm", "lockedfile"):
+        path = os.path.join(d, f"shared_{comp}.bin")
+        var_registry.set("io_sharedfp", comp)
+        try:
+            f = mio.File.open(comm, path, mio.MODE_RDWR | mio.MODE_CREATE)
+            ran = f._shfp.name
+            comm.barrier()
+            t0 = time.perf_counter()
+            for rec in mine:
+                f.write_shared(rec)
+            comm.barrier()
+            secs = time.perf_counter() - t0
+            f.close()
+        finally:
+            var_registry.set("io_sharedfp", "")
+        ok = ran == comp
+        if r == 0:
+            got = np.fromfile(path, np.uint8)
+            ok = ok and got.size == n * recs * nb
+            seen = set()
+            for rec in got.reshape(-1, nb) if ok else ():
+                who, i = (int(v) for v in rec[:16].view(np.int64))
+                ok = ok and 0 <= who < n and 0 <= i < recs \
+                    and (who, i) not in seen \
+                    and rec.tobytes() == _io_record(who, i, nb).tobytes()
+                seen.add((who, i))
+            ok = ok and len(seen) == n * recs
+            os.unlink(path)
+        row["shared"][comp] = {"ok": agree(ok), "seconds": secs,
+                               "records_per_s": n * recs / secs}
+    ob = S["ordered_bytes"]
+    path = os.path.join(d, "ordered.bin")
+    data = ((np.arange(ob) + r * 17) % 253).astype(np.uint8)
+    f = mio.File.open(comm, path, mio.MODE_RDWR | mio.MODE_CREATE)
+    comm.barrier()
+    t0 = time.perf_counter()
+    f.write_ordered(data)
+    comm.barrier()
+    secs = time.perf_counter() - t0
+    f.close()
+    ok = True
+    if r == 0:
+        want = np.concatenate([((np.arange(ob) + k * 17) % 253).astype(
+            np.uint8) for k in range(n)])
+        ok = np.fromfile(path, np.uint8).tobytes() == want.tobytes()
+        os.unlink(path)
+    row["ordered"] = {"ok": agree(ok), "seconds": secs,
+                      "GBps": n * ob / secs / 1e9}
+    print("IO_B " + json.dumps(row), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def _io_cut(nrows: int, n: int) -> list[int]:
+    """Row bounds of a ragged cut of ``nrows`` over ``n`` ranks: rank r
+    holds [⌊r·nrows/n⌋, ⌊(r+1)·nrows/n⌋), and where n divides nrows rank
+    0 takes one row more (rank 1 one less)."""
+    b = [nrows * k // n for k in range(n + 1)]
+    if nrows % n == 0 and nrows >= n:
+        b[1] += 1
+    return b
+
+
+def io_card_rank(cfg: dict) -> None:
+    """Rank body of phase io (c), a ``--gpu`` rank (all on card 0): a
+    ragged row cut of every leaf of the flagship's ``init_params`` (seed
+    0) and a bf16 copy of it, on the card, saved collectively through
+    ``ShardedSnapshotStore`` (rank 0's save inside a profiler window that
+    counts the device-to-host copies), loaded back for this rank's own
+    block and its neighbour's, each leaf moved to the card and held with
+    ``torch.equal`` against the expected cut.  Prints one ``IO_C`` line
+    a rank."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.ckpt import ShardedSnapshotStore
+    from ompi_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params)
+
+    comm = ompi_tpu_torch.init()
+    r, n = comm.rank, comm.size
+    dev = torch.device(f"{DEVICE}:0") if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    params = init_params(TransformerConfig(**FLAGSHIP), seed=0)
+    cuts = {k: _io_cut(v.shape[0], n) for k, v in params.items()}
+
+    def cut(k, rank):
+        b = cuts[k]
+        return torch.from_numpy(np.ascontiguousarray(
+            params[k][b[rank]:b[rank + 1]])).to(dev)
+
+    state = {}
+    for k in sorted(params):
+        state[k] = cut(k, r)
+        state[k + "_bf16"] = state[k].to(torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    store = ShardedSnapshotStore(cfg["dir"], comm, job="card")
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.perf_counter()
+    copies = None
+    if r == 0:
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+        with profile(activities=acts) as prof:
+            store.save(0, state)
+            state["lnf"][:1].cpu()             # the control: one DtoH
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+        copies = profiler_copies(prof)
+    else:
+        store.save(0, state)
+    comm.barrier()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    own = store.load(0)
+    comm.barrier()
+    load_s = time.perf_counter() - t0
+    nb = (r + 1) % n
+    other = store.load(0, rank=nb)
+    ok = {"own": True, "neighbour": True, "bf16": True}
+    for k in sorted(params):
+        for suffix in ("", "_bf16"):
+            key = k + suffix
+            a = torch.as_tensor(own[key]).to(dev)
+            b = torch.as_tensor(other[key]).to(dev)
+            want_b = cut(k, nb)
+            if suffix:
+                want_b = want_b.to(torch.bfloat16)
+                ok["bf16"] &= (a.dtype == b.dtype == torch.bfloat16
+                               and isinstance(own[key], torch.Tensor))
+            ok["own"] &= bool(torch.equal(a, state[key]))
+            ok["neighbour"] &= bool(torch.equal(b, want_b))
+    meta = store.metadata(0)
+    shapes_ok = meta.get("layout") == "sharded-file" and all(
+        [s["shape"][0] for s in meta["arrays"][k + sfx]]
+        == [cuts[k][i + 1] - cuts[k][i] for i in range(n)]
+        for k in params for sfx in ("", "_bf16"))
+    row = {"rank": r, "leaves": len(state), "bytes": nbytes,
+           "save_s": save_s, "load_s": load_s,
+           "device": str(state["lnf"].device), "ok": ok,
+           "ragged_shapes_ok": shapes_ok, "copies": copies,
+           "fs_type": None}
+    comm.barrier()
+    if r == 0:
+        from ompi_tpu_torch.mpi import io as mio
+
+        row["fs_type"] = mio._fs_type(cfg["dir"])
+        shutil.rmtree(store.base, ignore_errors=True)
+    print("IO_C " + json.dumps(row), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def phase_io(card, sizes=None):
+    """MPI-IO through the port's launcher: (a) ``examples/mpiio_darray``
+    at -np 4; (b) 4 host ranks: one f32 matrix through a darray view under
+    every fcoll component and the auto decision, a block × cyclic darray,
+    the shared file pointer under sm and lockedfile and an ordered write,
+    every file held bitwise to numpy; (c) ``--gpu -np 4`` ranks on the one
+    card: ragged cuts of the flagship's parameters (f32 and bf16) on the
+    card through ``ShardedSnapshotStore`` and back.  The files live under
+    ``build/io_smoke/`` and are removed."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "io_smoke")
+    os.makedirs(base, exist_ok=True)
+    cfg = {"dir": base, "side": IO_MATRIX, "cyclic": list(IO_CYCLIC),
+           "fcoll": list(IO_FCOLL), "cyclic_fcoll": list(IO_CYCLIC_FCOLL),
+           "shared": IO_SHARED, **(sizes or {})}
+    def body(fn):
+        return "\n".join(("import json", "import chip_smoke as C",
+                          f"C.DEVICE = {DEVICE!r}", IO_RANK_PRELUDE,
+                          f"C.{fn}(json.loads({json.dumps(cfg)!r}))"))
+
+    secs = {}
+    try:
+        wall, rc, out, err = tpurun(
+            ["-np", str(IO_NP), "--", sys.executable, "-m",
+             "ompi_tpu_torch.examples.mpiio_darray"])
+        check(rc == 0 and "darray collective IO ok" in out,
+              f"io: mpiio_darray rc {rc}:\n{out[-2000:]}{err[-2000:]}")
+        secs["mpiio_darray"] = wall
+        wall, rc, out, err = tpurun(
+            ["-np", str(IO_NP), "--", sys.executable, "-c",
+             body("io_collective_rank")])
+        check(rc == 0, f"io (b) rc {rc}:\n{out[-2000:]}{err[-2000:]}")
+        secs["collective"] = wall
+        rows = {d["rank"]: d for d in tagged_json(out, "IO_B")}
+        check(sorted(rows) == list(range(IO_NP)), f"io (b) rows {rows}")
+        b0 = rows[0]
+        for part in ("darray", "cyclic", "shared"):
+            bad = {k: v for k, v in b0[part].items() if not v["ok"]}
+            check(not bad, f"io (b) {part}: {bad}")
+        check(b0["ordered"]["ok"], f"io (b) ordered: {b0['ordered']}")
+        for comp, v in b0["darray"].items():
+            if comp != "auto":
+                check(v["chose"] == [comp], f"io (b) forced {comp}: {v}")
+        wall, rc, out, err = tpurun(
+            ["-np", str(IO_NP), *(["--gpu"] if DEVICE == "cuda" else []),
+             "--", sys.executable, "-c", body("io_card_rank")])
+        check(rc == 0, f"io (c) rc {rc}:\n{out[-2000:]}{err[-2000:]}")
+        secs["card"] = wall
+        crow = {d["rank"]: d for d in tagged_json(out, "IO_C")}
+        check(sorted(crow) == list(range(IO_NP)), f"io (c) rows {crow}")
+        for rk, v in crow.items():
+            check(all(v["ok"].values()) and v["ragged_shapes_ok"],
+                  f"io (c) rank {rk}: {v}")
+            check(v["device"].startswith(DEVICE),
+                  f"io (c) rank {rk} held its leaves on {v['device']}")
+        c0 = crow[0]
+        if DEVICE == "cuda":
+            check(c0["copies"]["dtoh"] == c0["leaves"] + 1,
+                  f"io (c): rank 0's save made {c0['copies']} copies for "
+                  f"{c0['leaves']} leaves (and one control copy)")
+        total = sum(v["bytes"] for v in crow.values())
+        save_s = max(v["save_s"] for v in crow.values())
+        load_s = max(v["load_s"] for v in crow.values())
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("io", fs_type=b0["fs_type"], matrix=[cfg["side"]] * 2,
+         darray={k: {kk: v[kk] for kk in ("chose", "write_GBps",
+                                         "read_GBps", "write_s", "read_s")}
+                 for k, v in b0["darray"].items()},
+         cyclic=b0["cyclic"], shared=b0["shared"], ordered=b0["ordered"],
+         card_store={"ranks": IO_NP, "bytes": total, "save_s": save_s,
+                     "load_s": load_s, "save_GBps": total / save_s / 1e9,
+                     "load_GBps": total / load_s / 1e9,
+                     "rank0_copies": c0["copies"], "fs_type": c0["fs_type"],
+                     "leaves_a_rank": c0["leaves"]},
+         seconds=secs, card=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4464,6 +4900,7 @@ def main() -> int:
     rma = run("rma_kernel", phase_rma_kernel, rd, card)
     rma_launches = run("rma_ranks", phase_rma_ranks, card)
     run("ft", phase_ft, card)
+    run("io", phase_io, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

@@ -14,10 +14,11 @@ the global snapshot valid.  The protocol runs over the collective layer:
       barrier            — restart-safety: nobody races ahead of the commit
 
 Tensors on the card are pulled to host by the store; the store loads
-CPU tensors, and ``restore_fn(name, tensor)`` (e.g. ``lambda k, t:
-t.to("cuda")``) places each leaf back — the checkpoint layer is
-deliberately ignorant of placement, exactly as sstore is ignorant of
-what's in an image.
+numpy arrays (CPU tensors for bf16 and float8, which numpy cannot name),
+and ``restore_fn(name, leaf)`` (e.g. ``lambda k, x:
+torch.as_tensor(x).to("cuda")``) places each leaf back — the checkpoint
+layer is deliberately ignorant of placement, exactly as sstore is
+ignorant of what's in an image.
 
 ``CheckpointManager(async_save=True)`` copies every leaf to host memory
 before ``save`` returns, so the background thread never holds a live

@@ -36,6 +36,14 @@ __all__ = ["BufferKind", "classify", "is_device", "is_tensor", "nbytes_of",
            "BufferLocationError"]
 
 
+#: torch dtypes numpy has no name for without ml_dtypes (their name,
+#: ml_dtypes' and torch's alike) → the integer dtype of their bits, which
+#: is how they cross to numpy (MPI-IO writes, the snapshot stores)
+BITS_DTYPE = {"bfloat16": "int16", "float8_e4m3fn": "uint8",
+              "float8_e5m2": "uint8", "float8_e4m3fnuz": "uint8",
+              "float8_e5m2fnuz": "uint8"}
+
+
 class BufferKind(enum.Enum):
     HOST = "host"
     DEVICE = "device"

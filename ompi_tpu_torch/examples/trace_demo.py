@@ -1,13 +1,13 @@
 """Flight-recorder demo: exercise every traced layer of the host plane
 (the port's counterpart of the repo's ``examples/trace_demo.py``).
 
-Touches p2p (eager AND rendezvous), a collective, and a derived datatype
-pack, so a traced run produces spans in the pml, btl, coll and datatype
-categories, with send→recv flow ids on every p2p message.  A
-``monitoring.Monitor`` counts the traffic per peer; rank 0 prints the
-job's sent-bytes matrix (``monitoring.gather_matrix``).  MPI-IO and the
-host RMA windows (the JAX demo's io and osc spans) come with ROADMAP.md
-Queue 1 items 6.12 and 6.14.
+Touches p2p (eager AND rendezvous), a collective, a derived datatype
+pack and a shared file (MPI-IO), so a traced run produces spans in the
+pml, btl, coll, datatype and io categories, with send→recv flow ids on
+every p2p message.  A ``monitoring.Monitor`` counts the traffic per peer;
+rank 0 prints the job's sent-bytes matrix (``monitoring.gather_matrix``).
+The host RMA windows (the JAX demo's osc spans) come with ROADMAP.md
+Queue 1 item 6.14.
 
 Run:  python -m ompi_tpu_torch.tools.tpurun -np 4 --trace -- \\
           python -m ompi_tpu_torch.examples.trace_demo
@@ -19,11 +19,14 @@ and load trace.json in chrome://tracing or ui.perfetto.dev.
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 
 import numpy as np
 
 import ompi_tpu_torch
 from ompi_tpu_torch.mpi import datatype as dt
+from ompi_tpu_torch.mpi import io as mpiio
 from ompi_tpu_torch.mpi import monitoring
 
 
@@ -55,6 +58,22 @@ def main() -> None:
     comm.send(buf, dest=peer, tag=3, datatype=vec, count=1)
     got = rreq.wait()
     assert np.array_equal(got, buf.reshape(16, 4)[:, :2].ravel()), got
+
+    # io: per-rank write + read-back through a shared file
+    path = os.path.join(
+        tempfile.gettempdir(),
+        f"otpu_trace_demo_{os.environ.get('OMPI_TPU_JOBID', 0)}.bin")
+    fh = mpiio.File(comm, path, mpiio.MODE_RDWR | mpiio.MODE_CREATE)
+    fh.set_view(etype=dt.FLOAT64)
+    fh.write_at(rank * 16, np.full(16, float(rank), dtype=np.float64))
+    back = fh.read_at(rank * 16, 16)
+    fh.close()
+    assert np.array_equal(back, np.full(16, float(rank))), back
+    if rank == 0:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
 
     mon.detach()
     matrix = monitoring.gather_matrix(comm, mon, "sent_bytes")

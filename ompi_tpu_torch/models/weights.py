@@ -162,7 +162,9 @@ def from_jax_opt_state(leaves, cfg: TransformerConfig, like: dict,
     if len(rest) not in (1 + 2 * nk, 2 + 2 * nk):
         raise ValueError(f"{len(leaves)} leaves do not hold an AdamW state "
                          f"of {nk} parameters")
-    count = torch.tensor(int(rest[0]), dtype=torch.int32)
+    # the step count: 0-d, or (1,) as the sharded store records a scalar
+    count = torch.tensor(int(torch.as_tensor(rest[0]).reshape(())),
+                         dtype=torch.int32)
 
     def mine(k, leaf, dtype):
         t = _tensor(leaf)

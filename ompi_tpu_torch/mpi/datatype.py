@@ -27,19 +27,27 @@ struct datatype bumps ``convertor_plan_<kind>_total`` once (with a
 ``commit:<kind>`` instant when the timeline is armed), and every pack
 and unpack that moves bytes records a ``pack:<kind>``/``unpack:<kind>``
 span.
-Left out: ``create_darray`` (it comes with MPI-IO, ROADMAP.md Queue 1
-item 6.12) and the external32 pack.
+
+Every constructor stamps its combiner and arguments (``get_envelope``/
+``get_contents``, as MPI_Type_get_envelope/contents), so a type rebuilds
+from its envelope.  ``create_darray`` cuts a block/cyclic distributed
+n-d array (the file views of MPI-IO read it), and ``pack_external``/
+``unpack_external`` write the canonical big-endian external32 stream:
+each element of the packed stream is byte-swapped at its own width,
+bfloat16 (held as its 2-byte bits) included.
 """
 
 from __future__ import annotations
 
 import ctypes
 import itertools
+import sys
 import threading
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ompi_tpu_torch.core.buffer import is_tensor
 from ompi_tpu_torch.mpi import trace as trace_mod
 from ompi_tpu_torch.mpi.constants import MPIException
 
@@ -50,7 +58,11 @@ __all__ = [
     "UINT32", "INT64", "UINT64", "FLOAT16", "BFLOAT16", "FLOAT32", "FLOAT64",
     "COMPLEX64", "COMPLEX128", "BOOL", "FLOAT", "DOUBLE", "INT", "LONG",
     "CHAR", "FLOAT_INT", "DOUBLE_INT", "LONG_INT", "PackPlan",
-    "ConvertorStats", "stats", "from_numpy",
+    "ConvertorStats", "stats", "from_numpy", "create_darray",
+    "DISTRIBUTE_NONE", "DISTRIBUTE_BLOCK", "DISTRIBUTE_CYCLIC",
+    "DISTRIBUTE_DFLT_DARG", "pack_external", "unpack_external",
+    "pack_external_size", "pack_size", "type_match_size", "get_address",
+    "alloc_mem", "free_mem", "min_span",
 ]
 
 # native convertor (_native/convertor.cpp): used above this payload size;
@@ -241,6 +253,8 @@ class Datatype:
     base_np: np.dtype  # element dtype (its itemsize is the element unit)
 
     _committed = False
+    combiner: str = "named"          # ≈ MPI_COMBINER_* (envelope)
+    _contents: Optional[dict] = None  # constructor args (get_contents)
 
     def commit(self) -> "Datatype":
         """Compile the layout (≈ MPI_Type_commit → opal_datatype_commit)."""
@@ -251,11 +265,65 @@ class Datatype:
     def committed(self) -> bool:
         return self._committed
 
+    # -- introspection (≈ type_get_envelope.c / type_get_contents.c) ------
+
+    def get_envelope(self) -> dict:
+        """≈ MPI_Type_get_envelope: the combiner this type was built with
+        plus argument counts (integers / byte-addresses / datatypes)."""
+        if self._contents is None:
+            return {"combiner": "named", "n_integers": 0, "n_addresses": 0,
+                    "n_datatypes": 0}
+        ni = na = nd = 0
+        for k, v in self._contents.items():
+            addr = k in _ADDRESS_KEYS
+            if isinstance(v, Datatype):
+                nd += 1
+            elif isinstance(v, (list, tuple)):
+                if v and all(isinstance(x, Datatype) for x in v):
+                    nd += len(v)
+                elif addr:
+                    na += len(v)
+                else:
+                    ni += len(v)
+            elif addr:
+                na += 1
+            else:
+                ni += 1
+        return {"combiner": self.combiner, "n_integers": ni,
+                "n_addresses": na, "n_datatypes": nd}
+
+    def get_contents(self) -> dict:
+        """≈ MPI_Type_get_contents: the constructor arguments, by name
+        (datatype-valued entries are the live input type objects).
+        Erroneous on predefined types, as in MPI."""
+        if self._contents is None:
+            raise MPIException(
+                "get_contents on a predefined (named) datatype",
+                error_class=3)
+        return dict(self._contents)
+
     def get_extent(self) -> tuple[int, int]:
         """≈ MPI_Type_get_extent → (lb, extent).  This layout model has no
         negative lower bounds; lb is always 0 and resized() adjusts only
         the extent."""
         return 0, self.extent
+
+    def get_true_extent(self) -> tuple[int, int]:
+        """≈ MPI_Type_get_true_extent → (true_lb, true_extent): the span
+        actually touched by the data, ignoring the declared extent."""
+        offs, lens = self.segment_arrays()
+        if len(offs) == 0:
+            return 0, 0
+        lo = int(offs.min())
+        return lo, int((offs + lens).max()) - lo
+
+    def get_name(self) -> str:
+        """≈ MPI_Type_get_name."""
+        return getattr(self, "name", type(self).__name__)
+
+    def set_name(self, name: str) -> None:
+        """≈ MPI_Type_set_name."""
+        self.name = str(name)
 
     # -- layout queries ---------------------------------------------------
 
@@ -263,6 +331,11 @@ class Datatype:
         """Byte (offsets, lengths) runs for ONE item, offsets within
         extent, as int64 arrays."""
         raise NotImplementedError
+
+    def segments(self) -> list[tuple[int, int]]:
+        """``segment_arrays()`` as a list of (offset, length) tuples."""
+        offs, lens = self.segment_arrays()
+        return list(zip(offs.tolist(), lens.tolist()))
 
     def element_indices(self) -> np.ndarray:
         """Flat element positions (in units of base_np) for one item, within
@@ -541,7 +614,9 @@ class Datatype:
     # -- constructors (≈ ompi_datatype.h:178-197) -------------------------
 
     def contiguous(self, count: int) -> "DerivedDatatype":
-        return DerivedDatatype(self, [(0, count)], name=f"contig({count})")
+        return _stamp(DerivedDatatype(self, [(0, count)],
+                                      name=f"contig({count})"),
+                      "contiguous", count=count, datatype=self)
 
     def vector(self, count: int, blocklength: int,
                stride: int) -> "DerivedDatatype":
@@ -560,7 +635,8 @@ class Datatype:
             # package (whose plan class the trace counters name)
             dt._affine = (0, count, blocklength * self.size,
                           stride * self.extent)
-        return dt
+        return _stamp(dt, "vector", count=count, blocklength=blocklength,
+                      stride=stride, datatype=self)
 
     def hvector(self, count: int, blocklength: int,
                 byte_stride: int) -> "DerivedDatatype":
@@ -578,22 +654,27 @@ class Datatype:
         if count > 0 and blocklength > 0 and byte_stride > 0 \
                 and self.is_contiguous:
             dt._affine = (0, count, blocklength * self.size, byte_stride)
-        return dt
+        return _stamp(dt, "hvector", count=count, blocklength=blocklength,
+                      byte_stride=byte_stride, datatype=self)
 
     def indexed(self, blocklengths: Sequence[int],
                 displacements: Sequence[int]) -> "DerivedDatatype":
         if len(blocklengths) != len(displacements):
             raise MPIException("indexed: blocklengths/displacements mismatch")
-        return DerivedDatatype(
+        return _stamp(DerivedDatatype(
             self, [(d, b) for d, b in zip(displacements, blocklengths)],
-            name=f"indexed({len(blocklengths)})")
+            name=f"indexed({len(blocklengths)})"),
+            "indexed", blocklengths=list(blocklengths),
+            displacements=list(displacements), datatype=self)
 
     def indexed_block(self, blocklength: int,
                       displacements: Sequence[int]) -> "DerivedDatatype":
         """≈ MPI_Type_create_indexed_block: one blocklength for all."""
-        return DerivedDatatype(
+        return _stamp(DerivedDatatype(
             self, [(d, blocklength) for d in displacements],
-            name=f"indexed_block({blocklength},{len(displacements)})")
+            name=f"indexed_block({blocklength},{len(displacements)})"),
+            "indexed_block", blocklength=blocklength,
+            displacements=list(displacements), datatype=self)
 
     def hindexed(self, blocklengths: Sequence[int],
                  byte_displacements: Sequence[int]) -> "DerivedDatatype":
@@ -601,20 +682,28 @@ class Datatype:
         if len(blocklengths) != len(byte_displacements):
             raise MPIException(
                 "hindexed: blocklengths/displacements mismatch")
-        return DerivedDatatype(
+        return _stamp(DerivedDatatype(
             self, list(zip(byte_displacements, blocklengths)),
-            pattern_unit="bytes", name=f"hindexed({len(blocklengths)})")
+            pattern_unit="bytes", name=f"hindexed({len(blocklengths)})"),
+            "hindexed", blocklengths=list(blocklengths),
+            byte_displacements=list(byte_displacements), datatype=self)
 
     def hindexed_block(self, blocklength: int,
                        byte_displacements: Sequence[int]) -> "DerivedDatatype":
         """≈ MPI_Type_create_hindexed_block."""
-        return DerivedDatatype(
+        return _stamp(DerivedDatatype(
             self, [(d, blocklength) for d in byte_displacements],
             pattern_unit="bytes",
-            name=f"hindexed_block({blocklength},{len(byte_displacements)})")
+            name=f"hindexed_block({blocklength},{len(byte_displacements)})"),
+            "hindexed_block", blocklength=blocklength,
+            byte_displacements=list(byte_displacements), datatype=self)
 
     def resized(self, extent: int) -> "DerivedDatatype":
         """≈ MPI_Type_create_resized: the base's layout, a new extent."""
+        return _stamp(self._resized(extent), "resized", extent=extent,
+                      datatype=self)
+
+    def _resized(self, extent: int) -> "DerivedDatatype":
         dt = DerivedDatatype(self, [(0, 1)], extent=extent,
                              name=f"resized({extent})")
         dt.size = self.size
@@ -625,6 +714,26 @@ class Datatype:
                  starts: Sequence[int], order: str = "C") -> "DerivedDatatype":
         """≈ MPI_Type_create_subarray (C or Fortran order)."""
         return create_subarray(sizes, subsizes, starts, self, order)
+
+
+# arg names whose values are byte addresses/extents (envelope "addresses")
+_ADDRESS_KEYS = {"byte_displacements", "byte_stride", "extent"}
+
+
+def _stamp(dt: "Datatype", combiner: str, **contents) -> "Datatype":
+    """Record envelope/contents metadata on a freshly built datatype."""
+    dt.combiner = combiner
+    dt._contents = contents
+    return dt
+
+
+def min_span(dt: Datatype, count: int) -> int:
+    """Min buffer bytes to hold `count` items (last item needs only size)."""
+    if count <= 0:
+        return 0
+    offs, lens = dt.segment_arrays()
+    last_end = int((offs + lens).max()) if len(offs) else 0
+    return (count - 1) * dt.extent + last_end
 
 
 def _concat_aranges(offsets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -816,6 +925,10 @@ class StructDatatype(Datatype):
             f"{self.name}: struct datatypes mix base dtypes; the device "
             f"gather path needs a uniform element type (host path only)")
 
+    def resized(self, extent: int) -> "DerivedDatatype":
+        # unstamped, as in the JAX package: the envelope stays the base's
+        return self._resized(extent)
+
     def __repr__(self) -> str:
         return f"Datatype({self.name}, size={self.size}, extent={self.extent})"
 
@@ -824,7 +937,10 @@ def create_struct(blocklengths: Sequence[int],
                   byte_displacements: Sequence[int],
                   datatypes: Sequence[Datatype]) -> StructDatatype:
     """≈ MPI_Type_create_struct."""
-    return StructDatatype(blocklengths, byte_displacements, datatypes)
+    return _stamp(StructDatatype(blocklengths, byte_displacements, datatypes),
+                  "struct", blocklengths=list(blocklengths),
+                  byte_displacements=list(byte_displacements),
+                  datatypes=list(datatypes))
 
 
 def create_subarray(sizes: Sequence[int], subsizes: Sequence[int],
@@ -834,6 +950,8 @@ def create_subarray(sizes: Sequence[int], subsizes: Sequence[int],
     Extent spans the WHOLE array (MPI semantics), so count>1 tiles whole
     arrays."""
     nd = len(sizes)
+    orig_args = dict(sizes=list(sizes), subsizes=list(subsizes),
+                     starts=list(starts), order=order, datatype=base)
     if not (len(subsizes) == len(starts) == nd):
         raise MPIException("subarray: sizes/subsizes/starts rank mismatch")
     for d in range(nd):
@@ -857,9 +975,206 @@ def create_subarray(sizes: Sequence[int], subsizes: Sequence[int],
         for d, i in enumerate(idx):
             off += (starts[d] + i) * strides[d]
         pattern.append((off, run))
-    return DerivedDatatype(
+    return _stamp(DerivedDatatype(
         base, pattern, extent=int(np.prod(sizes)) * base.extent,
-        name=f"subarray({tuple(subsizes)}/{tuple(sizes)})")
+        name=f"subarray({tuple(subsizes)}/{tuple(sizes)})"),
+        "subarray", **orig_args)
+
+
+# distribution constants (≈ mpi.h MPI_DISTRIBUTE_*)
+DISTRIBUTE_NONE = "none"
+DISTRIBUTE_BLOCK = "block"
+DISTRIBUTE_CYCLIC = "cyclic"
+DISTRIBUTE_DFLT_DARG = -1
+
+
+def _darray_dim_indices(gsize: int, distrib: str, darg: int, psize: int,
+                        coord: int) -> list[int]:
+    """Global indices along one dimension owned by process `coord`."""
+    if distrib == DISTRIBUTE_NONE:
+        if psize != 1:
+            raise MPIException("darray: DISTRIBUTE_NONE needs psize 1")
+        return list(range(gsize))
+    if distrib == DISTRIBUTE_BLOCK:
+        if darg == DISTRIBUTE_DFLT_DARG:
+            darg = (gsize + psize - 1) // psize
+        if darg * psize < gsize:
+            raise MPIException(
+                f"darray: block size {darg} × {psize} procs < {gsize}")
+        start = coord * darg
+        return list(range(start, min(start + darg, gsize)))
+    if distrib == DISTRIBUTE_CYCLIC:
+        if darg == DISTRIBUTE_DFLT_DARG:
+            darg = 1
+        out: list[int] = []
+        for blk in range(coord * darg, gsize, psize * darg):
+            out.extend(range(blk, min(blk + darg, gsize)))
+        return out
+    raise MPIException(f"darray: unknown distribution {distrib!r}")
+
+
+def create_darray(size: int, rank: int, gsizes: Sequence[int],
+                  distribs: Sequence[str], dargs: Sequence[int],
+                  psizes: Sequence[int], base: Datatype,
+                  order: str = "C") -> DerivedDatatype:
+    """≈ MPI_Type_create_darray: this process's piece of a block/cyclic
+    distributed n-d array (HPF rules).  Process grid is row-major over
+    psizes (MPI order)."""
+    nd = len(gsizes)
+    orig_args = dict(size=size, rank=rank, gsizes=list(gsizes),
+                     distribs=list(distribs), dargs=list(dargs),
+                     psizes=list(psizes), order=order, datatype=base)
+    if not (len(distribs) == len(dargs) == len(psizes) == nd):
+        raise MPIException("darray: argument rank mismatch")
+    if int(np.prod(psizes)) != size:
+        raise MPIException(
+            f"darray: psizes {tuple(psizes)} ≠ comm size {size}")
+    # my coordinates in the process grid: ALWAYS row-major over psizes as
+    # given (MPI mandates this regardless of array storage order)
+    coords = []
+    rem = rank
+    for d in range(nd):
+        below = int(np.prod(psizes[d + 1:])) if d + 1 < nd else 1
+        coords.append(rem // below)
+        rem %= below
+    if order.upper() == "F":  # mirror ONLY the array/dim description
+        gsizes, distribs = gsizes[::-1], distribs[::-1]
+        dargs, psizes = dargs[::-1], psizes[::-1]
+        coords = coords[::-1]
+    elif order.upper() != "C":
+        raise MPIException(f"darray: order must be C or F, got {order!r}")
+    dim_idx = [np.asarray(_darray_dim_indices(gsizes[d], distribs[d],
+                                              dargs[d], psizes[d],
+                                              coords[d]), np.int64)
+               for d in range(nd)]
+    strides = [1] * nd
+    for d in range(nd - 2, -1, -1):
+        strides[d] = strides[d + 1] * gsizes[d + 1]
+    # run-length compressed item offsets in local (canonical) order, last
+    # dim fastest: the last dimension's runs, placed at every row origin
+    # of the outer dimensions (an outer sum), then merged where one run
+    # ends at the next one's start (the JAX package compresses the flat
+    # per-item walk; this is the same pattern without the per-item list)
+    last = dim_idx[-1]
+    if len(last):
+        brk = np.empty(len(last), bool)
+        brk[0] = True
+        np.not_equal(last[1:], last[:-1] + 1, out=brk[1:])
+        gi = np.flatnonzero(brk)
+        run_s, run_l = last[gi], np.diff(np.append(gi, len(last)))
+    else:
+        run_s = run_l = np.empty(0, np.int64)
+    origins = np.zeros(1, np.int64)
+    for d in range(nd - 1):
+        origins = (origins[:, None]
+                   + dim_idx[d][None, :] * strides[d]).reshape(-1)
+    starts = (origins[:, None] + run_s[None, :]).reshape(-1)
+    lens = np.broadcast_to(run_l[None, :],
+                           (len(origins), len(run_l))).reshape(-1)
+    pattern = _merge_adjacent(starts, lens)
+    return _stamp(DerivedDatatype(
+        base, pattern, extent=int(np.prod(gsizes)) * base.extent,
+        name=f"darray(rank {rank}/{size}, {tuple(gsizes)})"),
+        "darray", **orig_args)
+
+
+# -- external32: the canonical big-endian interchange format ---------------
+# ≈ ompi external32 (opal_convertor heterogeneous path + test/datatype/
+# external32.c): pack to a byte-order-independent stream so heterogeneous
+# peers (or files) interoperate.
+
+
+def _packed_elem_dtypes(dt: Datatype) -> list[tuple[np.dtype, int]]:
+    """The packed stream of ONE item as (element dtype, n_elements) runs,
+    in pack order — the byteswap map for external32."""
+    if isinstance(dt, StructDatatype):
+        out: list[tuple[np.dtype, int]] = []
+        for _disp, cnt, t in dt.fields:
+            out.extend(_packed_elem_dtypes(t) * cnt)
+        return out
+    if isinstance(dt, DerivedDatatype):
+        # recurse: the base may itself be heterogeneous (resized/contiguous
+        # struct) — its byteswap map must survive the wrapper
+        n_items = dt.size // dt.base.size if dt.base.size else 0
+        return _packed_elem_dtypes(dt.base) * n_items
+    return [(dt.base_np, dt.size // dt.base_np.itemsize)]
+
+
+def _swap_stream(dt: Datatype, data: bytes, count: int) -> bytes:
+    runs = _packed_elem_dtypes(dt) * count
+    out = bytearray(len(data))
+    pos = 0
+    src = np.frombuffer(data, np.uint8)
+    for elem_dt, n in runs:
+        nb = elem_dt.itemsize * n
+        out[pos:pos + nb] = src[pos:pos + nb].view(elem_dt).byteswap(
+            ).tobytes()
+        pos += nb
+    return bytes(out)
+
+
+def pack_size(count: int, dt: Datatype) -> int:
+    """≈ MPI_Pack_size: an upper bound on the packed bytes for ``count``
+    items (exact here — this convertor adds no envelope)."""
+    return int(count) * dt.size
+
+
+def pack_external_size(dt: Datatype, count: int = 1) -> int:
+    """≈ MPI_Pack_external_size ("external32"): same payload bytes — the
+    canonical stream only byte-swaps, never pads."""
+    return int(count) * dt.size
+
+
+def type_match_size(typeclass: str, size: int) -> Datatype:
+    """≈ MPI_Type_match_size: the predefined type of ``typeclass``
+    ("integer" | "real" | "complex") with exactly ``size`` bytes."""
+    table = {
+        "integer": {1: "INT8", 2: "INT16", 4: "INT32", 8: "INT64"},
+        "real": {2: "FLOAT16", 4: "FLOAT32", 8: "FLOAT64"},
+        "complex": {8: "COMPLEX64", 16: "COMPLEX128"},
+    }
+    try:
+        return globals()[table[typeclass.lower()][int(size)]]
+    except KeyError:
+        raise MPIException(
+            f"type_match_size: no {typeclass} type of {size} bytes",
+            error_class=3) from None
+
+
+def get_address(buf) -> int:
+    """≈ MPI_Get_address: the base address of a buffer (useful for
+    computing struct byte displacements between fields); a tensor's is
+    its ``data_ptr()``."""
+    if is_tensor(buf):
+        return int(buf.data_ptr())
+    return np.asarray(buf).__array_interface__["data"][0]
+
+
+def alloc_mem(nbytes: int) -> np.ndarray:
+    """≈ MPI_Alloc_mem: an ordinary byte buffer (no registered-memory
+    fast path on the host transports)."""
+    return np.zeros(int(nbytes), np.uint8)
+
+
+def free_mem(buf: np.ndarray) -> None:
+    """≈ MPI_Free_mem (allocation is GC-managed; provided for parity)."""
+
+
+def pack_external(dt: Datatype, buf, count: int = 1) -> bytes:
+    """≈ MPI_Pack_external("external32"): pack then canonicalize to
+    big-endian."""
+    data = dt.pack(np.asarray(buf), count)
+    if sys.byteorder == "little":
+        data = _swap_stream(dt, data, count)
+    return data
+
+
+def unpack_external(dt: Datatype, data: bytes, buf: np.ndarray,
+                    count: int = 1) -> None:
+    """≈ MPI_Unpack_external: big-endian stream → native layout."""
+    if sys.byteorder == "little":
+        data = _swap_stream(dt, data, count)
+    dt.unpack(data, buf, count)
 
 
 # Predefined types (≈ opal_datatype.h:51-52's 25 predefined + MPI aliases)

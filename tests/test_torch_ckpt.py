@@ -4,7 +4,8 @@ package's, and resuming training from them.
 - ``SnapshotStore``/``StagedStore`` files are the JAX package's files:
   each package reads the other's snapshots bit for bit (f32, int, bool,
   bf16 and float8_e4m3fn leaves; the manifest; ``metadata.json``), the
-  port without ml_dtypes.  The reserved key, a corrupt or unknown-dtype
+  port without ml_dtypes.  Both load numpy arrays for numpy dtypes; the
+  port loads CPU tensors for bf16 and float8, which numpy cannot name.  The reserved key, a corrupt or unknown-dtype
   manifest, a commit with a missing rank and an uncommitted load raise
   ERR_IO, as the reference's.
 - Resume: the config of tests/ckpt/test_full_stack_resume.py (ZeRO-1
@@ -139,15 +140,21 @@ def test_each_package_reads_the_others_snapshot(tmp_path):
     for k, v in state.items():
         assert back[k].dtype == np.asarray(v).dtype, k
         assert back[k].shape == np.shape(v) and _bits(back[k]) == _bits(v), k
-    # the port loads the JAX package's file: CPU tensors, same bits
+    # the port loads the JAX package's file: numpy arrays as the JAX
+    # package's load gives them, CPU tensors for bf16/f8; same bits
     got = SnapshotStore(str(tmp_path), job="jax").load_rank(0, 0)
+    jgot = jstore.SnapshotStore(str(tmp_path), job="jax").load_rank(0, 0)
     want = _torch_state(state)
     for k in state:
-        assert isinstance(got[k], torch.Tensor) and got[k].device.type == \
-            "cpu", k
-        assert got[k].dtype == want[k].dtype and _bits(got[k]) == _bits(
-            want[k]), k
-        assert got[k].shape == want[k].shape, k
+        if k in ("bf", "f8"):
+            assert isinstance(got[k], torch.Tensor) and \
+                got[k].device.type == "cpu", k
+            assert got[k].dtype == want[k].dtype, k
+        else:
+            assert isinstance(got[k], np.ndarray), k
+            assert got[k].dtype == jgot[k].dtype, k
+        assert _bits(got[k]) == _bits(want[k]) == _bits(jgot[k]), k
+        assert tuple(got[k].shape) == tuple(want[k].shape), k
     assert SnapshotStore(str(tmp_path), job="jax").metadata(0)["step"] == 3
 
 
@@ -159,9 +166,11 @@ def test_write_rank_takes_tensors_on_any_device_and_numpy(tmp_path):
                          "empty": torch.zeros(0, 3), "s": 3.5})
     st.commit(0, nranks=1)
     out = st.load_rank(0, 0)
-    assert torch.equal(out["t"], t) and torch.equal(out["view"], t.t())
-    assert torch.equal(out["leaf"], t) and out["empty"].shape == (0, 3)
-    assert out["n"].dtype == torch.float64 and float(out["s"]) == 3.5
+    assert torch.equal(torch.from_numpy(out["t"]), t)
+    assert torch.equal(torch.from_numpy(out["view"]), t.t())
+    assert torch.equal(torch.from_numpy(out["leaf"]), t)
+    assert out["empty"].shape == (0, 3)
+    assert out["n"].dtype == np.float64 and float(out["s"]) == 3.5
 
 
 def test_staged_store_roundtrips_bf16_and_is_read_by_the_jax_package(
@@ -172,7 +181,7 @@ def test_staged_store_roundtrips_bf16_and_is_read_by_the_jax_package(
     store.commit(0, nranks=1)
     out = store.load_rank(0, 0)
     assert out["w"].dtype == torch.bfloat16 and torch.equal(out["w"], vals)
-    assert out["f32"].dtype == torch.float32
+    assert out["f32"].dtype == np.float32
     assert os.listdir(tmp_path / "local") == []
     j = jstore.SnapshotStore(str(tmp_path / "c")).load_rank(0, 0)
     assert j["w"].dtype == ml_dtypes.bfloat16
@@ -198,7 +207,7 @@ def test_store_exotic_dtype_edge_cases(tmp_path):
     assert out["bf"].dtype == torch.bfloat16
     assert isinstance(out["raw"], np.ndarray) and out["raw"].dtype == "V4"
     assert out["rec__dtype_tbl"].dtype.names == ("a", "b")
-    assert out["x"].dtype == torch.float64
+    assert out["x"].dtype == np.float64
     assert out["x__dtype_float32"].dtype.kind == "V"
     with pytest.raises(MPIException) as e:
         st.write_rank(1, 0, {jstore._DTYPE_MANIFEST: np.zeros(1)})

@@ -111,7 +111,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
-                *_TRACE_PLANE, *_FT_PLANE):
+                *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE):
         assert mod in res["imported"]
 
 
@@ -140,16 +140,25 @@ _FT_PLANE = ("ompi_tpu_torch.mpi.ft", "ompi_tpu_torch.runtime.errmgr",
              "ompi_tpu_torch.examples.shrink_allreduce")
 
 
+#: MPI-IO's module and example: neither imports torch (the sharded
+#: store, ``ckpt.store``, imports it only to load bf16/float8 leaves)
+_IO_PLANE = ("ompi_tpu_torch.mpi.io", "ompi_tpu_torch.examples.mpiio_darray")
+
+
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
     native executors) runs a 3-rank in-process job without importing
     torch, JAX or the JAX package, and so do the trace plane's and the
     fault-tolerance plane's modules, tools and examples (imported here,
-    with the timeline armed over the job)."""
+    with the timeline armed over the job); so does a numpy write and read
+    through MPI-IO's ``File`` and a save and load of ``ShardedSnapshotStore``
+    on the same ranks."""
     probe = (
-        "import importlib, sys, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE!r}:\n"
+        "import importlib, shutil, sys, tempfile, numpy as np\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
+        "from ompi_tpu_torch.mpi import io\n"
+        "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"
         "from ompi_tpu_torch.mpi import trace\n"
         "trace.enable(rank=0)\n"
         "from tests.torch_host_harness import run_ranks\n"
@@ -165,15 +174,29 @@ def test_host_plane_loads_neither_torch_nor_jax():
         "            c.pml.endpoint.route((c.rank + 1) % c.size),\n"
         "            c.pml._eng is not None, r.tolist())\n"
         "print(run_ranks(3, body, btl='^proc'))\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "def iobody(c):\n"
+        "    f = io.File.open(c, tmp + '/f.bin', io.MODE_RDWR | io.MODE_CREATE)\n"
+        "    f.write_at_all(c.rank * 2, np.full(2, c.rank, np.uint8))\n"
+        "    back = f.read_at_all(0, 6)\n"
+        "    f.close()\n"
+        "    st = ShardedSnapshotStore(tmp, c, job='iso')\n"
+        "    st.save(0, {'w': np.arange(2.0) + c.rank})\n"
+        "    got = st.load(0)['w']\n"
+        "    return back.tolist(), got.tolist(), type(got).__name__\n"
+        "print(run_ranks(3, iobody, btl='^proc'))\n"
+        "shutil.rmtree(tmp)\n"
         "assert trace.disable().events_total > 0\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    runs, mods = out.stdout.strip().splitlines()[-2:]
+    runs, io_runs, mods = out.stdout.strip().splitlines()[-3:]
     assert runs == str([("shm", "arena", "shm", True,
                          [3.0, 6.0, 9.0, 12.0])] * 3)
+    assert io_runs == str([([0, 0, 1, 1, 2, 2], [r + 0.0, r + 1.0],
+                            "ndarray") for r in range(3)])
     assert mods == "[]"
 
 

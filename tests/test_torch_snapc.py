@@ -4,9 +4,11 @@ package's.
 
 Each case mirrors one of the snapc and msglog tests of
 ``tests/ckpt/test_ckpt.py`` with every assertion kept, and runs once per
-package (``pkg``) on that package's in-process harness.  The port's store
-loads CPU tensors where the JAX package's loads numpy arrays, so a
-``restore_fn`` that casts takes each package's leaf type (``to_f64``).
+package (``pkg``) on that package's in-process harness.  Both packages'
+stores load numpy arrays for numpy dtypes (the port a CPU tensor only
+for bf16 and float8), so a ``restore_fn`` that casts takes a numpy leaf
+in both (``to_f64``), and one that places a leaf on a device makes it a
+tensor first (``torch.as_tensor``).
 ``test_checkpoint_jax_device_arrays`` becomes the torch-tensor cases: CPU
 tensors here, and CUDA tensors in a case marked ``gpu``; the async save's
 host copy is held to its contract (a leaf updated in place right after
@@ -28,12 +30,6 @@ from tests.mpi.harness import run_ranks as jrun
 from tests.torch_host_harness import run_ranks as prun
 
 
-def _torch_f64(t):
-    import torch
-
-    return t.to(torch.float64)
-
-
 def _package(name: str, run, to_f64) -> types.SimpleNamespace:
     mod = lambda m: importlib.import_module(f"{name}.{m}")  # noqa: E731
     ck = mod("ckpt")
@@ -49,7 +45,7 @@ def _package(name: str, run, to_f64) -> types.SimpleNamespace:
 
 
 JAX = _package("ompi_tpu", jrun, lambda a: a.astype(np.float64))
-TORCH = _package("ompi_tpu_torch", prun, _torch_f64)
+TORCH = _package("ompi_tpu_torch", prun, lambda a: a.astype(np.float64))
 
 
 @pytest.fixture(params=[JAX, TORCH], ids=["ompi_tpu", "ompi_tpu_torch"])
@@ -414,7 +410,8 @@ def _tensor_roundtrip(base, device):
         bf = (torch.arange(4.0, device=device) / 3).to(torch.bfloat16)
         pckpt.checkpoint(comm, st, {"w": w, "bf": bf})
         _, got = pckpt.restart(
-            comm, st, restore_fn=lambda name, t: t.to(device))
+            comm, st,
+            restore_fn=lambda name, t: torch.as_tensor(t).to(device))
         assert got["w"].device.type == torch.device(device).type
         assert got["bf"].dtype == torch.bfloat16
         assert torch.equal(got["bf"].view(torch.int16),
@@ -563,7 +560,8 @@ def _revived_training_resume(tmp_path, monkeypatch, device):
             params, state, _ = step(params, state, t)
         mgr.wait()
         monkeypatch.setattr(snapc, "restart_incarnation", lambda: 1)
-        seq, blobs = mgr.auto_restore(restore_fn=lambda k, t: t.to(device))
+        seq, blobs = mgr.auto_restore(
+            restore_fn=lambda k, t: torch.as_tensor(t).to(device))
         assert seq == 2
         assert all(v.device.type == torch.device(device).type
                    for v in blobs.values())

@@ -33,11 +33,13 @@ import pytest
 
 from ompi_tpu.core.config import var_registry as jvars
 from ompi_tpu.mpi import datatype as jdt
+from ompi_tpu.mpi import io as jio
 from ompi_tpu.mpi import mpit as jmpit
 from ompi_tpu.mpi import op as jop
 from ompi_tpu.mpi import trace as jtrace
 from ompi_tpu_torch.core.config import var_registry as pvars
 from ompi_tpu_torch.mpi import datatype as pdt
+from ompi_tpu_torch.mpi import io as pio
 from ompi_tpu_torch.mpi import mpit as pmpit
 from ompi_tpu_torch.mpi import op as pop
 from ompi_tpu_torch.mpi import trace as ptrace
@@ -49,9 +51,9 @@ from tests.torch_host_harness import run_ranks as prun
 ROOT = Path(__file__).resolve().parents[1]
 
 J = types.SimpleNamespace(name="jax", trace=jtrace, dt=jdt, op=jop,
-                          mpit=jmpit, vars=jvars, run=jrun)
+                          mpit=jmpit, vars=jvars, run=jrun, io=jio)
 P = types.SimpleNamespace(name="port", trace=ptrace, dt=pdt, op=pop,
-                          mpit=pmpit, vars=pvars, run=prun)
+                          mpit=pmpit, vars=pvars, run=prun, io=pio)
 BOTH = (J, P)
 
 
@@ -173,8 +175,8 @@ def test_detach_pml_scoped_to_one_pml():
 
 def _stack_body(comm, M):
     """eager + rendezvous p2p, a collective, a derived-datatype send (the
-    JAX test's body without its MPI-IO part, which comes with ROADMAP.md
-    Queue 1 item 6.12)."""
+    JAX test's body without its MPI-IO part, which
+    ``test_io_spans_end_to_end`` adds)."""
     M.trace.attach_pml(comm.pml)
     peer, left = (comm.rank + 1) % comm.size, (comm.rank - 1) % comm.size
     r = comm.irecv(source=left, tag=1)
@@ -216,6 +218,50 @@ def test_stack_categories_end_to_end():
             "barrier", "pack:strided", "commit:strided"} <= names
     # every span and instant name the JAX package recorded, the port did
     assert {n for _, n in jspans} <= {n for _, n in pspans}
+
+
+def _stack_io_body(comm, M, path):
+    """The JAX test's whole body: ``_stack_body`` and then a per-rank
+    write and read-back of a shared file through MPI-IO."""
+    res = _stack_body(comm, M)
+    fh = M.io.File(comm, path, M.io.MODE_RDWR | M.io.MODE_CREATE)
+    fh.set_view(etype=M.dt.FLOAT64)
+    fh.write_at(comm.rank * 8, np.full(8, 1.0 + comm.rank))
+    out = fh.read_at(comm.rank * 8, 8)
+    fh.close()
+    return res, float(out[0])
+
+
+def test_io_spans_end_to_end(tmp_path):
+    """tests/mpi/test_trace.py's stack case whole (its io part included):
+    spans from pml, coll, io and datatype and btl instants, at least five
+    categories, in both packages, and the io spans' names and arguments
+    (offset, nbytes, rank) equal."""
+    for M in BOTH:
+        M.trace.enable(capacity=16384)
+    jax_res = jrun(2, lambda c: _stack_io_body(
+        c, J, str(tmp_path / "jax_io.bin")))
+    port_res = prun(2, lambda c: _stack_io_body(
+        c, P, str(tmp_path / "port_io.bin")))
+    _same(jax_res, port_res)
+    assert [v for _, v in port_res] == [1.0, 2.0]
+    io_spans = []
+    for M in BOTH:
+        events = M.trace.recorder.snapshot()
+        span_cats = {e[2] for e in events if e[1] is not None}
+        assert {"pml", "coll", "io", "datatype"} <= span_cats, M.name
+        inst_cats = {e[2] for e in events if e[1] is None}
+        assert "btl" in inst_cats, M.name
+        assert len(span_cats | inst_cats) >= 5, M.name
+        names = {e[3] for e in events}
+        assert {"send_post", "recv_post", "match", "deliver"} <= names
+        assert "rndv_send" in names and "rndv_recv" in names
+        io_spans.append(sorted((name, rank, sorted(args.items()))
+                               for _ts, dur, cat, name, rank, args in events
+                               if cat == "io" and dur is not None))
+    assert io_spans[0] == io_spans[1]
+    assert {n for n, _, _ in io_spans[1]} == {"write_at", "read_at"}
+    assert len(io_spans[1]) == 4
 
 
 def _flows(events):
