@@ -222,6 +222,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    their own block and a neighbour's, every leaf ``torch.equal`` on the
    card to the expected cut, bf16 as ``torch.bfloat16``, the metadata's
    ragged shapes; save and load GB/s;
+18c. osc (after io) — host RMA windows and OpenSHMEM through the port's
+   launcher: (a) the seven one-sided examples (``ring_oshmem``,
+   ``oshmem_shmalloc``, ``oshmem_circular_shift``,
+   ``oshmem_symmetric_data`` and ``rma_pscw`` at -np 3,
+   ``oshmem_max_reduction`` at -np 4, ``oshmem_strided_puts`` at -np 2)
+   print their markers; (c) 4 ``--gpu`` ranks on card 0 put a 64 MiB f32
+   and a 64 MiB bf16 CUDA tensor into the right neighbour's f32 host
+   window and into a ``SymmetricArray`` and fence: the neighbour's part
+   equals ``t.float().cpu().numpy()`` bit for bit, rank 0's four puts in
+   one profiler window make five device-to-host copies (one a put, one
+   control), and a CUDA tensor as a host window's buffer raises; (a) and (c)
+   side by side; then (b) 4 host ranks over the shm rings: put and get
+   between ranks 0 and 1 under a fence and under lock/unlock (median µs
+   at 8 B, GB/s at 16 MiB f32), a 16 MiB SUM accumulate from ranks 1–3
+   into rank 0 bitwise to numpy, fetch_op and compare_swap µs a call,
+   4 × 2500 get_accumulate tickets all distinct, a PSCW epoch and a
+   dynamic window at 16 MiB, a 16 MiB-a-rank ``SharedWindow`` (stores
+   into the neighbour's slice, then 4 × 100000 ``fetch_add`` on one slot
+   totalling 400000), and SHMEM: a 16 MiB ``SymmetricArray`` put/get,
+   ``to_all`` MAX at 16 MiB bitwise, 1000 ``Lock`` rounds around a
+   shared counter (16 MiB: 64 MiB made the phase 62.5 s of its 60);
+   no kernel of the port runs here;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -4854,6 +4876,506 @@ def phase_io(card, sizes=None):
          seconds=secs, card=card)
 
 
+# ---------------------------------------------------------------------------
+# phase osc: host RMA windows and OpenSHMEM
+# ---------------------------------------------------------------------------
+
+OSC_NP = 4                   # ranks of (b) and (c)
+#: (b)'s bulk size: a window part, an accumulate (64 MiB made the phase
+#: 62.5 s of its 60 s budget on the H100 machine; the cut the phase's
+#: budget allows first)
+OSC_MIB = 16
+OSC_CARD_MIB = 64            # (c) a CUDA tensor's size, f32 and bf16
+OSC_SMALL = dict(iters=200, bulk_iters=3, tickets=2500, fetch_adds=100_000,
+                 lock_rounds=1000)
+#: (a) the one-sided examples: (module, ranks, marker) at the reference's
+#: rank counts (tests/runtime/test_examples.py, tests/shmem/test_shmem.py)
+OSC_EXAMPLES = (("ring_oshmem", 3, "exiting"),
+                ("oshmem_shmalloc", 3, "shmalloc/shfree ok"),
+                ("oshmem_circular_shift", 3, "circular shift ok"),
+                ("oshmem_symmetric_data", 3, "verified symmetric data"),
+                ("rma_pscw", 3, "dynamic window ok"),
+                ("oshmem_max_reduction", 4, "max reduction ok"),
+                ("oshmem_strided_puts", 2, "strided put ok"))
+
+
+def _osc_ints(seed: int, n: int, dtype=np.float32) -> np.ndarray:
+    """Small integers (a sum of four is exact in f32, in any order)."""
+    return np.random.default_rng(seed).integers(
+        0, 1000, n).astype(dtype)
+
+
+def osc_host_rank(cfg: dict) -> None:
+    """Rank body of phase osc (b), a host rank.  Rank 0 times its calls;
+    every rank checks what landed in its own memory and the verdicts are
+    agreed (MIN over the ranks).  Prints one ``OSC_B`` line a rank."""
+    from ompi_tpu_torch import shmem
+    from ompi_tpu_torch.mpi import op as op_mod
+    from ompi_tpu_torch.mpi.constants import COMM_TYPE_SHARED
+    from ompi_tpu_torch.mpi.osc import SharedWindow, Window
+
+    boot = time.time() - _proc_start_wall()
+    t_body = time.perf_counter()
+    comm = shmem.init()
+    r, n = comm.rank, comm.size
+    check(n >= 4 and n % 2 == 0, f"osc (b) needs an even count >= 4: {n}")
+    elems = (cfg["mib"] << 20) // 4
+    nbytes = elems * 4
+    iters, bulk = cfg["iters"], cfg["bulk_iters"]
+    row = {"rank": r, "ok": {}, "us": {}, "GBps": {}, "seconds": {},
+           "boot_s": boot, "marks": {}}
+    pc = time.perf_counter
+
+    def mark(what: str) -> None:
+        """Seconds from the body's start to the end of a part."""
+        row["marks"][what] = pc() - t_body
+
+    mark("init")
+
+    def agree(key: str, ok: bool) -> None:
+        row["ok"][key] = bool(int(np.asarray(comm.allreduce(
+            np.array([int(ok)], np.int32), op=op_mod.MIN))[0]))
+
+    def median(ts) -> float:
+        return float(np.median(ts))
+
+    # -- put/get between ranks 0 and 1, under a fence and under locks ----
+    win = Window(comm, size=elems, dtype=np.float32, name="pg")
+    data = _osc_ints(31, elems)
+    small = data[:2].copy()                       # 8 B
+    for size, x, k in (("8B", small, iters), ("bulk", data, bulk)):
+        win.fence()
+        ts = []
+        for i in range(k):
+            t0 = pc()
+            if r == 0:
+                win.put(1, x)
+            win.fence()
+            ts.append(pc() - t0)
+        ok = r != 1 or win.buf[:x.size].tobytes() == x.tobytes()
+        agree(f"fence_put_{size}", ok)
+        row["seconds"][f"fence_put_{size}"] = median(ts)
+        ts = []
+        ok = True
+        if r == 0:
+            for i in range(k):
+                t0 = pc()
+                got = win.get(1, x.size)
+                ts.append(pc() - t0)
+                ok = ok and got.tobytes() == x.tobytes()
+            row["seconds"][f"fence_get_{size}"] = median(ts)
+        win.fence()
+        agree(f"fence_get_{size}", ok)
+        y = x + 1
+        ts_put, ts_get = [], []
+        ok = True
+        if r == 0:
+            for i in range(k):
+                t0 = pc()
+                win.lock(1)
+                win.put(1, y)
+                win.unlock(1)
+                ts_put.append(pc() - t0)
+                t0 = pc()
+                win.lock(1, exclusive=False)
+                got = win.get(1, y.size)
+                win.unlock(1)
+                ts_get.append(pc() - t0)
+                ok = ok and got.tobytes() == y.tobytes()
+            row["seconds"][f"lock_put_{size}"] = median(ts_put)
+            row["seconds"][f"lock_get_{size}"] = median(ts_get)
+        comm.barrier()
+        ok = ok and (r != 1 or win.buf[:y.size].tobytes() == y.tobytes())
+        agree(f"lock_{size}", ok)
+    win.free()
+    del data, small
+    for key, v in list(row["seconds"].items()):
+        if key.endswith("_8B"):
+            row["us"][key] = v * 1e6
+        else:
+            row["GBps"][key.removesuffix("_bulk")] = nbytes / v / 1e9
+
+    mark("put_get")
+
+    # -- accumulate SUM of `mib` MiB from ranks 1..n-1 into rank 0 ----------
+    win = Window(comm, buffer=_osc_ints(40 + r, elems), name="acc")
+    win.fence()
+    t0 = pc()
+    if r != 0:
+        win.accumulate(0, _osc_ints(40 + r, elems), op_mod.SUM)
+    win.fence()
+    secs = pc() - t0
+    ok = True
+    if r == 0:
+        want = _osc_ints(40, elems)
+        for o in range(1, n):
+            want = want + _osc_ints(40 + o, elems)
+        ok = win.buf.tobytes() == want.tobytes()
+        del want
+    agree("accumulate_sum", ok)
+    row["seconds"]["accumulate"] = secs
+    row["GBps"]["accumulate"] = (n - 1) * nbytes / secs / 1e9
+    win.free()
+
+    mark("accumulate")
+
+    # -- fetch_op and compare_swap, µs a call ------------------------------
+    win = Window(comm, size=2, dtype=np.int64, name="atom")
+    win.fence()
+    if r == 0:
+        ts = []
+        for i in range(iters):
+            t0 = pc()
+            old = win.fetch_op(1, np.array([1]), op_mod.SUM)
+            ts.append(pc() - t0)
+        row["us"]["fetch_op"] = median(ts) * 1e6
+        ts = []
+        for i in range(iters):
+            t0 = pc()
+            old = win.compare_swap(1, i, i + 1, offset=1)
+            ts.append(pc() - t0)
+        row["us"]["compare_swap"] = median(ts) * 1e6
+    win.fence()
+    agree("fetch_op_compare_swap",
+          r != 1 or win.buf.tolist() == [iters, iters])
+    win.free()
+
+    mark("atomics")
+
+    # -- get_accumulate tickets from every rank ----------------------------
+    win = Window(comm, size=1, dtype=np.int64, name="tix")
+    win.fence()
+    t0 = pc()
+    tix = np.array([int(win.get_accumulate(0, np.array([1]),
+                                           op_mod.SUM)[0])
+                    for _ in range(cfg["tickets"])], np.int64)
+    secs = pc() - t0
+    win.fence()
+    every = np.sort(np.asarray(comm.allgather(tix)).ravel())
+    total = n * cfg["tickets"]
+    agree("tickets_unique", every.tolist() == list(range(total))
+          and (r != 0 or int(win.buf[0]) == total))
+    slowest = float(np.asarray(comm.allreduce(np.array([secs]),
+                                              op=op_mod.MAX))[0])
+    row["tickets"] = {"count": total, "seconds": slowest,
+                      "per_s": total / slowest}
+    win.free()
+
+    mark("tickets")
+
+    # -- PSCW at `mib` MiB: even ranks expose, odd ranks access ---------------
+    # (each even target's whole window is filled, a part from each
+    # odd origin)
+    win = Window(comm, size=elems, dtype=np.float32, name="pscw")
+    evens, odds = list(range(0, n, 2)), list(range(1, n, 2))
+    part = elems // len(odds)
+    comm.barrier()
+    t0 = pc()
+    if r % 2 == 0:
+        win.post(odds)
+        win.wait()
+        want = np.concatenate([_osc_ints(50 + o, part) for o in odds])
+        ok = win.buf[:want.size].tobytes() == want.tobytes()
+    else:
+        mine = _osc_ints(50 + r, part)
+        win.start(evens)
+        for t in evens:
+            win.put(t, mine, offset=(r // 2) * part)
+        win.complete()
+        ok = True
+    comm.barrier()
+    secs = pc() - t0
+    agree("pscw", ok)
+    row["seconds"]["pscw"] = secs
+    row["GBps"]["pscw"] = len(evens) * len(odds) * part * 4 / secs / 1e9
+    win.free()
+
+    mark("pscw")
+
+    # -- a dynamic window: attach `mib` MiB, put into the right neighbour -----
+    win = Window.create_dynamic(comm, dtype=np.float32)
+    region = np.zeros(elems, np.float32)
+    base = win.attach(region)
+    bases = [int(b) for b in np.asarray(comm.allgather(
+        np.array([base], np.int64))).ravel()]
+    right, left = (r + 1) % n, (r - 1) % n
+    win.fence()
+    t0 = pc()
+    win.put(right, _osc_ints(60 + r, elems), offset=bases[right])
+    win.fence()
+    secs = pc() - t0
+    agree("dynamic", region.tobytes() == _osc_ints(60 + left,
+                                                   elems).tobytes())
+    row["seconds"]["dynamic"] = secs
+    row["GBps"]["dynamic"] = n * nbytes / secs / 1e9
+    win.detach(base)
+    win.free()
+    del region
+
+    mark("dynamic")
+
+    # -- SharedWindow: `mib` MiB a rank, then a fetch_add counter -------------
+    node = comm.split_type(COMM_TYPE_SHARED)
+    check(node.size == n, f"osc (b): {node.size} of {n} ranks share a host")
+    sw = SharedWindow(node, elems, np.float32, name="smoke")
+    mine = _osc_ints(70 + r, elems)
+    sw.sync()
+    t0 = pc()
+    sw.shared_query(right)[:] = mine
+    sw.sync()
+    secs = pc() - t0
+    agree("shared_store", sw.local.tobytes() == _osc_ints(
+        70 + left, elems).tobytes())
+    row["GBps"]["shared_store"] = n * nbytes / secs / 1e9
+    sw.free()
+    del mine
+    sw = SharedWindow(node, 1, np.int64, name="ctr")
+    sw.sync()
+    t0 = pc()
+    for _ in range(cfg["fetch_adds"]):
+        sw.fetch_add(0, 0, 1)
+    secs = pc() - t0
+    sw.sync()
+    total = n * cfg["fetch_adds"]
+    agree("fetch_add_total", int(sw.shared_query(0)[0]) == total)
+    slowest = float(np.asarray(comm.allreduce(np.array([secs]),
+                                              op=op_mod.MAX))[0])
+    row["fetch_add"] = {"count": total, "seconds": slowest,
+                        "per_s": total / slowest}
+    sw.free()
+
+    mark("shared_window")
+
+    # -- SHMEM ---------------------------------------------------------------
+    a = shmem.array((elems,), np.float32)
+    data = _osc_ints(80, elems)
+    shmem.barrier_all()
+    ts_put, ts_get = [], []
+    ok = True
+    for i in range(bulk):
+        t0 = pc()
+        if r == 0:
+            a.put(1, data)
+        a.barrier()
+        ts_put.append(pc() - t0)
+        if r == 0:
+            t0 = pc()
+            got = a.get(1)
+            ts_get.append(pc() - t0)
+            ok = ok and got.tobytes() == data.tobytes()
+        shmem.barrier_all()
+    ok = ok and (r != 1 or a.local.tobytes() == data.tobytes())
+    agree("shmem_put_get", ok)
+    row["GBps"]["shmem_put"] = nbytes / median(ts_put) / 1e9
+    if r == 0:
+        row["GBps"]["shmem_get"] = nbytes / median(ts_get) / 1e9
+    mark("shmem_put_get")
+    a.local[:] = _osc_ints(90 + r, elems)
+    shmem.barrier_all()
+    t0 = pc()
+    shmem.to_all(a, op=op_mod.MAX)
+    secs = pc() - t0
+    want = _osc_ints(90, elems)
+    for o in range(1, n):
+        want = np.maximum(want, _osc_ints(90 + o, elems))
+    agree("shmem_to_all_max", a.local.tobytes() == want.tobytes())
+    row["GBps"]["shmem_to_all"] = nbytes / secs / 1e9
+    del want, data
+    shmem.free(a)
+    mark("shmem_to_all")
+    counter = shmem.array((1,), np.int64)
+    lock = shmem.Lock()
+    shmem.barrier_all()
+    rounds = cfg["lock_rounds"] // n
+    t0 = pc()
+    for _ in range(rounds):
+        with lock:
+            v = int(counter.get(0, 1)[0])
+            counter.put(0, np.array([v + 1]))
+    secs = pc() - t0
+    shmem.barrier_all()
+    agree("shmem_lock_counter", r != 0 or int(counter[0]) == rounds * n)
+    slowest = float(np.asarray(comm.allreduce(np.array([secs]),
+                                              op=op_mod.MAX))[0])
+    row["lock"] = {"rounds": rounds * n, "seconds": slowest,
+                   "per_s": rounds * n / slowest}
+    mark("shmem_lock")
+    print("OSC_B " + json.dumps(row), flush=True)
+    shmem.finalize()
+
+
+def osc_card_rank(cfg: dict) -> None:
+    """Rank body of phase osc (c), a ``--gpu`` rank (all on card 0): a
+    f32 and a bf16 CUDA tensor of ``card_mib`` MiB each put into the right
+    neighbour's f32 host window and ``SymmetricArray``, once timed and
+    once (rank 0) the four puts in one profiler window beside a control
+    copy; the neighbour's parts must equal ``t.float().cpu().numpy()``
+    bit for bit; a CUDA tensor as a window's buffer must raise.  Prints
+    one ``OSC_C`` line a rank."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ompi_tpu_torch import shmem
+    from ompi_tpu_torch.mpi import op as op_mod
+    from ompi_tpu_torch.mpi.constants import MPIException
+    from ompi_tpu_torch.mpi.osc import Window
+
+    boot = time.time() - _proc_start_wall()
+    t_body = time.perf_counter()
+    marks = {}
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t_body
+
+    comm = shmem.init()
+    r, n = comm.rank, comm.size
+    mark("init")
+    dev = torch.device(f"{DEVICE}:0") if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    nb = cfg["card_mib"] << 20
+    n32, n16 = nb // 4, nb // 2
+
+    def tensors(rank):
+        gen = torch.Generator(device=dev).manual_seed(700 + rank)
+        t32 = torch.randn(n32, device=dev, generator=gen)
+        t16 = torch.randn(n16, device=dev, generator=gen).to(
+            torch.bfloat16)
+        return t32, t16
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    t32, t16 = tensors(r)
+    sync()
+    mark("tensors")
+    try:        # a CPU tensor (a rehearsal) is exposed: every rank makes it
+        Window(comm, buffer=t32).free()
+        refused = ""
+    except MPIException as e:
+        refused = str(e)
+    win = Window(comm, size=n32 + n16, dtype=np.float32, name="card")
+    sym = shmem.array((n32 + n16,), np.float32)
+    right, left = (r + 1) % n, (r - 1) % n
+    puts = {"win_f32": lambda: win.put(right, t32),
+            "win_bf16": lambda: win.put(right, t16, offset=n32),
+            "sym_f32": lambda: sym.put(right, t32),
+            "sym_bf16": lambda: sym.put(right, t16, offset=n32)}
+    win.fence()
+    sym.barrier()
+    mark("windows")
+    secs = {}
+    for name, fn in puts.items():
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        secs[name] = time.perf_counter() - t0
+    win.fence()
+    sym.barrier()
+    mark("timed_puts")
+    copies = None
+    if r == 0:
+        # one window for the four puts: each moves its data off the card
+        # at least once, so puts + 1 DtoH copies is one copy a put
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+        sync()
+        with profile(activities=acts) as prof:
+            for fn in puts.values():
+                fn()
+            t32[:1].cpu()                        # the control: one DtoH
+            sync()
+        copies = {"puts": len(puts), **profiler_copies(prof)}
+    win.fence()
+    sym.barrier()
+    mark("profiled_puts")
+    w32, w16 = tensors(left)
+    want = torch.cat([w32.float(), w16.float()]).cpu().numpy()
+    ok = {"window": win.buf.tobytes() == want.tobytes(),
+          "symmetric": sym.local.tobytes() == want.tobytes(),
+          "refused": ("DeviceWindow" in refused) == (dev.type == "cuda")}
+    agreed = {k: bool(int(np.asarray(comm.allreduce(
+        np.array([int(v)], np.int32), op=op_mod.MIN))[0]))
+        for k, v in ok.items()}
+    row = {"rank": r, "ok": agreed, "copies": copies,
+           "device": str(t32.device), "bytes": {"f32": n32 * 4,
+                                                "bf16": n16 * 2},
+           "put_s": secs,
+           "put_GBps": {k: (n32 * 4 if k.endswith("f32") else n16 * 2)
+                        / v / 1e9 for k, v in secs.items()},
+           "refusal": refused[:200], "boot_s": boot, "marks": marks}
+    mark("checked")
+    win.free()
+    print("OSC_C " + json.dumps(row), flush=True)
+    shmem.finalize()
+
+
+def phase_osc(card, sizes=None):
+    """Host RMA windows and OpenSHMEM through the port's launcher: (a)
+    the seven one-sided examples and (c) the ``--gpu`` ranks side by
+    side, then (b) the 4-rank host job alone (it is the one that times).
+    Launches no kernel of the port."""
+    cfg = {"mib": OSC_MIB, "card_mib": OSC_CARD_MIB, **OSC_SMALL,
+           **(sizes or {})}
+
+    def body(fn):
+        return "\n".join(("import json", "import chip_smoke as C",
+                          f"C.DEVICE = {DEVICE!r}",
+                          f"C.{fn}(json.loads({json.dumps(cfg)!r}))"))
+
+    secs = {}
+    try:
+        card_job = tpurun_start(
+            ["-np", str(OSC_NP), *(["--gpu"] if DEVICE == "cuda" else []),
+             "--", sys.executable, "-c", body("osc_card_rank")])
+        examples = {name: (tpurun_start(
+            ["-np", str(np_), "--", sys.executable, "-m",
+             f"ompi_tpu_torch.examples.{name}"]), marker)
+            for name, np_, marker in OSC_EXAMPLES}
+        for name, (job, marker) in examples.items():
+            wall, rc, out, err = tpurun_wait(job)
+            check(rc == 0 and marker in out,
+                  f"osc (a) {name}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+            secs[name] = wall
+        wall, rc, out, err = tpurun_wait(card_job)
+        check(rc == 0, f"osc (c) rc {rc}:\n{out[-2000:]}{err[-3000:]}")
+        secs["card"] = wall
+        crow = {d["rank"]: d for d in tagged_json(out, "OSC_C")}
+        check(sorted(crow) == list(range(OSC_NP)), f"osc (c) rows {crow}")
+        for rk, v in crow.items():
+            check(all(v["ok"].values()), f"osc (c) rank {rk}: {v}")
+            check(v["device"].startswith(DEVICE),
+                  f"osc (c) rank {rk} held its tensors on {v['device']}")
+        c0 = crow[0]
+        cp = c0["copies"]
+        if DEVICE == "cuda":
+            check(cp["dtoh"] == cp["puts"] + 1,
+                  f"osc (c): rank 0's {cp['puts']} puts made {cp} copies "
+                  f"(one a put and one control)")
+        wall, rc, out, err = tpurun(
+            ["-np", str(OSC_NP), "--", sys.executable, "-c",
+             body("osc_host_rank")])
+        check(rc == 0, f"osc (b) rc {rc}:\n{out[-2000:]}{err[-3000:]}")
+        secs["host"] = wall
+        rows = {d["rank"]: d for d in tagged_json(out, "OSC_B")}
+        check(sorted(rows) == list(range(OSC_NP)), f"osc (b) rows {rows}")
+        b0 = rows[0]
+        bad = {k: v for k, v in b0["ok"].items() if not v}
+        check(not bad, f"osc (b) checks failed: {bad}")
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+    emit("osc", mib=cfg["mib"], card_mib=cfg["card_mib"], ranks=OSC_NP, checks=sorted(b0["ok"]),
+         host_us=b0["us"], host_GBps=b0["GBps"], tickets=b0["tickets"],
+         fetch_add=b0["fetch_add"], lock=b0["lock"],
+         host_marks=b0["marks"], host_boot_s=b0["boot_s"],
+         card={"copies": c0["copies"], "put_GBps": c0["put_GBps"],
+               "put_s": c0["put_s"], "refusal": c0["refusal"],
+               "boot_s": c0["boot_s"], "marks": c0["marks"]},
+         seconds=secs, card_name=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4901,6 +5423,7 @@ def main() -> int:
     rma_launches = run("rma_ranks", phase_rma_ranks, card)
     run("ft", phase_ft, card)
     run("io", phase_io, card)
+    run("osc", phase_osc, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

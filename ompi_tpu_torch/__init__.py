@@ -88,6 +88,7 @@ _LAZY = {
     "device_world": ("ompi_tpu_torch.mpi.device_comm", "device_world"),
     "Communicator": ("ompi_tpu_torch.mpi.comm", "Communicator"),
     "Group": ("ompi_tpu_torch.mpi.group", "Group"),
+    "Window": ("ompi_tpu_torch.mpi.osc", "Window"),
     "DeviceWindow": ("ompi_tpu_torch.mpi.osc", "DeviceWindow"),
     "DeviceSymmetricHeap": ("ompi_tpu_torch.shmem.device",
                             "DeviceSymmetricHeap"),

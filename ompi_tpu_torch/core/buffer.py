@@ -33,7 +33,7 @@ from typing import Any
 import numpy as np
 
 __all__ = ["BufferKind", "classify", "is_device", "is_tensor", "nbytes_of",
-           "BufferLocationError"]
+           "BufferLocationError", "torch_dtype_name", "tensor_to_host"]
 
 
 #: torch dtypes numpy has no name for without ml_dtypes (their name,
@@ -100,3 +100,32 @@ def nbytes_of(buf: Any) -> int:
     if nb is not None:
         return int(nb)
     return int(np.asarray(buf).nbytes)
+
+
+def torch_dtype_name(t: Any) -> str:
+    """A tensor's dtype as numpy and ml_dtypes name it ("bfloat16")."""
+    return str(t.dtype).removeprefix("torch.")
+
+
+def tensor_to_host(t: Any, bits_to: Any = None, copy: bool = False
+                   ) -> tuple[np.ndarray, bool]:
+    """Host form of a tensor.  A CUDA tensor is made contiguous on the card
+    and comes to the host in ONE device-to-host copy; a CPU tensor is
+    viewed in place unless ``copy``.  A dtype numpy has no name for (bf16,
+    float8) is converted on the tensor's own device to the numpy dtype
+    ``bits_to`` where one is given, and otherwise crosses as its raw bits
+    (``BITS_DTYPE``).  Returns the array and whether it holds raw bits."""
+    import torch
+
+    t = t.detach()
+    name = torch_dtype_name(t)
+    bits = name in BITS_DTYPE and bits_to is None
+    if bits:
+        t = t.view(getattr(torch, BITS_DTYPE[name]))
+    elif name in BITS_DTYPE:
+        t = t.to(getattr(torch, np.dtype(bits_to).name, torch.float32))
+    if t.device.type != "cpu":
+        # contiguous() runs on the card; cpu() is the one whole-buffer copy
+        return t.contiguous().cpu().numpy(), bits
+    arr = t.numpy()
+    return (arr.copy() if copy else arr), bits

@@ -2,12 +2,11 @@
 (the port's counterpart of the repo's ``examples/trace_demo.py``).
 
 Touches p2p (eager AND rendezvous), a collective, a derived datatype
-pack and a shared file (MPI-IO), so a traced run produces spans in the
-pml, btl, coll, datatype and io categories, with send→recv flow ids on
-every p2p message.  A ``monitoring.Monitor`` counts the traffic per peer;
-rank 0 prints the job's sent-bytes matrix (``monitoring.gather_matrix``).
-The host RMA windows (the JAX demo's osc spans) come with ROADMAP.md
-Queue 1 item 6.14.
+pack, a shared file (MPI-IO) and an RMA window's fence epoch, so a
+traced run produces spans in the pml, btl, coll, datatype, io and osc
+categories, with send→recv flow ids on every p2p message.  A
+``monitoring.Monitor`` counts the traffic per peer; rank 0 prints the
+job's sent-bytes matrix (``monitoring.gather_matrix``).
 
 Run:  python -m ompi_tpu_torch.tools.tpurun -np 4 --trace -- \\
           python -m ompi_tpu_torch.examples.trace_demo
@@ -28,6 +27,7 @@ import ompi_tpu_torch
 from ompi_tpu_torch.mpi import datatype as dt
 from ompi_tpu_torch.mpi import io as mpiio
 from ompi_tpu_torch.mpi import monitoring
+from ompi_tpu_torch.mpi import osc
 
 
 def main() -> None:
@@ -74,6 +74,14 @@ def main() -> None:
             os.unlink(path)
         except OSError:
             pass
+
+    # osc: a fence epoch with a put
+    win = osc.Window(comm, buffer=np.zeros(8, dtype=np.float64))
+    win.fence()
+    win.put(peer, np.full(8, float(rank + 1)))
+    win.fence()
+    assert np.array_equal(win.buf, np.full(8, float(left + 1))), win.buf
+    win.free()
 
     mon.detach()
     matrix = monitoring.gather_matrix(comm, mon, "sent_bytes")

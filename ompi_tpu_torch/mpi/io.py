@@ -53,7 +53,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from ompi_tpu_torch.core.buffer import BITS_DTYPE, is_tensor
+from ompi_tpu_torch.core.buffer import is_tensor, tensor_to_host
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.mpi import datatype as dt_mod
 from ompi_tpu_torch.mpi import trace as trace_mod
@@ -424,25 +424,14 @@ class _Staged:
 
 
 def _stage(data: Any, copy: bool) -> _Staged:
-    """Host staging of one write buffer.  A CUDA tensor is made contiguous
-    on the card and comes to the host in ONE device-to-host copy; a CPU
-    tensor is viewed in place unless ``copy`` (the nonblocking calls,
-    whose bytes must be those of call time).  Anything else goes through
-    ``np.asarray``."""
+    """Host staging of one write buffer: a tensor by ``tensor_to_host``
+    (one device-to-host copy for a CUDA tensor; bf16/float8 as their bits,
+    never converted; a CPU tensor copied where ``copy``, for the
+    nonblocking calls, whose bytes must be those of call time).  Anything
+    else goes through ``np.asarray``."""
     if not is_tensor(data):
         return _Staged(np.asarray(data), False)
-    import torch
-
-    t = data.detach()
-    name = str(t.dtype).removeprefix("torch.")
-    bits = name in BITS_DTYPE
-    if bits:
-        t = t.view(getattr(torch, BITS_DTYPE[name]))
-    if t.device.type != "cpu":
-        # contiguous() runs on the card; cpu() is the one whole-buffer copy
-        return _Staged(t.contiguous().cpu().numpy(), bits)
-    arr = t.numpy()
-    return _Staged(arr.copy() if copy else arr, bits)
+    return _Staged(*tensor_to_host(data, copy=copy))
 
 
 class FileView:

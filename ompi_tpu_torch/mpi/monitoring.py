@@ -1,7 +1,7 @@
 """Communication monitoring: per-peer, per-class message/byte counts and a
 PMPI-style timing profiler (the port's copy of the JAX package's
-``mpi/monitoring.py``, whole; the osc class counts host-window traffic
-once host windows come, ROADMAP.md Queue 1 item 6.14).
+``mpi/monitoring.py``, whole; the osc class counts the host windows'
+traffic, ``mpi.osc``'s tags 500 and up).
 
 ≈ the reference's monitoring stack — pml/coll/osc ``monitoring``
 interposition components + ompi/mca/common/monitoring (counts messages and

@@ -9,9 +9,11 @@ the numpy dtype it stands for (``_TORCH_DTYPE_NUM``), read from the
 dtype's name, so a bf16 or f32 collective signs the same in both
 packages; this module imports neither torch nor numpy.  MPI-IO's four
 ``io`` spans (``mpi.io``: read_at, write_at, read_at_all, write_at_all)
-emit as in the JAX package; the emit sites of the host windows (item
-6.14) and the orted's metrics hop (item 6.15) come with those items;
-their counter names are declared here already, as in the JAX package.
+and the host windows' ``osc`` events (``mpi.osc``: the fence, lock,
+unlock, pscw_complete and pscw_wait spans and the post instant) emit as
+in the JAX package; the orted's metrics hop (item 6.15) comes with that
+item; its counter names are declared here already, as in the JAX
+package.
 
 ≈ the reference's PERUSE event hooks and the MPI_T pvar discipline, but
 with the time axis the counters lack: a fixed-size, lock-cheap ring

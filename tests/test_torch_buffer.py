@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from ompi_tpu_torch.core.buffer import (BufferKind, BufferLocationError,
-                                        classify, is_device, nbytes_of)
+                                        classify, is_device, nbytes_of,
+                                        tensor_to_host, torch_dtype_name)
 
 
 def test_host_kinds():
@@ -64,3 +65,28 @@ def test_same_kinds_as_the_jax_package():
         assert classify(host).value == jbuffer.classify(host).value
     assert (classify(torch.zeros(2)).value
             == jbuffer.classify(jnp.zeros(2)).value == "device")
+
+
+@pytest.mark.parametrize("copy", [False, True])
+def test_tensor_to_host_views_or_copies_a_cpu_tensor(copy):
+    t = torch.arange(6, dtype=torch.float32)
+    arr, bits = tensor_to_host(t, copy=copy)
+    assert not bits and arr.dtype == np.float32
+    assert np.shares_memory(arr, t.numpy()) is not copy
+    np.testing.assert_array_equal(arr, np.arange(6, dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype,bits_dtype", [
+    (torch.bfloat16, np.int16), (torch.float8_e4m3fn, np.uint8)])
+def test_tensor_to_host_bits_or_converted(dtype, bits_dtype):
+    """Without ``bits_to`` a dtype numpy has no name for crosses as its raw
+    bits; with it, the values are converted on the tensor's device."""
+    t = torch.tensor([1.5, -2.0, 0.25, 448.0]).to(dtype)
+    arr, bits = tensor_to_host(t)
+    assert bits and arr.dtype == bits_dtype
+    assert arr.tobytes() == t.view(getattr(torch, arr.dtype.name)).numpy(
+    ).tobytes()
+    conv, bits = tensor_to_host(t, bits_to=np.float32)
+    assert not bits and conv.dtype == np.float32
+    np.testing.assert_array_equal(conv, t.float().numpy())
+    assert torch_dtype_name(t) == str(dtype).removeprefix("torch.")

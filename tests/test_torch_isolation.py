@@ -111,7 +111,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
-                *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE):
+                *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE):
         assert mod in res["imported"]
 
 
@@ -145,6 +145,21 @@ _FT_PLANE = ("ompi_tpu_torch.mpi.ft", "ompi_tpu_torch.runtime.errmgr",
 _IO_PLANE = ("ompi_tpu_torch.mpi.io", "ompi_tpu_torch.examples.mpiio_darray")
 
 
+#: the host windows, OpenSHMEM and their examples: none imports torch
+#: (``DeviceWindow`` and ``shmem.device`` load it when they are used)
+_OSC_PLANE = ("ompi_tpu_torch.mpi.osc", "ompi_tpu_torch.shmem",
+              "ompi_tpu_torch.shmem.api",
+              "ompi_tpu_torch.examples.ring_oshmem",
+              "ompi_tpu_torch.examples.oshmem_shmalloc",
+              "ompi_tpu_torch.examples.oshmem_circular_shift",
+              "ompi_tpu_torch.examples.oshmem_symmetric_data",
+              "ompi_tpu_torch.examples.oshmem_max_reduction",
+              "ompi_tpu_torch.examples.oshmem_strided_puts",
+              "ompi_tpu_torch.examples.rma_pscw",
+              "ompi_tpu_torch.examples.connectivity",
+              "ompi_tpu_torch.examples.mprobe_task_queue")
+
+
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
     native executors) runs a 3-rank in-process job without importing
@@ -152,10 +167,11 @@ def test_host_plane_loads_neither_torch_nor_jax():
     fault-tolerance plane's modules, tools and examples (imported here,
     with the timeline armed over the job); so does a numpy write and read
     through MPI-IO's ``File`` and a save and load of ``ShardedSnapshotStore``
-    on the same ranks."""
+    on the same ranks, a window put and fence, a ``SharedWindow``
+    fetch_add, and a SHMEM ``atomic_fetch_add`` on a one-PE world."""
     probe = (
         "import importlib, shutil, sys, tempfile, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import io\n"
         "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"
@@ -186,18 +202,79 @@ def test_host_plane_loads_neither_torch_nor_jax():
         "    return back.tolist(), got.tolist(), type(got).__name__\n"
         "print(run_ranks(3, iobody, btl='^proc'))\n"
         "shutil.rmtree(tmp)\n"
+        "from ompi_tpu_torch.mpi import osc\n"
+        "from ompi_tpu_torch.mpi.constants import COMM_TYPE_SHARED\n"
+        "def oscbody(c):\n"
+        "    w = osc.Window(c, size=4, dtype=np.int64)\n"
+        "    w.fence()\n"
+        "    w.put((c.rank + 1) % c.size, np.array([c.rank + 1]))\n"
+        "    w.fence()\n"
+        "    got = int(w.buf[0])\n"
+        "    w.free()\n"
+        "    sw = osc.SharedWindow(c.split_type(COMM_TYPE_SHARED), 1,\n"
+        "                          np.int64)\n"
+        "    sw.fetch_add(0, 0, 1)\n"
+        "    sw.sync()\n"
+        "    n = int(sw.shared_query(0)[0])\n"
+        "    sw.free()\n"
+        "    return got, n\n"
+        "print(run_ranks(3, oscbody, btl='^proc'))\n"
+        "from ompi_tpu_torch import shmem\n"
+        "shmem.init()\n"
+        "a = shmem.array((1,), np.int64)\n"
+        "t = [int(shmem.atomic_fetch_add(a, 0, 1)) for _ in range(3)]\n"
+        "shmem.finalize()\n"
+        "print(t)\n"
         "assert trace.disable().events_total > 0\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    runs, io_runs, mods = out.stdout.strip().splitlines()[-3:]
+    runs, io_runs, osc_runs, tickets, mods = \
+        out.stdout.strip().splitlines()[-5:]
     assert runs == str([("shm", "arena", "shm", True,
                          [3.0, 6.0, 9.0, 12.0])] * 3)
     assert io_runs == str([([0, 0, 1, 1, 2, 2], [r + 0.0, r + 1.0],
                             "ndarray") for r in range(3)])
+    assert osc_runs == str([(3, 3), (1, 3), (2, 3)])
+    assert tickets == "[0, 1, 2]"
     assert mods == "[]"
+
+
+def test_window_and_shmem_job_loads_neither_torch_nor_jax():
+    """A 3-rank host job under the port's launcher that puts into a
+    window, adds to a ``SharedWindow``'s counter and draws SHMEM
+    fetch_add tickets imports neither torch, nor JAX, nor the JAX
+    package."""
+    prog = (
+        "import sys, numpy as np\n"
+        "from ompi_tpu_torch import shmem\n"
+        "from ompi_tpu_torch.mpi import osc\n"
+        "c = shmem.init()\n"
+        "w = osc.Window(c, size=1, dtype=np.int64)\n"
+        "w.fence()\n"
+        "w.accumulate(0, np.array([1]))\n"
+        "w.fence()\n"
+        "acc = int(w.get(0, 1)[0])\n"
+        "w.free()\n"
+        "sw = osc.SharedWindow(c, 1, np.int64)\n"
+        "sw.fetch_add(0, 0, 2)\n"
+        "sw.sync()\n"
+        "n = int(sw.shared_query(0)[0])\n"
+        "sw.free()\n"
+        "a = shmem.array((1,), np.int64)\n"
+        "t = int(shmem.atomic_fetch_add(a, 0, 1))\n"
+        "shmem.barrier_all()\n"
+        "shmem.finalize()\n"
+        "print(acc, n, 0 <= t < 3, sorted(k for k in sys.modules\n"
+        "      if k.split('.')[0] in ('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
+    p = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "-np", "3",
+         "--no-tag-output", "--", sys.executable, "-c", prog], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.splitlines() == ["3 6 True []"] * 3
 
 
 _BUILD_PROBE = """
@@ -285,7 +362,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "tests/torch_ranks.py",
-       "tests/torch_host_harness.py"]))
+       "tests/torch_host_harness.py", "tests/torch_shmem_atomic_prog.py",
+       "tests/torch_shmem_ext_prog.py", "tests/test_torch_osc_card.py"]))
 def test_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _IMPORT.search(src), path
