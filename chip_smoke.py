@@ -244,6 +244,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``to_all`` MAX at 16 MiB bitwise, 1000 ``Lock`` rounds around a
    shared counter (16 MiB: 64 MiB made the phase 62.5 s of its 60);
    no kernel of the port runs here;
+18d. dpm (after osc) — dynamic process management and the mpi4py
+   facade through the port's launcher: (b) 2 ``--gpu`` ranks on card 0
+   through the facade: rank 0 ``Send``s a 64 MiB f32 CUDA tensor that
+   rank 1 ``Recv``s into numpy, ``Allreduce`` from a CUDA send buffer
+   into numpy, a ``Win.Allocate`` window ``Put`` from a CUDA tensor,
+   ``File.Write_at_all`` of a CUDA tensor read back, a bf16 CUDA
+   ``Send``: every result bitwise, each call once timed and once in a
+   profiler window of its own with one device-to-host copy beside the
+   control copy, and ``Recv`` into a CUDA tensor refused with
+   ERR_BUFFER; side by side with it (a) ``mpi4py_ring`` and
+   ``mpi4py_cart_halo`` at -np 3 print their markers, a 2-rank job
+   ``Spawn``s 2 children (a pickled object and a buffer each way, 8 B
+   half round trips, the merge into 4 ranks and a 16 MiB f32
+   ``Allreduce`` on it bitwise to numpy, ``Disconnect``), a
+   ``spawn_multiple`` of 2 + 1 ranks runs each block's argv and env, and
+   two 2-rank jobs meet through ``publish_name``/``lookup_name`` and run
+   the intercomm barrier, bcast, allreduce and merge; then (c) the
+   facade bench (4 ranks on threads, 256 KiB, 30 iterations) in this
+   process prints its three ratio lines; no kernel of the port runs
+   here;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -5376,6 +5396,520 @@ def phase_osc(card, sizes=None):
          seconds=secs, card_name=card)
 
 
+# ---------------------------------------------------------------------------
+# phase dpm: dynamic process management and the mpi4py facade
+# ---------------------------------------------------------------------------
+
+DPM_NP = 2                   # ranks of every (a) parent job and of (b)
+DPM_CHILDREN = 2             # children of (a)'s Spawn
+DPM_MULTI = (2, 1)           # (a)'s spawn_multiple command blocks
+DPM_ALLREDUCE_MIB = 16       # (a) the merged 4-rank allreduce, f32
+DPM_CARD_MIB = 64            # (b) the CUDA tensors (cut to 16 first)
+DPM_PINGS = 200              # (a) 8 B intercomm round trips, after 20
+#: (a) the facade examples at the reference's rank counts
+#: (tests/runtime/test_examples.py)
+DPM_EXAMPLES = (("mpi4py_ring", 3, "exiting"),
+                ("mpi4py_cart_halo", 3, "halo exchange ok"))
+#: (c) the facade bench: its module's defaults, named here to be recorded
+DPM_BENCH = dict(ranks=4, elems=1 << 16, iters=30)
+
+
+def _dpm_body(fn: str, cfg: dict, child: bool = False) -> str:
+    """``python -c`` source of a rank body ``fn(cfg)`` of this module.  A
+    spawned ``child`` exits after ``HOST_JOB_TIMEOUT`` s whatever it
+    waits on: its launcher has no ``--timeout``, and the ranks of a
+    parent job that failed would leave it blocked on the intercomm."""
+    guard = (["import faulthandler",
+              f"faulthandler.dump_traceback_later({HOST_JOB_TIMEOUT}, "
+              f"exit=True)"] if child else [])
+    return "\n".join((*guard, "import json", "import chip_smoke as C",
+                      f"C.DEVICE = {DEVICE!r}",
+                      f"C.{fn}(json.loads({json.dumps(cfg)!r}))"))
+
+
+def _dpm_agree(comm, ok: dict) -> dict:
+    """Each check ANDed over ``comm`` (a facade communicator) in one
+    Allreduce; every rank passes the same keys."""
+    from ompi_tpu_torch.compat import MPI
+
+    keys = sorted(ok)
+    got = np.zeros(len(keys), np.int32)
+    comm.Allreduce(np.array([int(bool(ok[k])) for k in keys], np.int32),
+                   got, op=MPI.MIN)
+    return {k: bool(v) for k, v in zip(keys, got)}
+
+
+def _dpm_merged_allreduce(m, mib: int) -> tuple:
+    """A ``mib`` MiB f32 Allreduce over the merged communicator ``m``,
+    bitwise against numpy's sum; (ok, seconds)."""
+    n = (mib << 20) // 4
+    send = _osc_ints(900 + m.Get_rank(), n)
+    recv = np.zeros(n, np.float32)
+    m.Barrier()
+    t0 = time.perf_counter()
+    m.Allreduce(send, recv)
+    secs = time.perf_counter() - t0
+    want = np.zeros(n, np.float32)
+    for k in range(m.Get_size()):
+        want += _osc_ints(900 + k, n)
+    return recv.tobytes() == want.tobytes(), secs
+
+
+def dpm_spawn_parent(cfg: dict) -> None:
+    """Rank body of phase dpm (a)'s parent job: ``MPI.COMM_WORLD.Spawn``
+    of ``children`` children (each runs ``dpm_spawn_child``), a pickled
+    object and a buffer each way, 8 B half round trips between rank 0
+    and child 0, the merge into one intracommunicator (parents first)
+    and a ``DPM_ALLREDUCE_MIB`` MiB Allreduce on it bitwise to numpy,
+    then Disconnect.  Prints one ``DPM_SPAWN`` line a rank."""
+    from ompi_tpu_torch.compat import MPI
+
+    boot = time.time() - _proc_start_wall()
+    comm = MPI.COMM_WORLD
+    r = comm.Get_rank()
+    comm.Barrier()
+    t0 = time.perf_counter()
+    ic = comm.Spawn(sys.executable,
+                    args=["-c", _dpm_body("dpm_spawn_child", cfg,
+                                          child=True)],
+                    maxprocs=cfg["children"])
+    spawn_s = time.perf_counter() - t0
+    ok = {"remote_size": ic.Get_remote_size() == cfg["children"],
+          "object": True, "buffer": True, "pings": True}
+    half_us = None
+    if r == 0:
+        for c in range(cfg["children"]):
+            ic.send({"token": 10 + c}, dest=c, tag=7)
+        ok["object"] = sorted(ic.recv(source=c, tag=8)["double"]
+                              for c in range(cfg["children"])) == [
+            2 * (10 + c) for c in range(cfg["children"])]
+        buf = np.arange(1024, dtype=np.float64)
+        ic.Send(buf, dest=0, tag=9)
+        back = np.zeros(1024)
+        ic.Recv(back, source=0, tag=10)
+        ok["buffer"] = back.tobytes() == (buf * 2).tobytes()
+        ping = np.zeros(1, np.float64)           # 8 B
+        times = []
+        for i in range(20 + cfg["pings"]):
+            t1 = time.perf_counter()
+            ic.Send(ping, 0, tag=11)
+            ic.Recv(ping, source=0, tag=12)
+            if i >= 20:
+                times.append(time.perf_counter() - t1)
+        ok["pings"] = int(ping[0]) == 20 + cfg["pings"]
+        half_us = float(np.median(times)) / 2 * 1e6
+    m = ic.Merge(high=False)
+    ok["merged_rank"] = m.Get_rank() == r
+    ok["allreduce"], secs = _dpm_merged_allreduce(m, cfg["mib"])
+    agreed = _dpm_agree(m, ok)
+    ic.Disconnect()
+    nbytes = cfg["mib"] << 20
+    print("DPM_SPAWN " + json.dumps({
+        "rank": r, "ok": agreed, "spawn_s": spawn_s, "half_rtt_us": half_us,
+        "allreduce_ms": secs * 1e3, "allreduce_GBps": nbytes / secs / 1e9,
+        "merged_size": m.Get_size(), "boot_s": boot}), flush=True)
+    MPI.Finalize()
+
+
+def dpm_spawn_child(cfg: dict) -> None:
+    """Rank body of a child of ``dpm_spawn_parent``: the parent's object
+    doubled back, child 0 the buffer doubled and the round trips, the
+    merge (children last) and the same Allreduce.  Its checks join the
+    parents' through the merged communicator."""
+    from ompi_tpu_torch.compat import MPI
+
+    parent = MPI.Comm.Get_parent()
+    c = MPI.COMM_WORLD.Get_rank()
+    ok = {"remote_size": parent.Get_remote_size() == DPM_NP}
+    obj = parent.recv(source=0, tag=7)
+    parent.send({"double": obj["token"] * 2}, dest=0, tag=8)
+    ok["object"] = obj["token"] == 10 + c
+    if c == 0:
+        buf = np.zeros(1024)
+        parent.Recv(buf, source=0, tag=9)
+        parent.Send(buf * 2, dest=0, tag=10)
+        ping = np.zeros(1, np.float64)
+        for _ in range(20 + cfg["pings"]):
+            parent.Recv(ping, source=0, tag=11)
+            ping += 1
+            parent.Send(ping, 0, tag=12)
+        ok["buffer"] = ok["pings"] = True
+    else:
+        ok["buffer"] = ok["pings"] = True
+    m = parent.Merge(high=True)
+    ok["merged_rank"] = m.Get_rank() == DPM_NP + c
+    ok["allreduce"], _ = _dpm_merged_allreduce(m, cfg["mib"])
+    _dpm_agree(m, ok)
+    parent.Disconnect()
+    MPI.Finalize()
+
+
+def dpm_multi_parent(cfg: dict) -> None:
+    """Rank body of phase dpm (a)'s ``spawn_multiple`` job: two command
+    blocks (``DPM_MULTI`` ranks), each with its own argv and env; every
+    child reports (argv[1], its block's env, rank, size).  Prints one
+    ``DPM_MULTI`` line a rank."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mpi import dpm
+
+    comm = ompi_tpu_torch.init()
+    body = _dpm_body("dpm_multi_child", cfg, child=True)
+    t0 = time.perf_counter()
+    ic = dpm.spawn_multiple(
+        comm, [[sys.executable, "-c", body, "a"],
+               [sys.executable, "-c", body, "b"]], list(cfg["multi"]),
+        envs=[{"DPM_BLOCK": "x"}, {"DPM_BLOCK": "y"}])
+    spawn_s = time.perf_counter() - t0
+    n = ic.remote_size
+    got = []
+    if comm.rank == 0:
+        got = [bytes(np.asarray(ic.recv(source=k, tag=4))).decode()
+               for k in range(n)]
+    ic.disconnect()
+    total = sum(cfg["multi"])
+    want = [repr(("a" if k < cfg["multi"][0] else "b",
+                  "x" if k < cfg["multi"][0] else "y", k, total))
+            for k in range(total)]
+    print("DPM_MULTI " + json.dumps({
+        "rank": comm.rank, "remote_size": n, "spawn_s": spawn_s,
+        "ok": n == total and (comm.rank != 0 or got == want),
+        "got": got}), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def dpm_multi_child(cfg: dict) -> None:
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mpi import dpm
+
+    comm = ompi_tpu_torch.init()
+    parent = dpm.get_parent(comm)
+    parent.send(np.frombuffer(repr((sys.argv[1], os.environ["DPM_BLOCK"],
+                                    comm.rank, comm.size)).encode(),
+                              np.uint8), dest=0, tag=4)
+    parent.disconnect()
+    ompi_tpu_torch.finalize()
+
+
+def dpm_ns_rank(cfg: dict) -> None:
+    """Rank body of phase dpm (a)'s name-service pair: two independent
+    jobs meet through ``publish_name``/``lookup_name`` in a shared
+    ``OMPI_TPU_NAME_DIR``, ``accept``/``connect``, and run the intercomm
+    barrier, rooted bcast, allreduce (the swap) and merge (with an
+    allreduce on it), then disconnect.  Prints one ``DPM_NS`` line a
+    rank."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mpi import dpm
+    from ompi_tpu_torch.mpi.constants import PROC_NULL, MPIException
+
+    comm = ompi_tpu_torch.init()
+    r = comm.rank
+    server = cfg["role"] == "server"
+    svc = cfg["service"]
+    connect_s = None
+    port = None
+    if server:
+        if r == 0:
+            port = dpm.open_port()
+            dpm.publish_name(svc, port)
+        ic = dpm.accept(comm, port)
+    else:
+        if r == 0:
+            deadline = time.time() + 60
+            while port is None:
+                try:
+                    port = dpm.lookup_name(svc)
+                except MPIException:
+                    check(time.time() < deadline, "dpm (a): no service")
+                    time.sleep(0.02)
+        comm.barrier()
+        t0 = time.perf_counter()
+        ic = dpm.connect(comm, port)
+        connect_s = time.perf_counter() - t0
+    ok = {"remote_size": ic.remote_size == comm.size}
+    ic.barrier()
+    data = np.arange(8, dtype=np.float64) * 3
+    if server:
+        b = (ic.bcast(data, root="root") if r == 0
+             else ic.bcast(root=PROC_NULL))
+    else:
+        b = ic.bcast(root=0)
+        ok["bcast"] = np.asarray(b).tobytes() == data.tobytes()
+    base = 100 if server else 200
+    s = np.asarray(ic.allreduce(np.array([base + r], np.int64)))
+    other = 200 if server else 100
+    ok["allreduce"] = int(s[0]) == sum(other + k for k in range(comm.size))
+    m = ic.merge()
+    t = np.asarray(m.allreduce(np.array([m.rank], np.int64)))
+    ok["merge"] = int(t[0]) == sum(range(2 * comm.size)) and \
+        m.rank == (r if server else comm.size + r)
+    ic.disconnect()
+    if server and r == 0:
+        dpm.unpublish_name(svc)
+        dpm.close_port(port)
+    print("DPM_NS " + json.dumps({"role": cfg["role"], "rank": r,
+                                  "ok": ok, "connect_s": connect_s}),
+          flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def dpm_card_rank(cfg: dict) -> None:
+    """Rank body of phase dpm (b), a ``--gpu`` rank (both on card 0),
+    through the facade: rank 0 ``Send``s a ``card_mib`` MiB f32 CUDA
+    tensor that rank 1 ``Recv``s into numpy; ``Allreduce`` from a CUDA
+    send buffer into numpy; a ``Win.Allocate`` window ``Put`` from a CUDA
+    tensor; ``File.Write_at_all`` of a CUDA tensor read back; a bf16 CUDA
+    ``Send``.  Every result bitwise; each staged call once timed and once
+    in a profiler window of its own beside a control copy (one
+    device-to-host copy a call); ``Recv`` into a CUDA tensor must raise
+    ERR_BUFFER.  Prints one ``DPM_CARD`` line a rank."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ompi_tpu_torch.compat import MPI
+    from ompi_tpu_torch.mpi.constants import ERR_BUFFER, MPIException
+
+    boot = time.time() - _proc_start_wall()
+    t_body = time.perf_counter()
+    comm = MPI.COMM_WORLD
+    r, n = comm.Get_rank(), comm.Get_size()
+    check(n == 2, f"dpm (b) runs at 2 ranks, not {n}")
+    dev = torch.device(f"{DEVICE}:0") if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    nb = cfg["card_mib"] << 20
+    n32, n16 = nb // 4, nb // 2
+
+    def tensors(rank):
+        gen = torch.Generator(device=dev).manual_seed(800 + rank)
+        t32 = torch.randint(0, 1000, (n32,), device=dev,
+                            generator=gen).float()
+        t16 = torch.randn(n16, device=dev, generator=gen).to(
+            torch.bfloat16)
+        return t32, t16
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    t32, t16 = tensors(r)
+    other32, other16 = tensors(1 - r)
+    sync()
+    path = os.path.join(cfg["dir"], "card.bin")
+    win = MPI.Win.Allocate(nb, disp_unit=4, comm=comm)
+    fh = MPI.File.Open(comm, path, MPI.MODE_RDWR | MPI.MODE_CREATE)
+    recv32 = np.zeros(n32, np.float32)
+    red = np.zeros(n32, np.float32)
+    recv16 = np.zeros(n16, np.int16)
+    back = np.zeros(2 * n32, np.float32)
+
+    # each staged call: (what rank r runs, whether it stages a tensor)
+    calls = {
+        "send": (lambda: comm.Send(t32, dest=1, tag=1) if r == 0
+                 else comm.Recv(recv32, source=0, tag=1), r == 0),
+        "allreduce": (lambda: comm.Allreduce(t32, red), True),
+        "put": (lambda: (win.Fence(), win.Put(t32, 1 - r), win.Fence()),
+                 True),
+        "write_at_all": (lambda: fh.Write_at_all(r * nb, t32), True),
+        "send_bf16": (lambda: comm.Send(t16, dest=1, tag=2) if r == 0
+                      else comm.Recv(recv16, source=0, tag=2), r == 0),
+    }
+    secs, copies = {}, {}
+    for name, (fn, staged) in calls.items():
+        comm.Barrier()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        secs[name] = time.perf_counter() - t0
+        if DEVICE == "cuda":
+            comm.Barrier()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                t32[:1].cpu()                   # the control: one DtoH
+                sync()
+            copies[name] = {"staged": staged, **profiler_copies(prof)}
+    comm.Barrier()
+    fh.Read_at_all(0, back)
+    fh.Close()
+    mem = np.asarray(win.memory).view(np.float32).copy()
+    win.Free()
+    want_sum = (t32 + other32).cpu().numpy()
+    lo32 = (t32 if r == 0 else other32).cpu().numpy()
+    ok = {"allreduce": red.tobytes() == want_sum.tobytes(),
+          "put": mem.tobytes() == other32.cpu().numpy().tobytes(),
+          "write_at_all": back.tobytes() == np.concatenate(
+              [lo32, (other32 if r == 0 else t32).cpu().numpy()]).tobytes()}
+    if r == 1:
+        ok["send"] = recv32.tobytes() == other32.cpu().numpy().tobytes()
+        ok["send_bf16"] = recv16.tobytes() == other16.view(
+            torch.int16).cpu().numpy().tobytes()
+    else:
+        ok["send"] = ok["send_bf16"] = True
+    if DEVICE == "cuda":
+        ok["copies"] = all(c["dtoh"] == (2 if c["staged"] else 1)
+                           for c in copies.values())
+    # a receive into a CUDA tensor must raise before it matches (the
+    # peer's message is then drained into numpy); a CPU rehearsal's
+    # tensor takes the message
+    sreq = comm.Isend(np.arange(8, dtype=np.float32), dest=1 - r, tag=3)
+    refusal = ""
+    try:
+        comm.Recv(torch.zeros(8, device=dev), source=1 - r, tag=3)
+        landed = True
+    except MPIException as e:
+        landed = False
+        refusal = f"{e.error_class}: {e}"
+        comm.Recv(np.zeros(8, np.float32), source=1 - r, tag=3)
+    sreq.Wait()
+    ok["refused"] = (not landed and refusal.startswith(f"{ERR_BUFFER}:")
+                     and "DeviceCommunicator" in refusal
+                     if dev.type == "cuda" else landed)
+    agreed = _dpm_agree(comm, ok)
+    body = time.perf_counter() - t_body
+    gbps = {k: nb / v / 1e9 for k, v in secs.items()}
+    gbps["send_bf16"] = n16 * 2 / secs["send_bf16"] / 1e9
+    print("DPM_CARD " + json.dumps({
+        "rank": r, "ok": agreed, "copies": copies, "secs": secs,
+        "GBps": gbps, "bytes": nb, "device": str(t32.device),
+        "refusal": refusal[:300], "boot_s": boot, "body_s": body,
+        "end_wall": time.time()}), flush=True)
+    MPI.Finalize()
+
+
+def _dpm_bench() -> dict:
+    """Phase dpm (c): the facade bench's ``main`` in this process (4
+    ranks on threads); its three ratio lines, parsed."""
+    import io
+    import re
+
+    bench = importlib.import_module(
+        "ompi_tpu_torch.examples.facade_collectives_bench")
+    check((bench.N_RANKS, bench.ELEMS, bench.ITERS) == tuple(
+        DPM_BENCH.values()), "dpm (c): the bench's defaults moved")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main()
+    secs = time.perf_counter() - t0
+    rows = {}
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"\s*(\w+)\s+native\s+([\d.]+)us\s+facade\s+([\d.]+)us"
+                     r"\s+ratio\s+([\d.]+)x", line)
+        if m:
+            rows[m.group(1)] = {"native_us": float(m.group(2)),
+                                "facade_us": float(m.group(3)),
+                                "ratio": float(m.group(4))}
+    check(sorted(rows) == ["allgather", "allreduce", "bcast"],
+          f"dpm (c): the bench printed {buf.getvalue()!r}")
+    return {"rows": rows, "seconds": secs}
+
+
+def phase_dpm(card, sizes=None):
+    """Dynamic process management and the mpi4py facade through the
+    port's launcher: (b) the ``--gpu`` facade job started first, (a) the
+    host jobs side by side with it, then (c) the facade bench in this
+    process.  Launches no kernel of the port."""
+    import shutil
+    import tempfile
+
+    cfg = {"children": DPM_CHILDREN, "multi": list(DPM_MULTI),
+           "mib": DPM_ALLREDUCE_MIB, "card_mib": DPM_CARD_MIB,
+           "pings": DPM_PINGS, **(sizes or {})}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "dpm_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    names = tempfile.mkdtemp(dir=work, prefix="names-")
+    secs = {}
+    try:
+        t_card = time.time()
+        card_job = tpurun_start(
+            ["-np", str(DPM_NP), *(["--gpu"] if DEVICE == "cuda" else []),
+             "--", sys.executable, "-c",
+             _dpm_body("dpm_card_rank", {**cfg, "dir": work})])
+        jobs = {name: (tpurun_start(
+            ["-np", str(np_), "--", sys.executable, "-m",
+             f"ompi_tpu_torch.examples.{name}"]), marker)
+            for name, np_, marker in DPM_EXAMPLES}
+        svc = f"chip-smoke-{os.getpid()}"
+        ns = {role: tpurun_start(
+            ["-np", str(DPM_NP), "-x", f"OMPI_TPU_NAME_DIR={names}", "--",
+             sys.executable, "-c",
+             _dpm_body("dpm_ns_rank", {**cfg, "role": role,
+                                       "service": svc})])
+            for role in ("server", "client")}
+        multi = tpurun_start(["-np", "1", "--", sys.executable, "-c",
+                              _dpm_body("dpm_multi_parent", cfg)])
+        spawn = tpurun_start(["-np", str(DPM_NP), "--", sys.executable,
+                              "-c", _dpm_body("dpm_spawn_parent", cfg)])
+        for name, (job, marker) in jobs.items():
+            wall, rc, out, err = tpurun_wait(job)
+            check(rc == 0 and marker in out,
+                  f"dpm (a) {name}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+            secs[name] = wall
+        ns_rows = []
+        for role, job in ns.items():
+            wall, rc, out, err = tpurun_wait(job)
+            check(rc == 0, f"dpm (a) {role}: rc {rc}\n{out[-2000:]}"
+                           f"{err[-3000:]}")
+            secs[f"ns_{role}"] = wall
+            ns_rows += tagged_json(out, "DPM_NS")
+        check(len(ns_rows) == 2 * DPM_NP and all(
+            all(r["ok"].values()) for r in ns_rows), f"dpm (a) ns {ns_rows}")
+        connect_s = [r["connect_s"] for r in ns_rows
+                     if r["role"] == "client" and r["rank"] == 0][0]
+        wall, rc, out, err = tpurun_wait(multi)
+        check(rc == 0, f"dpm (a) spawn_multiple: rc {rc}\n{out[-2000:]}"
+                       f"{err[-3000:]}")
+        secs["spawn_multiple"] = wall
+        mrow = tagged_json(out, "DPM_MULTI")
+        check(len(mrow) == 1 and mrow[0]["ok"], f"dpm (a) multi {mrow}")
+        wall, rc, out, err = tpurun_wait(spawn)
+        check(rc == 0, f"dpm (a) spawn: rc {rc}\n{out[-2000:]}"
+                       f"{err[-3000:]}")
+        secs["spawn"] = wall
+        srows = {d["rank"]: d for d in tagged_json(out, "DPM_SPAWN")}
+        check(sorted(srows) == list(range(DPM_NP)), f"dpm (a) {srows}")
+        for rk, v in srows.items():
+            check(all(v["ok"].values()) and v["merged_size"] ==
+                  DPM_NP + cfg["children"], f"dpm (a) spawn rank {rk}: {v}")
+        s0 = srows[0]
+        wall, rc, out, err = tpurun_wait(card_job)
+        t_end = t_card + wall
+        check(rc == 0, f"dpm (b) rc {rc}:\n{out[-2000:]}{err[-3000:]}")
+        secs["card"] = wall
+        crow = {d["rank"]: d for d in tagged_json(out, "DPM_CARD")}
+        check(sorted(crow) == list(range(DPM_NP)), f"dpm (b) rows {crow}")
+        for rk, v in crow.items():
+            check(all(v["ok"].values()), f"dpm (b) rank {rk}: {v}")
+            check(v["device"].startswith(DEVICE),
+                  f"dpm (b) rank {rk} held its tensors on {v['device']}")
+        c0 = crow[0]
+        bench = _dpm_bench()
+        secs["bench"] = bench["seconds"]
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    emit("dpm", ranks=DPM_NP, children=cfg["children"],
+         multi=cfg["multi"], checks={
+             "spawn": sorted(s0["ok"]), "card": sorted(c0["ok"]),
+             "ns": sorted(ns_rows[0]["ok"])},
+         spawn_s=s0["spawn_s"], connect_s=connect_s,
+         multi_spawn_s=mrow[0]["spawn_s"],
+         half_rtt_us=s0["half_rtt_us"], allreduce_mib=cfg["mib"],
+         allreduce_ms=s0["allreduce_ms"],
+         allreduce_GBps=s0["allreduce_GBps"],
+         card={"mib": cfg["card_mib"], "copies": c0["copies"],
+               "GBps": {r: crow[r]["GBps"] for r in crow},
+               "secs": {r: crow[r]["secs"] for r in crow},
+               "refusal": c0["refusal"], "boot_s": c0["boot_s"],
+               "body_s": c0["body_s"],
+               "exit_s": t_end - max(v["end_wall"] for v in crow.values())},
+         bench={**DPM_BENCH, **bench["rows"]},
+         seconds=secs, card_name=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -5424,6 +5958,7 @@ def main() -> int:
     run("ft", phase_ft, card)
     run("io", phase_io, card)
     run("osc", phase_osc, card)
+    run("dpm", phase_dpm, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

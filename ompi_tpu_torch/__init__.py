@@ -41,6 +41,17 @@ _LAZY = {
     "get_processor_name": ("ompi_tpu_torch.mpi.runtime",
                            "get_processor_name"),
     "get_version": ("ompi_tpu_torch.mpi.runtime", "get_version"),
+    "get_library_version": ("ompi_tpu_torch.mpi.runtime",
+                            "get_library_version"),
+    "error_string": ("ompi_tpu_torch.mpi.constants", "error_string"),
+    "error_class": ("ompi_tpu_torch.mpi.constants", "error_class"),
+    "add_error_class": ("ompi_tpu_torch.mpi.constants", "add_error_class"),
+    "add_error_code": ("ompi_tpu_torch.mpi.constants", "add_error_code"),
+    "add_error_string": ("ompi_tpu_torch.mpi.constants",
+                         "add_error_string"),
+    "publish_name": ("ompi_tpu_torch.mpi.dpm", "publish_name"),
+    "unpublish_name": ("ompi_tpu_torch.mpi.dpm", "unpublish_name"),
+    "lookup_name": ("ompi_tpu_torch.mpi.dpm", "lookup_name"),
     "COMM_WORLD": ("ompi_tpu_torch.mpi.runtime", "COMM_WORLD"),
     "COMM_SELF": ("ompi_tpu_torch.mpi.runtime", "COMM_SELF"),
     "GeneralizedRequest": ("ompi_tpu_torch.mpi.request",
@@ -69,6 +80,7 @@ _LAZY = {
     "ANY_TAG": ("ompi_tpu_torch.mpi.constants", "ANY_TAG"),
     "PROC_NULL": ("ompi_tpu_torch.mpi.constants", "PROC_NULL"),
     "UNDEFINED": ("ompi_tpu_torch.mpi.constants", "UNDEFINED"),
+    "IN_PLACE": ("ompi_tpu_torch.mpi.constants", "IN_PLACE"),
     "SUM": ("ompi_tpu_torch.mpi.op", "SUM"),
     "PROD": ("ompi_tpu_torch.mpi.op", "PROD"),
     "MAX": ("ompi_tpu_torch.mpi.op", "MAX"),

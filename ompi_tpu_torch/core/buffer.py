@@ -33,7 +33,8 @@ from typing import Any
 import numpy as np
 
 __all__ = ["BufferKind", "classify", "is_device", "is_tensor", "nbytes_of",
-           "BufferLocationError", "torch_dtype_name", "tensor_to_host"]
+           "BufferLocationError", "torch_dtype_name", "tensor_to_host",
+           "host_array"]
 
 
 #: torch dtypes numpy has no name for without ml_dtypes (their name,
@@ -129,3 +130,12 @@ def tensor_to_host(t: Any, bits_to: Any = None, copy: bool = False
         return t.contiguous().cpu().numpy(), bits
     arr = t.numpy()
     return (arr.copy() if copy else arr), bits
+
+
+def host_array(buf: Any, bits_to: Any = None) -> np.ndarray:
+    """Host form of send data: a tensor through ``tensor_to_host`` (a CPU
+    tensor viewed, a CUDA tensor in one device-to-host copy), anything
+    else through ``np.asarray`` (as the JAX package takes a buffer)."""
+    if is_tensor(buf):
+        return tensor_to_host(buf, bits_to=bits_to)[0]
+    return np.asarray(buf)

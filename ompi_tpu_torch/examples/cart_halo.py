@@ -1,7 +1,7 @@
 """2-D halo exchange over a periodic Cartesian topology — the canonical
 stencil-code skeleton of the repo's ``examples/mpi4py_cart_halo.py``,
-written through the port's ``Communicator`` (the mpi4py facade is not
-ported yet).
+written through the port's ``Communicator`` (the facade's version is
+``examples/mpi4py_cart_halo.py``).
 
 Each rank holds an n×n tile with a one-cell halo, its interior filled
 with its cart rank; for each dimension it exchanges both faces with its

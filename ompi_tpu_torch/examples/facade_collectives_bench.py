@@ -1,0 +1,106 @@
+"""mpi4py-facade vs native collective overhead microbench.
+
+Uppercase buffer-API collectives through ``ompi_tpu_torch.compat.MPI``
+should cost ~the native array API (the stacked-ndarray fast path skips
+the per-rank python list round-trip mpi4py users would never expect from
+uppercase calls); the port's copy of the repo's
+``examples/facade_collectives_bench.py``.  Run standalone to see the
+ratio per collective:
+
+    python -m ompi_tpu_torch.examples.facade_collectives_bench
+
+The ranks are threads of this one process (proc BTL).  1-core boxes
+make the wall-clock ratios advisory, not CI-stable.
+"""
+
+import threading
+import time
+
+import numpy as np
+
+from ompi_tpu_torch.compat import MPI
+from ompi_tpu_torch.mpi.comm import Communicator
+from ompi_tpu_torch.mpi.group import Group
+from ompi_tpu_torch.mpi.pml import PmlOb1
+
+
+def run_ranks(n, fn, timeout=300.0):
+    """Minimal in-process n-rank rig (the tests/mpi/harness shape)."""
+    pmls = [PmlOb1(r) for r in range(n)]
+    addrs = {r: p.address for r, p in enumerate(pmls)}
+    for p in pmls:
+        p.set_peers(addrs)
+    comms = [Communicator(Group(range(n)), cid=0, pml=pmls[r],
+                          my_world_rank=r, name="bench")
+             for r in range(n)]
+    results = [None] * n
+    errors = []
+
+    def runner(r):
+        try:
+            results[r] = fn(comms[r])
+        except BaseException as e:  # noqa: BLE001 — surface in main thread
+            errors.append((r, e))
+
+    ts = [threading.Thread(target=runner, args=(r,), daemon=True)
+          for r in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout)
+    alive = [i for i, t in enumerate(ts) if t.is_alive()]
+    if alive:
+        raise TimeoutError(f"ranks {alive} did not finish in {timeout}s "
+                           f"(errors so far: {errors})")
+    for p in pmls:
+        p.close()
+    if errors:
+        rank, exc = errors[0]
+        raise AssertionError(f"rank {rank} failed: {exc!r}") from exc
+    return results
+
+
+N_RANKS = 4
+ELEMS = 1 << 16          # 256 KiB float32 per rank
+ITERS = 30
+
+
+def bench(comm) -> dict:
+    facade = MPI.Comm(comm)
+    send = np.ones(ELEMS, np.float32) * (comm.rank + 1)
+    recv_all = np.zeros(ELEMS * comm.size, np.float32)
+    recv_one = np.zeros(ELEMS, np.float32)
+    out: dict = {}
+
+    def timed(fn) -> float:
+        fn()                              # warm
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        return (time.perf_counter() - t0) / ITERS
+
+    out["native_allreduce"] = timed(lambda: comm.allreduce(send))
+    out["facade_allreduce"] = timed(
+        lambda: facade.Allreduce(send, recv_one))
+    out["native_allgather"] = timed(lambda: comm.allgather(send))
+    out["facade_allgather"] = timed(
+        lambda: facade.Allgather(send, recv_all))
+    out["native_bcast"] = timed(
+        lambda: comm.bcast(send if comm.rank == 0 else None, 0))
+    out["facade_bcast"] = timed(lambda: facade.Bcast(send, 0))
+    return out
+
+
+def main() -> None:
+    rows = run_ranks(N_RANKS, bench, timeout=300.0)
+    agg = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    print(f"{N_RANKS} ranks, {ELEMS * 4 >> 10} KiB/rank, "
+          f"{ITERS} iters (mean per-call):")
+    for coll in ("allreduce", "allgather", "bcast"):
+        nat, fac = agg[f"native_{coll}"], agg[f"facade_{coll}"]
+        print(f"  {coll:10s} native {nat * 1e6:8.1f}us   "
+              f"facade {fac * 1e6:8.1f}us   ratio {fac / nat:5.2f}x")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Collective MPI-IO of a block-distributed matrix — the repo's
 ``examples/mpiio_darray.py``, written through the port's
-``Communicator`` and ``mpi.io`` (the mpi4py facade is not ported yet).
+``Communicator`` and ``mpi.io`` (the mpi4py facade's ``MPI.File`` wraps
+the same ``mpi.io.File``).
 
 Each rank owns one block of an N×N float64 matrix on a √P×√P process
 grid; a darray file view lets every rank write its block to the ONE

@@ -37,8 +37,11 @@ fault injector's frame hook at the endpoint (``send`` and
 ``try_send_inline``, so every transport below it, python or native tcp,
 the shm rings and proc, carries the same verdicts), the ``ft_check``
 contract the native tcp plane re-runs between bounded parks, and the
-endpoint's ``rebind`` to a respawned peer's new card.  Left out: the
-identity aliasing of dynamic process management (item 6.13).
+endpoint's ``rebind`` to a respawned peer's new card.  Identity aliasing
+(``set_alias``, for dynamic process management's translated ids) is the
+JAX package's too: a tcp hello, a proc frame and a proc fast-lane frame
+name the sender by the id the peer knows it by, and a shm ring carries
+that id in its header (``mpi/btl_shm.py``).
 
 Device buffers never travel through a BTL: the device path is the bound
 ``DeviceCommunicator`` (NCCL on the card).
@@ -274,6 +277,7 @@ class TcpBTL:
         self._out: dict[int, socket.socket] = {}
         self._out_locks: dict[int, threading.Lock] = {}
         self._peers: dict[int, str] = {}
+        self._alias: dict[int, int] = {}  # peer → my id in peer's namespace
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
@@ -319,6 +323,19 @@ class TcpBTL:
         """Install the modex results: world rank → address."""
         with self._lock:
             self._peers.update(peers)
+
+    def set_alias(self, peer: int, my_id: int) -> None:
+        """Announce myself to `peer` as `my_id` instead of my own rank.
+
+        Needed by dynamic process management: two independently-launched
+        jobs each number their ranks from 0, so a connected job's procs
+        are installed under translated ids (offset past the local world)
+        — and must introduce themselves under that translated id when
+        dialing (the hello frame is what the acceptor keys frames by, on
+        the python plane and the native one alike).
+        """
+        with self._lock:
+            self._alias[peer] = my_id
 
     # -- sending -----------------------------------------------------------
 
@@ -845,8 +862,11 @@ class TcpBTL:
             v = var_registry.get(var)
             if v:
                 sock.setsockopt(socket.SOL_SOCKET, opt, v)
-        # hello frame identifies us to the acceptor
-        hello = dss.pack({"hello": self.rank})
+        # hello frame identifies us to the acceptor (under the alias the
+        # acceptor knows us by, for cross-job connections)
+        with self._lock:
+            my_id = self._alias.get(peer, self.rank)
+        hello = dss.pack({"hello": my_id})
         _send_all(sock, struct.pack("<II", len(hello), len(hello)), hello)
         with self._lock:
             # lost the race with another sender thread? keep the first
@@ -1303,11 +1323,15 @@ class ProcBTL:
         # native — delivers with no header object at all
         self.on_fast = None
         self._peer_tokens: dict[int, int] = {}
+        self._alias: dict[int, int] = {}
         self.hostname = host_identity()
         with ProcBTL._reg_lock:
             self.token = next(ProcBTL._next_token)
             ProcBTL._registry[self.token] = self
         self.address = f"{os.getpid()}:{self.token}:{self.hostname}"
+
+    def set_alias(self, peer: int, my_id: int) -> None:
+        self._alias[peer] = my_id
 
     def can_reach(self, card: str) -> bool:
         try:
@@ -1327,7 +1351,7 @@ class ProcBTL:
         target = ProcBTL._registry.get(self._peer_tokens[peer])
         if target is None:
             raise ConnectionError(f"btl/proc: peer {peer} endpoint closed")
-        target.on_frame(self.rank, header, payload)
+        target.on_frame(self._alias.get(peer, self.rank), header, payload)
 
     def send_fast(self, peer: int, tag: int, cid: int, seq: int,
                   payload, dt, elems: int, shp) -> bool:
@@ -1339,8 +1363,8 @@ class ProcBTL:
         target = ProcBTL._registry.get(self._peer_tokens.get(peer, -1))
         if target is None or target.on_fast is None:
             return False
-        return target.on_fast(self.rank, tag, cid, seq, payload, dt,
-                              elems, shp)
+        return target.on_fast(self._alias.get(peer, self.rank),
+                              tag, cid, seq, payload, dt, elems, shp)
 
     def close(self) -> None:
         with ProcBTL._reg_lock:
@@ -1471,6 +1495,21 @@ class BtlEndpoint:
         card = self._cards.get(peer)
         shm_seg = self._split_card(card)[1] if card else None
         return self.shm_btl.probe_alive(peer, shm_seg)
+
+    def set_alias(self, peer: int, my_id: int) -> None:
+        if self.tcp_btl is not None:
+            self.tcp_btl.set_alias(peer, my_id)
+        if self.shm_btl is not None:
+            self.shm_btl.set_alias(peer, my_id)
+        if self.proc_btl is not None:
+            self.proc_btl.set_alias(peer, my_id)
+
+    def max_peer_id(self) -> int:
+        """Highest peer id this endpoint knows (for dpm namespace bases)."""
+        if self.tcp_btl is None:
+            return max(self._cards, default=-1)
+        with self.tcp_btl._lock:
+            return max(self.tcp_btl._peers, default=-1)
 
     def route(self, peer: int) -> str:
         """The transport a header-path frame to ``peer`` takes now:

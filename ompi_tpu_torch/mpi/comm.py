@@ -49,7 +49,8 @@ Fault tolerance is the JAX package's ULFM surface (``mpi/ft.py``):
 the JAX package's coll/xla: a device-plane job recovers by a restart
 from its snapshots.
 
-Left out: the mpi4py facade (item 6.11).
+The mpi4py facade (``compat.MPI``) wraps this class, and dynamic process
+management's intercommunicators (``mpi/dpm.py``) build on it.
 """
 
 from __future__ import annotations

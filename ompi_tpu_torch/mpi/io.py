@@ -40,8 +40,8 @@ cb_buffer_size domains).  Requests are exchanged with alltoallv, aggregated
 into large contiguous pread/pwrite calls, and routed back — turning N
 small strided accesses into a few big sequential ones.
 
-Left out: the mpi4py facade's ``File`` wrapper (ROADMAP.md Queue 1 item
-6.11).
+The mpi4py facade's ``File`` (``compat/MPI.py``) wraps this module's
+``File``.
 """
 
 from __future__ import annotations

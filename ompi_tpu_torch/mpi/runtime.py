@@ -50,7 +50,7 @@ from ompi_tpu_torch.runtime import pmix
 
 __all__ = ["init", "finalize", "initialized", "finalized", "abort",
            "COMM_WORLD", "COMM_SELF", "get_world", "wtime", "wtick",
-           "get_processor_name", "get_version"]
+           "get_processor_name", "get_version", "get_library_version"]
 
 _log = output.get_stream("mpi")
 _lock = threading.Lock()
@@ -338,6 +338,15 @@ _MPI_VERSION = (3, 1)
 def get_version() -> tuple[int, int]:
     """≈ MPI_Get_version: (version, subversion) of the MPI semantics."""
     return _MPI_VERSION
+
+
+def get_library_version() -> str:
+    """≈ MPI_Get_library_version (the JAX package's string, naming the
+    port and its version)."""
+    from ompi_tpu_torch import __version__
+
+    return (f"ompi_tpu_torch {__version__} (MPI {_MPI_VERSION[0]}."
+            f"{_MPI_VERSION[1]} semantics, CUDA-native)")
 
 
 def wtime() -> float:

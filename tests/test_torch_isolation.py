@@ -111,7 +111,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
-                *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE):
+                *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
+                *_DPM_PLANE):
         assert mod in res["imported"]
 
 
@@ -160,6 +161,15 @@ _OSC_PLANE = ("ompi_tpu_torch.mpi.osc", "ompi_tpu_torch.shmem",
               "ompi_tpu_torch.examples.mprobe_task_queue")
 
 
+#: dynamic process management, the mpi4py facade and its examples: none
+#: imports torch (the facade loads it only for a tensor the caller passed)
+_DPM_PLANE = ("ompi_tpu_torch.mpi.dpm", "ompi_tpu_torch.mpi._mpmd_dispatch",
+              "ompi_tpu_torch.compat", "ompi_tpu_torch.compat.MPI",
+              "ompi_tpu_torch.examples.mpi4py_ring",
+              "ompi_tpu_torch.examples.mpi4py_cart_halo",
+              "ompi_tpu_torch.examples.facade_collectives_bench")
+
+
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
     native executors) runs a 3-rank in-process job without importing
@@ -168,10 +178,12 @@ def test_host_plane_loads_neither_torch_nor_jax():
     with the timeline armed over the job); so does a numpy write and read
     through MPI-IO's ``File`` and a save and load of ``ShardedSnapshotStore``
     on the same ranks, a window put and fence, a ``SharedWindow``
-    fetch_add, and a SHMEM ``atomic_fetch_add`` on a one-PE world."""
+    fetch_add, a SHMEM ``atomic_fetch_add`` on a one-PE world, and a
+    facade ``Allreduce`` and a connect/accept between two in-process
+    jobs."""
     probe = (
         "import importlib, shutil, sys, tempfile, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import io\n"
         "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"
@@ -225,20 +237,38 @@ def test_host_plane_loads_neither_torch_nor_jax():
         "t = [int(shmem.atomic_fetch_add(a, 0, 1)) for _ in range(3)]\n"
         "shmem.finalize()\n"
         "print(t)\n"
+        "from ompi_tpu_torch.compat import MPI\n"
+        "from ompi_tpu_torch.mpi import dpm\n"
+        "def facade(c):\n"
+        "    out = np.zeros(2)\n"
+        "    MPI.Comm(c).Allreduce(np.ones(2), out)\n"
+        "    return out.tolist()\n"
+        "port = dpm.open_port()\n"
+        "import threading\n"
+        "res = []\n"
+        "th = threading.Thread(target=lambda: res.append(run_ranks(\n"
+        "    1, lambda c: dpm.accept(c, port).recv(source=0, tag=1)\n"
+        "    .tolist())))\n"
+        "th.start()\n"
+        "run_ranks(1, lambda c: dpm.connect(c, port).send(\n"
+        "    np.arange(3), dest=0, tag=1))\n"
+        "th.join()\n"
+        "print(run_ranks(2, facade, btl='^proc'), res)\n"
         "assert trace.disable().events_total > 0\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'ompi_tpu')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    runs, io_runs, osc_runs, tickets, mods = \
-        out.stdout.strip().splitlines()[-5:]
+    runs, io_runs, osc_runs, tickets, dpm_runs, mods = \
+        out.stdout.strip().splitlines()[-6:]
     assert runs == str([("shm", "arena", "shm", True,
                          [3.0, 6.0, 9.0, 12.0])] * 3)
     assert io_runs == str([([0, 0, 1, 1, 2, 2], [r + 0.0, r + 1.0],
                             "ndarray") for r in range(3)])
     assert osc_runs == str([(3, 3), (1, 3), (2, 3)])
     assert tickets == "[0, 1, 2]"
+    assert dpm_runs == "[[2.0, 2.0], [2.0, 2.0]] [[[0, 1, 2]]]"
     assert mods == "[]"
 
 
