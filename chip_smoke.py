@@ -264,6 +264,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    facade bench (4 ranks on threads, 256 KiB, 30 iterations) in this
    process prints its three ratio lines; no kernel of the port runs
    here;
+18e. plm (after dpm) — multi-host launch through the daemon tree
+   (``tpurun --plm sim``: one orted a simulated host, ranks on different
+   hosts over tcp): (b1) ``--plm sim --hosts 2 -np 2 --gpu``, one rank a
+   host, both on card 0: each rank's card, ``OMPI_TPU_NHOSTS=2``, two
+   hosts, one process group of 2 joined at the plm's rendezvous, the
+   forward kernel at the prefill shape (16 × 512, 16 heads of 128,
+   bf16, causal) against its plain version, then a 64 MiB f32 CUDA
+   tensor through ``comm.allreduce`` (the device route refuses the
+   shared card) and the facade's ``Allreduce`` into numpy over tcp,
+   bitwise, one device-to-host copy beside the control copy; (b2) the
+   same under ``--mca errmgr respawn``: no group, each life's kernel
+   check, rank 1's first life SIGKILLs itself and its orted revives it
+   (``TAG_RESPAWN``) on the same host and card with no rendezvous; (c)
+   rank 1 SIGKILLs its own orted: the job fails and names the daemon;
+   no rank of (b1), (b2) or (c) outlives its job or stays on the card;
+   side by side with them (a) ring at -np 4 on 2 hosts prints the
+   reference's lines, a 4-rank job ping-pongs 0↔1 (shm) and 0↔2 (tcp)
+   at 8 B and 64 MiB and allreduces 64 MiB bitwise to numpy, ``--mca
+   rtc_bind core`` pins each rank to one cpu, and a ``--map-by bynode``
+   job driven from an in-process HNP reports every daemon's measured
+   clock offset (within rtt/2 of 0); then hello alone (launch to exit),
+   a mid-tree orted SIGKILLed under notify on 4 hosts (ranks 1–3
+   finish, kill → reparent s), ``tpurun --clean`` of the inbox its dead
+   rank left, and ``--plm ssh`` where passwordless ``ssh localhost``
+   works; no kernel of the main process runs here;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -2009,15 +2034,16 @@ HOST_ARENA_CAP = "64M"
 HOST_RING_BYTES = 4 << 20       # btl_shm_ring_size's default
 
 
-def ring_lines(np_: int) -> list[str]:
+def ring_lines(np_: int, tag: str = "1") -> list[str]:
     """The lines the repo's ``examples/ring.py`` prints at ``np_`` ranks
     (the port's ``examples/ring.py`` must print the same), tagged and
-    sorted as the launcher's output is compared."""
+    sorted as the launcher's output is compared (``[<jobid>,<rank>]`` from
+    the local launcher, ``[mh,<rank>]`` up the daemon tree)."""
     out = [(0, f"Process 0 sending 10 to 1, tag 201 ({np_} processes in "
                "ring)"), (0, "Process 0 sent to 1")]
     out += [(0, f"Process 0 decremented value: {v}") for v in range(9, -1, -1)]
     out += [(r, f"Process {r} exiting") for r in range(np_)]
-    return sorted(f"[1,{r}]{line}" for r, line in out)
+    return sorted(f"[{tag},{r}]{line}" for r, line in out)
 
 
 HOST_JOB_TIMEOUT = 180          # tpurun --timeout of every job (exit 124)
@@ -2907,31 +2933,49 @@ def mpi_profile_body(port: int, device: str) -> dict:
                 f(comm, x)
         torch.cuda.synchronize()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        void = {"route": 0, "pack": 0}
+
+        def window(name, body):
+            # a window that recorded no device event at all (the profiler
+            # now and then drops a whole one) is void: it is taken again,
+            # at most twice, and counted
+            for _ in range(3):
+                with profile(activities=acts) as prof:
+                    body()
+                    torch.cuda.synchronize()
+                got = profiler_copies(prof)
+                if got["device_events"]:
+                    break
+                void[name] += 1
+            return got
+
+        def route_body():
             inputs[0].clone()                 # a window may miss its first
             for x in inputs:
                 for f, _ in slots.values():
                     f(comm, x)
             comm.barrier()
             inputs[0][:1].cpu()               # the control: one DtoH
-            torch.cuda.synchronize()
-        route = profiler_copies(prof)
+
+        route = window("route", route_body)
         vec = mpi_vector_type()
         vec.pack_device(inputs[1])
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+
+        def pack_body():
             inputs[1][:1].clone()
             vec.pack_device(inputs[1])
             torch.ones(1).to(dev)             # the control: one HtoD
-            torch.cuda.synchronize()
-        pack = profiler_copies(prof)
+
+        pack = window("pack", pack_body)
         busy = {label: {"psum_busy_ms": device_busy_ms(
                             lambda: dc.allreduce(x)),
                         "rs_ag_busy_ms": device_busy_ms(
                             lambda: dc.allreduce_rs_ag(x))}
                 for label, x in (("64MiB", inputs[1]),
                                  ("256MiB", inputs[2]))}
-        return {"route": route, "pack": pack, "busy": busy}
+        return {"route": route, "pack": pack, "busy": busy,
+                "void_windows": void}
     finally:
         dist.destroy_process_group()
 
@@ -3495,6 +3539,7 @@ def phase_mpi_coll(card, mesh):
                 + f" {d}" for n, d in MPI_COLL_SIZES],
          bitwise_equal_to_direct=True,
          profiler_windows={"route": route, "pack": pack_win,
+                           "void_taken_again": prof["void_windows"],
                            "process": "a fresh spawned process; the "
                                       "counts include one control copy "
                                       "each"},
@@ -5910,6 +5955,651 @@ def phase_dpm(card, sizes=None):
          seconds=secs, card_name=card)
 
 
+# ---------------------------------------------------------------------------
+# phase plm: the daemon tree (multi-host launch on simulated hosts)
+# ---------------------------------------------------------------------------
+
+PLM_HOSTS = 2                # simulated hosts of (a), (b1), (b2) and (c)
+PLM_NP = 4                   # ranks of (a)'s jobs, byslot: 0, 1 | 2, 3
+PLM_PAIRS = ((0, 1), (0, 2))  # (a) ping-pong: within a host, across
+PLM_PINGPONG = (8, 64 << 20)  # (a) bytes a ping-pong
+PLM_COLL_MIB = 64            # (a) the allreduce, f32 a rank
+PLM_CARD_MIB = 64            # (b1) the CUDA tensors, f32
+PLM_FLASH = (16, 512, 16, 128)  # (b) B, T, H, D: the prefill shape, bf16
+#: (a) containment: a mid-tree orted SIGKILLed under notify
+PLM_CONTAIN = dict(hosts=4, np=4, period=0.2, timeout=2.0,
+                   plan="daemon=1:kill@reg=4:after=1.5", sleep=4.0)
+PLM_CLOCK = dict(push=0.2, sync=0.1, sleep=1.5)  # (a) the clock job
+PLM_REAP_S = 5.0             # seconds a dead rank's card context may take
+
+
+def _plm_flash(label: str, shape) -> dict:
+    """The forward kernel at the prefill shape (causal), held against the
+    plain version within phase kernel's bound; its launches counted."""
+    import torch
+
+    fa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
+    dev = torch.device(DEVICE)
+    B, T, H, D = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = fa.launch_count
+    t0 = time.perf_counter()
+    o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fa.launch_count - before
+    ro, rlse = fa.flash_attention_lse_reference(q, k, v, causal=True)
+    err = (o.float() - ro.float()).abs().max().item()
+    ok = (torch.allclose(o.float(), ro.float(), atol=BF16_TOL,
+                         rtol=BF16_TOL)
+          and torch.allclose(lse, rlse, atol=BF16_TOL, rtol=BF16_TOL)
+          and launches == (1 if DEVICE == "cuda" else 0))
+    return {"ok": bool(ok), "max_abs_err": err, "launches": launches,
+            "launch_count": fa.launch_count, "first_call_s": secs,
+            "wall": time.time(), "label": label}
+
+
+def plm_host_rank(cfg: dict) -> None:
+    """Rank body of phase plm (a)'s 4-rank job on 2 simulated hosts:
+    ping-pong for each pair of ``pairs`` (8 B half round trip and 64 MiB
+    GB/s, medians over blocks, bitwise back) with the route rank 0's
+    endpoint took, then a 64 MiB f32 allreduce of small integers bitwise
+    against numpy, with the provider and path that served it.  Rank 0
+    prints one ``PLM_HOST`` line."""
+    import statistics
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.tools import host_bench
+
+    comm = ompi_tpu_torch.init()
+    r = comm.rank
+    host = os.environ["OMPI_TPU_FAKE_HOST"]
+    hosts = [int(h) for h in np.asarray(
+        comm.allgather(np.array([int(host[3:])]))).ravel()]
+    pairs = {}
+    for a, b in cfg["pairs"]:
+        rows = []
+        for nbytes in cfg["sizes"]:
+            x = (np.arange(nbytes, dtype=np.uint64) * 2654435761 % 251
+                 ).astype(np.uint8)
+            back = np.empty_like(x)
+            blocks, reps = host_bench._plan(nbytes)
+            half, ok = [], True
+            comm.barrier()
+            if r in (a, b):
+                peer = b if r == a else a
+                for _ in range(blocks + 1):
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        if r == a:
+                            comm.send(x, dest=peer, tag=1)
+                            comm.recv(back, source=peer, tag=2)
+                        else:
+                            comm.recv(back, source=peer, tag=1)
+                            comm.send(back, dest=peer, tag=2)
+                    half.append((time.perf_counter() - t0) / reps / 2 * 1e6)
+                    if r == a:
+                        ok = ok and back.tobytes() == x.tobytes()
+                        back[:] = 0
+                half = half[1:]
+            comm.barrier()
+            if r == a:
+                med = statistics.median(half)
+                rows.append({"bytes": nbytes, "half_rtt_us": med,
+                             "half_rtt_us_blocks": half,
+                             "gb_s": nbytes / (med * 1e-6) / 1e9,
+                             "bitwise": ok})
+        if r == a:
+            pairs[f"{a}-{b}"] = {"route": comm.pml.endpoint.route(b),
+                                 "rows": rows}
+    n = (cfg["mib"] << 20) // 4
+    data = [host_bench._rank_data(k, n, np.float32) for k in range(comm.size)]
+    want = data[0].copy()
+    for k in range(1, comm.size):
+        want += data[k]
+    comm.barrier()
+    ops = host_bench._arena_ops(comm)
+    t0 = time.perf_counter()
+    got = np.asarray(comm.allreduce(data[r]))
+    secs = time.perf_counter() - t0
+    arena = host_bench._arena_ops(comm) > ops
+    oks = np.asarray(comm.allgather(np.array([got.tobytes()
+                                              == want.tobytes()])))
+    paths = np.asarray(comm.allgather(np.array([arena])))
+    times = np.asarray(comm.allgather(np.array([secs])))
+    if r == 0:
+        print("PLM_HOST " + json.dumps({
+            "hosts": hosts, "pairs": pairs, "allreduce": {
+                "bytes": n * 4, "bitwise": bool(oks.all()),
+                "provider": comm.coll.providers["allreduce"],
+                "path": "arena" if paths.all() else "host",
+                "seconds_max": float(times.max())}}), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def plm_clock_hnp(cfg: dict) -> None:
+    """Phase plm (a)'s clock and bynode job, driven from this process as
+    its HNP (``MultiHostLauncher``, so its metrics aggregate can be
+    read): 4 ranks ``--map-by bynode`` on 2 simulated hosts, each
+    printing its host, living ``sleep`` s with the metrics uplink and the
+    clock-sync prober on.  Prints one ``PLM_CLOCK`` line: every rank's
+    pushed ``rank_clock_to_root_ns`` and ``rank_clock_rtt_ns`` (its
+    daemon's composed offset and edge rtt)."""
+    os.environ["OMPI_TPU_MCA_trace_metrics_push_period"] = str(cfg["push"])
+    os.environ["OMPI_TPU_MCA_clock_sync_period"] = str(cfg["sync"])
+    from ompi_tpu_torch.core.config import var_registry
+    from ompi_tpu_torch.runtime.job import AppContext, Job
+    from ompi_tpu_torch.runtime.plm import MultiHostLauncher
+
+    var_registry.load_cli([("ras", "simulator"),
+                           ("ras_sim_num_nodes", str(cfg["hosts"])),
+                           ("ras_sim_slots_per_node",
+                            str(-(-cfg["np"] // cfg["hosts"]))),
+                           ("rmaps_rr_policy", "bynode")])
+    prog = ("import os, time, ompi_tpu_torch\n"
+            "comm = ompi_tpu_torch.init()\n"
+            "print('PLM_MAP', comm.rank, os.environ['OMPI_TPU_FAKE_HOST'],"
+            " os.environ['OMPI_TPU_LOCAL_RANK'], flush=True)\n"
+            f"time.sleep({cfg['sleep']})\n"
+            "ompi_tpu_torch.finalize()\n")
+    job = Job([AppContext(argv=[sys.executable, "-c", prog], np=cfg["np"])])
+    hnp = MultiHostLauncher(plm_name="sim", stdin_target="none",
+                            timeout=HOST_JOB_TIMEOUT)
+    rc = hnp.run(job)
+    snap = hnp.metrics_agg.snapshot().get(job.jobid, {})
+    rows = {int(rank): {"offset_ns": vals.get("rank_clock_to_root_ns"),
+                        "rtt_ns": vals.get("rank_clock_rtt_ns"),
+                        "host": job.procs[int(rank)].node.name}
+            for rank, (_ts, vals) in snap.items()}
+    print("PLM_CLOCK " + json.dumps({"rc": rc, "ranks": rows}), flush=True)
+
+
+def plm_card_rank(cfg: dict) -> None:
+    """Rank body of phase plm (b1), (b2) and (c), a ``--gpu`` rank that
+    an orted started on a simulated host (both ranks on card 0).
+
+    (b1) ``group``: the rank's card and environment, the process group
+    of 2 joined at the plm's rendezvous, the forward kernel at the
+    prefill shape, then a 64 MiB f32 CUDA tensor across the fake-host
+    boundary through ``comm.allreduce`` (the device route must raise the
+    shared-card error) and through the facade's ``Allreduce`` into numpy
+    over tcp, bitwise against numpy's sum, in a profiler window with one
+    device-to-host copy beside the control copy.  (b2) ``respawn``: no
+    group; each life runs the kernel check; rank 1's first life SIGKILLs
+    itself after it and its revived life (same host and card, no
+    rendezvous) runs it again.  (c) ``lifeline``: after init binds the
+    card, rank 1 SIGKILLs its own orted and both sleep; the job must
+    end all the same.  Prints one ``PLM_CARD`` line a life."""
+    import signal
+
+    import torch
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.parallel import multihost
+
+    boot = time.time() - _proc_start_wall()
+    t_body = time.perf_counter()
+    env = os.environ
+    life = int(env.get("OMPI_TPU_RESTART") or 0)
+    row = {"mode": cfg["mode"], "rank": int(env["OMPI_TPU_RANK"]),
+           "life": life, "pid": os.getpid(),
+           "orted": int(env.get("OMPI_TPU_ORTED_PID") or 0),
+           "host": env.get("OMPI_TPU_FAKE_HOST"),
+           "chip": env.get("OMPI_TPU_CHIP"),
+           "nhosts": env.get("OMPI_TPU_NHOSTS"),
+           "coord": env.get("OMPI_TPU_COORD"), "boot_s": boot,
+           "start_wall": _proc_start_wall()}
+    comm = ompi_tpu_torch.init()
+    r = comm.rank
+    row["grouped"] = multihost.is_initialized()
+    if DEVICE == "cuda":
+        row["current_device"] = torch.cuda.current_device()
+    if cfg["mode"] == "group":
+        import torch.distributed as dist
+
+        row["group_size"] = dist.get_world_size()
+        row["group_rank"] = dist.get_rank()
+        row["hosts"] = [int(h) for h in np.asarray(comm.allgather(
+            np.array([int(row["host"][3:])]))).ravel()]
+    if cfg["mode"] == "lifeline":
+        torch.ones(1 << 20, device=DEVICE).sum().item()  # hold a context
+        # the row goes up before the kill (its orted forwards it); the
+        # kill lands 0.5 s after the stamp, once the line is out
+        row["kill_wall"] = time.time() + 0.5
+        print("PLM_CARD " + json.dumps(row), flush=True)
+        if r == 1:
+            time.sleep(0.5)
+            os.kill(os.getppid(), signal.SIGKILL)
+        time.sleep(60)
+        return
+    row["flash"] = _plm_flash(f"life {life}", cfg["flash"])
+    if cfg["mode"] == "respawn":
+        if r == 1 and life == 0:
+            row["kill_wall"] = time.time()
+            print("PLM_CARD " + json.dumps(row), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        row["body_s"] = time.perf_counter() - t_body
+        row["end_wall"] = time.time()
+        print("PLM_CARD " + json.dumps(row), flush=True)
+        ompi_tpu_torch.finalize()
+        return
+    # (b1): the 64 MiB tensor across the fake-host boundary, twice
+    from torch.profiler import ProfilerActivity, profile
+
+    from ompi_tpu_torch.compat import MPI
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    n32 = (cfg["card_mib"] << 20) // 4
+
+    def tensor(rank):
+        gen = torch.Generator(device=DEVICE).manual_seed(900 + rank)
+        return torch.randint(0, 1000, (n32,), device=DEVICE,
+                             generator=gen).float()
+
+    mine, other = tensor(r), tensor(1 - r)
+    comm.bind_device(device_world(make_mesh(device=DEVICE)))
+    try:
+        comm.allreduce(mine)
+        row["device_error"] = None
+    except NotImplementedError as e:
+        row["device_error"] = str(e)[:400]
+    row["route"] = comm.pml.endpoint.route(1 - r)
+    world = MPI.COMM_WORLD
+    red = np.zeros(n32, np.float32)
+    world.Barrier()
+    t0 = time.perf_counter()
+    world.Allreduce(mine, red)
+    row["allreduce_s"] = time.perf_counter() - t0
+    want = (mine + other).cpu().numpy()
+    row["allreduce_bitwise"] = red.tobytes() == want.tobytes()
+    if DEVICE == "cuda":
+        world.Barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            world.Allreduce(mine, red)
+            mine[:1].cpu()                      # the control: one DtoH
+            torch.cuda.synchronize()
+        row["copies"] = profiler_copies(prof)
+    row["allreduce_GBps"] = n32 * 4 / row["allreduce_s"] / 1e9
+    row["body_s"] = time.perf_counter() - t_body
+    row["end_wall"] = time.time()
+    print("PLM_CARD " + json.dumps(row), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def _plm_stamped(args):
+    """One tpurun job whose output lines are stamped (wall time) as they
+    arrive: (seconds, rc, stdout, [(wall, stderr line), ...])."""
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "--timeout",
+         str(HOST_JOB_TIMEOUT), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines: list = []
+    outs: list = []
+
+    def read(pipe, into, stamp):
+        for line in iter(pipe.readline, ""):
+            into.append((time.time(), line) if stamp else line)
+
+    readers = [threading.Thread(target=read, args=(p.stderr, lines, True)),
+               threading.Thread(target=read, args=(p.stdout, outs, False))]
+    for t in readers:
+        t.start()
+    rc = p.wait()
+    for t in readers:
+        t.join()
+    return time.perf_counter() - t0, rc, "".join(outs), lines
+
+
+def _shm_inboxes() -> set:
+    from ompi_tpu_torch.core import shmseg
+
+    base = shmseg.backing_dir()
+    return {os.path.join(base, n) for n in os.listdir(base)
+            if n.startswith("otpu-shm-")}
+
+
+def _ssh_localhost_ok() -> bool:
+    """The reference's probe (``tests/runtime/test_plm.py``): passwordless
+    ``ssh localhost``."""
+    import shutil
+
+    if shutil.which("ssh") is None:
+        return False
+    try:
+        r = subprocess.run(
+            ["ssh", "-o", "BatchMode=yes", "-o", "StrictHostKeyChecking=no",
+             "-o", "ConnectTimeout=3", "localhost", "true"],
+            capture_output=True, timeout=10)
+        return r.returncode == 0
+    except (subprocess.TimeoutExpired, OSError):
+        return False
+
+
+def _gone(pids) -> list:
+    """The pids of ``pids`` still alive, or on the card, after waiting
+    up to ``PLM_REAP_S`` s (a killed rank's context is freed a moment
+    after its kill)."""
+    deadline = time.monotonic() + PLM_REAP_S
+    while True:
+        left = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                left.append(pid)
+            except ProcessLookupError:
+                pass
+            except PermissionError:
+                left.append(pid)
+        if DEVICE == "cuda":
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True)
+            on_card = {int(x) for x in smi.stdout.split() if x.isdigit()}
+            left += sorted(on_card & set(pids) - set(left))
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.1)
+
+
+def phase_plm(card, sizes=None):
+    """Multi-host launch through the daemon tree (``tpurun --plm sim``):
+    the card jobs (b1), (b2) and (c) started first, the host jobs of (a)
+    side by side with them, then hello alone, the containment job and
+    the clean.  Files go under build/plm_smoke/, removed at the end."""
+    import shutil
+
+    from ompi_tpu_torch.runtime import clean as clean_mod
+
+    cfg = {"pairs": [list(p) for p in PLM_PAIRS], "sizes": list(PLM_PINGPONG),
+           "mib": PLM_COLL_MIB, "card_mib": PLM_CARD_MIB,
+           "flash": list(PLM_FLASH), **PLM_CONTAIN, **(sizes or {})}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "plm_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sim = ["--plm", "sim", "--hosts", str(PLM_HOSTS)]
+    # a CPU rehearsal has no --gpu: its group's rendezvous is given by hand
+    gpu = (["--gpu"] if DEVICE == "cuda" else
+           ["-x", f"OMPI_TPU_COORD=127.0.0.1:{free_port()}",
+            "-x", f"OMPI_TPU_NHOSTS={PLM_HOSTS}"])
+    secs, out = {}, {"card": card}
+    try:
+        t0 = time.time()   # the card jobs start within ms of it
+        card_jobs = {
+            "b1": tpurun_start([*sim, "-np", "2", *gpu, "--", sys.executable,
+                                "-c", _dpm_body("plm_card_rank",
+                                                {**cfg, "mode": "group"})]),
+            "b2": tpurun_start([*sim, "-np", "2", *(
+                gpu if DEVICE == "cuda" else
+                ["-x", "OMPI_TPU_COORD=127.0.0.1:1", "-x",
+                 f"OMPI_TPU_NHOSTS={PLM_HOSTS}"]), "--mca", "errmgr",
+                                "respawn", "--", sys.executable, "-c",
+                                _dpm_body("plm_card_rank",
+                                          {**cfg, "mode": "respawn"})]),
+            "c": tpurun_start([*sim, "-np", "2",
+                               *(gpu if DEVICE == "cuda" else []), "--",
+                               sys.executable,
+                               "-c", _dpm_body("plm_card_rank",
+                                               {**cfg, "mode": "lifeline"})]),
+        }
+        host_prog = ("import os; print('PLM_CPU', os.environ["
+                     "'OMPI_TPU_FAKE_HOST'], sorted(os.sched_getaffinity(0)),"
+                     " flush=True)")
+        host_jobs = {
+            "ring": tpurun_start([*sim, "-np", str(PLM_NP), "--",
+                                  sys.executable, "-m",
+                                  "ompi_tpu_torch.examples.ring"]),
+            "bench": tpurun_start([*sim, "-np", str(PLM_NP), "--",
+                                   sys.executable, "-c",
+                                   _dpm_body("plm_host_rank", cfg)]),
+            "rtc": tpurun_start([*sim, "-np", str(PLM_NP), "--mca",
+                                 "rtc_bind", "core", "--", sys.executable,
+                                 "-c", host_prog]),
+        }
+        clock = subprocess.Popen(
+            [sys.executable, "-c", _dpm_body(
+                "plm_clock_hnp", {"hosts": PLM_HOSTS, "np": PLM_NP,
+                                  **PLM_CLOCK})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        ssh_ok = _ssh_localhost_ok()
+        # (a) the host jobs
+        wall, rc, so, se = tpurun_wait(host_jobs["ring"])
+        got = sorted(ln for ln in so.splitlines() if ln.strip())
+        check(rc == 0 and got == ring_lines(PLM_NP, tag="mh"),
+              f"plm ring: rc {rc}, lines {got}\n{se[-2000:]}")
+        secs["ring"] = wall
+        wall, rc, so, se = tpurun_wait(host_jobs["bench"])
+        check(rc == 0, f"plm host job: rc {rc}\n{so[-2000:]}{se[-3000:]}")
+        secs["bench"] = wall
+        (bench,) = tagged_json(so, "PLM_HOST")
+        check(bench["hosts"] == [0, 0, 1, 1],
+              f"plm byslot: ranks on hosts {bench['hosts']}")
+        for pair, want in (("0-1", "shm"), ("0-2", "tcp")):
+            p = bench["pairs"][pair]
+            check(p["route"] == want, f"plm {pair}: route {p['route']}, "
+                  f"not {want}")
+            check(all(x["bitwise"] for x in p["rows"]),
+                  f"plm {pair}: ping-pong data changed")
+        check(bench["allreduce"]["bitwise"],
+              f"plm allreduce differs from numpy: {bench['allreduce']}")
+        wall, rc, so, se = tpurun_wait(host_jobs["rtc"])
+        check(rc == 0, f"plm rtc job: rc {rc}\n{se[-2000:]}")
+        secs["rtc"] = wall
+        cpus: dict = {}
+        for ln in so.splitlines():
+            if "PLM_CPU " in ln:
+                host, aff = ln.split("PLM_CPU ", 1)[1].split(" ", 1)
+                cpus.setdefault(host, []).append(json.loads(aff))
+        allowed = sorted(os.sched_getaffinity(0))
+        check(sum(len(v) for v in cpus.values()) == PLM_NP,
+              f"plm rtc: {cpus}")
+        if len(allowed) >= 2:
+            for host, sets in cpus.items():
+                check(all(len(s) == 1 for s in sets)
+                      and len({s[0] for s in sets}) == len(sets),
+                      f"plm rtc_bind core: {host} ranks pinned to {sets}")
+        so, se = clock.communicate(timeout=HOST_JOB_TIMEOUT)
+        check(clock.returncode == 0, f"plm clock job: rc {clock.returncode}"
+              f"\n{se[-3000:]}")
+        (clk,) = tagged_json(so, "PLM_CLOCK")
+        check(clk["rc"] == 0, f"plm clock job: {clk}")
+        maps = sorted(ln.split("PLM_MAP ", 1)[1] for ln in so.splitlines()
+                      if "PLM_MAP " in ln)
+        check(maps == ["0 sim000 0", "1 sim001 0", "2 sim000 1",
+                       "3 sim001 1"], f"plm --map-by bynode: {maps}")
+        check(sorted(clk["ranks"]) == [str(k) for k in range(PLM_NP)],
+              f"plm clock: metrics rows {clk['ranks']}")
+        for rank, v in clk["ranks"].items():
+            check(v["offset_ns"] is not None and v["rtt_ns"] is not None
+                  and abs(v["offset_ns"]) <= v["rtt_ns"] / 2 + 1,
+                  f"plm clock: rank {rank}'s daemon offset {v}")
+        # (b1)
+        b1_pids, card_pids = [], []
+        wall, rc, so, se = tpurun_wait(card_jobs["b1"])
+        t_b1 = t0 + wall
+        check(rc == 0, f"plm (b1): rc {rc}\n{so[-2000:]}{se[-3000:]}")
+        secs["b1"] = wall
+        b1 = {d["rank"]: d for d in tagged_json(so, "PLM_CARD")}
+        check(sorted(b1) == [0, 1], f"plm (b1) rows {b1}")
+        for rk, v in b1.items():
+            card_pids.append(v["pid"])
+            check(v["chip"] == ("0" if DEVICE == "cuda" else None)
+                  and v["nhosts"] == "2" and v["coord"],
+                  f"plm (b1) rank {rk} env: {v}")
+            check(v["grouped"] and v["group_size"] == 2
+                  and v["group_rank"] == rk,
+                  f"plm (b1) rank {rk} not in one group of 2: {v}")
+            check(sorted(v["hosts"]) == [0, 1],
+                  f"plm (b1) rank {rk}: hosts {v['hosts']}")
+            check(v["flash"]["ok"], f"plm (b1) rank {rk} flash: {v['flash']}")
+            check(v["route"] == "tcp", f"plm (b1) route {v['route']}")
+            check(v["allreduce_bitwise"],
+                  f"plm (b1) rank {rk}: facade Allreduce differs")
+            if DEVICE == "cuda":
+                check(v["current_device"] == 0, f"plm (b1) card: {v}")
+                check(v["device_error"] is not None
+                      and "share a card" in v["device_error"],
+                      f"plm (b1) rank {rk}: no shared-card refusal: {v}")
+                check(v["copies"]["dtoh"] == 2,
+                      f"plm (b1) rank {rk}: copies {v['copies']}")
+        check(b1[0]["coord"] == b1[1]["coord"], "plm (b1) rendezvous")
+        # (b2)
+        wall, rc, so, se = tpurun_wait(card_jobs["b2"])
+        check(rc == 0, f"plm (b2): rc {rc}\n{so[-2000:]}{se[-3000:]}")
+        secs["b2"] = wall
+        t_b2 = t0 + wall
+        b2 = {(d["rank"], d["life"]): d for d in tagged_json(so, "PLM_CARD")}
+        check(sorted(b2) == [(0, 0), (1, 0), (1, 1)], f"plm (b2) {b2}")
+        for key, v in b2.items():
+            card_pids.append(v["pid"])
+            check(v["flash"]["ok"], f"plm (b2) {key} flash: {v['flash']}")
+            check(v["chip"] == ("0" if DEVICE == "cuda" else None)
+                  and not v["grouped"], f"plm (b2) {key}: {v}")
+            check((v["coord"] is None) == (v["life"] > 0),
+                  f"plm (b2) {key}: rendezvous {v['coord']}")
+            if DEVICE == "cuda":
+                check(v["current_device"] == 0, f"plm (b2) card: {v}")
+        check(b2[(1, 1)]["host"] == b2[(1, 0)]["host"]
+              and b2[(1, 1)]["pid"] != b2[(1, 0)]["pid"],
+              f"plm (b2) revived elsewhere: {b2}")
+        revive_s = b2[(1, 1)]["flash"]["wall"] - b2[(1, 0)]["kill_wall"]
+        # (c)
+        wall, c_rc, so, se = tpurun_wait(card_jobs["c"])
+        secs["c"] = wall
+        check(c_rc != 0
+              and ("daemon" in se.lower() or "died" in se.lower()),
+              f"plm (c): rc {c_rc}\n{se[-3000:]}")
+        crow = {d["rank"]: d for d in tagged_json(so, "PLM_CARD")}
+        check(sorted(crow) == [0, 1], f"plm (c) rows {crow}")
+        kill_to_exit = t0 + wall - crow[1]["kill_wall"]
+        card_pids += [v["pid"] for v in crow.values()]
+        left = _gone(card_pids)
+        check(not left, f"plm: ranks {left} outlived their jobs")
+        # hello, alone: its launch-to-exit time
+        wall, rc, so, se = tpurun([*sim, "-np", str(PLM_NP), "--",
+                                   sys.executable, "-c",
+                                   "import os, ompi_tpu_torch\n"
+                                   "c = ompi_tpu_torch.init()\n"
+                                   "print(f'Hello, world, I am {c.rank} of "
+                                   "{c.size} on ' + os.environ["
+                                   "'OMPI_TPU_FAKE_HOST'])\n"
+                                   "ompi_tpu_torch.finalize()\n"])
+        got = sorted(ln for ln in so.splitlines() if ln.strip())
+        check(rc == 0 and got == sorted(
+            f"[mh,{k}]Hello, world, I am {k} of {PLM_NP} on "
+            f"sim00{k // 2}" for k in range(PLM_NP)),
+            f"plm hello: rc {rc}, lines {got}")
+        secs["hello_launch_to_exit"] = wall
+        # containment, then the clean of what its dead rank left
+        before = _shm_inboxes()
+        k = cfg
+        wall, rc, so, stamped = _plm_stamped([
+            "--plm", "sim", "--hosts", str(k["hosts"]), "-np", str(k["np"]),
+            "--mca", "errmgr", "notify",
+            "--mca", "rml_heartbeat_period", str(k["period"]),
+            "--mca", "rml_heartbeat_timeout", str(k["timeout"]),
+            "--mca", "faultinject_plan", k["plan"], "--", sys.executable,
+            "-c", "import time, ompi_tpu_torch\n"
+                  "comm = ompi_tpu_torch.init()\n"
+                  f"time.sleep({k['sleep']})\n"
+                  "print(f'rank {comm.rank} survived', flush=True)\n"
+                  "ompi_tpu_torch.finalize()\n"])
+        secs["containment"] = wall
+        se = "".join(ln for _t, ln in stamped)
+        check(rc == 0 and "daemon-reparent" in se,
+              f"plm containment: rc {rc}\n{so[-2000:]}{se[-3000:]}")
+        for rk in (1, 2, 3):
+            check(f"rank {rk} survived" in so, f"plm containment: rank {rk}")
+        check("rank 0 survived" not in so, "plm containment: rank 0 lived")
+        t_kill = next(t for t, ln in stamped if "injected SIGKILL" in ln)
+        t_rep = next(t for t, ln in stamped if "daemon-reparent" in ln)
+        # this job's own debris only: an inbox made while it ran whose
+        # doorbell has no reader (a concurrent job's live inbox has one)
+        dead = sorted(d for d in _shm_inboxes() - before
+                      if not clean_mod._inbox_alive(d))
+        check(len(dead) >= 1, "plm containment: the dead rank left no inbox")
+        # an inbox within the sweep's grace is left unjudged (a rank
+        # still starting up): wait it out, then sweep
+        newest = max(os.stat(d).st_mtime for d in dead)
+        time.sleep(max(0.0, newest + clean_mod._INBOX_GRACE_S + 0.2
+                       - time.time()))
+        r1 = subprocess.run([sys.executable, "-m",
+                             "ompi_tpu_torch.tools.tpurun", "--clean"],
+                            capture_output=True, text=True, timeout=60)
+        r2 = subprocess.run([sys.executable, "-m",
+                             "ompi_tpu_torch.tools.tpurun", "--clean",
+                             "--clean-dry-run"],
+                            capture_output=True, text=True, timeout=60)
+        check(r1.returncode == 0 and all(f"removing {d}" in r1.stderr
+                                         for d in dead)
+              and not any(os.path.exists(d) for d in dead),
+              f"plm --clean: {r1.stderr[-2000:]}")
+        check(r2.returncode == 0 and not any(d in r2.stderr for d in dead),
+              f"plm --clean --clean-dry-run: {r2.stderr[-2000:]}")
+        ssh = {"probe": ssh_ok}
+        if ssh_ok:
+            hf = os.path.join(work, "hostfile")
+            with open(hf, "w") as f:
+                f.write("localhost\nlocalhost\n")
+            wall, rc, so, se = tpurun(["--plm", "ssh", "--hostfile", hf,
+                                       "-np", "2", "--", sys.executable,
+                                       "-c", "import os; print('ssh rank', "
+                                       "os.environ['OMPI_TPU_RANK'])"])
+            check(rc == 0 and "ssh rank 0" in so and "ssh rank 1" in so,
+                  f"plm ssh: rc {rc}\n{se[-2000:]}")
+            ssh["seconds"] = wall
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+        shutil.rmtree(work, ignore_errors=True)
+
+    def times(rows, t_end):
+        # launch: tpurun's start to its first rank's (HNP, orteds, wire-up)
+        return {"launch_s": min(v["start_wall"] for v in rows) - t0,
+                "boot_s": max(v["boot_s"] for v in rows),
+                "body_s": max(v.get("body_s", 0.0) for v in rows),
+                "exit_s": t_end - max(v.get("end_wall", v.get(
+                    "kill_wall", t_end)) for v in rows)}
+
+    emit("plm", hosts=PLM_HOSTS, ranks=PLM_NP,
+         pingpong={k: {"route": v["route"], "rows": [
+             {x: row[x] for x in ("bytes", "half_rtt_us", "gb_s")}
+             for row in v["rows"]]} for k, v in bench["pairs"].items()},
+         allreduce=bench["allreduce"], rtc=cpus,
+         clock={k: v for k, v in clk["ranks"].items()},
+         card={"b1": {"ranks": {k: {x: v[x] for x in (
+                   "chip", "host", "group_size", "route", "allreduce_s",
+                   "allreduce_GBps", "copies", "boot_s", "body_s")
+                   if x in v} for k, v in b1.items()},
+                   "device_error": b1[0]["device_error"],
+                   "flash": {k: v["flash"] for k, v in b1.items()},
+                   **times(list(b1.values()), t_b1)},
+               "b2": {"flash": {f"{k[0]}.{k[1]}": v["flash"]
+                                for k, v in b2.items()},
+                      "kill_to_revived_kernel_s": revive_s,
+                      **times(list(b2.values()), t_b2)},
+               "c": {"rc": c_rc, "seconds": secs["c"],
+                     "kill_to_exit_s": kill_to_exit,
+                     "launch_s": min(v["start_wall"]
+                                     for v in crow.values()) - t0}},
+         pids_left=left,
+         rank_flash_launches=sum(
+             v["flash"]["launches"] for v in [*b1.values(), *b2.values()]),
+         containment={"kill_to_reparent_s": t_rep - t_kill,
+                      "dead_inboxes": len(dead),
+                      "cleaned": r1.stderr.strip().splitlines()[-1]},
+         ssh=ssh, seconds=secs, card_name=card)
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -5959,6 +6649,7 @@ def main() -> int:
     run("io", phase_io, card)
     run("osc", phase_osc, card)
     run("dpm", phase_dpm, card)
+    run("plm", phase_plm, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

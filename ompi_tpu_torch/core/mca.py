@@ -133,3 +133,11 @@ class Framework:
     def components(self) -> dict[str, Component]:
         with self._lock:
             return dict(self._components)
+
+    def lookup(self, name: str) -> Component:
+        """The component named ``name``, whatever the directive (the
+        launcher names its plm component outright)."""
+        try:
+            return self._components[name]
+        except KeyError:
+            raise ComponentError(f"no component {self.name}/{name}") from None

@@ -11,9 +11,9 @@ packages; this module imports neither torch nor numpy.  MPI-IO's four
 ``io`` spans (``mpi.io``: read_at, write_at, read_at_all, write_at_all)
 and the host windows' ``osc`` events (``mpi.osc``: the fence, lock,
 unlock, pscw_complete and pscw_wait spans and the post instant) emit as
-in the JAX package; the orted's metrics hop (item 6.15) comes with that
-item; its counter names are declared here already, as in the JAX
-package.
+in the JAX package.  A rank launched by an orted pushes its metrics to
+the orted's collector (``ENV_METRICS_URI``), which hops them up the
+daemon tree (``runtime/orted.py``).
 
 ≈ the reference's PERUSE event hooks and the MPI_T pvar discipline, but
 with the time axis the counters lack: a fixed-size, lock-cheap ring

@@ -1,8 +1,8 @@
 """doctor — the cross-rank collective hang doctor (the port's copy of the
-JAX package's ``runtime/doctor.py``, whole; the orted's TAG_DOCTOR
-fan-out that calls :func:`query_rank` on a live job comes with the DVM,
-ROADMAP.md Queue 1 item 6.15, and ``tools/hang_doctor.py --dir`` reads
-crash dumps meanwhile).
+JAX package's ``runtime/doctor.py``, whole; the orted runs, but its
+TAG_DOCTOR fan-out that calls :func:`query_rank` on a live job comes with
+the DVM that sends the tag, ROADMAP.md Queue 1 item 6.15b, and
+``tools/hang_doctor.py --dir`` reads crash dumps meanwhile).
 
 The most expensive production question — "my job is stuck: which rank,
 in which collective, waiting on whom, and is it a hang or an application

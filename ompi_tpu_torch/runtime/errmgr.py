@@ -12,15 +12,21 @@ job).  Components decide what a proc-failure event does:
   ``OMPI_TPU_TRACE=1``) flush their trace ring from that SIGTERM.
 - ``continue`` — log and keep going.
 - ``notify``   — keep going AND propagate the failure to the survivors
-  (PMIx dead-set reason + notifier event) so they can run user-level
-  recovery: ``Comm.revoke()/shrink()/agree()`` from
-  ``ompi_tpu_torch.mpi.ft`` — the ULFM shrink-and-continue recipe.
+  (PMIx dead-set reason + TAG_PROC_FAILED xcast + notifier event) so
+  they can run user-level recovery: ``Comm.revoke()/shrink()/agree()``
+  from ``ompi_tpu_torch.mpi.ft`` — the ULFM shrink-and-continue recipe.
+  On the daemon tree, notify additionally arms mid-tree re-parenting: a
+  non-leaf orted's death no longer tears down its subtree via the
+  lifeline rule — the orphaned child daemons re-wire to the nearest
+  live ancestor (TAG_REPARENT handshake, HNP arbitrating), confining
+  the loss to the dead host's ranks.
 - ``respawn``  — revive the failed rank in place up to
   ``errmgr_max_restarts`` times (≈ rmaps/resilient + the errmgr restart
   paths): same rank and env plus ``OMPI_TPU_RESTART=<n>`` so the app can
   restore from its last ``ckpt`` snapshot (+ msglog replay for in-flight
   p2p) instead of recomputing from step 0.  Select with
-  ``--mca errmgr respawn``.
+  ``--mca errmgr respawn``.  Works in both launchers (local fork/exec and
+  the orted daemon tree via TAG_RESPAWN).
 
   Scope: respawn is a HOST-plane recovery.  A ``--gpu`` job's process
   group cannot take a member's new life (the rendezvous store's rank
@@ -34,11 +40,12 @@ job).  Components decide what a proc-failure event does:
 
 - ``selfheal`` — the fused self-healing policy: respawn's revival and
   notify's propagation stop being separate worlds.  Every detection
-  source the runtime has — the launcher exit reap, rank-plane gossip
-  (``report_failed`` → the hung pid is SIGKILLed), the coll/shm arena
-  writer probe — lands here and runs the full cycle: the death is
-  propagated to the survivors FIRST (dead-set reason, so their
-  detectors fail pending ops fast instead of stalling), then the rank
+  source the runtime has — the launcher exit reap, the daemon heartbeat
+  monitor, rank-plane gossip (``report_failed`` → the hung pid is
+  SIGKILLed), the coll/shm arena writer probe — lands here and runs the
+  full cycle: the death is propagated to the survivors FIRST (dead-set
+  reason + ``TAG_PROC_FAILED`` xcast, so their detectors fail pending
+  ops fast instead of stalling), then the rank
   is revived in place through ``respawn_proc`` with
   ``OMPI_TPU_RESTART`` (snapshot restore via ``ckpt.snapc.auto_restore``
   + msglog replay for the in-flight gap), survivors' detectors flip the
@@ -65,8 +72,8 @@ job).  Components decide what a proc-failure event does:
   is re-reapable: the PMIx server accepts failure reports about it
   regardless of their incarnation stamp after
   ``pmix_register_grace_s``.  When the budget is exhausted, the rank is
-  unrevivable (no ``respawn_proc`` hook, or a planned shrink retired
-  it), or a revive fails to start, the policy degrades to the notify
+  unrevivable (no ``respawn_proc`` hook, its daemon died with its host,
+  or a planned shrink retired it), or a revive fails to start, the policy degrades to the notify
   rung: the already-propagated death stands, survivors continue
   smaller (the ULFM shrink recipe applies).  Only when shrink is
   impossible — no survivors left to carry the job, or no control plane
@@ -84,18 +91,16 @@ job).  Components decide what a proc-failure event does:
   rank's ``coll_rejoin`` FT-timeline events (PMIx ``coll_rejoin`` RPC)
   make the rejoin half observable.
 
-Thread-context rules: errmgr hooks fire from the launcher's reap loop
-and the PMIx server's ``on_failed_report``/``on_client_contact`` (server
-connection threads).  Keep detection→reaction paths non-blocking there
-(queue + drain from a worker, the way ``PmlFT._adopt_notify`` defers its
-RPC to the gossip loop).
-
-Left out (ROADMAP.md Queue 1 item 6.15, with the orted daemon tree): the
-``TAG_PROC_FAILED`` xcast down the tree and its batched form for a
-correlated daemon loss (``daemon_ranks_failed``), the daemon heartbeat
-monitor as a detection source, the heartbeat clamp on the backoff sleep,
-the reparenting of orphaned daemons under ``notify``, and the tree's
-``TAG_RESPAWN``.
+Thread-context rules: errmgr hooks fire from the local launcher's reap
+loop, rml ``register_recv`` callbacks (the daemon tree's link reader
+threads) and the PMIx server's ``on_failed_report``/``on_client_contact``
+(server connection threads).  Keep detection→reaction paths non-blocking
+there (queue + drain from a worker, the way ``PmlFT._adopt_notify``
+defers its RPC to the gossip loop); the one sleep on such a path, the
+respawn backoff, is clamped below the daemon heartbeat timeout
+(:meth:`ErrmgrRespawn._max_reader_stall`).  A correlated daemon loss
+reaches notify and selfheal as one batch (``daemon_ranks_failed``: one
+``TAG_PROC_FAILED`` xcast for all the dead host's ranks).
 """
 
 from __future__ import annotations
@@ -163,20 +168,61 @@ def _propagate_failure(launcher, job: Job, proc: Proc,
                        reason: str) -> None:
     """The notify rung shared by ErrmgrNotify and ErrmgrSelfheal: put the
     human-readable reason on the runtime dead-set (idempotent — the reap
-    loop already called ``proc_died``), where every survivor's detector
-    poll reads it.  The dead-set lives on the JOB's rendezvous when a
-    launcher runs per-job PMIx servers; ``launcher.server`` is the
-    single-job launcher's.  (The daemon tree's TAG_PROC_FAILED xcast
-    comes with the orted, ROADMAP.md item 6.15.)"""
+    loop already called ``proc_died``) and flood a TAG_PROC_FAILED xcast
+    down the daemon tree so every host's record shows which rank died.
+    The dead-set lives on the JOB's rendezvous when the launcher runs
+    per-job PMIx servers (multi-tenant DVM); ``launcher.server`` remains
+    the fallback for single-job and custom launchers."""
     server = (getattr(job, "pmix_server", None)
               or getattr(launcher, "server", None))
     if server is not None:
         server.proc_died(proc.rank, reason=reason)
+    node = getattr(launcher, "rml", None)
+    if node is not None:
+        from ompi_tpu_torch.runtime import rml as rml_mod
+
+        try:
+            node.xcast(rml_mod.TAG_PROC_FAILED, (proc.rank, reason))
+        except Exception as e:  # noqa: BLE001 — tree may be tearing down
+            _log.error("failure propagation: TAG_PROC_FAILED xcast "
+                       "failed: %r", e)
+
+
+def _rank_span(ranks: list, head: int = 16) -> str:
+    """A bounded textual rank list for batch events — a 160-rank rack
+    loss must not inline 160 numbers into every log/notifier line."""
+    ranks = sorted(int(r) for r in ranks)
+    if len(ranks) <= head:
+        return ",".join(map(str, ranks))
+    return (",".join(map(str, ranks[:head]))
+            + f",...(+{len(ranks) - head} more)")
+
+
+def _propagate_failure_batch(launcher, job: Job, procs: list,
+                             reason: str) -> None:
+    """The batched twin of :func:`_propagate_failure` for correlated
+    daemon loss: a rack death takes tens of ranks in one tick, and
+    per-rank propagation turns that into N full-tree xcasts — its own
+    control-plane storm.  The dead-set is already updated per rank (the
+    PLM's _fail_daemon_ranks called ``proc_died`` before any policy
+    ran), so ONE xcast carrying the whole rank batch suffices; the
+    orted handler accepts a rank list in the rank slot."""
+    node = getattr(launcher, "rml", None)
+    if node is None or not procs:
+        return
+    from ompi_tpu_torch.runtime import rml as rml_mod
+
+    try:
+        node.xcast(rml_mod.TAG_PROC_FAILED,
+                   ([p.rank for p in procs], reason))
+    except Exception as e:  # noqa: BLE001 — tree may be tearing down
+        _log.error("failure propagation: batched TAG_PROC_FAILED xcast "
+                   "failed: %r", e)
 
 
 #: test seam: the backoff sleep (patched by unit tests).  The sleep runs
-#: INSIDE proc_failed — on the local launcher's reap loop —
-#: deliberately: deferring the revive
+#: INSIDE proc_failed — on the local launcher's reap loop, or the
+#: daemon link's RML reader thread — deliberately: deferring the revive
 #: to a timer would race the reap loop's exit (a job whose last pending
 #: rank is mid-backoff would be accounted done with the revive dropped).
 #: The stall is bounded by _BACKOFF_CAP and only ever paid by a rank
@@ -235,7 +281,27 @@ class _RestartGovernor:
             return 0.0
         delay = self._backoff.get(key, _BACKOFF_BASE)
         self._backoff[key] = min(delay * 2, _BACKOFF_CAP)
-        return delay
+        return min(delay, self._max_reader_stall())
+
+    @staticmethod
+    def _max_reader_stall() -> float:
+        """On a daemon tree the backoff sleep runs on the RML link
+        reader thread (see the ``_sleep`` note): a stall at or above
+        ``rml_heartbeat_timeout`` would starve TAG_HEARTBEAT delivery
+        queued behind it and the HNP would declare the healthy daemon
+        hosting the crash-looping rank lost — failing every rank on
+        that host.  With heartbeats armed, cap the sleep well below the
+        declare timeout.  ``lookup`` rather than ``get``: a purely
+        local run may never import rml, so the vars may be
+        unregistered."""
+        period = var_registry.lookup("rml_heartbeat_period")
+        if period is None or float(period.value or 0) <= 0:
+            return _BACKOFF_CAP
+        timeout = var_registry.lookup("rml_heartbeat_timeout")
+        if timeout is None or float(timeout.value or 0) <= 0:
+            return _BACKOFF_CAP
+        return min(_BACKOFF_CAP, 0.4 * float(timeout.value))
+
 
 @errmgr_framework.component
 class ErrmgrAbort(Component):
@@ -280,8 +346,9 @@ class ErrmgrRespawn(Component):
                         lives=proc.lives, rung="respawn",
                         exit_code=proc.exit_code)
         limit = var_registry.get("errmgr_max_restarts")
-        # the local launcher revives; a custom launcher without the hook
-        # degrades to abort instead of raising into its event dispatch
+        # both shipped launchers revive (local fork/exec + daemon tree via
+        # TAG_RESPAWN); a custom launcher without the hook degrades to
+        # abort instead of raising into its event dispatch
         respawn = getattr(launcher, "respawn_proc", None)
         if respawn is None:
             _log.error("errmgr/respawn: %s cannot revive ranks; aborting",
@@ -339,6 +406,8 @@ class ErrmgrNotify(Component):
       calls ``proc_died`` before any policy runs), so survivors' failure
       detectors see it on their next poll and pending operations against
       the dead peer fail fast with MPI_ERR_PROC_FAILED;
+    - on a daemon tree the failure additionally rides a TAG_PROC_FAILED
+      xcast so every orted logs which rank died and why;
     - an admin notifier event records the death.
 
     Select with ``--mca errmgr notify``.  This is the policy behind the
@@ -347,6 +416,7 @@ class ErrmgrNotify(Component):
 
     NAME = "notify"
     PRIORITY = 0    # opt-in via --mca errmgr notify
+    TOLERATES_DAEMON_LOSS = True
 
     def proc_failed(self, launcher: "LocalLauncher", job: Job,
                     proc: Proc) -> None:
@@ -364,6 +434,32 @@ class ErrmgrNotify(Component):
                f"job {job.jobid} {reason}; survivors notified "
                f"(job continues)")
 
+    def daemon_ranks_failed(self, launcher: "LocalLauncher", job: Job,
+                            procs: list) -> None:
+        """Correlated daemon loss, batched: ONE xcast / FT event /
+        notifier event for the whole rack's worth of ranks — per-rank
+        propagation would turn a 16-daemon loss into hundreds of
+        full-tree control frames, a reparent-window storm of our own
+        making.  The per-rank dead-set entries are already in place
+        (the PLM recorded them before any policy ran)."""
+        if not procs:
+            return
+        from ompi_tpu_torch.runtime import ftevents
+        from ompi_tpu_torch.runtime.notifier import Severity, notify
+
+        ranks = [p.rank for p in procs]
+        reason = (f"{len(ranks)} rank(s) lost with their daemon(s): "
+                  f"{_rank_span(ranks)}")
+        _log.verbose(1, "notify policy: %s; propagating to survivors "
+                     "(batched)", reason)
+        ftevents.record("detect", jobid=job.jobid, rank=ranks[0],
+                        rung="notify", reason=reason, count=len(ranks))
+        _propagate_failure_batch(launcher, job, procs, reason)
+        notify(Severity.WARN, "rank-failed",
+               f"job {job.jobid} {reason}; survivors notified "
+               f"(job continues)")
+
+
 @errmgr_framework.component
 class ErrmgrSelfheal(Component):
     """The fused self-healing policy: every failure runs the full
@@ -374,6 +470,7 @@ class ErrmgrSelfheal(Component):
     NAME = "selfheal"
     PRIORITY = 0    # opt-in via --mca errmgr selfheal
     REVIVES = True
+    TOLERATES_DAEMON_LOSS = True
 
     def __init__(self) -> None:
         self._governor = _RestartGovernor()
@@ -430,6 +527,56 @@ class ErrmgrSelfheal(Component):
             return
         self._escalate(launcher, job, proc,
                        f"rank {proc.rank} revive failed to start")
+
+    def daemon_ranks_failed(self, launcher: "LocalLauncher", job: Job,
+                            procs: list) -> None:
+        """Correlated daemon loss, batched.  Every victim is unrevivable
+        (its daemon died with its host), so the whole batch takes the
+        escalate-to-shrink rung in ONE decision: one propagation xcast,
+        one FT event, one notifier event — not a per-rank storm of
+        escalations during the exact window the tree is re-wiring."""
+        if not procs:
+            return
+        from ompi_tpu_torch.mpi import trace as trace_mod
+        from ompi_tpu_torch.runtime import ftevents
+        from ompi_tpu_torch.runtime.notifier import Severity, notify
+
+        ranks = [p.rank for p in procs]
+        reason = (f"{len(ranks)} rank(s) lost with their daemon(s): "
+                  f"{_rank_span(ranks)}")
+        ftevents.record("detect", jobid=job.jobid, rank=ranks[0],
+                        rung="selfheal", reason=reason, count=len(ranks))
+        _propagate_failure_batch(launcher, job, procs, reason)
+        trace_mod.count("errmgr_selfheal_escalations_total")
+        # victims are already ABORTED, so the carrier scan naturally
+        # excludes the whole batch
+        carriers = [p for p in job.procs if p.state
+                    in (ProcState.RUNNING, ProcState.TERMINATED)]
+        can_shrink = (bool(carriers)
+                      and (getattr(job, "pmix_server", None)
+                           or getattr(launcher, "server", None))
+                      is not None)
+        why = (f"{len(ranks)} rank(s) are not revivable (their daemon "
+               f"died with its host)")
+        ftevents.record("escalate", jobid=job.jobid, rank=ranks[0],
+                        to="shrink" if can_shrink else "abort", why=why,
+                        count=len(ranks))
+        if trace_mod.active:
+            trace_mod.instant("errmgr", "selfheal_escalate", rank=-1,
+                              to="shrink" if can_shrink else "abort",
+                              count=len(ranks))
+        if can_shrink:
+            notify(Severity.ERROR, "selfheal-escalate",
+                   f"job {job.jobid}: {why}; degrading to shrink — "
+                   f"survivors continue without ranks {_rank_span(ranks)}")
+            return
+        notify(Severity.CRITICAL, "selfheal-escalate",
+               f"job {job.jobid}: {why} and no shrinkable survivors; "
+               f"aborting")
+        if job.aborted_proc is None:
+            job.aborted_proc = procs[0]
+            job.abort_reason = f"{reason}; selfheal ladder exhausted"
+        launcher.kill_job(job, exclude=procs[0])
 
     def _escalate(self, launcher, job: Job, proc: Proc, why: str) -> None:
         """The revive arm is out — degrade to the notify/shrink rung (the

@@ -28,9 +28,11 @@ uptime clock of the crash-loop governor starts at the life's PMIx
 registration, and a rank the ranks' gossip reports hung is SIGKILLed so
 the reap loop sees its exit.
 
-Left out (ROADMAP.md Queue 1 item 6.15): cpu binding of the children
-(rtc) and multi-host launch (plm sim/ssh, the DVM, the orted tree's
-``TAG_RESPAWN``).
+Each child is bound to a cpu right after it starts when ``--mca rtc_bind
+core`` asks for it (``runtime/rtc.py``, as the orted binds its ranks).
+Multi-host launch is the daemon tree's (``runtime/plm.py``,
+``runtime/orted.py``, ``tpurun --plm sim|ssh``), which reuses this
+module's stdin writer and its rendezvous variables.
 """
 
 from __future__ import annotations
@@ -199,6 +201,8 @@ class LocalLauncher:
     def _launch_proc(self, job: Job, proc: Proc) -> bool:
         """Fork/exec one rank (first launch or errmgr respawn); False on
         failure to start (proc.state records why)."""
+        from ompi_tpu_torch.runtime.rtc import bind_child
+
         app = job.apps[proc.app_idx]
         want_stdin = (self.stdin_target == "all"
                       or self.stdin_target == str(proc.rank))
@@ -223,6 +227,7 @@ class LocalLauncher:
         # PMIx registration, not here — interpreter and framework boot
         # must not count toward errmgr_min_uptime_s
         proc.launched_at = None
+        bind_child(p.pid, proc.local_rank)
         with self._kill_lock:  # kill_job may iterate concurrently
             self._popen[proc.rank] = p
         if want_stdin:

@@ -16,9 +16,9 @@ detector and the errmgr policies use, and the registration time the
 crash-loop governor measures uptime from (``on_client_contact``).  The
 hang doctor's ports are kept: a rank registers its responder's UDP port
 (``doctor``), and ``doctor_ports``/``query_doctor_ports`` read them back.
-Left out (ROADMAP.md Queue 1 item 6.15): the registration-free readiness
-probes (``regcount``, ``query_regstate``/``query_regcount``), which only
-the orted's barrier-keyed daemon kill reads.
+The registration-free readiness probes (``regcount``,
+``query_regstate``/``query_regcount``) are kept too: the orted's
+barrier-keyed daemon kill (``faultinject.arm_daemon_launch``) reads them.
 
 Wire protocol: 4-byte LE length + DSS-packed (cmd, *args) tuple per message,
 one reply per request.  GET blocks server-side until the key is published
@@ -38,7 +38,8 @@ from typing import Any, Callable, Optional
 from ompi_tpu_torch.core import dss, output
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 
-__all__ = ["PMIxServer", "PMIxClient", "PMIxError", "query_doctor_ports"]
+__all__ = ["PMIxServer", "PMIxClient", "PMIxError", "query_regcount",
+           "query_regstate", "query_doctor_ports"]
 
 _log = output.get_stream("pmix")
 
@@ -239,6 +240,17 @@ class PMIxServer:
                 except Exception as e:  # noqa: BLE001 — server survives
                     _log.error("on_client_contact(%d) failed: %r", rank, e)
             return ("ok",)
+        if cmd == "regcount":
+            # introspection: how many ranks' CURRENT lives have
+            # registered (finished booting), how many fence epochs have
+            # completed, and how many ranks are READY (left init — the
+            # one-way notice below).  Chaos schedules key on these
+            # (``daemon=V:kill@reg=N`` fires only once N ranks are
+            # ready, so the kill cannot land mid-init), and together
+            # they make a cheap job-readiness probe.
+            with self._cv:
+                return ("ok", len(self._registered),
+                        len(self._fence_done), len(self._ready))
         if cmd == "ready":
             # the rank's current life finished ompi_tpu_torch.init(): user
             # code is running from here on
@@ -468,6 +480,28 @@ def _oneshot_query(uri: str, cmd: str,
         return None
 
 
+def query_regstate(uri: str, timeout: float = 2.0
+                   ) -> Optional[tuple[int, int, int]]:
+    """One-shot, registration-free probe of the server's readiness
+    state → ``(ranks_registered, fence_epochs_done, ranks_ready)``.
+    None when the server is unreachable."""
+    reply = _oneshot_query(uri, "regcount", timeout)
+    if reply is None or not reply:
+        return None
+    try:
+        return (int(reply[0]),
+                int(reply[1]) if len(reply) > 1 else 0,
+                int(reply[2]) if len(reply) > 2 else 0)
+    except (TypeError, ValueError):
+        return None
+
+
+def query_regcount(uri: str, timeout: float = 2.0) -> Optional[int]:
+    """The ranks-registered half of :func:`query_regstate`."""
+    state = query_regstate(uri, timeout=timeout)
+    return None if state is None else state[0]
+
+
 def query_doctor_ports(uri: str,
                        timeout: float = 2.0) -> Optional[dict[int, int]]:
     """One-shot, registration-free probe of the registered hang-doctor
@@ -533,6 +567,12 @@ class PMIxClient:
 
     def barrier(self) -> None:
         self.fence(collect=False)
+
+    def regcount(self) -> int:
+        """How many ranks' current lives have registered with the server
+        — the ranks-registered barrier (see :func:`query_regcount` for
+        the registration-free variant non-rank probes must use)."""
+        return int(self._rpc("regcount")[1])
 
     def ready(self) -> None:
         """One-way init-complete notice: this life finished

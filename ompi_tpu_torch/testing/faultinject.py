@@ -73,10 +73,10 @@ assert replay equality (tools/chaos_soak.py does).
 
 The plan grammar, the MCA variables, the environment and the verdict hash
 are the JAX package's, so one plan and seed fire the same faults in both
-packages.  ``parse_plan`` reads ``daemon=`` entries as the JAX package
-does, but the orted that arms them comes with ROADMAP.md Queue 1 item
-6.15: :func:`arm_daemon` and :func:`arm_daemon_launch` raise when a plan
-names the daemon.
+packages.  The port's orted arms ``daemon=`` entries as the JAX package's
+does: :func:`arm_daemon` at daemon start (``kill@t=``) and
+:func:`arm_daemon_launch` at app launch (the barrier-keyed
+``kill@reg=N:after=S`` over ``pmix.query_regstate``).
 
 Scope note on drops: the PML assumes a *reliable* transport — an
 unconditionally dropped data frame is a hung collective, by design.
@@ -516,35 +516,75 @@ def step(rank: Optional[int] = None) -> None:
         inj.step()
 
 
-def _daemon_actions(vpid: int) -> list[_Action]:
-    text = plan_text()
-    if not text:
-        return []
-    try:
-        actions = parse_plan(text)
-    except ValueError:
-        return []
-    return [a for a in actions
-            if a.kind == "daemon_kill" and a.vpid == vpid]
+def _daemon_die(vpid: int) -> None:
+    import signal
+
+    _log.emit("faultinject: daemon %d injected SIGKILL", vpid)
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def arm_daemon(vpid: int) -> None:
     """orted side: a plan entry ``daemon=<vpid>:kill@t=<sec>`` arms a
-    self-SIGKILL — the injected silent host death.  The port has no
-    orted yet (ROADMAP.md Queue 1 item 6.15): a plan naming this daemon
-    raises instead of arming nothing."""
-    if _daemon_actions(vpid):
-        raise NotImplementedError(
-            f"faultinject: the plan names daemon {vpid}, but the port has "
-            f"no orted daemon tree to arm it in (ROADMAP.md Queue 1 item "
-            f"6.15)")
+    self-SIGKILL — the injected silent host death."""
+    text = plan_text()
+    if not text:
+        return
+    try:
+        actions = parse_plan(text)
+    except ValueError:
+        return
+    for a in actions:
+        if a.kind == "daemon_kill" and a.vpid == vpid \
+                and a.at_time is not None:
+            t = threading.Timer(a.at_time, _daemon_die, args=(vpid,))
+            t.daemon = True
+            t.start()
 
 
 def arm_daemon_launch(vpid: int, env: dict) -> None:
-    """orted side, at app launch: arm ``daemon=<vpid>:kill@reg=N`` — the
-    barrier-keyed variant of the daemon kill.  Waits for the orted
-    (ROADMAP.md Queue 1 item 6.15): a plan naming this daemon raises."""
-    arm_daemon(vpid)
+    """orted side, at app launch: arm ``daemon=<vpid>:kill@reg=N`` —
+    the barrier-keyed variant of the daemon kill.  A watcher thread
+    polls the job's PMIx server (URI from the launch env) until N
+    ranks' current lives have registered AND are READY (sent the
+    init-complete notice — registration alone says the interpreters
+    are up, but ranks can still be seconds deep in init's modex fence
+    or first barrier on a loaded box), waits the entry's ``after``
+    grace, then SIGKILLs the daemon.  Keyed on runtime barriers
+    instead of wall-clock so the kill cannot land mid-init on a slow
+    box (the midtree-kill chaos class's old t=6–8 s flake)."""
+    text = plan_text()
+    if not text:
+        return
+    try:
+        actions = parse_plan(text)
+    except ValueError:
+        return
+    from ompi_tpu_torch.runtime import pmix as pmix_mod
+
+    uri = (env or {}).get(pmix_mod.ENV_URI)
+    if not uri:
+        return
+    for a in actions:
+        if a.kind != "daemon_kill" or a.vpid != vpid or a.at_reg is None:
+            continue
+
+        def watch(need: int = a.at_reg, grace: float = a.after) -> None:
+            deadline = time.monotonic() + 120.0
+            while time.monotonic() < deadline:
+                state = pmix_mod.query_regstate(uri)
+                if state is not None and state[0] >= need \
+                        and state[2] >= need:
+                    _log.emit("faultinject: daemon %d reg barrier "
+                              "(%d ranks registered + ready) cleared; "
+                              "killing in %.1fs", vpid, need, grace)
+                    time.sleep(grace)
+                    _daemon_die(vpid)
+                    return
+                time.sleep(0.2)
+
+        t = threading.Thread(target=watch, daemon=True,
+                             name=f"faultinject-reg-{vpid}")
+        t.start()
 
 
 def events(rank: Optional[int] = None) -> list[dict]:

@@ -12,7 +12,7 @@ works from artifacts alone:
 ``--expect kind[:rank]`` turns the run into an assertion (CI / chaos
 drivers): exit 0 only when the verdict matches.  The live mode
 (``--uri``, a capture through the DVM's ``/doctor`` endpoint) comes with
-the DVM, ROADMAP.md Queue 1 item 6.15.
+the DVM, ROADMAP.md Queue 1 item 6.15b.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ barely waits.
 
 Run: ``python -m ompi_tpu_torch.tools.straggler_report --dir /tmp``.
 The live mode (``--uri``, the DVM's ``/status`` panel) comes with the
-DVM, ROADMAP.md Queue 1 item 6.15.
+DVM, ROADMAP.md Queue 1 item 6.15b.
 """
 
 from __future__ import annotations

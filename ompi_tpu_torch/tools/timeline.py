@@ -10,7 +10,7 @@ delegates to ``trace_export``'s merge over the per-rank dump files
 (wall-anchor or ``--offsets`` measured correction).  The output loads
 in chrome://tracing and https://ui.perfetto.dev.  The live mode
 (``--uri``, the DVM's ``/timeline`` capture) comes with the DVM,
-ROADMAP.md Queue 1 item 6.15.
+ROADMAP.md Queue 1 item 6.15b.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ offline tool run on the port, and the tool's captures are analysed by
 both packages.  Two launched jobs close the loop: a collective mismatch
 and a straggler, each ended by ``tpurun --timeout``, named from the
 ranks' crash dumps.  The live modes (the orted's TAG_DOCTOR fan-out and
-``--uri``) come with ROADMAP.md Queue 1 item 6.15; the PMIx revive that
+``--uri``) come with the DVM, ROADMAP.md Queue 1 item 6.15b; the PMIx
+revive that
 drops a dead life's port is held in ``tests/test_torch_selfheal.py``.
 """
 

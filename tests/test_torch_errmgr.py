@@ -2,13 +2,16 @@
 the local launcher's respawn, held against the JAX package's.
 
 Each case mirrors one of ``tests/runtime/test_errmgr_policies.py`` or
-``tests/runtime/test_respawn.py`` that needs no orted daemon tree, with
-every assertion kept.  The unit cases drive a policy with a fake launcher
-and run once per package (``pkg``), so both packages' policies reach the
-same verdicts on the same job; the launched cases run the port's
-``tpurun`` on this machine's CPU.  The daemon tree's cases (the sim plm,
-the heartbeat monitor, ``TAG_RESPAWN``, the heartbeat clamp on the
-backoff) wait for the orted, ROADMAP.md Queue 1 item 6.15.
+``tests/runtime/test_respawn.py``, with every assertion kept.  The unit
+cases drive a policy with a fake launcher and run once per package
+(``pkg``), so both packages' policies reach the same verdicts on the same
+job; the launched cases run the port's ``tpurun`` on this machine's CPU.
+The daemon tree's cases close the file: the notify policy surviving a
+daemon's death, the respawn across the tree (``TAG_RESPAWN``), the
+heartbeat clamp on the backoff and the batched propagation of a daemon's
+ranks, through ``tests/torch_mirror.py`` where a body maps cleanly (the
+reference's bytecode; the heartbeat monitor's own cases are in
+``tests/test_torch_rml.py``).
 """
 
 from __future__ import annotations
@@ -637,3 +640,88 @@ def test_revived_life_never_rejoins_the_process_group(tmp_path, auto_init):
     assert f"rank 0 life 0 group={first}" in out, out[-3000:]
     assert "rank 0 life 1 group=False" in out, out[-3000:]
     assert "rank 0 acc=10" in out, out[-3000:]
+
+
+# -- the daemon tree -----------------------------------------------------------
+
+import tests.runtime.test_errmgr_policies as ref_policies  # noqa: E402
+import tests.runtime.test_fleet_bounds as ref_fleet  # noqa: E402
+import tests.runtime.test_respawn as ref_respawn  # noqa: E402
+from tests.torch_mirror import mirror  # noqa: E402
+
+PORTS = pytest.mark.parametrize("port", [False, True], ids=["jax", "port"])
+
+
+def test_notify_daemon_death_fails_its_ranks_job_continues(tmp_path):
+    mirror(ref_policies.test_notify_daemon_death_fails_its_ranks_job_continues,
+           True, [])(tmp_path)
+
+
+@PORTS
+def test_plm_teardown_timeouts_are_registered_vars(port):
+    mirror(ref_policies.test_plm_teardown_timeouts_are_registered_vars,
+           port, [])()
+
+
+@PORTS
+def test_backoff_clamped_below_daemon_heartbeat_timeout(port, monkeypatch):
+    mirror(ref_respawn.test_backoff_clamped_below_daemon_heartbeat_timeout,
+           port, [])(monkeypatch)
+
+
+@PORTS
+def test_batched_daemon_ranks_failed_sends_one_xcast(port):
+    mirror(ref_fleet.test_batched_daemon_ranks_failed_sends_one_xcast,
+           port, [])()
+
+
+def test_respawn_across_daemon_tree(tmp_path):
+    """``tests/runtime/test_respawn.py::test_respawn_across_daemon_tree``
+    with the port's RESPAWN_APP (the reference's is a module string the
+    mirror cannot rewrite): the daemon owning the failed rank revives it
+    through TAG_RESPAWN and the job completes with snapshot recovery."""
+    r = tpurun("-np", "3", "--plm", "sim", "--hosts", "2",
+               "--mca", "errmgr", "respawn",
+               "--mca", "multihost_auto_init", "0", "--",
+               sys.executable, "-c", RESPAWN_APP,
+               env_extra={"CKPT_DIR": str(tmp_path)})
+    assert r.returncode == 0, (r.stdout, r.stderr)
+    assert "rank 1 resumed at step 3 from snapshot 2" in r.stdout
+    assert "rank 1 acc=60" in r.stdout
+    assert "rank 1 got ack 61" in r.stdout
+
+
+def test_selfheal_daemon_loss_batch_escalates_to_shrink(pkg, recorder):
+    """Selfheal's batched arm: the lost host's ranks are unrevivable, so
+    the whole batch takes the shrink rung in one decision (one
+    propagation xcast, one escalate event) while survivors run; with no
+    survivor left it aborts."""
+    sent = []
+
+    class _Rml:
+        def xcast(self, tag, payload):
+            sent.append((tag, payload))
+
+    launcher = _FakeLauncher()
+    launcher.rml = _Rml()
+    launcher.server = types.SimpleNamespace(
+        proc_died=lambda *a, **k: None)
+    job = _job(pkg, 4)
+    for p in job.procs:
+        p.state = pkg.job.ProcState.RUNNING
+    dead = job.procs[2:]
+    for p in dead:
+        p.state = pkg.job.ProcState.ABORTED
+    pkg.errmgr.ErrmgrSelfheal().daemon_ranks_failed(launcher, job, dead)
+    assert len(sent) == 1 and sent[0][1][0] == [2, 3]
+    assert not launcher.killed
+    events = [e for _s, e, _d in recorder.events]
+    assert events == ["selfheal-escalate"]
+    assert "degrading to shrink" in recorder.events[0][2]
+    # no carrier left: the same batch aborts the job
+    sent.clear()
+    for p in job.procs:
+        p.state = pkg.job.ProcState.ABORTED
+    pkg.errmgr.ErrmgrSelfheal().daemon_ranks_failed(launcher, job, dead)
+    assert launcher.killed and job.aborted_proc is dead[0]
+    assert "selfheal ladder exhausted" in job.abort_reason

@@ -1,14 +1,13 @@
 """The port's fault injector (``ompi_tpu_torch/testing/faultinject.py``),
 held against the JAX package's.
 
-Each case mirrors one of ``tests/testing/test_faultinject.py`` that needs
-no orted, with every assertion kept, and runs once per package (``fi``):
+Each case mirrors one of ``tests/testing/test_faultinject.py``, with
+every assertion kept, and runs once per package (``fi``):
 the plan grammar (``daemon=`` entries included), the verdict hash, the
 rank, step, time and ``@coll`` triggers and the endpoint's arming.  The
-JAX package's ``arm_daemon_launch`` cases need the orted's PMIx readiness
-probe (ROADMAP.md Queue 1 item 6.15); the port's ``arm_daemon`` and
-``arm_daemon_launch`` raise for a plan that names the daemon, and a case
-here holds them to it.  The parity cases fire one plan and seed over one
+daemon hooks the orted arms (``arm_daemon``'s ``kill@t=`` and
+``arm_daemon_launch``'s barrier-keyed ``kill@reg=N:after=S`` over PMIx's
+``query_regstate``) run on each package too.  The parity cases fire one plan and seed over one
 workload in both packages (the verdicts over a fixed frame list, and a
 4-rank job of eager p2p and host collectives over the proc BTL, the shm
 rings and the tcp plane, native on and off) and require equal fired-fault
@@ -357,21 +356,79 @@ def test_fire_coll_records_then_spin_parks(fi, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the port's own: the daemon hooks wait for the orted
+# the daemon hooks the orted arms
 # ---------------------------------------------------------------------------
 
-def test_arm_daemon_raises_when_the_plan_names_the_daemon(monkeypatch):
-    fi = TORCH.fi
-    monkeypatch.setenv(fi.ENV_PLAN, "daemon=1:kill@t=0.5;rank=0:kill@step=9")
-    with pytest.raises(NotImplementedError, match="6.15"):
-        fi.arm_daemon(1)
-    with pytest.raises(NotImplementedError, match="orted"):
-        fi.arm_daemon_launch(1, {"OMPI_TPU_HNP_URI": "tcp://127.0.0.1:1"})
-    # another daemon, or a plan without daemon entries, arms nothing
+def test_arm_daemon_launch_waits_for_reg_and_ready_barrier(fi, pkg,
+                                                            monkeypatch):
+    """``tests/testing/test_faultinject.py``'s case on each package: the
+    reg watcher fires the kill only once every rank registered AND sent
+    its init-complete notice."""
+    import time as _time
+
+    pmix = importlib.import_module(f"{pkg.name}.runtime.pmix")
+    server = pmix.PMIxServer(size=2)
+    killed = []
+    monkeypatch.setattr(fi, "_daemon_die", lambda vpid: killed.append(vpid))
+    monkeypatch.setenv(fi.ENV_PLAN, "daemon=1:kill@reg=2:after=0.0")
+    try:
+        fi.arm_daemon_launch(1, {pmix.ENV_URI: server.uri})
+        _time.sleep(0.6)
+        assert killed == [], "kill fired before anyone registered"
+        c0 = pmix.PMIxClient(uri=server.uri, rank=0, size=2)
+        c1 = pmix.PMIxClient(uri=server.uri, rank=1, size=2)
+        assert pmix.query_regstate(server.uri) == (2, 0, 0)
+        _time.sleep(0.6)
+        assert killed == [], \
+            "kill fired between registration and init completion"
+        c0.ready()
+        _time.sleep(0.4)
+        assert killed == [], "kill fired with only 1/2 ranks ready"
+        c1.ready()
+        assert pmix.query_regstate(server.uri)[2] == 2
+        deadline = _time.monotonic() + 10.0
+        while not killed and _time.monotonic() < deadline:
+            _time.sleep(0.05)
+        assert killed == [1], "kill never fired after both barriers"
+        c0.finalize()
+        c1.finalize()
+    finally:
+        server.close()
+
+
+def test_arm_daemon_launch_ignores_other_vpids_and_triggers(fi,
+                                                             monkeypatch):
+    monkeypatch.setattr(fi, "_daemon_die",
+                        lambda vpid: pytest.fail("must not fire"))
+    monkeypatch.setenv(fi.ENV_PLAN, "daemon=1:kill@reg=2")
+    # wrong vpid: nothing armed; missing URI: nothing armed
+    fi.arm_daemon_launch(2, {"OMPI_TPU_HNP_URI": "tcp://127.0.0.1:1"})
+    fi.arm_daemon_launch(1, {})
+    # legacy @t entries are arm_daemon's job, not the launch hook's
+    monkeypatch.setenv(fi.ENV_PLAN, "daemon=1:kill@t=0.01")
+    fi.arm_daemon_launch(1, {"OMPI_TPU_HNP_URI": "tcp://127.0.0.1:1"})
+    import time as _time
+
+    _time.sleep(0.3)
+
+
+def test_arm_daemon_fires_the_timed_kill(fi, monkeypatch):
+    """``arm_daemon`` (daemon start) arms ``kill@t=`` for its own vpid
+    only, on each package; a plan without daemon entries arms nothing."""
+    import time as _time
+
+    killed = []
+    monkeypatch.setattr(fi, "_daemon_die", lambda vpid: killed.append(vpid))
+    monkeypatch.setenv(fi.ENV_PLAN, "daemon=1:kill@t=0.2;rank=0:kill@step=9")
     fi.arm_daemon(2)
+    fi.arm_daemon(1)
     monkeypatch.setenv(fi.ENV_PLAN, "rank=0:kill@step=9")
     fi.arm_daemon(1)
-    fi.arm_daemon_launch(1, {})
+    deadline = _time.monotonic() + 5.0
+    while not killed and _time.monotonic() < deadline:
+        _time.sleep(0.02)
+    _time.sleep(0.3)
+    assert killed == [1]
 
 
 # ---------------------------------------------------------------------------

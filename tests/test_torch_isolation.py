@@ -112,7 +112,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
                 *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
-                *_DPM_PLANE):
+                *_DPM_PLANE, *_TREE_PLANE):
         assert mod in res["imported"]
 
 
@@ -169,6 +169,13 @@ _DPM_PLANE = ("ompi_tpu_torch.mpi.dpm", "ompi_tpu_torch.mpi._mpmd_dispatch",
               "ompi_tpu_torch.examples.mpi4py_cart_halo",
               "ompi_tpu_torch.examples.facade_collectives_bench")
 
+#: the daemon tree's modules (an orted and a host job's HNP load them)
+_TREE_PLANE = ("ompi_tpu_torch.core.netpatterns", "ompi_tpu_torch.runtime.rml",
+               "ompi_tpu_torch.runtime.orted", "ompi_tpu_torch.runtime.plm",
+               "ompi_tpu_torch.runtime.rtc", "ompi_tpu_torch.runtime.clean",
+               "ompi_tpu_torch.runtime.clocksync",
+               "ompi_tpu_torch.tools.tpurun")
+
 
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
@@ -180,10 +187,11 @@ def test_host_plane_loads_neither_torch_nor_jax():
     on the same ranks, a window put and fence, a ``SharedWindow``
     fetch_add, a SHMEM ``atomic_fetch_add`` on a one-PE world, and a
     facade ``Allreduce`` and a connect/accept between two in-process
-    jobs."""
+    jobs; the daemon tree's modules (rml, orted, plm, rtc, clean,
+    clocksync, tpurun) are imported too."""
     probe = (
         "import importlib, shutil, sys, tempfile, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE + _TREE_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import io\n"
         "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"

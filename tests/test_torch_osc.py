@@ -683,8 +683,14 @@ def _revoked_parent_fails_every_fence(M):
         win = M.osc.Window(comm, size=4, dtype=np.int64)
         win.fence()
         comm.barrier()
+        # revoke only once every rank has left the barrier: a rank still
+        # parked in it when the revocation lands fails the barrier itself
         if comm.rank == 0:
+            for peer in range(1, comm.size):
+                comm.recv(source=peer, tag=7)
             comm.revoke()
+        else:
+            comm.send(np.zeros(1, np.int64), dest=0, tag=7)
         deadline = time.monotonic() + 20
         while not M.ft.comm_is_revoked(comm):
             assert time.monotonic() < deadline, "revocation never arrived"
