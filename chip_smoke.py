@@ -114,8 +114,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
 12a. ckpt (after train_small) — checkpoint/restart of the flagship's
-   training state at phase train's config and batch, one rank: 2 steps,
-   a snapshot of the params, f32 moments and step count (~5.6 GB, free
+   training state at phase train's config and batch, its widths at 2 of
+   its 8 layers (``CUT_LAYERS``, 166M parameters), one rank: 2 steps,
+   a snapshot of the params, f32 moments and step count (~2.0 GB, free
    disk checked first) under ``build/ckpt_smoke``, 2 steps as the
    uninterrupted reference, then a restore into fresh tensors on the
    card and the same 2 steps, twice; the losses and every param and
@@ -174,11 +175,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    card) must raise;
 18a. ft (after rma_ranks, before the flagship's parameters are drawn, so
    this process holds no card memory beside its context) — fault
-   tolerance: (a) the dense 468M model at phase train's config trained
+   tolerance: (a) the dense model at its widths and 2 of its 8 layers
+   (``CUT_LAYERS``, 166M parameters) at phase train's config trained
    6 steps by one rank on ``cuda:0`` through the port's launcher
    (``--gpu``, ``errmgr respawn``; the rank binds its card and joins no
    process group), an async ``CheckpointManager`` snapshot every 2 steps
-   (~5.6 GB: f32 params and moments, pinned host copies), once
+   (~2.0 GB: f32 params and moments, pinned host copies), once
    uninterrupted and once with ``rank=0:kill@step=5``: the revived life
    (``OMPI_TPU_RESTART=1``) finds at least 70 GB of the card free,
    restores the latest committed snapshot onto the card
@@ -216,7 +218,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    a 16 MiB ``write_ordered`` a rank (rank order); GB/s, records/s, the
    fs type and the auto decision's component; (c) 4 ``--gpu`` ranks on
    card 0 hold ragged row cuts of every leaf of the flagship's
-   parameters and a bf16 copy on the card, save them collectively
+   parameters at 4 of its 8 layers (``IO_CUT_LAYERS``) and a bf16 copy
+   on the card, save them collectively
    through ``ShardedSnapshotStore`` (rank 0's save in a profiler window:
    one device-to-host copy a leaf beside one control copy) and load
    their own block and a neighbour's, every leaf ``torch.equal`` on the
@@ -289,6 +292,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    finish, kill → reparent s), ``tpurun --clean`` of the inbox its dead
    rank left, and ``--plm ssh`` where passwordless ``ssh localhost``
    works; no kernel of the main process runs here;
+18f. dvm (after plm) — the standing DVM (``tpurun --dvm-start``), two
+   pools side by side, each with its own ``--dvm-uri`` under
+   build/dvm_smoke/ (removed at the end), both with the metrics uplink
+   (0.5 s) and the stuck watchdog (2 s): (a) a host pool of 2 simulated
+   hosts × 2 slots with ``--metrics-port 0``: a cold ``tpurun --plm
+   sim`` hello at -np 4 and two warm ``--dvm-submit`` ones on the same
+   daemon pids, spanning both hosts; two 2-rank tenants at once, each
+   client with its own lines only, one exiting 3 to its client; a
+   submission that can never fit gets exit 75 and a ``rejected``
+   verdict; ``--dvm-ps`` shows the daemons, the live job and the
+   history; during a 4-rank ping-pong tenant ``/metrics`` carries its
+   ``{job=,rank=}`` series and the ``ompi_tpu_job_*`` sums with one
+   ``# TYPE`` line a name, ``/status`` its proc rows and FT timeline,
+   ``/doctor`` a verdict, and ``hang_doctor``, ``timeline`` and
+   ``straggler_report --uri`` read the pool; a tenant under
+   ``rank=1:stall@coll=3`` is SIGCONT-probed and exits 0 (``sigcont``
+   and ``recovered`` on ``/status``, ``ompi_tpu_dvm_remediations_total
+   1``); a tenant spawns 2 children through the pool (``--dvm-submit``)
+   and the merged 4-rank allreduce is bitwise (coll/host); ``tools.sync``
+   at -np 4 puts every offset within rtt/2 of 0; ``--dvm-stop`` ends the
+   pool and removes its uri files, and ``--clean --clean-dry-run`` lists
+   none of its artifacts; (b) a ``--gpu`` pool of 2 hosts × 2 slots,
+   whose HNP and orteds ``nvidia-smi`` never lists: (b1) one 2-rank
+   tenant alone, then two at once (each on one host, card 0, its own
+   rendezvous and process group of 2), each rank's forward kernel at the
+   prefill shape against the plain version, both tenants' ``job``
+   labels on ``/metrics``; (b2) a 2-rank tenant whose rank 1 freezes in
+   its 3rd host collective holding its CUDA context: the watchdog names
+   it, the actor SIGCONTs it and it runs the kernel check again; then
+   ``--dvm-stop`` with a ``--gpu`` tenant still running, after which no
+   pid of the pool or its tenants is alive or on the card; the tenants'
+   forward launches are on the phase's line, not the kernels line;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -357,6 +392,29 @@ OFFSETS = ((0, 0), (128, 0), (0, 128), (64, 0), (0, 64), (100, 36))
 #: the flagship dense model's widths (bench.py:478-484, 468M parameters)
 FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
                 d_ff=8192)
+#: the depth phases ft (a), ckpt and io (c) run the flagship at: its
+#: widths, 2 of its 8 layers (166M parameters, a 2.0 GB training state
+#: where the 8 layers' is 5.62 GB), to pay for phase dvm's seconds
+CUT_LAYERS = 2
+
+
+#: io (c)'s depth: a ragged row cut of a 2-layer stack over 4 ranks
+#: leaves rank 0 no row, and its save's one copy a leaf could not show
+IO_CUT_LAYERS = 4
+
+
+def flagship_cut(layers: int = CUT_LAYERS) -> dict:
+    """The flagship's widths at ``layers`` layers."""
+    return dict(FLAGSHIP, n_layers=min(layers, FLAGSHIP["n_layers"]))
+
+
+def cut_layers(params_np: dict, n: int) -> dict:
+    """The first ``n`` layers of a parameter set (the per-layer leaves
+    stack their layers on axis 0; ``emb`` and ``lnf`` are whole)."""
+    return {k: v if k in ("emb", "lnf") else v[:n]
+            for k, v in params_np.items()}
+
+
 #: its training batch (bench.py's MFU row): 16 sequences of 1024 tokens,
 #: the loss in chunks of 256 positions
 TRAIN = dict(batch=16, seq=1024, ce_chunk=256)
@@ -3867,8 +3925,10 @@ def fcoll_recorded(into: list):
 
 def phase_ckpt(fa, card, params_np):
     """Checkpoint/restart of the flagship's training state on the card:
-    the dense 468M model at phase train's config and batch, one rank;
-    2 steps, a snapshot (params, f32 moments and the step count: ~5.6 GB),
+    the dense model at its widths and ``CUT_LAYERS`` of its layers (the
+    first layers of ``params_np``), phase train's config and batch, one
+    rank; 2 steps, a snapshot (params, f32 moments and the step count:
+    ~2.0 GB),
     2 steps as the reference, a restore into fresh tensors and the same
     2 steps, bitwise, through SnapshotStore, DcpStore and
     ShardedSnapshotStore (one file per leaf through collective MPI-IO,
@@ -3888,9 +3948,10 @@ def phase_ckpt(fa, card, params_np):
     here = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(here, "build", "ckpt_smoke")
     os.makedirs(base, exist_ok=True)
-    cfg = TransformerConfig(**FLAGSHIP, seq=TRAIN["seq"], attention="flash",
-                            compute_dtype="bfloat16", remat="dots",
-                            ce_chunk=TRAIN["ce_chunk"])
+    cfg = TransformerConfig(**flagship_cut(), seq=TRAIN["seq"],
+                            attention="flash", compute_dtype="bfloat16",
+                            remat="dots", ce_chunk=TRAIN["ce_chunk"])
+    params_np = cut_layers(params_np, cfg.n_layers)
     n_params = sum(int(np.prod(v.shape)) for v in params_np.values())
     need = 3 * 4 * n_params                 # f32 params, mu, nu
     free = shutil.disk_usage(base).free
@@ -3929,8 +3990,9 @@ def phase_ckpt(fa, card, params_np):
                        "flash_bwd_dq": L * n_steps,
                        "flash_bwd_dkv": L * n_steps},
           f"ckpt launches in {n_steps} steps: {launches}")
-    emit("ckpt", config="flagship 468M dense, phase train's config, batch "
-         "16 x 1024, one rank; then the small bf16 config (bf16 params and "
+    emit("ckpt", config=f"flagship dense at {cfg.n_layers} of its 8 layers "
+         "(its widths), phase train's config, batch 16 x 1024, one rank; "
+         "then the small bf16 config (bf16 params and "
          "moments, grad_accum 2)", n_params=n_params, stores=stores,
          launches=launches, card=card)
     return launches
@@ -4026,8 +4088,9 @@ def ft_train_rank(ckpt_dir: str) -> None:
         "device": name, "t_spawn":
         _proc_start_wall(), "t_py": t_py, "t_init": t_init}), flush=True)
     var_registry.set("ops_flash_bwd_kernel", True)
-    cfg = TransformerConfig(**FLAGSHIP, seq=TRAIN["seq"], attention="flash",
-                            compute_dtype="bfloat16", remat="dots",
+    cfg = TransformerConfig(**flagship_cut(), seq=TRAIN["seq"],
+                            attention="flash", compute_dtype="bfloat16",
+                            remat="dots",
                             ce_chunk=TRAIN["ce_chunk"])
     mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device=DEVICE)
     step, init = make_train_step(cfg, mesh, lr=1e-3)
@@ -4211,7 +4274,7 @@ def _ft_flagship(card) -> dict:
     base = os.path.join(here, "build", "ft_smoke")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
-    need = 3 * 5.7e9                      # three jobs' final snapshots
+    need = 3 * 2.1e9                      # three jobs' final snapshots
     free_disk = shutil.disk_usage(base).free
     check(free_disk >= need, f"ft: {free_disk / 1e9:.1f} GB free under "
           f"{base}, the jobs' snapshots take {need / 1e9:.1f} GB")
@@ -4790,7 +4853,8 @@ def io_card_rank(cfg: dict) -> None:
     r, n = comm.rank, comm.size
     dev = torch.device(f"{DEVICE}:0") if DEVICE == "cuda" else \
         torch.device(DEVICE)
-    params = init_params(TransformerConfig(**FLAGSHIP), seed=0)
+    params = init_params(TransformerConfig(**flagship_cut(IO_CUT_LAYERS)),
+                         seed=0)
     cuts = {k: _io_cut(v.shape[0], n) for k, v in params.items()}
 
     def cut(k, rank):
@@ -6600,6 +6664,669 @@ def phase_plm(card, sizes=None):
          ssh=ssh, seconds=secs, card_name=card)
 
 
+# ---------------------------------------------------------------------------
+# phase dvm: the standing pool
+# ---------------------------------------------------------------------------
+
+#: (a) the host pool: 2 simulated hosts of 2 slots, so a 4-rank tenant
+#: spans both (the gang scheduler fills the least-loaded host first)
+DVM_HOST = dict(hosts=2, slots=4)
+#: (b) the --gpu pool: 2 slots a host, so the gang scheduler puts each
+#: 2-rank tenant on one host (one a host would need 1 slot a host, and
+#: the stuck watchdog sees arena waits only, which need a shared host)
+DVM_GPU = dict(hosts=2, slots=4)
+#: both pools: the metrics uplink and the stuck-collective watchdog
+DVM_MCA = ("--mca", "trace_metrics_push_period", "0.5",
+           "--mca", "coll_stuck_timeout", "2")
+DVM_NP = 4                   # (a) hello, the ping-pong tenant, sync
+DVM_HOLD_S = 1.5             # (b1) a pair's hold after its kernel check
+DVM_SPAWN = dict(children=2, mib=4)  # (a) spawn: the merged allreduce
+
+
+def dvm_host_rank(cfg: dict) -> None:
+    """Rank body of phase dvm (a)'s host tenants.  ``pingpong``: ranks 0
+    and 1 trade 8 B (bitwise back) and all four allreduce until the
+    ``release`` file appears; ``straggler``: the reference's STRAGGLER_APP (8
+    allreduces, ``faultinject.step()`` before each); ``spawn_parent`` /
+    ``spawn_child``: 2 ranks spawn 2 through ``dpm.spawn`` (under the
+    pool: ``--dvm-submit``), merge, and allreduce ``mib`` MiB of small
+    integers bitwise against numpy.  Rank 0 (each rank for
+    ``straggler``) prints one ``DVM_HOST`` line."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mpi import dpm
+
+    mode = cfg["mode"]
+    comm = ompi_tpu_torch.init()
+    r = comm.rank
+    row = {"mode": mode, "rank": r, "jobid": os.environ.get("OMPI_TPU_JOBID"),
+           "host": os.environ.get("OMPI_TPU_FAKE_HOST")}
+    if mode == "pingpong":
+        t_end = time.time() + HOST_JOB_TIMEOUT / 2
+        x = np.arange(8, dtype=np.uint8)
+        back = np.empty_like(x)
+        rounds, ok = 0, True
+        while not int(np.asarray(comm.allreduce(np.array([int(
+                os.path.exists(cfg["release"]) or time.time() >= t_end)])
+                ))[0]):
+            for _ in range(64):
+                if r == 0:
+                    comm.send(x, dest=1, tag=1)
+                    comm.recv(back, source=1, tag=2)
+                    ok = ok and back.tobytes() == x.tobytes()
+                elif r == 1:
+                    comm.recv(back, source=0, tag=1)
+                    comm.send(back, dest=0, tag=2)
+            rounds += 1
+        row.update(rounds=rounds, bitwise=bool(ok))
+    elif mode == "straggler":
+        from ompi_tpu_torch.testing import faultinject
+
+        acc = 0.0
+        for step in range(8):
+            faultinject.step()
+            acc += float(np.asarray(comm.allreduce(
+                np.full(8, float(r + step))))[0])
+        row["acc"] = acc
+    elif mode in ("spawn_parent", "spawn_child"):
+        if mode == "spawn_parent":
+            ic = dpm.spawn(comm, [sys.executable, "-c", _dpm_body(
+                "dvm_host_rank", {**cfg, "mode": "spawn_child"},
+                child=True)], cfg["children"])
+            row.update(intercomm=type(ic).__name__,
+                       remote_size=ic.remote_size)
+        else:
+            ic = dpm.get_parent(comm)
+        m = ic.merge(high=mode == "spawn_child")
+        n = (cfg["mib"] << 20) // 4
+        got = np.asarray(m.allreduce(_osc_ints(900 + m.rank, n)))
+        want = np.zeros(n, np.float32)
+        for k in range(m.size):
+            want += _osc_ints(900 + k, n)
+        ok = np.asarray(m.allreduce(np.array(
+            [int(got.tobytes() == want.tobytes())])))
+        row.update(merged_size=m.size, bitwise=int(ok[0]) == m.size,
+                   dvm_uri=bool(os.environ.get("OMPI_TPU_DVM_URI")))
+        if mode == "spawn_child":
+            ompi_tpu_torch.finalize()
+            return
+    if r == 0 or mode == "straggler":
+        print("DVM_HOST " + json.dumps(row), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def dvm_card_rank(cfg: dict) -> None:
+    """Rank body of phase dvm (b), a ``--gpu`` tenant's rank on a
+    simulated host of the standing pool (every rank on card 0).  Every
+    mode checks the rank's card and environment, joins its tenant's
+    process group and runs the forward kernel at the prefill shape
+    against the plain version.  ``b1``: holds ``hold`` s (the scrape),
+    then finalizes.  ``b2``: then 6 host allreduces, ``faultinject``'s
+    stall freezing rank 1 in the 3rd until the pool's remediation
+    SIGCONTs it, and the kernel check again.  ``stop``: holds until the
+    pool is stopped.  Prints one ``DVM_CARD`` line (b2: after the
+    second check)."""
+    import torch
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.parallel import multihost
+
+    env = os.environ
+    row = {"mode": cfg["mode"], "tenant": cfg["tenant"],
+           "rank": int(env["OMPI_TPU_RANK"]),
+           "jobid": env.get("OMPI_TPU_JOBID"),
+           "life": int(env.get("OMPI_TPU_RESTART") or 0), "pid": os.getpid(),
+           "orted": int(env.get("OMPI_TPU_ORTED_PID") or 0),
+           "host": env.get("OMPI_TPU_FAKE_HOST"),
+           "chip": env.get("OMPI_TPU_CHIP"),
+           "nhosts": env.get("OMPI_TPU_NHOSTS"),
+           "coord": env.get("OMPI_TPU_COORD"),
+           "start_wall": _proc_start_wall()}
+    comm = ompi_tpu_torch.init()
+    r = comm.rank
+    row["grouped"] = multihost.is_initialized()
+    if row["grouped"]:
+        import torch.distributed as dist
+
+        row["group_size"] = dist.get_world_size()
+        row["group_rank"] = dist.get_rank()
+    if DEVICE == "cuda":
+        row["current_device"] = torch.cuda.current_device()
+    row["flash"] = _plm_flash("first", cfg["flash"])
+    if cfg["mode"] == "b1":
+        print("DVM_CARD " + json.dumps(row), flush=True)
+        time.sleep(cfg["hold"])
+    elif cfg["mode"] == "stop":
+        # the client prints its lines at exit: the row goes to a file too
+        with open(f"{cfg['marker']}{r}.json", "w") as f:
+            json.dump(row, f)
+        print("DVM_CARD " + json.dumps(row), flush=True)
+        time.sleep(HOST_JOB_TIMEOUT)
+    else:
+        from ompi_tpu_torch.testing import faultinject
+
+        walls = []
+        for step in range(6):
+            faultinject.step()
+            t = time.time()
+            comm.allreduce(np.full(8, float(r + step)))
+            walls.append([t, time.time()])
+        row["coll_walls"] = walls
+        row["flash_after"] = _plm_flash("after", cfg["flash"])
+        print("DVM_CARD " + json.dumps(row), flush=True)
+    ompi_tpu_torch.finalize()
+
+
+def _card_apps() -> list:
+    """The compute processes ``nvidia-smi`` lists on the card (pid and
+    memory as it prints them: in a container its pids need not be this
+    namespace's, so the phase compares counts), [] off the card."""
+    if DEVICE != "cuda":
+        return []
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def _dvm_start_pool(uri: str, args: list, log: str):
+    """``tpurun --dvm-start`` with its control URI at ``uri``; waits for
+    the uri file.  Returns (Popen, the metrics base URL)."""
+    f = open(log, "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "--dvm-start",
+         *args, "--dvm-uri", uri], stdout=f, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    f.close()
+    deadline = time.monotonic() + 90
+    while not os.path.exists(uri):
+        if p.poll() is not None or time.monotonic() > deadline:
+            p.kill()
+            check(False, f"dvm: the pool at {uri} did not come up (rc "
+                  f"{p.poll()}):\n{open(log).read()[-3000:]}")
+        time.sleep(0.05)
+    with open(uri + ".metrics") as fh:
+        return p, fh.read().strip()
+
+
+def _dvm_submit(uri: str, np_: int, prog: list, extra=()):
+    return tpurun_start(["--dvm-submit", "-np", str(np_), "--dvm-uri", uri,
+                         *extra, "--", *prog])
+
+
+def _dvm_http(base: str, path: str) -> tuple:
+    """(ms, body) of one GET of the pool's HTTP plane."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(base + path, timeout=30) as resp:
+        body = resp.read().decode()
+    return (time.perf_counter() - t0) * 1e3, body
+
+
+def _dvm_tool(*args) -> tuple:
+    """(seconds, rc, stdout, stderr) of one ``python -m`` port tool."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    return time.perf_counter() - t0, r.returncode, r.stdout, r.stderr
+
+
+def _dvm_ps(uri: str) -> dict:
+    _s, rc, so, se = _dvm_tool("ompi_tpu_torch.tools.tpurun", "--dvm-ps",
+                               "--dvm-uri", uri)
+    check(rc == 0, f"dvm --dvm-ps: rc {rc}\n{se[-2000:]}")
+    return json.loads(so)
+
+
+def _dvm_remediation(base: str, jobid, timeout: float = 30.0) -> list:
+    """The job's ``remediate`` and ``doctor`` FT events from /status,
+    polled until the probe's conclusion is on the timeline."""
+    deadline = time.monotonic() + timeout
+    while True:
+        _ms, body = _dvm_http(base, "/status")
+        jobs = {str(j["jobid"]): j for j in json.loads(body)["jobs"]}
+        events = [e for e in jobs.get(str(jobid), {}).get("ft_events", [])
+                  if e["kind"] in ("doctor", "remediate", "stuck")]
+        acts = {e.get("info", {}).get("action") for e in events}
+        if "recovered" in acts or time.monotonic() > deadline:
+            return events
+        time.sleep(0.25)
+
+
+def _dvm_stop(uri: str, pool) -> dict:
+    s, rc, _so, se = _dvm_tool("ompi_tpu_torch.tools.tpurun", "--dvm-stop",
+                               "--dvm-uri", uri)
+    check(rc == 0, f"dvm --dvm-stop: rc {rc}\n{se[-2000:]}")
+    try:
+        pool_rc = pool.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        pool.kill()
+        pool_rc = None
+    check(pool_rc == 0, f"dvm: the pool at {uri} exited {pool_rc}")
+    check(not os.path.exists(uri) and not os.path.exists(uri + ".metrics"),
+          f"dvm: --dvm-stop left {uri} or its .metrics")
+    return {"stop_s": s, "rc": pool_rc}
+
+
+def _dvm_host(work: str, a_done: threading.Event, inboxes: set) -> dict:
+    """(a): the host pool's checks, in order; returns the numbers."""
+    from ompi_tpu_torch.runtime import clean as clean_mod
+
+    uri = os.path.join(work, "host.uri")
+    sim = ["--plm", "sim", "--hosts", str(DVM_HOST["hosts"])]
+    out: dict = {}
+    t0 = time.perf_counter()
+    pool, base = _dvm_start_pool(uri, [*sim, "--slots",
+                                       str(DVM_HOST["slots"]),
+                                       "--metrics-port", "0", *DVM_MCA],
+                                 os.path.join(work, "host_pool.log"))
+    out["pool_up_s"] = time.perf_counter() - t0
+    try:
+        hello = [sys.executable, "-c",
+                 "import os, ompi_tpu_torch\n"
+                 "c = ompi_tpu_torch.init()\n"
+                 "print('HELLO', c.rank, os.environ['OMPI_TPU_FAKE_HOST'])\n"
+                 "ompi_tpu_torch.finalize()\n"]
+
+        def hosts_of(so):
+            return {ln.split("HELLO ", 1)[1].split()[0]:
+                    ln.split("HELLO ", 1)[1].split()[1]
+                    for ln in so.splitlines() if "HELLO " in ln}
+
+        wall, rc, so, se = tpurun([*sim, "-np", str(DVM_NP), "--", *hello])
+        check(rc == 0 and len(hosts_of(so)) == DVM_NP,
+              f"dvm cold hello: rc {rc}\n{so[-1000:]}{se[-2000:]}")
+        out["cold_hello_s"] = wall
+        pids = [d["pid"] for d in _dvm_ps(uri)["daemons"]]
+        warm = []
+        for _ in range(2):
+            wall, rc, so, se = tpurun_wait(_dvm_submit(uri, DVM_NP, hello))
+            got = hosts_of(so)
+            check(rc == 0 and sorted(got) == [str(k) for k in range(DVM_NP)]
+                  and set(got.values()) == {"sim000", "sim001"},
+                  f"dvm warm hello: rc {rc}, hosts {got}\n{se[-2000:]}")
+            warm.append(wall)
+        table = _dvm_ps(uri)
+        check([d["pid"] for d in table["daemons"]] == pids
+              and all(pids) and len(pids) == DVM_HOST["hosts"],
+              f"dvm: daemons changed across warm jobs: {pids} → "
+              f"{table['daemons']}")
+        out["warm_hello_s"] = warm
+        # tenancy: two 2-rank tenants at once, each client its own lines
+        a = _dvm_submit(uri, 2, [sys.executable, "-c",
+                                 "import time; print('TENANT_A', flush=True)"
+                                 "; time.sleep(3); print('A_DONE')"])
+        time.sleep(0.5)
+        b = _dvm_submit(uri, 2, [sys.executable, "-c",
+                                 "import sys; print('TENANT_B', flush=True)"
+                                 "; sys.exit(3)"])
+        live = _dvm_ps(uri)
+        _w, b_rc, b_out, b_err = tpurun_wait(b)
+        _w, a_rc, a_out, a_err = tpurun_wait(a)
+        check(b_rc == 3 and "TENANT_B" in b_out and "TENANT_A" not in b_out,
+              f"dvm tenant B: rc {b_rc}\n{b_out[-1000:]}{b_err[-1000:]}")
+        check(a_rc == 0 and "A_DONE" in a_out and "TENANT_B" not in a_out,
+              f"dvm tenant A: rc {a_rc}\n{a_out[-1000:]}{a_err[-1000:]}")
+        cur = live.get("current_job") or {}
+        check(len(live["daemons"]) == DVM_HOST["hosts"]
+              and cur.get("np") == 2 and cur.get("procs"),
+              f"dvm --dvm-ps during the tenants: {live}")
+        _w, rc, so, se = tpurun_wait(_dvm_submit(
+            uri, 2 * DVM_HOST["slots"] + 1, [sys.executable, "-c", "pass"]))
+        verdict = json.loads(so.strip().splitlines()[-1])
+        check(rc == 75 and verdict["verdict"] == "rejected"
+              and "can never fit" in verdict["reason"],
+              f"dvm never-fits submission: rc {rc}, {so[-500:]}")
+        hist = _dvm_ps(uri)["history"]
+        check(sorted(h["rc"] for h in hist[-2:]) == [0, 3],
+              f"dvm --dvm-ps history: {hist}")
+        # the HTTP plane during a 4-rank ping-pong tenant, and the tools
+        release = os.path.join(work, "pingpong.release")
+        job = _dvm_submit(uri, DVM_NP, [sys.executable, "-c", _dpm_body(
+            "dvm_host_rank", {"mode": "pingpong", "release": release})])
+        deadline = time.monotonic() + 60
+        while True:
+            _ms, status = _dvm_http(base, "/status")
+            status = json.loads(status)
+            running = [j for j in status["jobs"]
+                       if j.get("state") == "running" and j.get("procs")]
+            if running:
+                break
+            check(time.monotonic() < deadline and job[0].is_alive(),
+                  f"dvm: the ping-pong tenant never ran: {status['jobs']}")
+            time.sleep(0.1)
+        (tenant,) = running
+        check(len(tenant["procs"]) == DVM_NP and "ft_events" in tenant
+              and all(p["state"] == "running" for p in tenant["procs"]),
+              f"dvm /status during the tenant: {tenant}")
+        want = [f'{{job="{tenant["jobid"]}",rank="{k}"}}' for k in (0, 1)]
+        while True:
+            _ms, metrics = _dvm_http(base, "/metrics")
+            if all(w in metrics for w in want) and any(
+                    ln.startswith("ompi_tpu_job_")
+                    and f'job="{tenant["jobid"]}"' in ln
+                    for ln in metrics.splitlines()):
+                break
+            check(time.monotonic() < deadline and job[0].is_alive(),
+                  f"dvm /metrics never carried the tenant's ranks:\n"
+                  f"{metrics[-2000:]}")
+            time.sleep(0.2)
+        scrapes = [_dvm_http(base, "/metrics")[0] for _ in range(3)]
+        typed = [ln.split()[2] for ln in metrics.splitlines()
+                 if ln.startswith("# TYPE")]
+        check(len(typed) == len(set(typed)),
+              f"dvm /metrics: duplicate # TYPE lines "
+              f"{sorted({t for t in typed if typed.count(t) > 1})}")
+        doctor_ms, doc = _dvm_http(base, "/doctor")
+        doc = json.loads(doc)
+        tl = os.path.join(work, "timeline.json")
+        with ThreadPoolExecutor(3) as ex:
+            tools = {k: ex.submit(_dvm_tool, *v) for k, v in {
+                "hang_doctor": ("ompi_tpu_torch.tools.hang_doctor",
+                                "--uri", uri, "--json"),
+                "timeline": ("ompi_tpu_torch.tools.timeline", "--uri", base,
+                             "--tail", "256", "-o", tl),
+                "straggler_report": ("ompi_tpu_torch.tools.straggler_report",
+                                     "--uri", base)}.items()}
+            tools = {k: f.result() for k, f in tools.items()}
+        open(release, "w").close()
+        _w, rc, so, se = tpurun_wait(job)
+        (pp,) = tagged_json(so, "DVM_HOST")
+        check(rc == 0 and pp["bitwise"] and pp["rounds"] > 0,
+              f"dvm ping-pong tenant: rc {rc}, {pp}\n{se[-2000:]}")
+        _s, rc, so, se = tools["hang_doctor"]
+        verdict = (json.loads(so).get("verdict") or {}) if rc == 0 else {}
+        check(rc == 0 and verdict.get("kind") in (
+            "healthy", "straggler", "deadlock", "mismatch", "no_data"),
+              f"dvm hang_doctor --uri: rc {rc} {so[-500:]}{se[-1000:]}")
+        _s, rc, so, se = tools["timeline"]
+        check(rc == 0 and "events" in so and os.path.exists(tl),
+              f"dvm timeline --uri: rc {rc} {so[-500:]}{se[-1000:]}")
+        events = len(json.load(open(tl)).get("traceEvents") or [])
+        _s, rc, so, se = tools["straggler_report"]
+        check(rc in (0, 1) and ("job " in so or "no straggler" in so),
+              f"dvm straggler_report --uri: rc {rc} {so[-500:]}"
+              f"{se[-1000:]}")
+        out["http"] = {"metrics_scrape_ms": scrapes,
+                       "doctor_capture_s": doctor_ms / 1e3,
+                       "doctor_verdict": (doc.get("verdict") or {}).get(
+                           "kind"),
+                       "hang_doctor_verdict": verdict.get("kind"),
+                       "timeline_events": events,
+                       "straggler_report_rc": rc,
+                       "tools_s": {k: v[0] for k, v in tools.items()},
+                       "pingpong_rounds": pp["rounds"]}
+        # remediation: rank 1 stalls in its 3rd collective
+        job = _dvm_submit(uri, 2, [sys.executable, "-c", _dpm_body(
+            "dvm_host_rank", {"mode": "straggler"})], extra=(
+            "--mca", "faultinject_plan", "rank=1:stall@coll=3",
+            "--mca", "faultinject_seed", "0"))
+        wall, rc, so, se = tpurun_wait(job)
+        rows = {d["rank"]: d for d in tagged_json(so, "DVM_HOST")}
+        check(rc == 0 and sorted(rows) == [0, 1]
+              and all(v["acc"] == 64.0 for v in rows.values()),
+              f"dvm straggler tenant: rc {rc} {rows}\n{se[-3000:]}")
+        events = _dvm_remediation(base, rows[1]["jobid"])
+        acts = {e.get("info", {}).get("action"): e for e in events
+                if e["kind"] == "remediate"}
+        check("sigcont" in acts and "recovered" in acts
+              and acts["sigcont"]["rank"] == 1,
+              f"dvm remediation events: {events}")
+        _ms, metrics = _dvm_http(base, "/metrics")
+        check("ompi_tpu_dvm_remediations_total 1" in metrics,
+              "dvm: ompi_tpu_dvm_remediations_total is not 1")
+        out["remediation"] = {
+            "job_s": wall,
+            "probe_latency_ms": acts["recovered"]["info"].get("latency_ms"),
+            "verdicts": [e.get("info", {}).get("verdict") for e in events
+                         if e["kind"] == "doctor"]}
+        # spawn through the pool (coll/host: the arena hangs on a
+        # communicator merged across two simulated hosts, in the JAX
+        # package's pool too)
+        wall, rc, so, se = tpurun_wait(_dvm_submit(
+            uri, 2, [sys.executable, "-c", _dpm_body(
+                "dvm_host_rank", {"mode": "spawn_parent", **DVM_SPAWN})],
+            extra=("--mca", "coll_shm_enable", "0")))
+        (sp,) = tagged_json(so, "DVM_HOST") or [{}]
+        check(rc == 0 and sp.get("intercomm") == "Intercomm"
+              and sp.get("remote_size") == DVM_SPAWN["children"]
+              and sp.get("merged_size") == 2 + DVM_SPAWN["children"]
+              and sp.get("bitwise") and sp.get("dvm_uri"),
+              f"dvm spawn: rc {rc} {sp}\n{se[-3000:]}")
+        hist = _dvm_ps(uri)["history"]
+        check(any(h["np"] == DVM_SPAWN["children"] and h["rc"] == 0
+                  and "spawn_child" in " ".join(h["argv"])
+                  for h in hist), f"dvm: the children were no tenant: {hist}")
+        out["spawn_job_s"] = wall
+        # sync: offsets within rtt/2 (every sim host is this machine)
+        wall, rc, so, se = tpurun_wait(_dvm_submit(
+            uri, DVM_NP, [sys.executable, "-m", "ompi_tpu_torch.tools.sync",
+                          "-n", "16"]))
+        offs = {}
+        for ln in so.splitlines():
+            parts = ln.split("]", 1)[-1].split()
+            if len(parts) == 3 and parts[0].isdigit():
+                offs[int(parts[0])] = (float(parts[1]), float(parts[2]))
+        check(rc == 0 and sorted(offs) == list(range(DVM_NP))
+              and all(abs(o) <= t / 2 for k, (o, t) in offs.items() if k),
+              f"dvm sync: rc {rc} {offs}\n{so[-1000:]}{se[-1000:]}")
+        out["sync_us"] = offs
+    finally:
+        out["stop"] = _dvm_stop(uri, pool)
+    left = _gone(pids)
+    check(not left, f"dvm: orteds {left} outlived --dvm-stop")
+    _s, rc, _so, se = _dvm_tool("ompi_tpu_torch.tools.tpurun", "--clean",
+                                "--clean-dry-run")
+    new = _shm_inboxes() - inboxes
+    check(rc == 0 and uri not in se
+          and not any(d in se for d in new if not os.path.exists(d)
+                      or not clean_mod._inbox_alive(d)),
+          f"dvm --clean --clean-dry-run lists the pool's artifacts:\n"
+          f"{se[-2000:]}")
+    out["clean_dry_run"] = se.strip().splitlines()[-1]
+    a_done.set()
+    return out
+
+
+def _dvm_card(work: str, a_done: threading.Event) -> dict:
+    """(b): the --gpu pool: no CUDA context in it, (b1) one tenant alone
+    then two at once, (b2) with the stop tenant, then --dvm-stop with
+    the stop tenant running and nothing of the pool left on the card."""
+    uri = os.path.join(work, "gpu.uri")
+    sim = ["--plm", "sim", "--hosts", str(DVM_GPU["hosts"])]
+    gpu = ["--gpu"] if DEVICE == "cuda" else []
+    apps0 = _card_apps()          # this process's own context
+    t0 = time.perf_counter()
+    pool, base = _dvm_start_pool(uri, [*sim, "--slots", str(DVM_GPU["slots"]),
+                                       *gpu, "--metrics-port", "0",
+                                       *DVM_MCA],
+                                 os.path.join(work, "gpu_pool.log"))
+    out: dict = {"pool_up_s": time.perf_counter() - t0}
+    pids: list = []
+    try:
+        daemons = [d["pid"] for d in _dvm_ps(uri)["daemons"]]
+        pool_pids = [pool.pid, *daemons]
+        apps = _card_apps()
+        check(len(apps) == len(apps0),
+              f"dvm: the --gpu pool holds a CUDA context: nvidia-smi lists "
+              f"{apps}, {apps0} before the pool")
+        out["pool_pids"] = pool_pids
+        out["card_apps"] = {"before_pool": apps0, "pool_up": apps}
+
+        def tenant(tag: str, mode: str, extra=(), hold=DVM_HOLD_S):
+            # the CPU rehearsal passes each tenant's rendezvous by hand
+            coord = ([] if DEVICE == "cuda" else
+                     ["-x", f"OMPI_TPU_COORD=127.0.0.1:{free_port()}",
+                      "-x", "OMPI_TPU_NHOSTS=1"])
+            return time.time(), _dvm_submit(uri, 2, [
+                sys.executable, "-c", _dpm_body("dvm_card_rank", {
+                    "mode": mode, "tenant": tag, "flash": list(PLM_FLASH),
+                    "hold": hold,
+                    "marker": os.path.join(work, "stop_rank")})],
+                extra=(*coord, *extra))
+
+        def rows_of(t_sub, job, tag):
+            wall, rc, so, se = tpurun_wait(job)
+            rows = {d["rank"]: d for d in tagged_json(so, "DVM_CARD")}
+            check(rc == 0 and sorted(rows) == [0, 1],
+                  f"dvm (b) tenant {tag}: rc {rc} {rows}\n{se[-3000:]}")
+            for rk, v in rows.items():
+                pids.append(v["pid"])
+                check(v["chip"] == ("0" if DEVICE == "cuda" else None)
+                      and v["nhosts"] == "1" and v["coord"]
+                      and v["life"] == 0,
+                      f"dvm (b) tenant {tag} rank {rk} env: {v}")
+                check(v["grouped"] and v["group_size"] == 2
+                      and v["group_rank"] == rk,
+                      f"dvm (b) tenant {tag} rank {rk} group: {v}")
+                check(v["flash"]["ok"],
+                      f"dvm (b) tenant {tag} rank {rk} flash: {v['flash']}")
+                if DEVICE == "cuda":
+                    check(v["current_device"] == 0, f"dvm (b) card: {v}")
+            check(rows[0]["coord"] == rows[1]["coord"]
+                  and rows[0]["host"] == rows[1]["host"],
+                  f"dvm (b) tenant {tag}: {rows}")
+            return {"wall_s": wall, "rows": rows,
+                    "submit_to_kernel_s": sorted(
+                        v["flash"]["wall"] - t_sub for v in rows.values())}
+
+        # (b1): one tenant alone, then two at once (their labels on
+        # /metrics while both hold)
+        def job_labels() -> set:
+            _ms, metrics = _dvm_http(base, "/metrics")
+            return {ln.split('job="', 1)[1].split('"', 1)[0]
+                    for ln in metrics.splitlines()
+                    if ln.startswith("ompi_tpu_") and 'job="' in ln}
+
+        solo = rows_of(*tenant("solo", "b1", hold=0.0), "solo")
+        before = job_labels()
+        t_pair = time.time()
+        pair = {tag: tenant(tag, "b1") for tag in ("x", "y")}
+        labels: set = set()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and len(labels) < 2 and any(
+                job[0].is_alive() for _t, job in pair.values()):
+            labels = job_labels() - before
+            time.sleep(0.2)
+        got = {tag: rows_of(t, job, tag) for tag, (t, job) in pair.items()}
+        pair_wall = time.time() - t_pair
+        jobids = {got[t]["rows"][0]["jobid"] for t in got}
+        check(len(jobids) == 2 and jobids <= labels,
+              f"dvm /metrics during (b1) carried jobs {labels}, not {jobids}")
+        check(got["x"]["rows"][0]["coord"] != got["y"]["rows"][0]["coord"]
+              and got["x"]["rows"][0]["host"] != got["y"]["rows"][0]["host"],
+              "dvm (b1): the two tenants share a rendezvous or a host")
+        # (b2) beside the stop tenant
+        t_b2, b2 = tenant("b2", "b2", extra=(
+            "--mca", "faultinject_plan", "rank=1:stall@coll=3",
+            "--mca", "faultinject_seed", "0"))
+        _t, stop_job = tenant("stop", "stop")
+        b2 = rows_of(t_b2, b2, "b2")
+        r1 = b2["rows"][1]
+        check(r1["flash_after"]["ok"] and b2["rows"][0]["flash_after"]["ok"],
+              f"dvm (b2): the kernel after the stall: {b2['rows']}")
+        events = _dvm_remediation(base, r1["jobid"])
+        acts = {e.get("info", {}).get("action"): e for e in events
+                if e["kind"] == "remediate"}
+        doctors = [e for e in events if e["kind"] == "doctor"]
+        check(any(e.get("info", {}).get("verdict") == "straggler"
+                  and e["rank"] == 1 for e in doctors)
+              and "sigcont" in acts and acts["sigcont"]["rank"] == 1
+              and "recovered" in acts,
+              f"dvm (b2) remediation events: {events}")
+        stall_enter, stall_leave = r1["coll_walls"][2]
+        # the stop tenant: its ranks are up and hold their contexts
+        marker = os.path.join(work, "stop_rank")
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(f"{marker}{k}.json") for k in (0, 1)):
+            check(time.monotonic() < deadline and stop_job[0].is_alive(),
+                  f"dvm: the stop tenant never came up: {stop_job[2]}")
+            time.sleep(0.2)
+        time.sleep(0.2)
+        rows = {k: json.load(open(f"{marker}{k}.json")) for k in (0, 1)}
+        check(all(v["flash"]["ok"] for v in rows.values()),
+              f"dvm stop tenant: {rows}")
+        out["card_apps"]["stop_tenant_up"] = _card_apps()
+        a_done.wait(timeout=300)   # (a)'s clean dry run sees no dead rank
+        out["stop"] = _dvm_stop(uri, pool)
+        wall, rc, _so, _se = tpurun_wait(stop_job)
+        pids += [v["pid"] for v in rows.values()]
+        left = _gone(pids + pool_pids)
+        check(not left, f"dvm: {left} outlived the --gpu pool's stop")
+        deadline = time.monotonic() + PLM_REAP_S
+        while len(_card_apps()) > len(apps0) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        out["card_apps"]["after_stop"] = apps = _card_apps()
+        check(len(apps) == len(apps0),
+              f"dvm: the card still runs {apps} after the --gpu pool's "
+              f"stop ({apps0} before the pool)")
+        out.update(
+            b1={"solo": {"wall_s": solo["wall_s"],
+                         "submit_to_kernel_s": solo["submit_to_kernel_s"]},
+                "pair_wall_s": pair_wall,
+                "pair": {t: {"wall_s": v["wall_s"],
+                             "submit_to_kernel_s": v["submit_to_kernel_s"],
+                             "hosts": sorted(r["host"]
+                                             for r in v["rows"].values())}
+                         for t, v in got.items()},
+                "metrics_jobs": sorted(labels)},
+            b2={"wall_s": b2["wall_s"],
+                "stall_to_recovered_s": stall_leave - stall_enter,
+                "probe_latency_ms": acts["recovered"]["info"].get(
+                    "latency_ms"),
+                "verdicts": [e.get("info", {}).get("verdict")
+                             for e in doctors]},
+            stop_tenant={"rc": rc, "wall_s": wall}, pids_left=left,
+            rank_flash_launches=sum(
+                v["flash"]["launches"] + v.get("flash_after", {}).get(
+                    "launches", 0)
+                for t in (solo, *got.values(), b2) for v in
+                t["rows"].values()) + sum(v["flash"]["launches"]
+                                           for v in rows.values()))
+    finally:
+        if pool.poll() is None:
+            _dvm_tool("ompi_tpu_torch.tools.tpurun", "--dvm-stop",
+                      "--dvm-uri", uri)
+            try:
+                pool.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pool.kill()
+    return out
+
+
+def phase_dvm(card):
+    """The standing DVM (``tpurun --dvm-start``): (a) a host pool and (b)
+    a ``--gpu`` pool side by side, each with its own ``--dvm-uri`` under
+    build/dvm_smoke/ (removed at the end)."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "dvm_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    inboxes = _shm_inboxes()
+    a_done = threading.Event()
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            fb = ex.submit(_dvm_card, work, a_done)
+            fa = ex.submit(_dvm_host, work, a_done, inboxes)
+            try:
+                host = fa.result()
+            finally:
+                a_done.set()
+            gpu = fb.result()
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    emit("dvm", host_pool=host, gpu_pool=gpu, seconds=time.perf_counter() - t0,
+         card=card)
+    return gpu["rank_flash_launches"]
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -6650,6 +7377,7 @@ def main() -> int:
     run("osc", phase_osc, card)
     run("dpm", phase_dpm, card)
     run("plm", phase_plm, card)
+    run("dvm", phase_dvm, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

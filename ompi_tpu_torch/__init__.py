@@ -95,6 +95,9 @@ _LAZY = {
     "NO_OP": ("ompi_tpu_torch.mpi.op", "NO_OP"),
     "var_registry": ("ompi_tpu_torch.core.config", "var_registry"),
     "register_var": ("ompi_tpu_torch.core.config", "register_var"),
+    "Framework": ("ompi_tpu_torch.core.mca", "Framework"),
+    "Component": ("ompi_tpu_torch.core.mca", "Component"),
+    "framework_registry": ("ompi_tpu_torch.core.mca", "framework_registry"),
     "DeviceCommunicator": ("ompi_tpu_torch.mpi.device_comm",
                            "DeviceCommunicator"),
     "device_world": ("ompi_tpu_torch.mpi.device_comm", "device_world"),

@@ -25,7 +25,7 @@ from typing import Any, Optional, Type
 
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 
-__all__ = ["Component", "Framework", "ComponentError"]
+__all__ = ["Component", "Framework", "framework_registry", "ComponentError"]
 
 
 class ComponentError(RuntimeError):
@@ -66,6 +66,7 @@ class Framework:
             description=f"Component selection for the {name} framework "
                         f"(comma list; prefix with ^ to exclude)",
             synonyms=(name,))
+        framework_registry.add(self)
 
     def component(self, cls: Type[Component]) -> Type[Component]:
         """Class decorator registering a component with this framework."""
@@ -141,3 +142,27 @@ class Framework:
             return self._components[name]
         except KeyError:
             raise ComponentError(f"no component {self.name}/{name}") from None
+
+
+class _FrameworkRegistry:
+    """Global directory of frameworks (for the info tool and tests)."""
+
+    def __init__(self) -> None:
+        self._frameworks: dict[str, Framework] = {}
+        self._lock = threading.Lock()
+
+    def add(self, fw: Framework) -> None:
+        with self._lock:
+            if fw.name in self._frameworks:
+                raise ComponentError(f"duplicate framework {fw.name}")
+            self._frameworks[fw.name] = fw
+
+    def get(self, name: str) -> Framework:
+        return self._frameworks[name]
+
+    def all(self) -> dict[str, Framework]:
+        with self._lock:
+            return dict(self._frameworks)
+
+
+framework_registry = _FrameworkRegistry()

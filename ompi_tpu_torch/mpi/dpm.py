@@ -35,8 +35,9 @@ in three places:
   environment WITHOUT the parent rank's own identity (its PMIx URI, rank,
   job, card and process-group rendezvous), which the child launcher then
   sets for each child rank.
-- Elastic grow through a standing DVM (``OMPI_TPU_DVM_URI``) raises: the
-  port's launcher has no DVM yet (ROADMAP.md item 6.15b).
+- Elastic grow through a standing DVM: a job that runs under the port's
+  pool (``OMPI_TPU_DVM_URI`` in its env) spawns through that pool's
+  ``tpurun --dvm-submit``, as the JAX package's does.
 - Send data may be a torch tensor: ``core.buffer.tensor_to_host`` views a
   CPU tensor and brings a CUDA tensor to the host in ONE device-to-host
   copy (bf16/float8 cross as their bits), as ``np.asarray`` brings a
@@ -699,20 +700,15 @@ def connect(comm: Communicator, port_name: str,
 # ---------------------------------------------------------------------------
 
 def _dvm_submit_args(child_env: dict) -> list:
-    """Elastic grow on a standing pool: in the JAX package a job launched
-    through a multi-tenant DVM carries ``OMPI_TPU_DVM_URI`` in its env and
-    its spawns go back through the same pool (``--dvm-submit``).  The
-    port's ``tpurun`` has no DVM yet (ROADMAP.md item 6.15b), so such a
-    spawn raises rather than pass the launcher a flag it does not know.
-    Outside a DVM this is a no-op."""
+    """Elastic grow on a standing pool: a job that was itself launched
+    through a multi-tenant DVM carries ``OMPI_TPU_DVM_URI`` in its env —
+    its spawns then go back through the SAME pool's admission queue and
+    gang scheduler (``--dvm-submit``) instead of forking a private
+    single-shot launcher next to it.  Outside a DVM this is a no-op."""
     uri = child_env.get(ENV_DVM_URI)
     if not uri:
         return []
-    raise MPIException(
-        f"spawn: this job runs under a DVM ({ENV_DVM_URI}={uri}), but the "
-        f"port's tpurun has no --dvm-submit yet (ROADMAP.md item 6.15b); "
-        f"unset {ENV_DVM_URI} to spawn through a private launcher",
-        error_class=16)
+    return ["--dvm-submit", "--dvm-uri", uri]
 
 
 def _child_env(env: Optional[dict] = None) -> dict:
@@ -731,13 +727,11 @@ def spawn(comm: Communicator, argv: Sequence[str], maxprocs: int = 1,
     reach us via :func:`get_parent`."""
     port_name = None
     proc = None
-    # every rank checks (the env is the job's): a refusal on the root
-    # alone would leave the others blocked in accept
     child_env = _child_env(env)
-    dvm = _dvm_submit_args(child_env)
     if comm.rank == 0:
         cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
-               *dvm, "-np", str(maxprocs), "--"] + list(argv)
+               *_dvm_submit_args(child_env), "-np", str(maxprocs),
+               "--"] + list(argv)
         port_name = open_port()
         child_env[ENV_PARENT_PORT] = port_name
         proc = subprocess.Popen(cmd, env=child_env)

@@ -30,7 +30,10 @@ previous life; finalize rendezvouses on the PMIx fence and leaves the
 process group gracefully (under a watchdog) only when no death or
 revival was seen.
 
-Left out: the thread-level and pcontrol queries.
+The thread-level queries (``init_thread``, ``query_thread``,
+``is_thread_main``) and ``pcontrol`` are the JAX package's: the runtime
+is thread-safe throughout, so the level provided is always
+``THREAD_MULTIPLE``.
 """
 
 from __future__ import annotations
@@ -50,15 +53,24 @@ from ompi_tpu_torch.runtime import pmix
 
 __all__ = ["init", "finalize", "initialized", "finalized", "abort",
            "COMM_WORLD", "COMM_SELF", "get_world", "wtime", "wtick",
+           "init_thread", "query_thread", "is_thread_main", "pcontrol",
+           "THREAD_SINGLE", "THREAD_FUNNELED", "THREAD_SERIALIZED",
+           "THREAD_MULTIPLE",
            "get_processor_name", "get_version", "get_library_version"]
 
 _log = output.get_stream("mpi")
 _lock = threading.Lock()
 _state: dict = {"world": None, "self": None, "client": None, "pml": None,
-                "finalized": False}
+                "finalized": False, "main_thread": None}
 
 COMM_WORLD: Optional[Communicator] = None
 COMM_SELF: Optional[Communicator] = None
+
+# MPI thread levels (mpi.h ordering: SINGLE < FUNNELED < SERIALIZED < MULTIPLE)
+THREAD_SINGLE = 0
+THREAD_FUNNELED = 1
+THREAD_SERIALIZED = 2
+THREAD_MULTIPLE = 3
 
 
 def initialized() -> bool:
@@ -68,6 +80,31 @@ def initialized() -> bool:
 def finalized() -> bool:
     """≈ MPI_Finalized."""
     return bool(_state["finalized"])
+
+
+def init_thread(required: int = THREAD_MULTIPLE
+                ) -> tuple[Communicator, int]:
+    """≈ MPI_Init_thread → (COMM_WORLD, provided).  This runtime is
+    thread-safe throughout (per-object locks instead of a global progress
+    lock), so provided is always THREAD_MULTIPLE."""
+    return init(), THREAD_MULTIPLE
+
+
+def query_thread() -> int:
+    """≈ MPI_Query_thread."""
+    return THREAD_MULTIPLE
+
+
+def is_thread_main() -> bool:
+    """≈ MPI_Is_thread_main: is this the thread that called init()?"""
+    return threading.get_ident() == _state["main_thread"]
+
+
+def pcontrol(level: int, *args) -> None:
+    """≈ MPI_Pcontrol: profiling-level hook.  Like the reference's
+    (ompi/mpi/c/pcontrol.c — an empty body), the default library takes no
+    action; monitoring consumers may read the stored level."""
+    _state["pcontrol_level"] = int(level)
 
 
 def init() -> Communicator:
@@ -194,6 +231,7 @@ def init() -> Communicator:
             world.barrier()
         if client is not None:
             client.ready()
+        _state["main_thread"] = threading.get_ident()
         _state["finalized"] = False
         atexit.register(_atexit_finalize)
         return world

@@ -96,9 +96,9 @@ def _mapped_paths() -> Optional[set]:
 
 
 def default_uri_path() -> str:
-    """The per-user file a standing DVM writes its control URI to (the
-    JAX package's ``dvm.default_uri_path``; the port's DVM, ROADMAP.md
-    Queue 1 item 6.15b, will write the same file)."""
+    """The per-user file a standing DVM writes its control URI to when no
+    ``--dvm-uri`` is given (the JAX package's ``dvm.default_uri_path``,
+    the same file; ``runtime/dvm.py`` serves it from here)."""
     return os.path.join(
         os.environ.get("TMPDIR", "/tmp"),
         f"ompi_tpu-dvm-{os.getuid()}.uri")

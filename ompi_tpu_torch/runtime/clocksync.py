@@ -31,8 +31,9 @@ responder (``runtime/orted.py``, ``runtime/plm.py``).  The orted stamps
 its composed offset on every rank row it forwards up the metrics uplink
 (``rank_clock_to_root_ns``), and the timeline merge
 (``runtime/timeline.py``) corrects each capture that carries a measured
-``clock_to_root_ns`` with it; the live captures come with the DVM's
-``TAG_TIMELINE`` fan-out (ROADMAP.md Queue 1 item 6.15b).
+``clock_to_root_ns`` with it: a standing DVM's ``TAG_TIMELINE`` capture
+stamps every live rank's row with its orted's offset
+(``runtime/orted.py``, ``runtime/dvm.py``).
 """
 
 from __future__ import annotations

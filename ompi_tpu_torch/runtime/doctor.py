@@ -1,8 +1,9 @@
 """doctor — the cross-rank collective hang doctor (the port's copy of the
-JAX package's ``runtime/doctor.py``, whole; the orted runs, but its
-TAG_DOCTOR fan-out that calls :func:`query_rank` on a live job comes with
-the DVM that sends the tag, ROADMAP.md Queue 1 item 6.15b, and
-``tools/hang_doctor.py --dir`` reads crash dumps meanwhile).
+JAX package's ``runtime/doctor.py``, whole: a live job's orteds answer a
+standing DVM's TAG_DOCTOR fan-out through :func:`query_rank` and
+:func:`proc_probe`, the DVM serves the verdict on ``/doctor`` and acts on
+it (``runtime/dvm.py``), and ``tools/hang_doctor.py`` reads it with
+``--uri`` or analyses crash dumps with ``--dir``).
 
 The most expensive production question — "my job is stuck: which rank,
 in which collective, waiting on whom, and is it a hang or an application

@@ -6,8 +6,10 @@ escalate, abort) and the containment plane (daemon loss, re-parenting)
 records one structured event here, stamped with wall-clock, monotonic
 time, jobid, rank and incarnation — so a kill-storm is readable AFTER
 the fact (the daemon tree's HNP records its daemon losses and
-re-parenting rounds here; the DVM's ``/status`` endpoint that serves the
-log per job comes with ROADMAP.md item 6.15b), and each event doubles as a flight-recorder instant (category
+re-parenting rounds here, a standing DVM its stuck events, doctor
+verdicts, remediations and requeues, and serves the log per job on its
+``/status`` endpoint), and each event doubles as a flight-recorder
+instant (category
 ``errmgr``) when tracing is armed.
 
 The log is a bounded ring (oldest events fall off first, like the trace

@@ -3,10 +3,11 @@ plane (the port's copy of the JAX package's ``runtime/metrics.py``,
 whole: ``merge_hop``, the UDP :class:`MetricsCollector`, which runs on
 its own, ``straggler_panel`` and :class:`MetricsAggregate` with its
 Prometheus rendering).  The orted runs the collector and carries the
-``TAG_METRICS`` hop, and the HNP of a daemon-tree launch folds the stream
-into its ``MetricsAggregate`` (``runtime/orted.py``, ``runtime/plm.py``);
-the DVM's ``/metrics`` endpoint that serves it comes with ROADMAP.md
-Queue 1 item 6.15b.
+``TAG_METRICS`` hop, the HNP of a daemon-tree launch folds the stream
+into its ``MetricsAggregate`` (``runtime/orted.py``, ``runtime/plm.py``),
+and a standing DVM serves it on ``/metrics`` and ``/status``, weighs its
+gang placements by it and watches it for stuck collectives
+(``runtime/dvm.py``).
 
 Each app rank pushes its pvar snapshot (``trace.metrics_values()``,
 delta-compressed) over UDP to its owning orted's :class:`MetricsCollector`

@@ -15,8 +15,13 @@ What it runs: phone-home and wire-up, heartbeats, the lifeline rule and
 the orphan watch, re-parenting (``TAG_REPARENT``/``TAG_ADOPT``), the
 kills (``TAG_KILL``, ``TAG_KILL_RANK``, ``TAG_SIGNAL_RANK``), launch and
 revival (``TAG_LAUNCH``, ``TAG_RESPAWN``), IOF and stdin, the clock-sync
-prober, and the metrics collector with its ``TAG_METRICS`` hop.  An
-orted imports no torch.
+prober, the metrics collector with its ``TAG_METRICS`` hop, and the
+three fan-outs a standing DVM (``runtime/dvm.py``) sends: ``TAG_STATS``
+(per-rank rss and cpu time from ``/proc``), ``TAG_DOCTOR`` (the live
+hang-doctor capture) and ``TAG_TIMELINE`` (the live flight-recorder
+tails).  The two captures wait on their ranks' UDP responders, so they
+run on a thread of their own, never on the RML reader.  An orted imports
+no torch.
 
 Two rules are the port's own:
 
@@ -32,11 +37,6 @@ Two rules are the port's own:
   keep running, or keep its CUDA context, after the HNP has declared it
   dead.  The signal is tied to the thread that forked the child, hence
   the one long-lived spawning thread.
-
-Left out until the DVM (ROADMAP.md Queue 1 item 6.15b): the handlers of
-the tags only the DVM sends, ``TAG_STATS`` (per-rank resource usage),
-``TAG_DOCTOR`` (the live hang-doctor capture) and ``TAG_TIMELINE`` (the
-live flight-recorder tails).
 """
 
 from __future__ import annotations
@@ -61,6 +61,10 @@ _log = output.get_stream("orted")
 
 #: exported to every rank: the pid of the daemon that started it
 ENV_ORTED_PID = "OMPI_TPU_ORTED_PID"
+
+#: resident bytes below which a rank's TAG_STATS row is left out: a
+#: process this small has been exec'd and not yet run its program
+_MIN_RSS = 64 << 10
 
 #: ``python -S -c`` source run in place of a rank's program: arm
 #: SIGKILL on the death of the daemon's spawning thread, leave at once if
@@ -127,6 +131,9 @@ class Orted:
         self.node.register_recv(rml.TAG_ADOPT, self._on_adopt)
         self.node.register_recv(rml.TAG_KILL_RANK, self._on_kill_rank)
         self.node.register_recv(rml.TAG_SIGNAL_RANK, self._on_signal_rank)
+        self.node.register_recv(rml.TAG_STATS, self._on_stats)
+        self.node.register_recv(rml.TAG_DOCTOR, self._on_doctor)
+        self.node.register_recv(rml.TAG_TIMELINE, self._on_timeline)
         # measured clock sync: pingpong my parent edge, compose the
         # offset to the root, and answer my own children's probes with
         # it (offsets compose down the tree; ranks share my kernel
@@ -559,6 +566,139 @@ class Orted:
         # daemon's spawning thread
         self._spawnq.put((self._spawn_rank, (lj, rank, local_rank, chip),
                           {"restarts": lives}))
+
+    def _on_stats(self, origin: int, payload) -> None:
+        """≈ the sensor/resusage sampling orte-top pulls: per-rank
+        rss + cpu time from /proc for my live ranks, replied up the
+        tree (runs on the RML reader thread — /proc reads don't block)."""
+        page = os.sysconf("SC_PAGE_SIZE")
+        tick = os.sysconf("SC_CLK_TCK")
+        rows = []
+        with self._lock:
+            procs = [(lj.jobid, rank, p)
+                     for lj in self._jobs.values()
+                     for rank, p in lj.popen.items()]
+        for jobid, rank, p in procs:
+            if p.poll() is not None:
+                continue
+            try:
+                with open(f"/proc/{p.pid}/statm") as f:
+                    rss = int(f.read().split()[1]) * page
+                with open(f"/proc/{p.pid}/stat") as f:
+                    parts = f.read().rsplit(")", 1)[1].split()
+                    cpu_s = (int(parts[11]) + int(parts[12])) / tick
+            except (OSError, IndexError, ValueError):
+                continue
+            if rss < _MIN_RSS:
+                # a rank just exec'd (through the port's stub, a second
+                # exec after the daemon's fork) holds only its stack
+                # pages: it has no usage to report yet
+                continue
+            rows.append((jobid, rank, p.pid, rss, cpu_s))
+        try:
+            # payload is the requester's epoch — echoed so a late reply
+            # from an earlier round cannot satisfy a newer collection
+            self.node.send_up(rml.TAG_STATS_REPLY,
+                              (self.vpid, payload, rows))
+        except ConnectionError:
+            pass
+
+    def _live_ranks(self) -> list:
+        """(jobid, spec, [(rank, popen) of the live ranks]) a job."""
+        with self._lock:
+            return [(lj.jobid, lj.spec,
+                     [(r, p) for r, p in lj.popen.items()
+                      if p.poll() is None])
+                    for lj in self._jobs.values()]
+
+    def _on_doctor(self, origin: int, payload) -> None:
+        """Hang-doctor capture fan-out: query each LIVE local rank's
+        responder (UDP, loopback — ranks share this host), fall back to
+        a /proc probe for a rank that stays silent (a SIGSTOP'd pid
+        cannot answer; its frozen state IS the evidence), reply the
+        captures up the tree.  The UDP waits block up to ~1s per silent
+        rank — handed off a thread, never run on the RML reader."""
+        threading.Thread(target=self._doctor_capture, args=(payload,),
+                         name=f"orted-doctor-{self.vpid}",
+                         daemon=True).start()
+
+    def _doctor_capture(self, epoch) -> None:
+        from ompi_tpu_torch.core.config import var_registry
+        from ompi_tpu_torch.runtime import doctor
+
+        limit = int(var_registry.get("doctor_rows_per_daemon") or 0)
+        rows = []
+        for jobid, spec, procs in self._live_ranks():
+            ports: dict[int, int] = {}
+            uri = ((spec or {}).get("env") or {}).get(pmix.ENV_URI)
+            if uri and procs:
+                ports = pmix.query_doctor_ports(uri) or {}
+            job_rows = []
+            for rank, p in sorted(procs):
+                cap = None
+                port = ports.get(rank)
+                if port:
+                    cap = doctor.query_rank(port)
+                if cap is None:
+                    cap = {"rank": rank, "no_response": True,
+                           "proc": doctor.proc_probe(p.pid)}
+                cap["pid"] = p.pid
+                cap["jobid"] = jobid
+                job_rows.append(cap)
+            # hierarchical pre-aggregation: bound this daemon's reply to
+            # doctor_rows_per_daemon full rows + one explicit summary
+            # row per job, so the HNP's fan-in is O(hosts), not O(ranks)
+            kept, summary = doctor.summarize_rows(job_rows, limit)
+            if summary is not None:
+                summary["jobid"] = jobid
+                summary["vpid"] = self.vpid
+                kept.append(summary)
+            rows.extend(kept)
+        try:
+            self.node.send_up(rml.TAG_DOCTOR_REPLY,
+                              (self.vpid, epoch, rows))
+        except ConnectionError:
+            pass
+
+    def _on_timeline(self, origin: int, payload) -> None:
+        """Live-timeline fan-out (the TAG_DOCTOR shape): query each
+        live local rank's responder for a bounded flight-recorder tail,
+        reply up.  Handed off a thread — the UDP waits block."""
+        threading.Thread(target=self._timeline_capture, args=(payload,),
+                         name=f"orted-timeline-{self.vpid}",
+                         daemon=True).start()
+
+    def _timeline_capture(self, payload) -> None:
+        from ompi_tpu_torch.runtime import doctor
+
+        try:
+            epoch, tail = payload
+            tail = int(tail)
+        except (TypeError, ValueError):
+            epoch, tail = payload, 2048
+        off_root = self._clock.offset_to_root_ns()
+        rows = []
+        for jobid, spec, procs in self._live_ranks():
+            ports: dict[int, int] = {}
+            uri = ((spec or {}).get("env") or {}).get(pmix.ENV_URI)
+            if uri and procs:
+                ports = pmix.query_doctor_ports(uri) or {}
+            for rank, p in sorted(procs):
+                port = ports.get(rank)
+                cap = doctor.query_timeline(port, tail) if port else None
+                if cap is None:
+                    cap = {"rank": rank, "no_response": True}
+                # stamp the daemon-measured offset: ranks share this
+                # host's kernel clock, so one offset corrects every
+                # local rank
+                cap["clock_to_root_ns"] = off_root
+                cap["jobid"] = jobid
+                rows.append(cap)
+        try:
+            self.node.send_up(rml.TAG_TIMELINE_REPLY,
+                              (self.vpid, epoch, rows))
+        except ConnectionError:
+            pass
 
     def _on_stdin(self, origin: int, payload) -> None:
         # Runs on the RML link reader thread: never write the pipe here —

@@ -1,10 +1,10 @@
 """Live cross-rank timeline merge — skew-corrected Chrome traces (the
 port's copy of the JAX package's ``runtime/timeline.py``, whole: the
 merge, its flow edges and ``causality_problems``; the orteds measure
-their clock offsets (``runtime/clocksync.py``), but the HNP's live
-``/timeline`` endpoint and the orted's TAG_TIMELINE capture that feed
-it come with the DVM, ROADMAP.md Queue 1 item 6.15b, and
-``tools/timeline.py --dir`` feeds it dumps meanwhile).
+their clock offsets (``runtime/clocksync.py``) and answer a standing
+DVM's TAG_TIMELINE capture, whose ``/timeline`` endpoint serves the
+merge (``runtime/dvm.py``); ``tools/timeline.py`` reads it with
+``--uri`` or merges crash dumps with ``--dir``).
 
 ≈ the post-mortem merge in tools/trace_export.py, lifted into the
 control plane: the HNP's ``/timeline`` endpoint xcasts TAG_TIMELINE,

@@ -1,18 +1,25 @@
 """hang_doctor — "my job is stuck: which rank, in which collective,
-waiting on whom?" answered postmortem (the port's copy of the repo's
-``tools/hang_doctor.py``, its offline mode).
+waiting on whom?" answered live or postmortem (the port's copy of the
+repo's ``tools/hang_doctor.py``).
 
-It reads the per-rank crash trace dumps
-(``ompi_tpu_trace_<jobid>_rank<r>.json`` — their ``otherData.collrec``
-recorder tails) and runs the hang doctor's analyzer, so the postmortem
-works from artifacts alone:
+Live (a standing DVM with ``--metrics-port``): triggers an on-demand
+cross-rank capture through the DVM's ``/doctor`` endpoint — every rank's
+collective-recorder tail, pending p2p, arena counters and thread stacks,
+folded into a verdict (mismatch / deadlock / straggler) by the HNP
+analyzer:
+
+    python -m ompi_tpu_torch.tools.hang_doctor --uri $TMPDIR/ompi_tpu-dvm-<uid>.uri
+    python -m ompi_tpu_torch.tools.hang_doctor --uri http://127.0.0.1:9090
+
+Offline (the job already died / was killed): reads the per-rank crash
+trace dumps (``ompi_tpu_trace_<jobid>_rank<r>.json`` — their
+``otherData.collrec`` recorder tails) and runs the SAME analyzer, so the
+postmortem works from artifacts alone:
 
     python -m ompi_tpu_torch.tools.hang_doctor --dir $TMPDIR --jobid 7
 
 ``--expect kind[:rank]`` turns the run into an assertion (CI / chaos
-drivers): exit 0 only when the verdict matches.  The live mode
-(``--uri``, a capture through the DVM's ``/doctor`` endpoint) comes with
-the DVM, ROADMAP.md Queue 1 item 6.15b.
+drivers): exit 0 only when the verdict matches.
 """
 
 from __future__ import annotations
@@ -22,11 +29,36 @@ import glob
 import json
 import os
 import sys
+import urllib.request
 
 from ompi_tpu_torch.runtime import doctor
 from ompi_tpu_torch.tools import trace_export  # owns the dump file pattern
 
 _RANK_RE = trace_export._RANK_RE
+
+
+# ---------------------------------------------------------------------------
+# live mode
+# ---------------------------------------------------------------------------
+
+def _metrics_base(uri: str) -> str:
+    """Resolve --uri into the metrics http base: an http URL passes
+    through; a DVM uri file (or its directory default) reads the
+    recorded ``<uri>.metrics`` sidecar."""
+    if uri.startswith("http://") or uri.startswith("https://"):
+        return uri.rstrip("/")
+    path = uri if uri.endswith(".metrics") else uri + ".metrics"
+    if not os.path.exists(path):
+        raise SystemExit(f"hang_doctor: no metrics endpoint recorded at "
+                         f"{path} (DVM started with --metrics-port?)")
+    with open(path, encoding="utf-8") as f:
+        return f.read().strip().rstrip("/")
+
+
+def live_doc(uri: str, timeout: float = 30.0) -> dict:
+    base = _metrics_base(uri)
+    with urllib.request.urlopen(f"{base}/doctor", timeout=timeout) as r:
+        return json.load(r)
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +190,11 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--dir", required=True,
-                   help="directory holding per-rank "
+    p.add_argument("--uri", default=None,
+                   help="live mode: DVM uri file, <uri>.metrics file, "
+                        "or the metrics http base URL")
+    p.add_argument("--dir", default=None,
+                   help="offline mode: directory holding per-rank "
                         "ompi_tpu_trace_*_rank*.json crash dumps")
     p.add_argument("--jobid", type=int, default=None,
                    help="with --dir: only this job's dumps")
@@ -170,7 +205,10 @@ def main(argv: list[str] | None = None) -> int:
                         "mismatch); nonzero exit on a miss")
     args = p.parse_args(argv)
 
-    doc = offline_doc(args.dir, args.jobid)
+    if bool(args.uri) == bool(args.dir):
+        p.error("exactly one of --uri (live) or --dir (offline)")
+    doc = live_doc(args.uri) if args.uri else offline_doc(args.dir,
+                                                          args.jobid)
     print(json.dumps(doc, indent=1) if args.json else render(doc))
     if args.expect:
         want_kind, _, want_rank = args.expect.partition(":")

@@ -1,19 +1,25 @@
 """Cross-rank straggler report: who is everyone waiting for? (The
-port's copy of the repo's ``tools/straggler_report.py``, its offline
-mode.)
+port's copy of the repo's ``tools/straggler_report.py``.)
 
-It reads the per-rank flight-recorder dumps
-(``ompi_tpu_trace_<jobid>_rank<r>.json``, written by ``--trace`` runs and
-crash dumps), pulls each rank's histogram vectors out of
-``otherData.hists``, and runs the straggler panel
-(``runtime.metrics.straggler_panel``) over the whole run.  The rank with
-the LOWEST share of the job's total collective wait time is the one
-every other rank spent its wait time waiting for — the last arriver
-barely waits.
+Two sources, one verdict:
 
-Run: ``python -m ompi_tpu_torch.tools.straggler_report --dir /tmp``.
-The live mode (``--uri``, the DVM's ``/status`` panel) comes with the
-DVM, ROADMAP.md Queue 1 item 6.15b.
+- **live** (default): GET the DVM observability endpoint's ``/status``
+  (the address is read from ``<dvm-uri>.metrics`` next to the control
+  URI file, or passed via ``--uri``) and print each job's straggler
+  panel — the same aggregate the ``/status`` scrape serves, computed
+  from the latency histograms every rank pushes up the orted tree.
+- **offline** (``--dir``): read the per-rank flight-recorder dumps
+  (``ompi_tpu_trace_<jobid>_rank<r>.json``, written by ``--trace`` runs
+  and crash dumps), pull each rank's histogram vectors out of
+  ``otherData.hists``, and run the identical panel math
+  (``runtime.metrics.straggler_panel``) over the whole run — the
+  post-mortem path when no DVM is left to ask.
+
+The inversion both paths share: the rank with the LOWEST share of the
+job's total collective wait time is the one every other rank spent its
+wait time waiting for — the last arriver barely waits.
+
+Run: ``python -m ompi_tpu_torch.tools.straggler_report [--uri http://…|--dir /tmp]``.
 """
 
 from __future__ import annotations
@@ -24,10 +30,19 @@ import json
 import os
 import re
 import sys
+import urllib.request
 
 from ompi_tpu_torch.runtime.metrics import straggler_panel
 
 _DUMP_RE = re.compile(r"ompi_tpu_trace_(\d+)_rank(\d+)\.json$")
+
+
+def _default_uri() -> str:
+    from ompi_tpu_torch.runtime.dvm import default_uri_path
+
+    path = default_uri_path() + ".metrics"
+    with open(path, encoding="utf-8") as f:
+        return f.read().strip()
 
 
 def _print_panel(jobid, panel: dict, out=sys.stdout) -> None:
@@ -107,15 +122,43 @@ def report_offline(trace_dir: str) -> int:
     return 0
 
 
+def report_live(uri: str) -> int:
+    with urllib.request.urlopen(uri.rstrip("/") + "/status",
+                                timeout=10) as resp:
+        doc = json.loads(resp.read().decode())
+    found = 0
+    for job in doc.get("jobs", []):
+        panel = job.get("straggler")
+        if panel:
+            _print_panel(job["jobid"], panel)
+            found += 1
+    if not found:
+        print("no straggler panels yet (no rank has pushed latency "
+              "histograms — is the metrics uplink armed?)")
+    return 0 if found else 1
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(
         description="per-rank collective wait/publish breakdown with a "
                     "named straggler suspect")
-    ap.add_argument("--dir", required=True,
-                    help="directory of per-rank "
+    ap.add_argument("--uri", default=None,
+                    help="DVM metrics endpoint (http://host:port); "
+                    "default: read <dvm-uri>.metrics")
+    ap.add_argument("--dir", default=None,
+                    help="offline mode: directory of per-rank "
                     "ompi_tpu_trace_*_rank*.json dumps")
     args = ap.parse_args(argv)
-    return report_offline(args.dir)
+    if args.dir:
+        return report_offline(args.dir)
+    try:
+        uri = args.uri or _default_uri()
+    except OSError:
+        print("no DVM metrics endpoint found (start one with: tpurun "
+              "--dvm-start --metrics-port 0), or use --dir for offline "
+              "dump analysis", file=sys.stderr)
+        return 2
+    return report_live(uri)
 
 
 if __name__ == "__main__":

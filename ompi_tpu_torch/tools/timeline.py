@@ -1,16 +1,28 @@
-"""Merge a cross-rank timeline postmortem from crash dumps (the port's
-copy of the repo's ``tools/timeline.py``, its ``--dir`` mode):
+"""Fetch a cross-rank timeline — live from a running world, or
+postmortem from crash dumps (the port's copy of the repo's
+``tools/timeline.py``).
 
-    python -m ompi_tpu_torch.tools.timeline --dir $TMPDIR --jobid 7 \
-        -o trace.json
-    python -m ompi_tpu_torch.tools.timeline --dir $TMPDIR \
-        --offsets offsets.json
+Live mode (a DVM with ``--metrics-port`` is up and a job is running):
+
+    python -m ompi_tpu_torch.tools.timeline -o trace.json
+    python -m ompi_tpu_torch.tools.timeline --uri http://127.0.0.1:9301 --tail 4096
+
+pulls ``/timeline`` — the HNP xcasts TAG_TIMELINE, every orted gathers
+bounded flight-recorder tails from its live ranks, and the reply is one
+merged, skew-corrected (measured clock offsets) Chrome trace with
+cross-rank flow arrows.  The default --uri is read from the DVM's
+``<uri>.metrics`` file, like the scrape endpoint's other clients.
+
+Postmortem mode (the world is gone; finalize/abort dumps remain):
+
+    python -m ompi_tpu_torch.tools.timeline --dir $TMPDIR --jobid 7 -o trace.json
+    python -m ompi_tpu_torch.tools.timeline --dir $TMPDIR --offsets offsets.json
 
 delegates to ``trace_export``'s merge over the per-rank dump files
-(wall-anchor or ``--offsets`` measured correction).  The output loads
-in chrome://tracing and https://ui.perfetto.dev.  The live mode
-(``--uri``, the DVM's ``/timeline`` capture) comes with the DVM,
-ROADMAP.md Queue 1 item 6.15b.
+(wall-anchor or ``--offsets`` measured correction).
+
+Either way the output loads in chrome://tracing and
+https://ui.perfetto.dev.
 """
 
 from __future__ import annotations
@@ -20,16 +32,42 @@ import glob
 import json
 import os
 import sys
+import urllib.request
 
 from ompi_tpu_torch.tools import trace_export
 
 
+def default_metrics_uri() -> "str | None":
+    """The DVM's recorded scrape address (``<uri>.metrics``), if a DVM
+    is up with the observability plane armed."""
+    from ompi_tpu_torch.runtime.clean import default_uri_path
+
+    try:
+        with open(default_uri_path() + ".metrics", encoding="utf-8") as f:
+            return f.read().strip() or None
+    except OSError:
+        return None
+
+
+def fetch_live(uri: str, tail: int, timeout: float = 30.0) -> dict:
+    """One live /timeline capture from the DVM's scrape endpoint."""
+    url = f"{uri.rstrip('/')}/timeline?tail={int(tail)}"
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.load(resp)
+
+
 def main(argv: "list[str] | None" = None) -> int:
     p = argparse.ArgumentParser(
-        description="Merge a cross-rank timeline from per-rank dumps.")
-    p.add_argument("--dir", required=True,
-                   help="merge ompi_tpu_trace_*.json dumps from this "
-                        "directory")
+        description="Fetch a merged cross-rank timeline (live /timeline "
+                    "capture or postmortem dump merge).")
+    p.add_argument("--uri", default=None,
+                   help="DVM metrics endpoint (default: the address in "
+                        "the DVM's <uri>.metrics file)")
+    p.add_argument("--tail", type=int, default=2048,
+                   help="per-rank recorder tail to pull (live mode)")
+    p.add_argument("--dir", default=None,
+                   help="postmortem: merge ompi_tpu_trace_*.json dumps "
+                        "from this directory instead of a live capture")
     p.add_argument("--jobid", type=int, default=None,
                    help="with --dir: only this job's dumps")
     p.add_argument("--offsets", default=None, metavar="FILE",
@@ -42,19 +80,43 @@ def main(argv: "list[str] | None" = None) -> int:
                         "problems")
     args = p.parse_args(argv)
 
-    paths = sorted(glob.glob(os.path.join(
-        args.dir, trace_export.dump_glob(args.jobid))))
-    if not paths:
-        print("timeline: no dumps found", file=sys.stderr)
-        return 2
-    offsets = None
-    if args.offsets:
-        with open(args.offsets, encoding="utf-8") as f:
-            offsets = {int(r): float(v)
-                       for r, v in json.load(f).items()
-                       if v is not None}
-    doc = trace_export.merge(paths, offsets=offsets)
-    source = f"{len(paths)} dump(s)"
+    if args.dir:
+        paths = sorted(glob.glob(os.path.join(
+            args.dir, trace_export.dump_glob(args.jobid))))
+        if not paths:
+            print("timeline: no dumps found", file=sys.stderr)
+            return 2
+        offsets = None
+        if args.offsets:
+            with open(args.offsets, encoding="utf-8") as f:
+                offsets = {int(r): float(v)
+                           for r, v in json.load(f).items()
+                           if v is not None}
+        doc = trace_export.merge(paths, offsets=offsets)
+        source = f"{len(paths)} dump(s)"
+    else:
+        uri = args.uri or default_metrics_uri()
+        if not uri:
+            print("timeline: no --uri and no DVM <uri>.metrics file "
+                  "found (start one with: tpurun --dvm-start "
+                  "--metrics-port 0), or use --dir for postmortem "
+                  "merges", file=sys.stderr)
+            return 2
+        try:
+            doc = fetch_live(uri, args.tail)
+        except OSError as e:
+            print(f"timeline: cannot reach {uri}/timeline ({e})",
+                  file=sys.stderr)
+            return 2
+        source = f"live capture from {uri}"
+        other = doc.get("otherData") or {}
+        if other.get("idle"):
+            print("timeline: DVM is idle (no job running, no cached "
+                  "capture) — nothing to plot", file=sys.stderr)
+            return 3
+        if other.get("stale"):
+            print("timeline: no job running — serving the cached last "
+                  "capture", file=sys.stderr)
 
     problems = trace_export.validate(doc)
     problems += trace_export.causality_problems(

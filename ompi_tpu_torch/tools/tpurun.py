@@ -11,6 +11,10 @@ output, propagate the first failure's exit code.
     python -m ompi_tpu_torch.tools.tpurun -np 4 --plm sim --hosts 2 -- python -m ompi_tpu_torch.examples.ring
     python -m ompi_tpu_torch.tools.tpurun -np 8 --plm ssh --hostfile hf -- python app.py
     python -m ompi_tpu_torch.tools.tpurun --clean
+    python -m ompi_tpu_torch.tools.tpurun --dvm-start --plm sim --hosts 2 --slots 8 --metrics-port 0
+    python -m ompi_tpu_torch.tools.tpurun --dvm-submit -np 4 -- python app.py
+    python -m ompi_tpu_torch.tools.tpurun --dvm-ps
+    python -m ompi_tpu_torch.tools.tpurun --dvm-stop
 
 ``--gpu`` maps ranks 1:1 onto the local CUDA cards (the counterpart of the
 JAX package's ``--tpu``) and joins them into one ``torch.distributed``
@@ -26,8 +30,19 @@ on each host of ``--hostfile``.  ``--map-by byslot|bynode`` picks the
 round-robin placement.  With ``--gpu`` the simulated hosts share out this
 machine's cards and the ranks join one process group.  ``--clean``
 sweeps the debris of dead jobs (``runtime/clean.py``, ≈ orte-clean).
-Left out until ROADMAP.md Queue 1 item 6.15b: the persistent DVM
-(``--dvm-*``, with ``--metrics-port``).
+
+``--dvm-start`` brings up a standing, multi-tenant daemon VM
+(``runtime/dvm.py``, ≈ orte-dvm) of ``--slots`` slots; ``--dvm-submit``
+runs a job on it (≈ orte-submit; exit 75 with a JSON ``rejected``
+verdict on stdout when the pool refuses it), ``--dvm-ps`` prints its
+daemon, queue, job and proc tables (≈ orte-ps), ``--dvm-shrink
+JOBID:RANK`` retires one rank of a running tenant and ``--dvm-stop``
+shuts it down.  ``--dvm-uri`` names the pool's control URI or the file
+holding it (default: the per-user uri file in ``$TMPDIR``).
+``--metrics-port N`` serves ``/metrics``, ``/status``, ``/doctor`` and
+``/timeline`` over HTTP on 127.0.0.1 (0: an ephemeral port, recorded in
+``<uri>.metrics``).  ``--dvm-start --gpu`` gives each tenant's ranks
+the simulated hosts' cards and a process group of their own.
 """
 
 from __future__ import annotations
@@ -77,6 +92,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "(mpirun --timeout; CI hang guard)")
     p.add_argument("--stdin", default=None, metavar="RANK|all|none",
                    help="forward launcher stdin to this rank (default 0)")
+    # persistent DVM (≈ orte-dvm / orte-submit / orte-ps)
+    p.add_argument("--dvm-start", action="store_true",
+                   help="bring up a persistent daemon VM and serve job "
+                        "submissions (≈ orte-dvm)")
+    p.add_argument("--dvm-submit", action="store_true",
+                   help="run the command on a standing DVM (fast: skips "
+                        "VM bring-up; ≈ orte-submit)")
+    p.add_argument("--dvm-ps", action="store_true",
+                   help="print a standing DVM's daemon/queue/job/proc "
+                        "table (≈ orte-ps)")
+    p.add_argument("--dvm-shrink", default=None, metavar="JOBID:RANK",
+                   help="planned elastic shrink: retire one rank of a "
+                        "running DVM job (no revive; the survivors "
+                        "continue smaller per the ULFM recipe)")
+    p.add_argument("--dvm-stop", action="store_true",
+                   help="shut a standing DVM down")
+    p.add_argument("--dvm-uri", default=None, metavar="FILE|HOST:PORT",
+                   help="DVM control URI or the file holding it "
+                        "(default: the per-user uri file in TMPDIR)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="total rank slots the DVM allocates at start "
+                        "(--dvm-start; default: np or hosts*ceil)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="with --dvm-start: serve a long-lived HTTP "
+                        "observability endpoint on 127.0.0.1:PORT — "
+                        "/metrics (Prometheus text, per-job labels), "
+                        "/status (proc table + FT event timeline), "
+                        "/doctor and /timeline.  Arms the per-rank "
+                        "metrics uplink (trace_metrics_push_period, "
+                        "default 1.0 s when this flag is given).  PORT 0 "
+                        "binds an ephemeral port, recorded in "
+                        "<uri>.metrics")
     p.add_argument("--clean", action="store_true",
                    help="remove stale job debris (shm inboxes/segments "
                         "of dead ranks, dead DVM uri) — ≈ orte-clean; "
@@ -110,10 +158,12 @@ def main(argv: list[str] | None = None) -> int:
         print(f"tpurun: {verb} {len(removed)} stale artifact(s)",
               file=sys.stderr)
         return 0
+    if args.dvm_ps or args.dvm_shrink or args.dvm_stop:
+        return _dvm_control(args)
     cmd = args.command
     if cmd and cmd[0] == "--":
         cmd = cmd[1:]
-    if not cmd:
+    if not cmd and not args.dvm_start:
         print("tpurun: no command given (try: python -m "
               "ompi_tpu_torch.tools.tpurun -np 4 -- python app.py)",
               file=sys.stderr)
@@ -150,6 +200,10 @@ def main(argv: list[str] | None = None) -> int:
     from ompi_tpu_torch.runtime.ras import NoCardError
 
     try:
+        if args.dvm_submit:
+            return _dvm_submit(args, cmd, env)
+        if args.dvm_start:
+            return _dvm_start(args)
         if args.plm:
             return _launch_tree(args, cmd, env)
         from ompi_tpu_torch.runtime.launcher import launch
@@ -161,19 +215,137 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
 
+def _configure_sim_ras(args, total_slots: int) -> None:
+    """``--plm sim`` and ``--dvm-start`` without a hostfile: ``--hosts``
+    simulated nodes with enough slots between them for
+    ``total_slots``."""
+    import math
+
+    var_registry.load_cli([
+        ("ras", "simulator"),
+        ("ras_sim_num_nodes", str(args.hosts)),
+        ("ras_sim_slots_per_node",
+         str(math.ceil(total_slots / max(1, args.hosts)))),
+    ])
+
+
+def _dvm_control(args) -> int:
+    """``--dvm-ps``, ``--dvm-shrink`` and ``--dvm-stop``: one request to
+    a standing DVM."""
+    import json
+
+    from ompi_tpu_torch.runtime import dvm
+
+    try:
+        if args.dvm_ps:
+            print(json.dumps(dvm.ps(args.dvm_uri), indent=1))
+        elif args.dvm_shrink:
+            try:
+                jobid, _, rank = args.dvm_shrink.partition(":")
+                reply = dvm.shrink(int(jobid), int(rank), uri=args.dvm_uri)
+            except ValueError:
+                print(f"tpurun: --dvm-shrink wants JOBID:RANK "
+                      f"(got {args.dvm_shrink!r})", file=sys.stderr)
+                return 2
+            print(json.dumps(reply))
+        else:
+            dvm.stop(args.dvm_uri)
+            print("dvm: stopped", file=sys.stderr)
+    except RuntimeError as e:
+        print(f"tpurun: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _dvm_submit(args, cmd: list[str], env: dict[str, str]) -> int:
+    """Run ``cmd`` on a standing DVM.  The CLIENT's environment is the
+    job's env (orte-submit / mpirun semantics: app processes see the
+    submitter's variables, overlaid on the daemon's own env), less the
+    per-rank/per-job identity vars the launcher owns and the HOST-LOCAL
+    vars whose client values would break ranks on remote (ssh) daemons;
+    the ``--mca`` pairs were exported into os.environ, so they ride
+    along, and ``-x`` pairs on top."""
+    import json
+
+    from ompi_tpu_torch.runtime import dvm
+    from ompi_tpu_torch.runtime import pmix
+    from ompi_tpu_torch.runtime.orted import ENV_ORTED_PID
+
+    skip = {pmix.ENV_URI, pmix.ENV_RANK, pmix.ENV_SIZE, pmix.ENV_JOBID,
+            pmix.ENV_LOCAL_RANK, pmix.ENV_CHIP, ENV_ORTED_PID,
+            "OMPI_TPU_RESTART", "OMPI_TPU_FAKE_HOST",
+            "PATH", "HOME", "TMPDIR", "TMP", "TEMP", "PWD",
+            "OLDPWD", "SHLVL", "HOSTNAME", "LD_LIBRARY_PATH",
+            "LD_PRELOAD", "VIRTUAL_ENV", "PYTHONHOME"}
+    job_env = {k: v for k, v in os.environ.items() if k not in skip}
+    job_env.update(env)
+    if args.tag is not None:
+        job_env[var_registry.ENV_PREFIX + "launcher_tag_output"] = \
+            "1" if args.tag else "0"
+    if args.timeout is not None:
+        import threading
+
+        def expire() -> None:
+            # the client gives up (exit 124); the tenant runs on until
+            # the pool or --dvm-stop ends it, as orte-submit's does
+            threading.Event().wait(args.timeout)
+            print(f"tpurun: job timed out after {args.timeout:g}s",
+                  file=sys.stderr, flush=True)
+            os._exit(124)
+
+        threading.Thread(target=expire, daemon=True,
+                         name="tpurun-timeout").start()
+    try:
+        return dvm.submit(cmd, np_=args.np, uri=args.dvm_uri, env=job_env)
+    except dvm.DvmRejected as e:
+        # machine-readable admission verdict on stdout + EX_TEMPFAIL
+        # (75): schedulers and scripts can parse-and-retry instead of
+        # hanging against a full pool
+        print(json.dumps(e.verdict))
+        print(f"tpurun: dvm rejected the job: {e}", file=sys.stderr)
+        return 75
+    except RuntimeError as e:
+        print(f"tpurun: {e}", file=sys.stderr)
+        return 1
+
+
+def _dvm_start(args) -> int:
+    """Bring the standing DVM up and serve until ``--dvm-stop``."""
+    from ompi_tpu_torch.runtime import dvm
+
+    slots = args.slots or max(args.np, args.hosts)
+    plm_name = args.plm or "sim"
+    if plm_name == "sim" and not args.hostfile:
+        _configure_sim_ras(args, slots)
+    if args.metrics_port is not None:
+        # the scrape endpoint is only useful with the uplink armed:
+        # default the push period on (daemons inherit it via their spawn
+        # env, ranks via the launch env overlay) unless the user pinned
+        # it with --mca / the environment
+        os.environ.setdefault(
+            var_registry.ENV_PREFIX + "trace_metrics_push_period", "1.0")
+    hnp = dvm.DvmHnp(plm_name=plm_name, want_gpu=args.gpu,
+                     uri_path=args.dvm_uri, metrics_port=args.metrics_port,
+                     remote_hosts=plm_name == "ssh")
+    hnp.start(np_slots=slots)
+    print(f"dvm: up ({args.hosts} hosts, {slots} slots); "
+          f"uri file {hnp.uri_path}", file=sys.stderr, flush=True)
+    if hnp.metrics_uri:
+        print(f"dvm: metrics at {hnp.metrics_uri}/metrics and "
+              f"{hnp.metrics_uri}/status", file=sys.stderr, flush=True)
+    try:
+        return hnp.serve_forever()
+    except KeyboardInterrupt:
+        hnp.shutdown()
+        return 0
+
+
 def _launch_tree(args, cmd: list[str], env: dict[str, str]) -> int:
     """The multi-host path: one orted per host, routed tree, IOF up the
     tree.  ``sim`` without a hostfile fabricates ``--hosts`` nodes with
     enough slots between them for ``-np`` ranks."""
-    import math
-
     if args.plm == "sim" and not args.hostfile:
-        var_registry.load_cli([
-            ("ras", "simulator"),
-            ("ras_sim_num_nodes", str(args.hosts)),
-            ("ras_sim_slots_per_node",
-             str(math.ceil(args.np / max(1, args.hosts)))),
-        ])
+        _configure_sim_ras(args, args.np)
     from ompi_tpu_torch.runtime.job import AppContext, Job
     from ompi_tpu_torch.runtime.plm import MultiHostLauncher
 

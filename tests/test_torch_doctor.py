@@ -9,10 +9,11 @@ UDP responder, ``capture`` with the PML's pending summary) and the
 offline tool run on the port, and the tool's captures are analysed by
 both packages.  Two launched jobs close the loop: a collective mismatch
 and a straggler, each ended by ``tpurun --timeout``, named from the
-ranks' crash dumps.  The live modes (the orted's TAG_DOCTOR fan-out and
-``--uri``) come with the DVM, ROADMAP.md Queue 1 item 6.15b; the PMIx
-revive that
-drops a dead life's port is held in ``tests/test_torch_selfheal.py``.
+ranks' crash dumps.  The live modes (the orted's TAG_DOCTOR fan-out
+behind a standing DVM's ``/doctor`` and the tool's ``--uri``) are held
+in ``tests/test_torch_obs_scrape.py`` and ``tests/test_torch_dvm*.py``;
+the PMIx revive that drops a dead life's port is held in
+``tests/test_torch_selfheal.py``.
 """
 
 from __future__ import annotations

@@ -112,7 +112,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
                 *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
-                *_DPM_PLANE, *_TREE_PLANE):
+                *_DPM_PLANE, *_TREE_PLANE, *_DVM_PLANE):
         assert mod in res["imported"]
 
 
@@ -176,6 +176,13 @@ _TREE_PLANE = ("ompi_tpu_torch.core.netpatterns", "ompi_tpu_torch.runtime.rml",
                "ompi_tpu_torch.runtime.clocksync",
                "ompi_tpu_torch.tools.tpurun")
 
+#: the standing DVM and the fleet tools (a host pool's HNP loads dvm;
+#: ``info`` imports its torch modules only when it runs)
+_DVM_PLANE = ("ompi_tpu_torch.runtime.dvm", "ompi_tpu_torch.testing.simfleet",
+              "ompi_tpu_torch.tools.sync", "ompi_tpu_torch.tools.schizo",
+              "ompi_tpu_torch.tools.info", "ompi_tpu_torch.tools.chaos_soak",
+              "ompi_tpu_torch.tools.killorphans")
+
 
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
@@ -188,10 +195,12 @@ def test_host_plane_loads_neither_torch_nor_jax():
     fetch_add, a SHMEM ``atomic_fetch_add`` on a one-PE world, and a
     facade ``Allreduce`` and a connect/accept between two in-process
     jobs; the daemon tree's modules (rml, orted, plm, rtc, clean,
-    clocksync, tpurun) are imported too."""
+    clocksync, tpurun) are imported too, and so are the standing DVM's
+    and the fleet tools' (dvm, simfleet, sync, schizo, info, chaos_soak,
+    killorphans)."""
     probe = (
         "import importlib, shutil, sys, tempfile, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE + _TREE_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE + _TREE_PLANE + _DVM_PLANE!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import io\n"
         "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"

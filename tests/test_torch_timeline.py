@@ -6,8 +6,9 @@ pusher (``mpi/trace.py``) against the JAX package's.
 
 Each case mirrors one of ``tests/runtime/test_timeline.py`` or one of
 the cases of ``tests/runtime/test_obs_plane.py`` that need no orted or
-DVM (the orted's are in ``tests/test_torch_rml.py``; the DVM's come with
-ROADMAP.md Queue 1 item 6.15b).  Pure functions get
+DVM (the orted's are in ``tests/test_torch_rml.py``, the DVM's
+``scrape_hnp`` cases in ``tests/test_torch_obs_scrape.py``).  Pure
+functions get
 the same inputs in both packages and must give the same output: merged
 timelines, estimator offsets, merged hop payloads, Prometheus text,
 straggler panels.  The pusher's datagrams are read by the other

@@ -17,12 +17,17 @@ so every assertion it makes is kept.
 
 The harness entry points named in ``record`` are wrapped so that each
 call's return value (every rank's results) is appended to ``out``: a
-case runs once per package and the two records are compared.
+case runs once per package and the two records are compared.  A helper
+the body imported from another test module named in ``follow`` is
+rebuilt over that module's globals the same way, and a
+``contextlib.contextmanager`` helper is rebuilt through the function it
+wraps.
 """
 
 from __future__ import annotations
 
 import builtins
+import contextlib
 import importlib
 import re
 import sys
@@ -87,10 +92,24 @@ def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
                                level)
 
 
+def _rebuild(v: types.FunctionType, g: dict, port: bool) -> Callable:
+    if v.__code__.co_filename == contextlib.__file__ and hasattr(
+            v, "__wrapped__"):
+        return contextlib.contextmanager(_rebuild(v.__wrapped__, g, port))
+    code = _port_code(v.__code__) if port else v.__code__
+    f = types.FunctionType(code, g, v.__name__, v.__defaults__,
+                           v.__closure__)
+    f.__kwdefaults__ = v.__kwdefaults__
+    return f
+
+
 def mirror(fn: Callable, port: bool, out: list,
-           record: tuple = ("run_ranks", "_run_two_jobs")) -> Callable:
+           record: tuple = ("run_ranks", "_run_two_jobs"),
+           follow: tuple = ()) -> Callable:
     """``fn`` rebuilt over its module's globals for one package; the
-    harness entry points in ``record`` append their results to ``out``."""
+    harness entry points in ``record`` append their results to ``out``,
+    and helpers imported from the test modules in ``follow`` are rebuilt
+    over their own modules' globals."""
     ref = sys.modules[fn.__module__]
     g: dict = dict(vars(ref))
     if port:
@@ -101,12 +120,12 @@ def mirror(fn: Callable, port: bool, out: list,
         assert not left, f"no port counterpart for {left}"
         g["__builtins__"] = dict(vars(builtins), __import__=_port_import)
     for k, v in list(g.items()):
-        if isinstance(v, types.FunctionType) and v.__module__ == ref.__name__:
-            code = _port_code(v.__code__) if port else v.__code__
-            f = types.FunctionType(code, g, v.__name__,
-                                   v.__defaults__, v.__closure__)
-            f.__kwdefaults__ = v.__kwdefaults__
-            g[k] = f
+        if not isinstance(v, types.FunctionType):
+            continue
+        if v.__module__ == ref.__name__:
+            g[k] = _rebuild(v, g, port)
+        elif v.__module__ in follow:
+            g[k] = mirror(v, port, out, record)
     for k in record:
         if k in g:
             g[k] = _recording(g[k], out)
