@@ -114,9 +114,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    step's loss and gradients on the card equal the port's CPU run, and
    three steps lower the loss on both;
 12a. ckpt (after train_small) — checkpoint/restart of the flagship's
-   training state at phase train's config and batch, its widths at 2 of
-   its 8 layers (``CUT_LAYERS``, 166M parameters), one rank: 2 steps,
-   a snapshot of the params, f32 moments and step count (~2.0 GB, free
+   training state at phase train's config and batch, its widths at 1 of
+   its 8 layers (``CUT_LAYERS``, 116M parameters), one rank: 2 steps,
+   a snapshot of the params, f32 moments and step count (~1.4 GB, free
    disk checked first) under ``build/ckpt_smoke``, 2 steps as the
    uninterrupted reference, then a restore into fresh tensors on the
    card and the same 2 steps, twice; the losses and every param and
@@ -131,21 +131,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    puts the bf16 manifest to work without ml_dtypes; the snapshots are
    removed;
 13. moe_layer — the MoE family (every FFN a switch of 8 experts,
-   capacity factor 1.25, at the flagship's widths; its parameters drawn
-   once by ``init_params``, 2.35B, and shared by the MoE phases): one
+   capacity factor 1.25, at the flagship's widths and 1 of its 8 layers;
+   its parameters drawn once by ``init_params``, 351M, and shared by the
+   MoE phases): one
    full-width bf16 layer input (16 × 1024 tokens of 2048), the index
    dispatch and combine against the one-hot einsum plain version,
    output, aux and every gradient bit for bit, the same routing, and
    each part timed (route, dispatch, combine, expert FFN, the layer
    forward and backward in both forms) beside its byte bound;
 14. moe_decode — phase decode's metrics and checks for the MoE model
-   (8 forward launches a call), with the prefill's routing: the share
+   (1 forward launch a call), with the prefill's routing: the share
    of tokens dropped and the tokens routed to each expert, per layer;
 15. moe_train — phase train for the MoE model at world size 1 (the ep
    exchange elided): the first step's loss and every gradient leaf
    against the plain attention path, an 8-step loop's launch counts
-   (16 / 8 / 8 a step), step time, tokens/s, MFU by the ACTIVE
-   parameters (468M), peak memory, the loss falling, and a profiled
+   (2 / 1 / 1 a step at its 1 layer), step time, tokens/s, MFU by the
+   ACTIVE parameters (116M), peak memory, the loss falling, and a profiled
    step split into the flash kernels, the expert GEMMs, the index ops
    and the rest;
 16. moe_small — phase train_small on the MoE tests' small f32 config
@@ -175,12 +176,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    card) must raise;
 18a. ft (after rma_ranks, before the flagship's parameters are drawn, so
    this process holds no card memory beside its context) — fault
-   tolerance: (a) the dense model at its widths and 2 of its 8 layers
-   (``CUT_LAYERS``, 166M parameters) at phase train's config trained
+   tolerance: (a) the dense model at its widths and 1 of its 8 layers
+   (``CUT_LAYERS``, 116M parameters) at phase train's config trained
    6 steps by one rank on ``cuda:0`` through the port's launcher
    (``--gpu``, ``errmgr respawn``; the rank binds its card and joins no
    process group), an async ``CheckpointManager`` snapshot every 2 steps
-   (~2.0 GB: f32 params and moments, pinned host copies), once
+   (~1.4 GB: f32 params and moments, pinned host copies), once
    uninterrupted and once with ``rank=0:kill@step=5``: the revived life
    (``OMPI_TPU_RESTART=1``) finds at least 70 GB of the card free,
    restores the latest committed snapshot onto the card
@@ -208,7 +209,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    watchdog; (b)–(d) run side by side after (a);
 18b. io (after ft) — MPI-IO through the port's launcher: (a)
    ``examples/mpiio_darray`` at -np 4 prints its marker; (b) 4 host
-   ranks write an 8192 × 8192 f32 matrix (256 MiB, one file) through a
+   ranks write a 4096 × 4096 f32 matrix (64 MiB, one file) through a
    block × block darray view with one ``write_at_all`` and read it with
    one ``read_at_all`` under each fcoll component and the auto decision,
    then a 4096² block × cyclic(256) darray under two_phase and
@@ -324,6 +325,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``--dvm-stop`` with a ``--gpu`` tenant still running, after which no
    pid of the pool or its tenants is alive or on the card; the tenants'
    forward launches are on the phase's line, not the kernels line;
+18g. tools (after dvm) — the flagship's profiling tools as a user runs
+   them, each CLI a fresh process on the card (``tools/flagship.py``:
+   468M, bf16, batch 16 × 1024, flash forward and backward kernels):
+   (a) ``xprof_capture --steps 3``: the device events' fractions
+   (tensor-core, copy, collective, other) sum to 1 and the flash
+   kernels ran 16 / 8 / 8 a step (counters exactly, trace events within
+   the window's edge); (b) ``step_breakdown fwd grad full``: finite step
+   ms and MFU, full ≥ grad ≥ fwd; (c) ``cost_analysis``: the
+   dispatcher's FLOPs (flash kernels added from their shapes) at least
+   the analytic 6N + 12·L·D·S a token, with its roofline bounds; beside
+   (c), (d) the examples ``generate`` and ``train`` on the card and
+   with ``--device cpu`` (tokens equal, losses within SMALL_TOL) and
+   ``osc_device_window`` across 3 ``--gpu`` ranks on card 0; the tools'
+   flash launches are on the phase's line, not the kernels line;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -392,10 +407,12 @@ OFFSETS = ((0, 0), (128, 0), (0, 128), (64, 0), (0, 64), (100, 36))
 #: the flagship dense model's widths (bench.py:478-484, 468M parameters)
 FLAGSHIP = dict(vocab=32_000, d_model=2048, n_heads=16, n_layers=8,
                 d_ff=8192)
-#: the depth phases ft (a), ckpt and io (c) run the flagship at: its
-#: widths, 2 of its 8 layers (166M parameters, a 2.0 GB training state
-#: where the 8 layers' is 5.62 GB), to pay for phase dvm's seconds
-CUT_LAYERS = 2
+#: the depth phases ft (a) and ckpt run the flagship at: its widths, 1
+#: of its 8 layers (116M parameters, a 1.39 GB training state where the
+#: 8 layers' is 5.62 GB; 2 layers paid for phase dvm's seconds, 1 for
+#: phase tools'); the MoE phases' depth too (351M parameters, 116M active
+#: a token, where the 8 layers' are 2.35B and 468M)
+CUT_LAYERS = 1
 
 
 #: io (c)'s depth: a ragged row cut of a 2-layer stack over 4 ranks
@@ -897,14 +914,20 @@ def kernel_ptxas(kernel):
     return out
 
 
+def moe_fields() -> dict:
+    """The MoE family's config fields: the flagship's widths, every FFN
+    a switch of ``MOE``'s experts, at ``CUT_LAYERS`` of its 8 layers."""
+    return dict(flagship_cut(), **MOE)
+
+
 def flagship_params(moe: bool = False):
     """The flagship 468M model's parameters (init_params, seed 0) as numpy,
-    or with ``moe`` its switch-MoE family's (2.35B): decode and train
-    share them (init_params does not read ``seq``)."""
+    or with ``moe`` its switch-MoE family's (``moe_fields``: 351M):
+    decode and train share them (init_params does not read ``seq``)."""
     from ompi_tpu_torch.models.transformer import TransformerConfig, init_params
 
-    return init_params(TransformerConfig(**FLAGSHIP, **(MOE if moe else {})),
-                       seed=0)
+    return init_params(TransformerConfig(**(moe_fields() if moe
+                                            else FLAGSHIP)), seed=0)
 
 
 def routing_stats(records):
@@ -961,8 +984,8 @@ def phase_decode(fa, card, params_np, moe: bool = False):
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
     # bench.py matrix_decode_throughput flagship widths (468M params; its
-    # MoE family, 2.35B, 468M active a token)
-    cfg = TransformerConfig(**FLAGSHIP, **(MOE if moe else {}),
+    # MoE family at 1 of the 8 layers, 351M, 116M active a token)
+    cfg = TransformerConfig(**(moe_fields() if moe else FLAGSHIP),
                             seq=512 + 256, attention="flash",
                             compute_dtype="bfloat16")
     cfg_x = dataclasses.replace(cfg, attention="xla")
@@ -1048,8 +1071,9 @@ def phase_decode(fa, card, params_np, moe: bool = False):
               f"{len(records)} switch calls in a prefill")
         extra["prefill_routing"] = routing_stats(records)
     name = "moe_decode" if moe else "decode"
-    emit(name, config=("flagship MoE 8 experts, 2.35B (468M active), "
-                       "bench.py decode widths" if moe else
+    emit(name, config=(f"flagship MoE 8 experts at {cfg.n_layers} of its "
+                       f"8 layers, {n_params / 1e6:.0f}M, bench.py decode "
+                       f"widths" if moe else
                        "flagship 468M dense (bench.py decode widths)"),
          n_params=n_params, batch=batch, prompt=prompt_len,
          max_new=[lo, hi], load_s=load_s, flash_launches=launches,
@@ -1855,7 +1879,7 @@ def phase_moe_train(fa, card, moe_np):
     from ompi_tpu_torch.parallel import moe as moe_mod
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
-    cfg = TransformerConfig(**FLAGSHIP, **MOE, seq=TRAIN["seq"],
+    cfg = TransformerConfig(**moe_fields(), seq=TRAIN["seq"],
                             attention="flash", compute_dtype="bfloat16",
                             remat="dots", ce_chunk=TRAIN["ce_chunk"])
     batch, steps, lr = TRAIN["batch"], 8, 1e-3
@@ -1931,8 +1955,9 @@ def phase_moe_train(fa, card, moe_np):
     window = profile_window(lambda: step(params, opt_state, tokens),
                             moe=True)
     var_registry.set("ops_flash_bwd_kernel", False)
-    emit("moe_train", config="flagship MoE 8 experts (2.35B, 468M active), "
-         "bench.py MFU widths, flash forward and backward kernels",
+    emit("moe_train", config=f"flagship MoE 8 experts at {L} of its 8 "
+         f"layers ({n_params / 1e6:.0f}M, {n_active / 1e6:.0f}M active), "
+         f"bench.py MFU widths, flash forward and backward kernels",
          n_params=n_params, n_active=n_active, batch=batch, seq=cfg.seq,
          remat=cfg.remat, ce_chunk=cfg.ce_chunk, lr=lr, steps=steps,
          launches=launches, launches_per_step={
@@ -2344,19 +2369,22 @@ def _host_plane_jobs(card):
     return out
 
 
-NBC_MIB = 64                     # the host_plane phase's size a rank
+#: a rank's size (64 MiB, the host_plane phase's, until phase tools had
+#: to be paid for: job (b)'s nbc schedules took 32 s of the phase's 85)
+NBC_MIB = 16
 NBC_PART_MIB = 1                 # a part of the v and w forms, topologies
-NBC_ARENA_CAP = 64 << 20         # coll_shm_arena_size of job (a)
+NBC_ARENA_CAP = NBC_MIB << 20    # coll_shm_arena_size of job (a)
 NBC_PLAN_SLOTS = 10              # a 4-rank allreduce plan: 2 parities × 5
 
 
 def phase_host_nbc(card):
     """Nonblocking, persistent and partitioned operations and the
     topologies through the port's launcher: (a) one -np 4 job of
-    tools/host_bench.py --nbc with the arena at 64 MiB: every i*
-    collective at 64 MiB a rank against its blocking call, allreduce_init
-    started 16 times (provider shm) with µs per start+wait beside the
-    one-shot allreduce at 4 KiB and 64 MiB, every other *_init once,
+    tools/host_bench.py --nbc with the arena at ``NBC_MIB`` (16 MiB):
+    every i* collective at 16 MiB a rank against its blocking call,
+    allreduce_init started 16 times (provider shm) with µs per
+    start+wait beside the one-shot allreduce at 4 KiB and 16 MiB, every
+    other *_init once,
     send_init/recv_init against isend/irecv, psend/precv in 8
     partitions, a periodic 2×2 cart's neighbor collectives and the halo
     exchange; (b) the persistent allreduce with coll/shm off (provider
@@ -2377,7 +2405,7 @@ def _host_nbc_jobs(card):
 
     out = {"card": card}
     jobs = {}
-    # a 64 MiB allreduce plan pins 2 parities × 5 slots of 64 MiB of
+    # an allreduce plan pins 2 parities × 5 slots of its size of
     # /dev/shm beside the 12 rings of a 4-rank job: shrink the rings, then
     # the plan's size and the arena cap with it, on a small tmpfs
     st = os.statvfs(shmseg.backing_dir())
@@ -3928,7 +3956,7 @@ def phase_ckpt(fa, card, params_np):
     the dense model at its widths and ``CUT_LAYERS`` of its layers (the
     first layers of ``params_np``), phase train's config and batch, one
     rank; 2 steps, a snapshot (params, f32 moments and the step count:
-    ~2.0 GB),
+    ~1.4 GB),
     2 steps as the reference, a restore into fresh tensors and the same
     2 steps, bitwise, through SnapshotStore, DcpStore and
     ShardedSnapshotStore (one file per leaf through collective MPI-IO,
@@ -4650,10 +4678,11 @@ def phase_ft(card):
 # ---------------------------------------------------------------------------
 
 IO_NP = 4                    # ranks of (b) and (c)
-#: (b) side of the f32 matrix: 256 MiB in one file (16384, 1 GiB, took
+#: (b) side of the f32 matrix: 64 MiB in one file (16384, 1 GiB, took
 #: 9–12 s an aggregating collective call on the H100 machine's 9p
-#: filesystem, 136 s for (b))
-IO_MATRIX = 8192
+#: filesystem, 136 s for (b); 8192, 256 MiB, 2.2 s a call until phase
+#: tools had to be paid for)
+IO_MATRIX = 4096
 IO_CYCLIC = (4096, 256)      # (b) side and cyclic block of the 2nd darray
 IO_FCOLL = ("individual", "two_phase", "dynamic", "static", "dynamic_gen2",
             "")              # (b) forced components, then the auto decision
@@ -4877,6 +4906,7 @@ def io_card_rank(cfg: dict) -> None:
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
         with profile(activities=acts) as prof:
+            state["lnf"][:1].clone()           # a window may miss its first
             store.save(0, state)
             state["lnf"][:1].cpu()             # the control: one DtoH
             if DEVICE == "cuda":
@@ -5410,6 +5440,7 @@ def osc_card_rank(cfg: dict) -> None:
             [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
         sync()
         with profile(activities=acts) as prof:
+            t32[:1].clone()                      # a window may miss its first
             for fn in puts.values():
                 fn()
             t32[:1].cpu()                        # the control: one DtoH
@@ -5832,6 +5863,7 @@ def dpm_card_rank(cfg: dict) -> None:
             comm.Barrier()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                t32[:1].clone()                 # a window may miss its first
                 fn()
                 t32[:1].cpu()                   # the control: one DtoH
                 sync()
@@ -6284,6 +6316,7 @@ def plm_card_rank(cfg: dict) -> None:
         world.Barrier()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            mine[:1].clone()                    # a window may miss its first
             world.Allreduce(mine, red)
             mine[:1].cpu()                      # the control: one DtoH
             torch.cuda.synchronize()
@@ -6346,10 +6379,15 @@ def _ssh_localhost_ok() -> bool:
         return False
 
 
-def _gone(pids) -> list:
-    """The pids of ``pids`` still alive, or on the card, after waiting
-    up to ``PLM_REAP_S`` s (a killed rank's context is freed a moment
-    after its kill)."""
+def _gone(pids, apps0=None) -> list:
+    """What outlived its job, after waiting up to ``PLM_REAP_S`` s (a
+    killed rank's context is freed a moment after its kill): the pids of
+    ``pids`` still alive, and, on the card with ``apps0`` (the compute
+    processes ``_card_apps`` listed before those processes started), a
+    line for the card's compute processes while there are more than
+    there were.  The card half counts processes: in the card machine's
+    container ``nvidia-smi`` reports every compute pid as 1, so a pid
+    matches none."""
     deadline = time.monotonic() + PLM_REAP_S
     while True:
         left = []
@@ -6361,12 +6399,11 @@ def _gone(pids) -> list:
                 pass
             except PermissionError:
                 left.append(pid)
-        if DEVICE == "cuda":
-            smi = subprocess.run(
-                ["nvidia-smi", "--query-compute-apps=pid",
-                 "--format=csv,noheader"], capture_output=True, text=True)
-            on_card = {int(x) for x in smi.stdout.split() if x.isdigit()}
-            left += sorted(on_card & set(pids) - set(left))
+        if DEVICE == "cuda" and apps0 is not None:
+            apps = _card_apps()
+            if len(apps) > len(apps0):
+                left.append(f"card: {len(apps)} compute processes "
+                            f"{apps}, {len(apps0)} before {apps0}")
         if not left or time.monotonic() > deadline:
             return left
         time.sleep(0.1)
@@ -6394,6 +6431,7 @@ def phase_plm(card, sizes=None):
            ["-x", f"OMPI_TPU_COORD=127.0.0.1:{free_port()}",
             "-x", f"OMPI_TPU_NHOSTS={PLM_HOSTS}"])
     secs, out = {}, {"card": card}
+    apps0 = _card_apps()          # this process's own context
     try:
         t0 = time.time()   # the card jobs start within ms of it
         card_jobs = {
@@ -6545,7 +6583,7 @@ def phase_plm(card, sizes=None):
         check(sorted(crow) == [0, 1], f"plm (c) rows {crow}")
         kill_to_exit = t0 + wall - crow[1]["kill_wall"]
         card_pids += [v["pid"] for v in crow.values()]
-        left = _gone(card_pids)
+        left = _gone(card_pids, apps0)
         check(not left, f"plm: ranks {left} outlived their jobs")
         # hello, alone: its launch-to-exit time
         wall, rc, so, se = tpurun([*sim, "-np", str(PLM_NP), "--",
@@ -7114,8 +7152,12 @@ def _dvm_host(work: str, a_done: threading.Event, inboxes: set) -> dict:
         out["sync_us"] = offs
     finally:
         out["stop"] = _dvm_stop(uri, pool)
+    # the --gpu pool runs on beside this one: phase_dvm counts the card's
+    # compute processes against their number before both pools, once
+    # both are down
     left = _gone(pids)
     check(not left, f"dvm: orteds {left} outlived --dvm-stop")
+    out["orted_pids"] = pids
     _s, rc, _so, se = _dvm_tool("ompi_tpu_torch.tools.tpurun", "--clean",
                                 "--clean-dry-run")
     new = _shm_inboxes() - inboxes
@@ -7252,15 +7294,10 @@ def _dvm_card(work: str, a_done: threading.Event) -> dict:
         out["stop"] = _dvm_stop(uri, pool)
         wall, rc, _so, _se = tpurun_wait(stop_job)
         pids += [v["pid"] for v in rows.values()]
-        left = _gone(pids + pool_pids)
-        check(not left, f"dvm: {left} outlived the --gpu pool's stop")
-        deadline = time.monotonic() + PLM_REAP_S
-        while len(_card_apps()) > len(apps0) and time.monotonic() < deadline:
-            time.sleep(0.1)
-        out["card_apps"]["after_stop"] = apps = _card_apps()
-        check(len(apps) == len(apps0),
-              f"dvm: the card still runs {apps} after the --gpu pool's "
-              f"stop ({apps0} before the pool)")
+        left = _gone(pids + pool_pids, apps0)
+        check(not left, f"dvm: {left} outlived the --gpu pool's stop "
+                        f"({apps0} on the card before the pool)")
+        out["card_apps"]["after_stop"] = _card_apps()
         out.update(
             b1={"solo": {"wall_s": solo["wall_s"],
                          "submit_to_kernel_s": solo["submit_to_kernel_s"]},
@@ -7307,6 +7344,7 @@ def phase_dvm(card):
     os.makedirs(work)
     inboxes = _shm_inboxes()
     a_done = threading.Event()
+    apps0 = _card_apps()          # this process's own context
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(2) as ex:
@@ -7317,6 +7355,8 @@ def phase_dvm(card):
             finally:
                 a_done.set()
             gpu = fb.result()
+        left = _gone(host["orted_pids"], apps0)
+        check(not left, f"dvm: {left} on the card after both pools' stop")
     finally:
         for reaper, _, _ in _HOST_JOBS:
             reaper.join()
@@ -7325,6 +7365,218 @@ def phase_dvm(card):
     emit("dvm", host_pool=host, gpu_pool=gpu, seconds=time.perf_counter() - t0,
          card=card)
     return gpu["rank_flash_launches"]
+
+
+TOOLS_STEPS = 3              # (a) xprof_capture --steps
+TOOLS_JOB_TIMEOUT = 900      # every tool's child, seconds
+TOOLS_OSC_NP = 3             # (d) osc_device_window's ranks, on card 0
+#: (a)-(c) on the CPU rehearsal: the tools' small configs
+TOOLS_SMALL = False
+
+
+def _tools_run(module: str, *args) -> tuple:
+    """(seconds, stdout) of ``python -m ompi_tpu_torch.tools.<module>``;
+    a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"ompi_tpu_torch.tools.{module}",
+                        *args], capture_output=True, text=True,
+                       timeout=TOOLS_JOB_TIMEOUT,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"tools {module}: rc {r.returncode}\n"
+          f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    return time.perf_counter() - t0, r.stdout
+
+
+def _tools_examples(work: str) -> dict:
+    """(d): generate and train on the card and with ``--device cpu``, and
+    osc_device_window across ``TOOLS_OSC_NP`` ranks on card 0, side by
+    side; returns their results."""
+    gpu = ["--gpu"] if DEVICE == "cuda" else []
+    cpu = ["--device", "cpu"]
+    card_dev = [] if DEVICE == "cuda" else cpu
+    jobs = {
+        "generate_card": ["-np", "1", *gpu, "--no-tag-output", "--",
+                          sys.executable, "-m",
+                          "ompi_tpu_torch.examples.generate", *card_dev],
+        "generate_cpu": ["-np", "1", "--no-tag-output", "--",
+                         sys.executable, "-m",
+                         "ompi_tpu_torch.examples.generate", *cpu],
+        "train_card": ["-np", "1", *gpu, "--no-tag-output", "--",
+                       sys.executable, "-m", "ompi_tpu_torch.examples.train",
+                       "--ckpt-dir", os.path.join(work, "train_card"),
+                       *card_dev],
+        "train_cpu": ["-np", "1", "--no-tag-output", "--", sys.executable,
+                      "-m", "ompi_tpu_torch.examples.train", "--ckpt-dir",
+                      os.path.join(work, "train_cpu"), *cpu],
+        "osc": ["-np", str(TOOLS_OSC_NP), *(
+            gpu if DEVICE == "cuda" else
+            ["-x", f"OMPI_TPU_COORD=127.0.0.1:{free_port()}",
+             "-x", "OMPI_TPU_NHOSTS=1"]), "--no-tag-output", "--",
+                sys.executable, "-m",
+                "ompi_tpu_torch.examples.osc_device_window", *card_dev],
+    }
+    started = {k: tpurun_start(v) for k, v in jobs.items()}
+    res = {}
+    for k, job in started.items():
+        wall, rc, so, se = tpurun_wait(job)
+        check(rc == 0, f"tools example {k}: rc {rc}\n{so[-2000:]}"
+                       f"{se[-3000:]}")
+        res[k] = {"wall_s": wall, "lines": [
+            ln for ln in so.splitlines() if ln.strip()]}
+    out: dict = {"wall_s": {k: v["wall_s"] for k, v in res.items()}}
+    # generate: the card's tokens equal the CPU's
+    g_card, g_cpu = res["generate_card"]["lines"], res["generate_cpu"]["lines"]
+    check(len(g_cpu) == 3 and g_cpu[0].startswith("mesh {'dp': 1")
+          and g_card == g_cpu,
+          f"tools generate: the card's lines {g_card} are not the CPU's "
+          f"{g_cpu}")
+    out["generate_rows"] = [json.loads(ln) for ln in g_card[1:]]
+    # train: the reference's lines; the card's losses the CPU's at SMALL_TOL
+    rec = {}
+    for k in ("train_card", "train_cpu"):
+        lines = res[k]["lines"]
+        (rec[k],) = tagged_json("\n".join(lines), "train")
+        check([ln.split(":")[0] for ln in lines if ln.startswith("step ")]
+              == [f"step {i}" for i in range(6)]
+              and any(ln.startswith("checkpoint at step 3 -> ")
+                      for ln in lines)
+              and "resume: batch stream reproduced from checkpointed step "
+                  "— ok" in lines, f"tools {k}: {lines}")
+    lc, lp = (np.asarray(rec[k]["losses"]) for k in ("train_card",
+                                                     "train_cpu"))
+    rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    check(rec["train_card"]["device"].startswith(DEVICE)
+          and rec["train_cpu"]["device"] == "cpu"
+          and bool(np.isfinite(lc).all()) and rel <= SMALL_TOL,
+          f"tools train: card {rec['train_card']} vs cpu "
+          f"{rec['train_cpu']} (max rel {rel})")
+    out["train"] = {"losses_card": lc.tolist(), "losses_cpu": lp.tolist(),
+                    "max_rel_diff": rel, "tol": SMALL_TOL}
+    # osc_device_window: the reference's lines, each rank's part
+    lines = res["osc"]["lines"]
+    n = TOOLS_OSC_NP
+    rows = {r["rank"]: r for r in tagged_json("\n".join(lines),
+                                               "osc_device_window")}
+    check(f"{n}-device window over {DEVICE}" in lines
+          and f"one-sided put landed on device {n - 1}; one-sided get "
+              f"fetched it back: 42.0" in lines
+          and sorted(rows) == list(range(n))
+          and [rows[r]["local"] for r in range(n)]
+          == [0.0] * (n - 1) + [42.0]
+          and rows[1]["fetched"] == rows[n - 1]["fetched"] == 42.0,
+          f"tools osc_device_window: {lines}")
+    launches = {k: sum(r[f"{k}_launches"] for r in rows.values())
+                for k in ("put", "get")}
+    if DEVICE == "cuda":
+        check(all(r["device"].startswith("cuda") for r in rows.values())
+              and launches["put"] >= 1 and launches["get"] >= 1,
+              f"tools osc_device_window: the copy kernels never ran: "
+              f"{rows}")
+    out["osc"] = {"rows": rows, "launches": launches}
+    return out
+
+
+def phase_tools(card, device_name: str = ""):
+    """The flagship's profiling tools as a user runs them, each CLI in a
+    fresh process, then the four examples: (a) xprof_capture; (b)
+    step_breakdown fwd grad full; (c) cost_analysis side by side with (d)
+    generate, train and osc_device_window.  Files go under
+    build/tools_smoke/ (removed at the end)."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "tools_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    small = ["--small"] if TOOLS_SMALL else []
+    on_cpu = DEVICE != "cuda"
+    L = 2 if TOOLS_SMALL else FLAGSHIP["n_layers"]
+    secs, out = {}, {"card": card}
+    try:
+        # (a) the trace of TOOLS_STEPS train steps
+        secs["xprof"], so = _tools_run(
+            "xprof_capture", "--steps", str(TOOLS_STEPS), "--out",
+            os.path.join(work, "xprof"), *small, *(["--cpu", "1"] * on_cpu))
+        xp = json.loads(so.strip().splitlines()[-1])
+        fr = xp["fractions"]
+        check(xp["events"] > 0 and set(fr) <= {"mxu", "copy", "collective",
+                                               "other"}
+              and abs(sum(fr.values()) - 1.0) < 1e-6 and fr.get("mxu", 0) > 0
+              and xp["steps"] == TOOLS_STEPS
+              and os.path.exists(os.path.join(work, "xprof", "summary.json"))
+              and np.isfinite(xp["loss"]),
+              f"tools xprof_capture: {xp}")
+        want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        if not on_cpu:
+            check(xp["backend"] == device_name
+                  and xp["flash_launches"] == {
+                      k: v * TOOLS_STEPS for k, v in want.items()}
+                  and all(v * TOOLS_STEPS - 1 <= xp["flash_events"][k]
+                          <= v * TOOLS_STEPS for k, v in want.items()),
+                  f"tools xprof_capture: flash launches "
+                  f"{xp['flash_launches']}, trace events "
+                  f"{xp['flash_events']}, want {want} a step")
+        out["xprof"] = {k: xp[k] for k in (
+            "events", "total_op_ms", "fractions", "top_ops_ms", "backend",
+            "steps", "traced_wall_ms", "params", "flash_launches",
+            "flash_events", "loss")}
+        out["xprof"]["device_busy_ms_per_step"] = (xp["total_op_ms"]
+                                                   / TOOLS_STEPS)
+        # (b) fwd, grad and full, each in its own child
+        secs["breakdown"], so = _tools_run(
+            "step_breakdown", "fwd", "grad", "full", *small,
+            *(["--cpu"] * on_cpu))
+        bd = {}
+        for ln in so.splitlines():
+            if ln.startswith("[breakdown] "):
+                rec = json.loads(ln.split(": ", 1)[1])
+                bd[rec["phase"]] = rec
+        check(sorted(bd) == ["full", "fwd", "grad"]
+              and all(np.isfinite(r["step_ms"]) and np.isfinite(r["loss"])
+                      and (on_cpu or np.isfinite(r["mfu_pct"]))
+                      for r in bd.values())
+              # on the rehearsal's tiny model the order is noise
+              and (on_cpu or bd["full"]["step_ms"] >= bd["grad"]["step_ms"]
+                   >= bd["fwd"]["step_ms"]),
+              f"tools step_breakdown: {bd}")
+        if not on_cpu:
+            chain = bd["fwd"]["chain"]
+            check(bd["grad"]["flash_launches"] == {
+                k: v * chain for k, v in want.items()}
+                  and bd["fwd"]["flash_launches"]["flash_fwd"] == L * chain,
+                  f"tools step_breakdown: launches {bd}")
+        out["breakdown"] = bd
+        # (c) beside (d): cost_analysis runs no timing
+        with ThreadPoolExecutor(1) as ex:
+            ex_job = ex.submit(_tools_examples, work)
+            try:
+                secs["cost"], so = _tools_run(
+                    "cost_analysis", *small, *(["--cpu"] * on_cpu))
+            finally:
+                t_ex = time.perf_counter()
+                examples = ex_job.result()
+                secs["examples_after_cost"] = time.perf_counter() - t_ex
+        ca = json.loads(so[so.index("{"):])
+        check(ca["flops"] >= ca["analytic_flops"] > 0
+              and ca["bytes_accessed"] > 0
+              and (on_cpu or (ca["flash_launches"] == want
+                              and ca["kernel_flops"] > 0
+                              and np.isfinite(ca["flops_bound_ms"])
+                              and np.isfinite(ca["bytes_bound_ms"]))),
+              f"tools cost_analysis: {ca}")
+        out["cost"] = ca
+        out["examples"] = examples
+    finally:
+        for reaper, _, _ in _HOST_JOBS:
+            reaper.join()
+        _HOST_JOBS.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: out["xprof"]["flash_launches"][k]
+                + sum(r["flash_launches"][k] for r in out["breakdown"].values())
+                + out["cost"]["flash_launches"][k] for k in want}
+    emit("tools", **out, flash_launches=launches,
+         osc_launches=out["examples"]["osc"]["launches"], seconds=secs)
+    return launches
 
 
 def main() -> int:
@@ -7378,6 +7630,7 @@ def main() -> int:
     run("dpm", phase_dpm, card)
     run("plm", phase_plm, card)
     run("dvm", phase_dvm, card)
+    run("tools", phase_tools, card, name)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)

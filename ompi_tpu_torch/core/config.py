@@ -1,22 +1,27 @@
 """Typed configuration-variable registry (the port's own copy).
 
-A trimmed copy of the JAX package's registry: every tunable is a
-registered, typed variable with one namespace and a fixed precedence
+The port's copy of the JAX package's registry (≈ the reference's MCA
+variable system, opal/mca/base/mca_base_var.h:78-96,404-475;
+mca_base_var.c): every tunable is a registered, typed, self-describing
+variable with one namespace and a fixed source precedence
 
     default  <  file ($OMPI_TPU_PARAM_FILE, then ./ompi-tpu-params.conf)
              <  environment (OMPI_TPU_MCA_<framework>_<name>)
+             <  command line (--mca <framework>_<name> <value>)
+             <  programmatic set_var()
 
-The environment prefix, the file format and the value parsers are the
-JAX package's, so one ``OMPI_TPU_MCA_ops_flash_block_q`` or
+Each variable records the source its value came from (``VarSource``),
+carries an info level (``InfoLevel``, the audience ``tools/info.py
+--level`` filters on), and may be read-only (an external setting is
+ignored with a warning, ``set()`` raises), deprecated (a setting from
+any source but the default warns once) or known under synonyms (the
+framework-selection variable ``btl_`` is also ``btl``, so ``--mca btl
+self,tcp`` sets it).  The environment prefix, the file format and the
+value parsers are the JAX package's, so one
 ``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
-The port keeps only what its slices read: integer, size, double,
-boolean and string variables with an optional allowed-value list; the
-file, environment and command-line (``tpurun --mca``, ``load_cli``)
-sources; one synonym per framework-selection variable (``--mca btl
-self,tcp`` sets ``btl_``); and the programmatic override
-``VarRegistry.set`` (no info levels, deprecations or read-only vars).
-
-    default  <  file  <  environment  <  command line  <  set()
+The params file in the user's home directory, which the JAX package
+also reads, is left out: the port reads nothing outside its working
+directory but the file ``$OMPI_TPU_PARAM_FILE`` names.
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
+import sys
 import threading
-from typing import Any, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
-__all__ = ["VarType", "Var", "VarRegistry", "var_registry", "register_var"]
+__all__ = ["VarType", "VarSource", "InfoLevel", "Var", "VarRegistry",
+           "var_registry", "register_var", "get_var", "set_var"]
 
 #: highest-precedence params file
 ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
@@ -35,10 +42,43 @@ ENV_PARAM_FILE = "OMPI_TPU_PARAM_FILE"
 
 class VarType(enum.Enum):
     INT = "int"
+    UNSIGNED = "unsigned"
     SIZE = "size"
-    DOUBLE = "double"
-    BOOL = "bool"
     STRING = "string"
+    BOOL = "bool"
+    DOUBLE = "double"
+    # list of strings (comma separated in env/CLI)
+    STRING_LIST = "string_list"
+
+
+class VarSource(enum.Enum):
+    """Where the current value came from (precedence low→high)."""
+
+    DEFAULT = 0
+    FILE = 1
+    ENV = 2
+    COMMAND_LINE = 3
+    SET = 4  # programmatic override — wins over everything
+
+
+class InfoLevel(enum.IntEnum):
+    """Audience levels, mirroring MCA_BASE_VAR_INFO_LVL_* (mca_base_var.h)."""
+
+    USER_BASIC = 1
+    USER_DETAIL = 2
+    USER_ALL = 3
+    TUNER_BASIC = 4
+    TUNER_DETAIL = 5
+    TUNER_ALL = 6
+    DEV_BASIC = 7
+    DEV_DETAIL = 8
+    DEV_ALL = 9
+
+
+def _nonneg(v: int) -> int:
+    if v < 0:
+        raise ValueError(f"negative value {v} for unsigned variable")
+    return v
 
 
 def _parse_size(s: str) -> int:
@@ -48,10 +88,7 @@ def _parse_size(s: str) -> int:
     if s and s[-1].upper() in "KMG":
         mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}[s[-1].upper()]
         s = s[:-1]
-    n = int(float(s) * mult)
-    if n < 0:
-        raise ValueError(f"size must be >= 0, got {n}")
-    return n
+    return _nonneg(int(float(s) * mult))
 
 
 def _parse_bool(s: str) -> bool:
@@ -63,9 +100,16 @@ def _parse_bool(s: str) -> bool:
     raise ValueError(f"cannot parse {s!r} as bool")
 
 
-_PARSERS = {VarType.INT: int, VarType.SIZE: _parse_size,
-            VarType.DOUBLE: float, VarType.BOOL: _parse_bool,
-            VarType.STRING: str}
+_PARSERS: dict[VarType, Callable[[str], Any]] = {
+    VarType.INT: int,
+    VarType.UNSIGNED: lambda s: _nonneg(int(s)),
+    VarType.SIZE: _parse_size,
+    VarType.STRING: str,
+    VarType.BOOL: _parse_bool,
+    VarType.DOUBLE: float,
+    VarType.STRING_LIST: lambda s: [p for p in (t.strip()
+                                                for t in s.split(",")) if p],
+}
 
 
 @dataclasses.dataclass
@@ -77,25 +121,38 @@ class Var:
     vtype: VarType
     default: Any
     description: str = ""
-    value: Any = None
-    #: allowed values of a string variable (None = any)
+    info_level: InfoLevel = InfoLevel.USER_ALL
+    read_only: bool = False
+    deprecated: bool = False
+    #: allowed values (None = any)
     enumerator: Optional[tuple] = None
     synonyms: tuple[str, ...] = ()  # alternate full names
+    # current state
+    value: Any = None
+    source: VarSource = VarSource.DEFAULT
 
     @property
     def full_name(self) -> str:
         return f"{self.framework}_{self.name}" if self.framework else self.name
 
     def parse(self, raw: str) -> Any:
-        value = _PARSERS[self.vtype](raw)
-        if self.enumerator is not None and value not in self.enumerator:
-            raise ValueError(f"{value!r} is not one of "
-                             f"{list(self.enumerator)}")
-        return value
+        v = _PARSERS[self.vtype](raw)
+        self._check(v)
+        return v
+
+    def _check(self, v: Any) -> None:
+        if self.enumerator is not None and v not in self.enumerator:
+            raise ValueError(
+                f"value {v!r} for {self.full_name} not in {self.enumerator}")
 
 
 class VarRegistry:
-    """The process-wide registry; sources apply at registration time."""
+    """The process-wide registry with its source precedence.
+
+    Sources are applied at registration time (so late registration still
+    sees CLI/env/file settings, as mca_base_var re-scans its file/env
+    caches in mca_base_var_register).
+    """
 
     ENV_PREFIX = "OMPI_TPU_MCA_"
 
@@ -103,13 +160,17 @@ class VarRegistry:
         self._lock = threading.RLock()
         self._vars: dict[str, Var] = {}
         self._synonyms: dict[str, str] = {}
-        self._file: dict[str, str] = {}
-        self._cli: dict[str, str] = {}
+        # pending settings keyed by the name they were given under
+        self._pending: dict[str, tuple[str, VarSource]] = {}
+        self._warned: set[str] = set()
         self._load_files()
 
+    # -- source loading -------------------------------------------------
+
     def _load_files(self) -> None:
-        """``name = value`` lines, '#' comments; the first file to define
-        a name wins, so paths are listed highest precedence first."""
+        """``name = value`` lines, '#' comments (the reference's
+        mca_base_parse_paramfile.c); the first file to define a name
+        wins, so paths are listed highest precedence first."""
         paths = [p for p in (os.environ.get(ENV_PARAM_FILE),
                              os.path.join(os.getcwd(),
                                           "ompi-tpu-params.conf")) if p]
@@ -121,28 +182,21 @@ class VarRegistry:
                         if not line or "=" not in line:
                             continue
                         k, v = (p.strip() for p in line.split("=", 1))
-                        self._file.setdefault(k, v)
+                        self._pending.setdefault(k, (v, VarSource.FILE))
             except OSError:
                 continue
 
-    def _apply(self, var: Var, raw: str, source: str) -> None:
-        try:
-            var.value = var.parse(raw)
-        except ValueError as e:
-            raise ValueError(
-                f"bad value {raw!r} for {var.vtype.value} variable "
-                f"{var.full_name} (from {source}): {e}") from None
-
     def load_cli(self, pairs: Iterable[tuple[str, str]]) -> None:
-        """Record ``--mca name value`` pairs (called by CLI front-ends);
-        they win over the file and the environment."""
+        """Record ``--mca name value`` pairs (called by CLI front-ends)."""
         with self._lock:
             for name, raw in pairs:
+                self._pending[name] = (raw, VarSource.COMMAND_LINE)
                 canon = self._synonyms.get(name, name)
-                self._cli[canon] = raw
                 var = self._vars.get(canon)
                 if var is not None:
-                    self._apply(var, raw, "command line")
+                    self._apply(var, raw, VarSource.COMMAND_LINE)
+
+    # -- registration ---------------------------------------------------
 
     def register(self, var: Var) -> Var:
         with self._lock:
@@ -151,55 +205,118 @@ class VarRegistry:
                 return existing
             var.value = var.default
             self._vars[var.full_name] = var
-            names = (var.full_name, *var.synonyms)
             for syn in var.synonyms:
                 self._synonyms[syn] = var.full_name
-                if syn in self._cli:
-                    self._cli.setdefault(var.full_name, self._cli.pop(syn))
-            file_raw = next((self._file[n] for n in names
-                             if n in self._file), None)
-            env_name = next((self.ENV_PREFIX + n for n in names
-                             if self.ENV_PREFIX + n in os.environ), None)
-            for raw, source in (
-                    (file_raw, "file"),
-                    (os.environ.get(env_name) if env_name else None,
-                     env_name),
-                    (self._cli.get(var.full_name), "command line")):
-                if raw is not None:
-                    self._apply(var, raw, source)
+            # file < env < cli; among the canonical name and its synonyms
+            # the highest-precedence source wins (a CLI setting under a
+            # synonym beats a file setting under the canonical name)
+            pend: Optional[tuple[str, VarSource]] = None
+            for cand in (var.full_name, *var.synonyms):
+                p = self._pending.get(cand)
+                if p is not None and (pend is None
+                                      or p[1].value > pend[1].value):
+                    pend = p
+            if pend is not None and pend[1] == VarSource.FILE:
+                self._apply(var, pend[0], VarSource.FILE)
+            env_raw = os.environ.get(self.ENV_PREFIX + var.full_name)
+            for syn in var.synonyms:
+                if env_raw is None:
+                    env_raw = os.environ.get(self.ENV_PREFIX + syn)
+            if env_raw is not None:
+                self._apply(var, env_raw, VarSource.ENV)
+            if pend is not None and pend[1] == VarSource.COMMAND_LINE:
+                self._apply(var, pend[0], VarSource.COMMAND_LINE)
             return var
+
+    def _warn(self, var: Var, msg: str) -> None:
+        if var.full_name not in self._warned:
+            self._warned.add(var.full_name)
+            print(f"ompi_tpu_torch: {msg}", file=sys.stderr)
+
+    def _apply(self, var: Var, raw: str, source: VarSource) -> None:
+        if var.read_only and source != VarSource.DEFAULT:
+            # an external setting on a read-only var is ignored with a
+            # warning, never an import-time crash (as the reference)
+            print(f"ompi_tpu_torch: ignoring {source.name.lower()} override "
+                  f"of read-only variable {var.full_name}", file=sys.stderr)
+            return
+        try:
+            var.value = var.parse(raw)
+        except ValueError as e:
+            hint = (self.ENV_PREFIX + var.full_name
+                    if source == VarSource.ENV else source.name.lower())
+            raise ValueError(
+                f"bad value {raw!r} for {var.vtype.value} variable "
+                f"{var.full_name} (from {hint}): {e}") from None
+        var.source = source
+        if var.deprecated:
+            self._warn(var, f"variable {var.full_name} is deprecated "
+                            f"(set from {source.name.lower()})")
+
+    # -- access ---------------------------------------------------------
 
     def get(self, full_name: str) -> Any:
         with self._lock:
-            return self._vars[self._synonyms.get(full_name,
-                                                 full_name)].value
+            canon = self._synonyms.get(full_name, full_name)
+            return self._vars[canon].value
 
     def lookup(self, full_name: str) -> Optional[Var]:
         """The registered variable (a synonym resolves), or None."""
         with self._lock:
-            return self._vars.get(self._synonyms.get(full_name, full_name))
+            canon = self._synonyms.get(full_name, full_name)
+            return self._vars.get(canon)
+
+    def set(self, full_name: str, value: Any) -> None:
+        """Programmatic override (highest precedence); a string is parsed
+        as the environment's would be."""
+        with self._lock:
+            canon = self._synonyms.get(full_name, full_name)
+            var = self._vars[canon]
+            if var.read_only:
+                raise ValueError(f"variable {full_name} is read-only")
+            if isinstance(value, str) and var.vtype != VarType.STRING:
+                value = var.parse(value)
+            else:
+                var._check(value)
+            var.value = value
+            var.source = VarSource.SET
+            if var.deprecated:
+                self._warn(var, f"variable {var.full_name} is deprecated")
 
     def all_vars(self) -> list[Var]:
         """Every registered variable, by full name (MPI_T's cvars)."""
         with self._lock:
             return sorted(self._vars.values(), key=lambda v: v.full_name)
 
-    def set(self, full_name: str, value: Any) -> None:
-        """Programmatic override, above every other source; a string is
-        parsed as the environment's would be."""
-        with self._lock:
-            var = self._vars[full_name]
-            var.value = var.parse(value) if isinstance(value, str) else value
+    def dump(self, max_level: InfoLevel = InfoLevel.DEV_ALL) -> str:
+        lines: list[str] = []
+        for var in self.all_vars():
+            if var.info_level > max_level:
+                continue
+            lines.append(
+                f"{var.full_name} = {var.value!r}  "
+                f"[{var.vtype.value}, {var.source.name.lower()}]"
+                + (f"  # {var.description}" if var.description else ""))
+        return "\n".join(lines)
 
 
 var_registry = VarRegistry()
 
 
-def register_var(framework: str, name: str, vtype: VarType, default: Any,
-                 description: str = "",
-                 enumerator: Optional[tuple] = None,
-                 synonyms: tuple[str, ...] = ()) -> Var:
+def register_var(framework: str, name: str, vtype: VarType | str,
+                 default: Any, description: str = "", **kw: Any) -> Var:
+    if isinstance(vtype, str):
+        vtype = VarType(vtype)
+    if "synonyms" in kw:
+        kw["synonyms"] = tuple(kw["synonyms"])
     return var_registry.register(
         Var(framework=framework, name=name, vtype=vtype, default=default,
-            description=description, enumerator=enumerator,
-            synonyms=tuple(synonyms)))
+            description=description, **kw))
+
+
+def get_var(full_name: str) -> Any:
+    return var_registry.get(full_name)
+
+
+def set_var(full_name: str, value: Any) -> None:
+    var_registry.set(full_name, value)

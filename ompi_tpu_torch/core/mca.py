@@ -1,12 +1,14 @@
 """Component/framework registry — the Modular Component Architecture (the
-port's trimmed copy of the JAX package's ``core/mca.py``).
+port's copy of the JAX package's ``core/mca.py``).
 
 The reference's uniform plugin system (opal/mca/mca.h:281-343,
 opal/mca/base/mca_base_framework.h:127-157, mca_base_components_select.c):
 every subsystem is a *framework* (a fixed interface) holding N
 *components* (implementations), selected at run time by priority and the
 user's directive.  Components register with a class decorator at import
-time.
+time, and the framework opens its eligible components (``open()``, at
+the first selection) and closes them (``close()``,
+``framework_registry.close_all()``).
 
 The directive is the configuration variable ``<framework>_`` (empty name),
 read through the port's ``core/config.py`` (with the bare framework name
@@ -23,6 +25,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional, Type
 
+from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 
 __all__ = ["Component", "Framework", "framework_registry", "ComponentError"]
@@ -35,7 +38,8 @@ class ComponentError(RuntimeError):
 class Component:
     """Base class for all components (≈ mca_base_component_2_1_0_t).
 
-    Subclasses set ``NAME`` and ``PRIORITY``.  ``query()`` returns the
+    Subclasses set ``NAME`` and ``PRIORITY`` and may override the
+    lifecycle hooks ``open``/``close``.  ``query()`` returns the
     priority, or None to decline selection in this context (≈
     mca_query_component returning OMPI_ERR_NOT_AVAILABLE).
     """
@@ -48,9 +52,19 @@ class Component:
         """Register this component's config vars (≈
         mca_register_component_params)."""
 
+    def open(self) -> None:
+        """Called once when the framework opens (≈ mca_open_component)."""
+
+    def close(self) -> None:
+        """Called at framework close (≈ mca_close_component)."""
+
     def query(self, **context: Any) -> Optional[int]:
         """Return selection priority for this context, or None to decline."""
         return self.PRIORITY
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.FRAMEWORK}/{self.NAME}"
 
 
 class Framework:
@@ -61,6 +75,8 @@ class Framework:
         self.description = description
         self._components: dict[str, Component] = {}
         self._lock = threading.RLock()
+        self._opened = False
+        self._opened_components: set[str] = set()
         register_var(
             name, "", VarType.STRING, "",
             description=f"Component selection for the {name} framework "
@@ -82,6 +98,42 @@ class Framework:
             self._components[cls.NAME] = inst
         return cls
 
+    def add_instance(self, inst: Component) -> None:
+        """Register an already-built component (opened at once when the
+        framework is open)."""
+        inst.FRAMEWORK = self.name
+        with self._lock:
+            if inst.NAME in self._components:
+                raise ComponentError(
+                    f"duplicate component {self.name}/{inst.NAME}")
+            self._components[inst.NAME] = inst
+            inst.register_params()
+            if self._opened:
+                inst.open()
+                self._opened_components.add(inst.NAME)
+
+    # -- lifecycle ------------------------------------------------------
+
+    def open(self) -> None:
+        """Open every currently eligible component.  Idempotent per
+        component: one made eligible by a later directive change opens on
+        the next open()/select(); close() closes only what opened."""
+        with self._lock:
+            for comp in self._eligible():
+                if comp.NAME not in self._opened_components:
+                    comp.open()
+                    self._opened_components.add(comp.NAME)
+            self._opened = True
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._opened:
+                return
+            for name in self._opened_components:
+                self._components[name].close()
+            self._opened_components.clear()
+            self._opened = False
+
     # -- selection ------------------------------------------------------
 
     def _directive(self) -> tuple[set[str], bool]:
@@ -102,6 +154,10 @@ class Framework:
         if not is_exclude:
             missing = names - set(components)
             if missing:
+                output.show_help(
+                    "mca", "component-not-found",
+                    framework=self.name, components=", ".join(sorted(missing)),
+                    available=", ".join(sorted(components)))
                 raise ComponentError(
                     f"requested {self.name} component(s) not found: "
                     f"{sorted(missing)} (the {self.name} framework has: "
@@ -122,6 +178,7 @@ class Framework:
     def select_all(self, **context: Any) -> list[Component]:
         """All accepting components, highest priority first (for stacked
         frameworks like coll where modules layer per-function)."""
+        self.open()
         scored: list[tuple[int, Component]] = []
         for comp in self._eligible():
             pri = comp.query(**context)
@@ -163,6 +220,10 @@ class _FrameworkRegistry:
     def all(self) -> dict[str, Framework]:
         with self._lock:
             return dict(self._frameworks)
+
+    def close_all(self) -> None:
+        for fw in self.all().values():
+            fw.close()
 
 
 framework_registry = _FrameworkRegistry()

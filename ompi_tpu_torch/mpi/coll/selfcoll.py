@@ -1,10 +1,10 @@
 """coll/self — collectives on size-1 communicators (≈ ompi/mca/coll/self;
 the port's copy of the JAX package's ``mpi/coll/selfcoll.py``).
 
-Every collective on a host buffer degenerates to a local identity/copy;
-the component is eligible only when size == 1.  ``alltoallw`` is left
-out: it packs through the host convertor, which is host plane
-(ROADMAP.md Queue 1 item 6).
+Every collective on a host buffer degenerates to a local identity/copy
+(``alltoallw`` packs the send spec and unpacks it into the receive
+spec in place, through coll/base's convertor helpers); the component is
+eligible only when size == 1.
 """
 
 from __future__ import annotations
@@ -78,3 +78,10 @@ class SelfColl(Component):
         if sendparts[0] is None:
             return [np.empty(0, np.uint8)]
         return [np.asarray(sendparts[0])]
+
+    def coll_alltoallw(self, comm, sendspecs, recvspecs):
+        from ompi_tpu_torch.mpi.coll.base import pack_spec, unpack_spec
+
+        if sendspecs[0] is not None:
+            unpack_spec(recvspecs[0], pack_spec(sendspecs[0]))
+        return None

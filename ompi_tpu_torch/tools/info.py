@@ -3,13 +3,12 @@ port's copy of the JAX package's ``tools/info.py``).
 
 ≈ ompi/tools/ompi_info: the introspection tool that lists every registered
 framework, its components (with priorities), and every config variable with
-its current value.
+its current value and source.
 
-    python -m ompi_tpu_torch.tools.info [--param pml_]
+    python -m ompi_tpu_torch.tools.info [--level N] [--param pml_]
 
-The port's config variables carry no info level and no record of their
-source: every variable shows (the JAX package's ``--level`` filter has
-nothing to filter), and its source reads ``default`` or ``set``.
+``--level N`` shows the variables whose info level is at most N
+(1 = user basic .. 9 = developer all, ``core.config.InfoLevel``).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import argparse
 import importlib
 import sys
 
-from ompi_tpu_torch.core.config import var_registry
+from ompi_tpu_torch.core.config import InfoLevel, var_registry
 from ompi_tpu_torch.core.mca import framework_registry
 
 # Modules whose import registers frameworks/components/vars.  Import errors
@@ -62,6 +61,8 @@ def load_all() -> list[str]:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="ompi-tpu-info")
+    p.add_argument("--level", type=int, default=InfoLevel.DEV_ALL,
+                   help="max info level to show (1=user basic .. 9=dev all)")
     p.add_argument("--param", default=None,
                    help="show only variables whose name contains this string")
     args = p.parse_args(argv)
@@ -81,11 +82,12 @@ def main(argv: list[str] | None = None) -> int:
     print()
     print("Configuration variables (name = value [type, source]):")
     for var in var_registry.all_vars():
+        if var.info_level > args.level:
+            continue
         if args.param and args.param not in var.full_name:
             continue
-        source = "default" if var.value == var.default else "set"
         print(f"  {var.full_name} = {var.value!r} "
-              f"[{var.vtype.value}, {source}]"
+              f"[{var.vtype.value}, {var.source.name.lower()}]"
               + (f"  # {var.description}" if var.description else ""))
     from ompi_tpu_torch.mpi.mpit import pvar_registry
 

@@ -145,12 +145,9 @@ def test_dispatch_table_records_both_providers(jcomm):
     comm = _solo_comm()
     assert comm.coll.providers["allreduce"] == "self"  # size-1 host path
     assert comm.coll.device_providers["allreduce"] == "xla"
-    # the same table as the JAX package's, but for alltoallw's host slot
-    # (its self component packs through the host convertor, not ported)
+    # the same tables as the JAX package's, alltoallw's host slot included
     assert comm.coll.device_providers == jcomm.coll.device_providers
-    want = {k: v for k, v in jcomm.coll.providers.items()
-            if k != "alltoallw"}
-    assert comm.coll.providers == want
+    assert comm.coll.providers == jcomm.coll.providers
 
 
 def test_device_allreduce_routes_to_mesh_no_host_staging(pool, jcomm):

@@ -111,8 +111,15 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.host_bench",
                 "ompi_tpu_torch.examples.persistent_coll",
                 "ompi_tpu_torch.examples.cart_halo",
+                "ompi_tpu_torch.examples.generate",
+                "ompi_tpu_torch.examples.train",
+                "ompi_tpu_torch.examples.osc_device_window",
+                "ompi_tpu_torch.tools.flagship",
+                "ompi_tpu_torch.tools.xprof_capture",
+                "ompi_tpu_torch.tools.step_breakdown",
+                "ompi_tpu_torch.tools.cost_analysis",
                 *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
-                *_DPM_PLANE, *_TREE_PLANE, *_DVM_PLANE):
+                *_DPM_PLANE, *_TREE_PLANE, *_DVM_PLANE, *_COLL_DEMO):
         assert mod in res["imported"]
 
 
@@ -183,6 +190,9 @@ _DVM_PLANE = ("ompi_tpu_torch.runtime.dvm", "ompi_tpu_torch.testing.simfleet",
               "ompi_tpu_torch.tools.info", "ompi_tpu_torch.tools.chaos_soak",
               "ompi_tpu_torch.tools.killorphans")
 
+#: the on-node collective demo (a host job's ranks import it)
+_COLL_DEMO = ("ompi_tpu_torch.examples.shm_coll_demo",)
+
 
 def test_host_plane_loads_neither_torch_nor_jax():
     """The same-host data plane (shm rings, the coll/shm arena, the four
@@ -197,10 +207,10 @@ def test_host_plane_loads_neither_torch_nor_jax():
     jobs; the daemon tree's modules (rml, orted, plm, rtc, clean,
     clocksync, tpurun) are imported too, and so are the standing DVM's
     and the fleet tools' (dvm, simfleet, sync, schizo, info, chaos_soak,
-    killorphans)."""
+    killorphans) and the on-node collective demo."""
     probe = (
         "import importlib, shutil, sys, tempfile, numpy as np\n"
-        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE + _TREE_PLANE + _DVM_PLANE!r}:\n"
+        f"for m in {_TRACE_PLANE + _FT_PLANE + _IO_PLANE + _OSC_PLANE + _DPM_PLANE + _TREE_PLANE + _DVM_PLANE + _COLL_DEMO!r}:\n"
         "    importlib.import_module(m)\n"
         "from ompi_tpu_torch.mpi import io\n"
         "from ompi_tpu_torch.ckpt import ShardedSnapshotStore\n"
