@@ -46,7 +46,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ranks on card 0, where the device route raises the shared-card
    error and the host route runs over the shm rings and the arena;
    ``init()`` at -np 4 and a hello job's launch-to-exit time;
-5b. trace (after host_nbc) — the trace plane: (a) in a fresh process,
+5a. host_tools (after host_nbc) — the port's host-plane microbenches,
+   each CLI in a fresh process with ``--out`` under build/: pack_bench
+   at runs 1,1000,100000, coll_bench --quick --ranks 4, net_bench
+   --quick (two simulated hosts of the port's tpurun) and fleet_bench
+   --quick --assert; one line a tool with its rows' key numbers and
+   seconds, and a non-zero exit fails the run;
+5b. trace (after host_tools) — the trace plane: (a) in a fresh process,
    ``init()`` and the world bound to a one-rank DeviceCommunicator on
    the card (NCCL); 64 ``comm.allreduce`` calls each at 4 KiB f32,
    64 MiB f32 and 64 MiB bf16, every one leaving a post and a done on
@@ -7387,6 +7393,99 @@ def _tools_run(module: str, *args) -> tuple:
     return time.perf_counter() - t0, r.stdout
 
 
+HOST_TOOLS_PACK_RUNS = "1,1000,100000"   # pack_bench --runs
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_host_tools(card):
+    """The port's host-plane microbenches as a user runs them, each CLI
+    in a fresh process with ``--out`` under build/host_tools_smoke/
+    (removed at the end): (a) pack_bench at ``HOST_TOOLS_PACK_RUNS``
+    runs; (b) coll_bench --quick --ranks 4 (coll/shm arena against
+    coll/host); (c) net_bench --quick (two ranks on two simulated hosts
+    of the port's tpurun, the native tcp plane against the Python one);
+    (d) fleet_bench --quick --assert (the simulated fleet's invariants
+    at 25 and 100 daemons).  Every tool must exit 0 and write the rows
+    its flags ask for; one line a tool gives its rows' key numbers and
+    its seconds.  These are host figures of the card's machine: no tool
+    touches the card."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "host_tools_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # (a) the convertor's three plan families at three run counts
+        out = os.path.join(work, "pack.jsonl")
+        secs, _so = _tools_run("pack_bench", "--runs", HOST_TOOLS_PACK_RUNS,
+                               "--out", out)
+        rows = _jsonl(out)
+        runs = [int(x) for x in HOST_TOOLS_PACK_RUNS.split(",")]
+        check(len(rows) == 3 * len(runs)
+              and [(r["layout"], r["runs"]) for r in rows]
+              == [(lay, n) for lay in ("vector", "hindexed", "ragged")
+                  for n in runs]
+              and all(r["pack_into_ms"] > 0 and r["unpack_ms"] > 0
+                      and r["payload_bytes"] > 0 for r in rows),
+              f"host_tools pack_bench rows: {rows}")
+        emit("host_tools", tool="pack_bench", seconds=secs, card=card,
+             rows=[{k: r[k] for k in (
+                 "layout", "runs", "plan", "native", "payload_bytes",
+                 "commit_ms", "first_pack_ms", "pack_into_ms",
+                 "pack_into_gibps", "pack_ms", "unpack_ms")}
+                 for r in rows])
+        # (b) shm arena against coll/host, 4 in-process ranks
+        out = os.path.join(work, "coll.jsonl")
+        secs, so = _tools_run("coll_bench", "--quick", "--ranks", "4",
+                              "--out", out)
+        rows = _jsonl(out)
+        check(len(rows) == 14 and f"{len(rows)} rows -> " in so
+              and {r["component"] for r in rows} == {"shm", "host"}
+              and all(r["ranks"] == 4 and r["per_op_us"] > 0
+                      for r in rows),
+              f"host_tools coll_bench rows: {rows}\n{so[-2000:]}")
+        emit("host_tools", tool="coll_bench", seconds=secs, card=card,
+             rows=[{k: r[k] for k in (
+                 "coll", "payload_bytes", "component", "per_op_us",
+                 "p50_us", "p99_us", "shm_speedup")} for r in rows])
+        # (c) native against Python tcp plane across two simulated hosts
+        out = os.path.join(work, "net.jsonl")
+        secs, so = _tools_run("net_bench", "--quick", "--out", out)
+        rows = _jsonl(out)
+        check(len(rows) == 6 and {r["world"] for r in rows} == {"fakehost"}
+              and all((r.get("p50_us") or r.get("msgs_per_s") or 0) > 0
+                      for r in rows)
+              and "acceptance (fakehost)" in so,
+              f"host_tools net_bench rows: {rows}\n{so[-2000:]}")
+        emit("host_tools", tool="net_bench", seconds=secs, card=card,
+             rows=[{k: r[k] for k in r if k not in ("iters", "reps")}
+                   for r in rows],
+             acceptance=[ln for ln in so.splitlines()
+                         if ln.startswith("acceptance")])
+        # (d) the simulated fleet under correlated loss, invariants held
+        out = os.path.join(work, "fleet.jsonl")
+        secs, so = _tools_run("fleet_bench", "--quick", "--assert",
+                              "--out", out)
+        rows = _jsonl(out)
+        check([r["n_daemons"] for r in rows] == [25, 100]
+              and all(r["ok"] for r in rows),
+              f"host_tools fleet_bench rows: {rows}")
+        emit("host_tools", tool="fleet_bench", seconds=secs, card=card,
+             rows=[{k: r[k] for k in (
+                 "n_daemons", "n_ranks", "killed_daemons", "boot_s",
+                 "adopt_s", "reparent_epochs", "reparent_orphans",
+                 "reparent_frames", "false_positive_ranks", "doctor_rows",
+                 "doctor_s", "agg_merges", "agg_sheds", "ok")}
+                 for r in rows])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _tools_examples(work: str) -> dict:
     """(d): generate and train on the card and with ``--device cpu``, and
     osc_device_window across ``TOOLS_OSC_NP`` ranks on card 0, side by
@@ -7618,6 +7717,7 @@ def main() -> int:
     run("pipeline", phase_pipeline, card)
     run("host_plane", phase_host_plane, card)
     run("host_nbc", phase_host_nbc, card)
+    run("host_tools", phase_host_tools, card)
     run("trace", phase_trace, card)
     fwd = run("kernel", phase_kernel, fa)
     bwd = run("kernel_bwd", phase_kernel_bwd, fa)

@@ -114,7 +114,7 @@ def _build(so: str, src: str = _SRC,
             # one-time memoized compile wait (first use per machine,
             # during single-threaded bring-up) — not a steady-state
             # blocking path
-            time.sleep(0.1)
+            time.sleep(0.1)   # lint: reader-ok lock-ok
         return os.path.exists(so)
     except OSError:
         return False
@@ -123,7 +123,7 @@ def _build(so: str, src: str = _SRC,
         tmp = so + ".tmp"
         # one-time memoized compile (see lib()'s _tried gate) — not a
         # steady-state blocking path
-        proc = subprocess.run(
+        proc = subprocess.run(   # lint: reader-ok lock-ok
             ["g++", "-O3", "-shared", "-fPIC", *extra_flags,
              "-o", tmp, src],
             capture_output=True, timeout=120)
@@ -465,7 +465,7 @@ def fastdss():
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         # self-check against a known vector before trusting it
-        # a DSS round-trip vector, not a wire frame
+        # a DSS round-trip vector, not a wire frame  # lint: frame-ok
         probe = {"t": "x", "n": 1, "f": 1.5, "l": [1, "a"], "b": b"\x00",
                  "none": None, "tt": (True, False)}
         if mod.unpack(mod.pack((probe,)), 1) != [probe]:

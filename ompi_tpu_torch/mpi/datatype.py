@@ -15,8 +15,9 @@ copy.
 
 The host convertor packs into bytes for the PML's send/recv
 (``datatype=``): ``pack_plan`` compiles a ``(datatype, count)`` pair to
-one of three executors (one memcpy, a strided block copy, or one
-gather over the coalesced runs).  A strided or gather plan of at least
+one of four executors (one memcpy, a strided block copy, one gather
+over the coalesced runs, or, past ``_PLAN_EXPAND_CAP`` runs, a walk of
+one item's runs ``count`` times).  A plan other than the memcpy of at least
 ``_NATIVE_MIN_BYTES`` runs through the compiled walk of
 ``_native/convertor.cpp`` (its ``uniform`` hint specialises the inner
 copy), and through numpy when the library did not build or
@@ -68,6 +69,11 @@ __all__ = [
 # native convertor (_native/convertor.cpp): used above this payload size;
 # below it, ctypes call overhead beats the numpy gather it would replace
 _NATIVE_MIN_BYTES = 256
+
+# expanded pack plans above this run count keep the per-item walk instead
+# (a count × nruns materialization must not cost more memory than the
+# payload it moves)
+_PLAN_EXPAND_CAP = 1 << 22
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -174,6 +180,8 @@ class PackPlan:
                      covering ALL count items (abutting runs merged, across
                      item boundaries when the extent makes items abut),
                      moved with one numpy fancy-index copy.
+    - ``"items"``    per-item runs walked ``count`` times at ``extent``
+                     stride (plans too large to expand, > _PLAN_EXPAND_CAP).
 
     ``uniform`` is the shared run length when every run is equal (0
     otherwise) — the native walk specializes its inner copy on it.
@@ -181,7 +189,8 @@ class PackPlan:
     """
 
     __slots__ = ("kind", "total", "span", "start", "nblocks", "blocklen",
-                 "stride", "offsets", "lengths", "uniform")
+                 "stride", "offsets", "lengths", "uniform", "count",
+                 "extent", "item_size")
 
     def __init__(self, kind: str, total: int, span: int) -> None:
         self.kind = kind
@@ -194,6 +203,9 @@ class PackPlan:
         self.offsets: Optional[np.ndarray] = None
         self.lengths: Optional[np.ndarray] = None
         self.uniform = 0
+        self.count = 0
+        self.extent = 0
+        self.item_size = 0
 
     @property
     def single_run(self) -> bool:
@@ -239,8 +251,28 @@ def _plan_runs(offsets: np.ndarray, lengths: np.ndarray) -> PackPlan:
                  int((offsets + lengths).max()))
     p.offsets = np.ascontiguousarray(offsets, np.int64)
     p.lengths = np.ascontiguousarray(lengths, np.int64)
+    p.uniform = _uniform_of(lengths)
+    return p
+
+
+def _uniform_of(lengths: np.ndarray) -> int:
+    if len(lengths) == 0:
+        return 0
     first = int(lengths[0])
-    p.uniform = first if bool((lengths == first).all()) else 0
+    return first if bool((lengths == first).all()) else 0
+
+
+def _plan_items(offsets: np.ndarray, lengths: np.ndarray, count: int,
+                extent: int, item_size: int) -> PackPlan:
+    item_end = int((offsets + lengths).max())
+    p = PackPlan("items", count * item_size,
+                 (count - 1) * extent + item_end)
+    p.offsets = np.ascontiguousarray(offsets, np.int64)
+    p.lengths = np.ascontiguousarray(lengths, np.int64)
+    p.uniform = _uniform_of(lengths)
+    p.count = count
+    p.extent = extent
+    p.item_size = item_size
     return p
 
 
@@ -337,6 +369,18 @@ class Datatype:
         offs, lens = self.segment_arrays()
         return list(zip(offs.tolist(), lens.tolist()))
 
+    def _byte_index(self, count: int) -> np.ndarray:
+        """The byte positions ``count`` items cover, item after item at
+        ``extent`` stride (the gather map of the numpy per-item walk)."""
+        offs, lens = self.segment_arrays()
+        if len(offs) == 0:
+            return np.empty(0, np.int64)
+        idx1 = _concat_aranges(offs, lens)
+        if count == 1:
+            return idx1
+        base = np.arange(count, dtype=np.int64)[:, None] * self.extent
+        return (base + idx1[None, :]).ravel()
+
     def element_indices(self) -> np.ndarray:
         """Flat element positions (in units of base_np) for one item, within
         extent/base_np.itemsize positions — the gather map for device packs."""
@@ -367,8 +411,19 @@ class Datatype:
         plan = cache.get(count)
         if plan is None:
             plan = self._build_plan(count)
-            if len(cache) >= 16:   # bound: plans are per-count
-                cache.clear()
+            if len(cache) >= 16:   # bound: plans are per-count.  Evict
+                # ONE entry, never the commit-warmed count=1 plan — a
+                # full clear would make every 17th distinct count repay
+                # the whole expansion (the cliff commit() exists to
+                # avoid).  Predefined types are process-wide singletons
+                # hit from app AND reader threads, so the lockless
+                # eviction must tolerate concurrent mutation: pop() with
+                # a default, and a racing resize aborts this round's
+                # eviction instead of raising out of send/recv.
+                try:
+                    cache.pop(next(k for k in cache if k != 1), None)
+                except (StopIteration, RuntimeError):
+                    pass
             cache[count] = plan
         return plan
 
@@ -400,10 +455,12 @@ class Datatype:
                     else self._plan_repeat_single(one, count, ext))
         if count == 1:
             return _plan_runs(offs, lens)
-        base = np.arange(count, dtype=np.int64)[:, None] * ext
-        all_offs = (base + offs[None, :]).reshape(-1)
-        all_lens = np.broadcast_to(lens[None, :], (count, n)).reshape(-1)
-        return _plan_runs(*_merge_adjacent(all_offs, all_lens))
+        if count * n <= _PLAN_EXPAND_CAP:
+            base = np.arange(count, dtype=np.int64)[:, None] * ext
+            all_offs = (base + offs[None, :]).reshape(-1)
+            all_lens = np.broadcast_to(lens[None, :], (count, n)).reshape(-1)
+            return _plan_runs(*_merge_adjacent(all_offs, all_lens))
+        return _plan_items(offs, lens, count, ext, self.size)
 
     @staticmethod
     def _plan_repeat_single(one: PackPlan, count: int,
@@ -500,12 +557,22 @@ class Datatype:
                 (plan.stride, 1))
             out.reshape(plan.nblocks, plan.blocklen)[:] = view
             return
-        if native is not None:
-            native.ompi_tpu_pack_runs(
-                _u8p(out), _u8p(raw), _i64p(plan.offsets),
-                _i64p(plan.lengths), len(plan.offsets), plan.uniform)
+        if plan.kind == "runs":
+            if native is not None:
+                native.ompi_tpu_pack_runs(
+                    _u8p(out), _u8p(raw), _i64p(plan.offsets),
+                    _i64p(plan.lengths), len(plan.offsets), plan.uniform)
+                return
+            out[:] = raw[_concat_aranges(plan.offsets, plan.lengths)]
             return
-        out[:] = raw[_concat_aranges(plan.offsets, plan.lengths)]
+        # per-item walk (plan too large to expand)
+        if native is not None:
+            native.ompi_tpu_pack(
+                _u8p(out), _u8p(raw), plan.count, plan.extent,
+                _i64p(plan.offsets), _i64p(plan.lengths),
+                len(plan.offsets), plan.uniform, plan.item_size)
+            return
+        out[:] = raw[self._byte_index(plan.count)]
 
     def unpack(self, data, buf: np.ndarray, count: int) -> None:
         """Scatter contiguous bytes (any buffer object: bytes, bytearray,
@@ -550,12 +617,21 @@ class Datatype:
                 (plan.stride, 1))
             view[:] = src.reshape(plan.nblocks, plan.blocklen)
             return
-        if native is not None:
-            native.ompi_tpu_unpack_runs(
-                _u8p(src), _u8p(raw), _i64p(plan.offsets),
-                _i64p(plan.lengths), len(plan.offsets), plan.uniform)
+        if plan.kind == "runs":
+            if native is not None:
+                native.ompi_tpu_unpack_runs(
+                    _u8p(src), _u8p(raw), _i64p(plan.offsets),
+                    _i64p(plan.lengths), len(plan.offsets), plan.uniform)
+                return
+            raw[_concat_aranges(plan.offsets, plan.lengths)] = src
             return
-        raw[_concat_aranges(plan.offsets, plan.lengths)] = src
+        if native is not None:
+            native.ompi_tpu_unpack(
+                _u8p(src), _u8p(raw), plan.count, plan.extent,
+                _i64p(plan.offsets), _i64p(plan.lengths),
+                len(plan.offsets), plan.uniform, plan.item_size)
+            return
+        raw[self._byte_index(plan.count)] = src
 
     # -- device path (index_select / index_put_) ---------------------------
 

@@ -37,6 +37,7 @@ clock (:meth:`SimFleet.wait_adopted`) and the false-positive audit
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 import time
@@ -434,11 +435,22 @@ class SimFleet:
         return list(range(start, start + n))
 
     def rack_kill(self, vpids: list[int]) -> None:
-        """Correlated loss: every named daemon dies in the same tick."""
+        """Correlated loss: every named daemon dies in the same tick.
+
+        The HNP's loss detectors wait on the launcher's lock while the
+        victims' sockets close: each close hands the GIL to the threads
+        its EOFs wake, so on a loaded host a bare loop spread one rack's
+        deaths over more than ``plm_loss_epoch_window`` (0.25 s for 12
+        of 16 daemons in a 100-daemon world) and split one correlated
+        loss into two epochs.  Held, the 16 closes take milliseconds and
+        the detectors then see every death at once."""
         for v in vpids:
             self._killed_vpids.add(v)
-        for v in vpids:
-            self.daemons[v].kill()
+        launcher = getattr(self, "launcher", None)
+        with (launcher._cv if launcher is not None
+              else contextlib.nullcontext()):
+            for v in vpids:
+                self.daemons[v].kill()
 
     def partition(self, vpids: list[int]) -> None:
         """Fence a set of daemons: ALL frames (both directions) drop,

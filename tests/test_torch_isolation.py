@@ -428,6 +428,48 @@ def test_sources_import_no_jax(path):
     assert "importlib.import_module('ompi_tpu." not in src
 
 
+#: the port's linter and the host-plane microbenches: none imports torch
+_HOST_TOOLS = ("ompi_tpu_torch.tools.lint", "ompi_tpu_torch.tools.lint.driver",
+               "ompi_tpu_torch.tools.lint.__main__",
+               "ompi_tpu_torch.tools.lint.checkers",
+               "ompi_tpu_torch.tools.pack_bench",
+               "ompi_tpu_torch.tools.coll_bench",
+               "ompi_tpu_torch.tools.net_bench",
+               "ompi_tpu_torch.tools.fleet_bench")
+
+_REPO_LINT = re.compile(r"^\s*(?:import|from)\s+tools\b", re.M)
+
+
+def test_lint_and_host_benches_load_neither_torch_nor_jax():
+    """The port's ompi-lint and the four microbenches load no torch, no
+    JAX, no JAX package and not the repo's own ``tools.lint``; the lint
+    runs its checker catalogue in that process."""
+    probe = (
+        "import importlib, io, contextlib, json, sys\n"
+        f"for m in {_HOST_TOOLS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from ompi_tpu_torch.tools.lint import main\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as out:\n"
+        "    assert main(['--list']) == 0\n"
+        "assert 'reader-thread' in out.getvalue()\n"
+        "bad = sorted(k for k in sys.modules if k in ('torch', 'jax', "
+        "'jaxlib', 'ompi_tpu', 'tools') or k.startswith(('torch.', 'jax.', "
+        "'jaxlib.', 'ompi_tpu.', 'tools.')))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sources_import_not_the_repo_tools():
+    """The port keeps its own copies of the repo's tools (the linter and
+    the benches among them): no source imports ``tools``."""
+    bad = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if _REPO_LINT.search(p.read_text()))
+    assert bad == []
+
+
 def test_entry_points_refuse_the_cpu_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks a machine without CUDA")
