@@ -332,11 +332,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pid of the pool or its tenants is alive or on the card; the tenants'
    forward launches are on the phase's line, not the kernels line;
 18g. tools (after dvm) — the flagship's profiling tools as a user runs
-   them, each CLI a fresh process on the card (``tools/flagship.py``:
-   468M, bf16, batch 16 × 1024, flash forward and backward kernels):
+   them, each CLI a fresh process on the card (``tools/flagship.py``'s
+   widths, bf16, batch 16 × 1024, flash forward and backward kernels,
+   at ``--layers 1`` of the 8: ``TOOLS_LAYERS``, 116M):
    (a) ``xprof_capture --steps 3``: the device events' fractions
    (tensor-core, copy, collective, other) sum to 1 and the flash
-   kernels ran 16 / 8 / 8 a step (counters exactly, trace events within
+   kernels ran 2 / 1 / 1 a step (counters exactly, trace events within
    the window's edge); (b) ``step_breakdown fwd grad full``: finite step
    ms and MFU, full ≥ grad ≥ fwd; (c) ``cost_analysis``: the
    dispatcher's FLOPs (flash kernels added from their shapes) at least
@@ -345,6 +346,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with ``--device cpu`` (tokens equal, losses within SMALL_TOL) and
    ``osc_device_window`` across 3 ``--gpu`` ranks on card 0; the tools'
    flash launches are on the phase's line, not the kernels line;
+18h. sweep (after tools) — the flagship's MFU sweep: the forward, dq and
+   dk/dv at the long rows' (B·H, T) = (128, 2048) and (64, 4096), bf16,
+   causal, against their plain versions on 16 heads (the kernel phases'
+   tolerances, and row by row: relative L2 ≤ ``SWEEP_ROW_RL2``, lse
+   within ``SWEEP_LSE_ATOL``; the same kernels given one zeroed tile of
+   keys must fail each limit), timed beside their bounds and SDPA; then
+   ``python -m ompi_tpu_torch.tools.mfu_sweep`` on ``SWEEP_ROWS`` (each
+   row a fresh child at full depth): every row a record and no error,
+   losses finite and below ln(vocab) + 0.5, the flash rows' launches
+   exact (the ``-pbwd`` row's dq and dk/dv too), none for ``xla``,
+   matmul_peak's share of the peak in (0, 105], the ``SWEEP_SAME`` rows'
+   losses within ``SWEEP_LOSS_RTOL``; the rows' launches are on the
+   phase's line;
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -375,6 +389,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    path: decode, train, ring, moe_decode, moe_train, ckpt), then the
    card's nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
+
+The script and every process it starts keep Python's compiled bytecode
+under ``build/pycache`` of the checkout (``PYTHONPYCACHEPREFIX``), also
+where the environment turns the cache off (``PYTHONDONTWRITEBYTECODE``):
+without it each of the run's fresh processes compiles torch's Python
+sources again, and a training process compiles ``torch._dynamo`` as
+well, which ``torch.utils.checkpoint`` imports at its first call.
 """
 
 from __future__ import annotations
@@ -467,6 +488,21 @@ RMA_STRESS = dict(calls=200, elems=1 << 18)
 COLL_TOL = 1e-6                # a collective on the card vs its one-rank result
 #: where the phases put their tensors (a rehearsal on the CPU changes it)
 DEVICE = "cuda"
+
+
+#: where the run's processes keep their compiled bytecode (gitignored)
+PYCACHE = os.path.join("build", "pycache")
+
+
+def cache_bytecode(root: str) -> str:
+    """Keep compiled bytecode under ``root``/``PYCACHE`` for this process
+    and every process it starts from now on; → the directory."""
+    prefix = os.path.join(root, PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    return prefix
 
 
 def check(ok: bool, what: str) -> None:
@@ -7374,6 +7410,9 @@ def phase_dvm(card):
 
 
 TOOLS_STEPS = 3              # (a) xprof_capture --steps
+#: (a)-(c)'s depth (--layers): the flagship's widths at CUT_LAYERS, which
+#: paid for phase sweep's seconds; the sweep times the 8 layers
+TOOLS_LAYERS = CUT_LAYERS
 TOOLS_JOB_TIMEOUT = 900      # every tool's child, seconds
 TOOLS_OSC_NP = 3             # (d) osc_device_window's ranks, on card 0
 #: (a)-(c) on the CPU rehearsal: the tools' small configs
@@ -7577,8 +7616,8 @@ def _tools_examples(work: str) -> dict:
 
 def phase_tools(card, device_name: str = ""):
     """The flagship's profiling tools as a user runs them, each CLI in a
-    fresh process, then the four examples: (a) xprof_capture; (b)
-    step_breakdown fwd grad full; (c) cost_analysis side by side with (d)
+    fresh process at ``TOOLS_LAYERS`` of depth, then the four examples:
+    (a) xprof_capture; (b) step_breakdown fwd grad full; (c) cost_analysis side by side with (d)
     generate, train and osc_device_window.  Files go under
     build/tools_smoke/ (removed at the end)."""
     import shutil
@@ -7587,15 +7626,15 @@ def phase_tools(card, device_name: str = ""):
                         "build", "tools_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    small = ["--small"] if TOOLS_SMALL else []
+    size = ["--small"] * TOOLS_SMALL + ["--layers", str(TOOLS_LAYERS)]
     on_cpu = DEVICE != "cuda"
-    L = 2 if TOOLS_SMALL else FLAGSHIP["n_layers"]
+    L = TOOLS_LAYERS
     secs, out = {}, {"card": card}
     try:
         # (a) the trace of TOOLS_STEPS train steps
         secs["xprof"], so = _tools_run(
             "xprof_capture", "--steps", str(TOOLS_STEPS), "--out",
-            os.path.join(work, "xprof"), *small, *(["--cpu", "1"] * on_cpu))
+            os.path.join(work, "xprof"), *size, *(["--cpu", "1"] * on_cpu))
         xp = json.loads(so.strip().splitlines()[-1])
         fr = xp["fractions"]
         check(xp["events"] > 0 and set(fr) <= {"mxu", "copy", "collective",
@@ -7623,7 +7662,7 @@ def phase_tools(card, device_name: str = ""):
                                                    / TOOLS_STEPS)
         # (b) fwd, grad and full, each in its own child
         secs["breakdown"], so = _tools_run(
-            "step_breakdown", "fwd", "grad", "full", *small,
+            "step_breakdown", "fwd", "grad", "full", *size,
             *(["--cpu"] * on_cpu))
         bd = {}
         for ln in so.splitlines():
@@ -7650,7 +7689,7 @@ def phase_tools(card, device_name: str = ""):
             ex_job = ex.submit(_tools_examples, work)
             try:
                 secs["cost"], so = _tools_run(
-                    "cost_analysis", *small, *(["--cpu"] * on_cpu))
+                    "cost_analysis", *size, *(["--cpu"] * on_cpu))
             finally:
                 t_ex = time.perf_counter()
                 examples = ex_job.result()
@@ -7678,6 +7717,258 @@ def phase_tools(card, device_name: str = ""):
     return launches
 
 
+#: phase sweep's rows of ``ompi_tpu_torch.tools.mfu_sweep``: its QUICK
+#: rows, the plain attention and the flash backward kernels beside
+#: b16-chunk128-dots, and the two long sequences; each with its own
+#: chain and outer
+SWEEP_ROWS = ("matmul_peak", "b16-chunk128-dots", "b32-chunk128-dots",
+              "b16-chunk128-xla", "b16-chunk128-dots-pbwd",
+              "b8-s2048-flash-chain16", "b4-s4096-flash-chain16")
+#: rows that compute one function (same batch, chain, outer and dtypes)
+SWEEP_SAME = ("b16-chunk128-dots", "b16-chunk128-xla",
+              "b16-chunk128-dots-pbwd")
+#: their last losses' largest relative spread.  In f32 on the CPU these
+#: paths give one loss; in bf16 at flagship.SMALL's widths the rows'
+#: 24 steps spread them by 1.7e-3, and a -pbwd row whose dq is zero or
+#: scaled twice moves its loss by 2.0e-2 or 1.5e-2
+#: (tests/test_torch_mfu_sweep.py holds both sides); on the card the
+#: three rows spread by 5.3e-3
+SWEEP_LOSS_RTOL = 1e-2
+#: (B·H, T) of the long rows' attention (bf16, causal, 128 a head): the
+#: forward, dq and dk/dv held against their plain versions there
+SWEEP_LENGTHS = ((128, 2048), (64, 4096))
+#: the heads (of B·H) the plain versions compute: their T² scores
+SWEEP_SLICE = 16
+#: at those lengths the kernel phases' tolerances no longer separate a
+#: wrong kernel (an output element's size is about sqrt(e/T), 0.036 at
+#: T = 2048: BF16_TOL's size), so o, dq, dk and dv are held row by row
+#: (``long_row_rl2``) and lse absolutely as well
+SWEEP_ROW_RL2 = RING_ROW_RL2
+SWEEP_LSE_ATOL = 1e-3
+#: the planted fault those limits must catch: the keys and values of one
+#: tile of this many keys, from the middle of the sequence on, zeroed in
+#: the kernels' inputs and the outputs held against the true references
+SWEEP_FAULT_KEYS = 128
+SWEEP_TIMEOUT = 900          # the sweep command, seconds
+#: the CPU rehearsal: the rows at --cpu --small
+SWEEP_SMALL = False
+
+
+def long_row_rl2(got, want) -> float:
+    """The largest relative L2 error over the rows (the last dimension)
+    of a kernel's output, each row held to its own size or, where that
+    is smaller, to the median row's: a causal dq's first row is zero but
+    for rounding (one key, so P = 1 and dP − dm cancels), and noise of
+    that size is no error."""
+    a, b = got.float(), want.float()
+    size = b.norm(dim=-1)
+    return ((a - b).norm(dim=-1) / size.clamp_min(size.median())).max().item()
+
+
+def _long_errors(o, lse, grads, ro, rlse, want) -> dict:
+    """The long rows' error measures of a forward (o, lse) and backward
+    (dq, dk, dv) against their plain versions."""
+    err = {"o": long_row_rl2(o, ro),
+           "lse": (lse - rlse).abs().max().item()}
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        err[name] = long_row_rl2(a, b)
+    return err
+
+
+def _sweep_kernels(fa) -> dict:
+    """The forward, dq and dk/dv at ``SWEEP_LENGTHS``, each held on its
+    first ``SWEEP_SLICE`` heads against its plain version at the kernel
+    phases' bf16 tolerances and by ``SWEEP_ROW_RL2`` a row
+    (``SWEEP_LSE_ATOL`` for lse); the same kernels given one tile of
+    zeroed keys and values (``SWEEP_FAULT_KEYS``) must fail every one of
+    those limits; each timed (CUDA events) beside its bound and SDPA."""
+    import torch
+
+    limit = {"o": SWEEP_ROW_RL2, "lse": SWEEP_LSE_ATOL, "dq": SWEEP_ROW_RL2,
+             "dk": SWEEP_ROW_RL2, "dv": SWEEP_ROW_RL2}
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    H = FLAGSHIP["n_heads"]
+    D = FLAGSHIP["d_model"] // H
+    scale = D ** -0.5
+    n = SWEEP_SLICE
+    out = {}
+    for bh, t in SWEEP_LENGTHS:
+        q3, k3, v3, g3 = (torch.randn((bh, t, D), generator=g, device=DEVICE)
+                          .to(torch.bfloat16) for _ in range(4))
+        o3, lse = fa.flash_fwd_3d(q3, k3, v3, 0, 0, scale, True)
+        ro, rlse = fa.flash_attention_lse_reference(
+            *(x[:n].unsqueeze(2) for x in (q3, k3, v3)), causal=True,
+            scale=scale)
+        ro, rlse = ro.squeeze(2).float(), rlse.reshape(n, t)
+        err = {"o": (o3[:n].float() - ro).abs().max().item(),
+               "lse": (lse[:n] - rlse).abs().max().item()}
+        check(torch.allclose(o3[:n].float(), ro, atol=BF16_TOL, rtol=BF16_TOL)
+              and torch.allclose(lse[:n], rlse, atol=BF16_TOL, rtol=BF16_TOL),
+              f"sweep: the forward disagrees at (B·H, T) = ({bh}, {t}): "
+              f"max err {err}")
+        dm = (g3.float() * o3.float()).sum(-1)
+        args = (q3, k3, v3, g3, lse, dm, 0, 0, scale, True)
+        got = fa.flash_bwd_3d(*args)
+        want = fa.flash_bwd_reference(*(x[:n] for x in args[:6]), 0, 0,
+                                      scale, True)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            ok, err[name] = bwd_err(a[:n], b, torch.bfloat16)
+            check(ok, f"sweep: the {name} kernel disagrees at (B·H, T) = "
+                      f"({bh}, {t}): max err {err[name]}")
+        rows = _long_errors(o3[:n], lse[:n], [x[:n] for x in got], ro, rlse,
+                            want)
+        check(all(rows[k] <= limit[k] for k in limit),
+              f"sweep: the kernels disagree row by row at (B·H, T) = "
+              f"({bh}, {t}): {rows}, limits {limit}")
+        del got
+        # the planted fault: the keys of one tile zeroed in the inputs
+        lo = t // 2
+        kf, vf = k3.clone(), v3.clone()
+        kf[:, lo:lo + SWEEP_FAULT_KEYS] = 0
+        vf[:, lo:lo + SWEEP_FAULT_KEYS] = 0
+        of, lsef = fa.flash_fwd_3d(q3[:n], kf[:n], vf[:n], 0, 0, scale, True)
+        bad = fa.flash_bwd_3d(q3[:n], kf[:n], vf[:n], g3[:n], lse[:n],
+                              dm[:n], 0, 0, scale, True)
+        fault = _long_errors(of, lsef, bad, ro, rlse, want)
+        check(all(fault[k] > limit[k] for k in limit),
+              f"sweep: at (B·H, T) = ({bh}, {t}) kernels given a zeroed "
+              f"tile of keys pass a limit: {fault}, limits {limit}")
+        del want, kf, vf, of, lsef, bad, ro, rlse
+        rec = {"shape": [bh, t, D], "slice": n, "max_abs_err": err,
+               "row_errors": rows, "limits": limit,
+               "fault": {"zeroed_keys": [lo, lo + SWEEP_FAULT_KEYS],
+                         "errors": fault}}
+        if DEVICE == "cuda":
+            qs, ks, vs = (x.view(bh // H, H, t, D).detach()
+                          .requires_grad_(True) for x in (q3, k3, v3))
+            gs = g3.view(bh // H, H, t, D)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            sdpa_fwd = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True))
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+                sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), gs)) - sdpa_fwd
+            timed = (("fwd", lambda: fa.flash_fwd_3d(q3, k3, v3, 0, 0, scale,
+                                                     True),
+                      attention_bound_ms(bh, 1, t, t, D, 2, True, 0, 0),
+                      sdpa_fwd),
+                     ("dq", lambda: fa.flash_bwd_dq_3d(*args),
+                      bwd_bound_ms("dq", bh, t, t, D, 2, True, 0, 0),
+                      sdpa_bwd),
+                     ("dkv", lambda: fa.flash_bwd_dkv_3d(*args),
+                      bwd_bound_ms("dkv", bh, t, t, D, 2, True, 0, 0),
+                      sdpa_bwd))
+            for name, fn, (b_ms, b_by, nbytes, flops), lib_ms in timed:
+                ms = cuda_ms(fn)
+                rec[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "bytes": nbytes, "flops": flops,
+                             "tflops": flops / ms / 1e9, "library_ms": lib_ms}
+            rec["library_note"] = ("SDPA; its backward computes dq, dk and "
+                                   "dv together")
+            del qs, ks, vs, gs
+        out[f"T{t}"] = rec
+        del q3, k3, v3, g3, o3, lse, dm, args
+    return out
+
+
+def _sweep_expected(cfg: dict, layers: int) -> dict:
+    """A sweep row's flash launches on the card: a forward a layer and
+    its rerun under remat, a dq and a dk/dv a layer with the backward
+    kernels on, per microbatch of each of its warm and timed steps (on
+    the CPU none: the wrappers run their plain versions)."""
+    if cfg["attention"] != "flash" or DEVICE != "cuda":
+        return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    steps = (cfg.get("chain", 8) * (1 + cfg.get("outer", 2))
+             * cfg.get("grad_accum", 1))
+    bwd = bool((cfg.get("_mca") or {}).get("ops_flash_bwd_kernel"))
+    fwd = layers * (2 if cfg["remat"] in ("dots", "full") else 1)
+    return {"flash_fwd": fwd * steps, "flash_bwd_dq": layers * steps * bwd,
+            "flash_bwd_dkv": layers * steps * bwd}
+
+
+def phase_sweep(fa, card):
+    """The flagship MFU sweep as a user runs it: ``python -m
+    ompi_tpu_torch.tools.mfu_sweep`` on ``SWEEP_ROWS``, each row in its
+    own child (records appended to build/ompi_tpu_torch/MFU_SWEEP.jsonl),
+    after the forward, dq and dk/dv are held against their plain
+    versions at the long rows' lengths.  Every row must give a record
+    and no error; every loss finite and below ln(vocab) + 0.5; the flash
+    rows must launch exactly the forwards (and, ``-pbwd``, the dq and
+    dk/dv) their steps call for, the ``xla`` row none; matmul_peak's
+    share of the peak in (0, 105]; the ``SWEEP_SAME`` rows' losses within
+    ``SWEEP_LOSS_RTOL`` of each other."""
+    import math
+
+    import torch
+
+    from ompi_tpu_torch.tools import flagship
+    from ompi_tpu_torch.tools import mfu_sweep as M
+
+    secs = {}
+    t0 = time.perf_counter()
+    kernels = _sweep_kernels(fa)
+    secs["kernels"] = time.perf_counter() - t0
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()     # the rows' children get the card whole
+    small = ["--cpu", "--small"] if SWEEP_SMALL else []
+    n_before = len(_jsonl(flagship.SWEEP)) if os.path.exists(
+        flagship.SWEEP) else 0
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.mfu_sweep",
+                        *SWEEP_ROWS, *small], capture_output=True, text=True,
+                       timeout=SWEEP_TIMEOUT,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs["rows"] = time.perf_counter() - t1
+    recs = {}
+    for ln in r.stdout.splitlines():
+        if ln.startswith("[sweep] ") and ": {" in ln:
+            rec = json.loads(ln.split(": ", 1)[1])
+            recs[rec["label"]] = rec
+    check(sorted(recs) == sorted(SWEEP_ROWS)
+          and not [k for k, v in recs.items() if "error" in v]
+          and r.returncode == 0,
+          f"sweep: rc {r.returncode}, rows {sorted(recs)}, errors "
+          f"{ {k: v for k, v in recs.items() if 'error' in v} }\n"
+          f"{r.stderr[-2000:]}")
+    check(len(_jsonl(flagship.SWEEP)) == n_before + len(SWEEP_ROWS),
+          f"sweep: {flagship.SWEEP} did not gain {len(SWEEP_ROWS)} rows")
+    grid = {label: cfg for label, cfg, _ in M.GRID}
+    widths = flagship.SMALL if SWEEP_SMALL else FLAGSHIP
+    most = math.log(widths["vocab"]) + 0.5
+    launches = {}
+    for label, rec in recs.items():
+        cfg = grid[label]
+        if cfg is None:
+            pct = rec["pct_of_peak"]
+            check(SWEEP_SMALL or (pct is not None and 0 < pct <= 105),
+                  f"sweep matmul_peak: {rec}")
+            continue
+        check(np.isfinite(rec["loss"]) and rec["loss"] < most
+              and rec["step_ms"] > 0 and np.isfinite(rec["step_ms"]),
+              f"sweep {label}: loss {rec['loss']} (below {most}), step ms "
+              f"{rec['step_ms']}")
+        launches[label] = rec["flash_launches"]
+        want = _sweep_expected(cfg, widths["n_layers"])
+        check(rec["flash_launches"] == want,
+              f"sweep {label}: flash launches {rec['flash_launches']}, want "
+              f"{want}")
+    same = [recs[k]["loss"] for k in SWEEP_SAME]
+    spread = (max(same) - min(same)) / min(same)
+    check(spread <= SWEEP_LOSS_RTOL,
+          f"sweep: the losses of {SWEEP_SAME} are {same} (spread {spread}, "
+          f"at most {SWEEP_LOSS_RTOL})")
+    keys = ("step_ms", "tokens_per_s", "mfu_pct", "loss", "params",
+            "peak_gib", "import_s", "init_s", "wall_s", "wait_s",
+            "flash_launches", "batch", "seq", "chain", "outer", "ms",
+            "tflops", "pct_of_peak", "dispatch_rt_ms", "backend")
+    secs["phase"] = time.perf_counter() - t0
+    emit("sweep", card=card,
+         rows={k: {f: v[f] for f in keys if f in v} for k, v in recs.items()},
+         same_function={"rows": SWEEP_SAME, "losses": same,
+                        "spread": spread, "rtol": SWEEP_LOSS_RTOL},
+         kernels=kernels, flash_launches=launches, seconds=secs)
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -7695,6 +7986,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card only", file=sys.stderr)
         return 2
+    pycache = cache_bytecode(here)
     fa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
     rd = importlib.import_module("ompi_tpu_torch.ops.remote_dma")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity
@@ -7731,6 +8023,7 @@ def main() -> int:
     run("plm", phase_plm, card)
     run("dvm", phase_dvm, card)
     run("tools", phase_tools, card, name)
+    run("sweep", phase_sweep, fa, card)
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)
@@ -7788,7 +8081,7 @@ def main() -> int:
             "launches": rma_launches[kind], **rma[kind], "ok": True})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=secs,
-         card=card)
+         card=card, bytecode_cache=pycache)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

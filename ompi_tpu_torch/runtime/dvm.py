@@ -555,7 +555,12 @@ class DvmHnp(MultiHostLauncher):
                 except Exception:  # noqa: BLE001 — tree tearing down
                     pass
         rcs = [job.exited.get(p.rank, 1) for p in job.procs]
+        # the first rank to fail sets the code, as on the launcher's and
+        # the plm's paths: the ranks the errmgr then killed exit -15,
+        # and in rank order one of them could come first
+        first = job.aborted_proc.exit_code if job.aborted_proc else None
         rc = (job.abort_status if job.abort_status
+              else first if first
               else next((r for r in rcs if r), 0))
         if rc < 0:
             rc = 128 - rc   # signal exit, same mapping as the non-DVM path

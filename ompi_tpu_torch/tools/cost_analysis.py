@@ -22,6 +22,7 @@ their plain versions, which the dispatcher does see.
     step_time >= max(flops / peak_flops, bytes / hbm_bw)
 
 Usage:  python -m ompi_tpu_torch.tools.cost_analysis [--cpu] [--small]
+            [--layers N]
 Prints the record and appends it (label ``cost-analysis``) to
 ``build/ompi_tpu_torch/MFU_SWEEP.jsonl``.  The bounds are null off an
 H100 (no peak).
@@ -33,6 +34,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -103,13 +105,13 @@ class CostMode(TorchDispatchMode):
         return out
 
 
-def analyze(cpu: bool, small: bool) -> dict:
+def analyze(cpu: bool, small: bool, layers: Optional[int] = None) -> dict:
     from ompi_tpu_torch.models import transformer as tfm
 
     t0 = time.time()
     dev = flagship.device(cpu)
-    s = flagship.build(dev, *((SMALL, flagship.SMALL_BATCH) if small
-                              else ()))
+    s = flagship.build(dev, flagship.cut(SMALL if small else None, layers),
+                       flagship.SMALL_BATCH if small else None)
     step, init_opt = tfm.make_train_step(s.cfg, s.mesh, lr=flagship.LR)
     opt_state = init_opt(s.params)
     params, opt_state, _ = step(s.params, opt_state, s.tokens)  # warm
@@ -133,7 +135,8 @@ def analyze(cpu: bool, small: bool) -> dict:
         peak = bw = None
     return {
         "label": "cost-analysis", "backend": kind, "batch": s.batch,
-        "seq": cfg.seq, "params": s.n_params, "loss": float(loss),
+        "seq": cfg.seq, "n_layers": cfg.n_layers, "params": s.n_params,
+        "loss": float(loss),
         "flops": flops, "bytes_accessed": nbytes,
         "dispatch_flops": mode.flops, "dispatch_bytes": mode.bytes,
         "dispatch_ops": mode.ops, "kernel_flops": k_flops,
@@ -153,8 +156,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--small", action="store_true",
                     help="the small config (CPU smoke / tests)")
+    ap.add_argument("--layers", type=int, metavar="N",
+                    help="the model's depth (default: the config's); the "
+                         "widths stay")
     args = ap.parse_args(argv)
-    rec = analyze(args.cpu, args.small)
+    rec = analyze(args.cpu, args.small, args.layers)
     os.makedirs(flagship.OUT_DIR, exist_ok=True)
     with open(flagship.SWEEP, "a") as f:
         f.write(json.dumps(rec) + "\n")

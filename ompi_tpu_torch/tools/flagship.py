@@ -1,5 +1,6 @@
 """The flagship's training step for the port's profiling tools
-(``xprof_capture``, ``step_breakdown``, ``cost_analysis``).
+(``xprof_capture``, ``step_breakdown``, ``cost_analysis``) and its MFU
+sweep (``mfu_sweep``).
 
 The configuration is the flagship dense model at its training widths:
 vocab 32000, d_model 2048, 16 heads of 128, 8 layers, d_ff 8192 (468M
@@ -8,7 +9,9 @@ the loss in chunks of 256 positions, ``remat="dots"``, AdamW at lr 1e-3.
 Attention is ``"flash"``: the port's flash forward and, with
 ``ops_flash_bwd_kernel`` on, its dq and dk/dv kernels run on the card
 (16 / 8 / 8 launches a step: 8 forwards, 8 recomputed under remat).
-On the CPU the same wrappers run their plain versions.
+On the CPU the same wrappers run their plain versions.  A sweep row
+passes the ``TransformerConfig`` fields it sets (``ROW_FIELDS``); a
+tool's ``--layers`` cuts the depth and keeps the widths (:func:`cut`).
 
 ``peak_flops``/``hbm_bw`` give an NVIDIA H100's dense bf16 tensor-core
 peak (989e12 FLOP/s) and HBM rate (3.35e12 B/s) by the card's name, and
@@ -43,23 +46,48 @@ LR = 1e-3
 SMALL = dict(vocab=512, d_model=128, n_heads=8, n_layers=2, d_ff=256,
              seq=64, ce_chunk=0)
 SMALL_BATCH = 2
+#: the ``TransformerConfig`` fields a sweep row may set (the reference's
+#: ``tools/mfu_sweep.py`` rows set these)
+ROW_FIELDS = ("seq", "ce_chunk", "remat", "attention", "adam_mu_dtype",
+              "param_dtype", "grad_accum")
 
 #: (name fragment, dense bf16 FLOP/s, HBM bytes/s): NVIDIA's data sheet
 #: for the H100 SXM part at its 700 W limit
 _PEAKS = (("H100", 989e12, 3.35e12),)
 
 
-def config(small: Optional[dict] = None, batch: Optional[int] = None):
+def config(small: Optional[dict] = None, batch: Optional[int] = None,
+           **fields):
     """(TransformerConfig, batch) of the flagship train step; ``small``
     (a dict of widths, ``seq`` and ``ce_chunk``) replaces the widths for
-    a CPU run, ``batch`` the batch."""
+    a CPU run, ``batch`` the batch, and ``fields`` (any of
+    ``ROW_FIELDS``) the step's options: flash attention, ``remat="dots"``
+    and bf16 compute unless a field says otherwise.  With ``small`` the
+    sequence stays ``small``'s: a row's ``seq`` is a width."""
     from ompi_tpu_torch.models.transformer import TransformerConfig
 
+    bad = sorted(set(fields) - set(ROW_FIELDS))
+    if bad:
+        raise ValueError(f"not a row field: {bad}; one of {ROW_FIELDS}")
+    if small:
+        fields.pop("seq", None)
     widths = dict(FLAGSHIP, seq=TRAIN["seq"], ce_chunk=TRAIN["ce_chunk"])
     widths.update(small or {})
-    cfg = TransformerConfig(**widths, attention="flash",
-                            compute_dtype="bfloat16", remat="dots")
+    opts = dict(attention="flash", compute_dtype="bfloat16", remat="dots")
+    cfg = TransformerConfig(**{**widths, **opts, **fields})
     return cfg, int(batch or TRAIN["batch"])
+
+
+def cut(small: Optional[dict], layers: Optional[int]) -> Optional[dict]:
+    """:func:`config`'s ``small`` for a tool's ``--small`` and
+    ``--layers``: ``small`` (None: the flagship's widths) at ``layers``
+    of depth, the widths unchanged; ``small`` itself without
+    ``layers``."""
+    if layers is None:
+        return small
+    if layers < 1:
+        raise ValueError(f"--layers takes a depth of 1 or more, got {layers}")
+    return dict(small or {}, n_layers=layers)
 
 
 def count_params(params: dict) -> int:
@@ -118,13 +146,14 @@ class Step:
         return device_kind(self.mesh.device)
 
 
-def draw(small: Optional[dict] = None, batch: Optional[int] = None):
+def draw(small: Optional[dict] = None, batch: Optional[int] = None,
+         **fields):
     """The host half of :func:`build`: (cfg, batch, the parameters from
     ``init_params`` seed 0 as numpy, one batch of tokens drawn with numpy
-    seed 0); touches no device."""
+    seed 0); touches no device.  ``fields`` as :func:`config`'s."""
     from ompi_tpu_torch.models.transformer import init_params
 
-    cfg, batch = config(small, batch)
+    cfg, batch = config(small, batch, **fields)
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab, size=(batch, cfg.seq)).astype(np.int32)
     return cfg, batch, init_params(cfg), toks
@@ -151,11 +180,18 @@ def build(dev, small: Optional[dict] = None, batch: Optional[int] = None,
     return Step(cfg, batch, mesh, params, tokens, count_params(params))
 
 
-def flash_counts() -> dict:
-    """The flash kernels' launch counters."""
+def flash_module():
+    """The port's flash module (``ompi_tpu_torch.ops.flash_attention`` as
+    an attribute of ``ops`` is the function of that name); importing it
+    registers the ``ops_flash_*`` variables."""
     import importlib
 
-    fa = importlib.import_module("ompi_tpu_torch.ops.flash_attention")
+    return importlib.import_module("ompi_tpu_torch.ops.flash_attention")
+
+
+def flash_counts() -> dict:
+    """The flash kernels' launch counters."""
+    fa = flash_module()
     return {"flash_fwd": fa.launch_count, "flash_bwd_dq": fa.dq_launch_count,
             "flash_bwd_dkv": fa.dkv_launch_count}
 

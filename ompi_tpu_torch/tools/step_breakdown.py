@@ -25,6 +25,7 @@ tokens/s / the card's bf16 peak (989e12 on an H100), scale 1/3 for
 Usage:
     python -m ompi_tpu_torch.tools.step_breakdown [fwd] [grad] [full]
     python -m ompi_tpu_torch.tools.step_breakdown --cpu --small fwd
+    python -m ompi_tpu_torch.tools.step_breakdown --layers 1   # cut depth
 
 Appends one JSON line per phase (label ``breakdown-<phase>``) to
 ``build/ompi_tpu_torch/MFU_SWEEP.jsonl`` and prints it as
@@ -39,6 +40,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 from ompi_tpu_torch.tools import flagship
 
@@ -55,10 +57,11 @@ def _bump(params, carry) -> None:
 
 
 def run_phase(phase: str, cpu: bool, small: bool, chain: int = CHAIN,
-              gate=None) -> dict:
+              gate=None, layers: Optional[int] = None) -> dict:
     """One phase in this process: → its record.  With ``gate`` (a file)
     the host half (imports, the parameters' draw) runs first, then one
-    line is read from ``gate`` before the device is touched."""
+    line is read from ``gate`` before the device is touched.  ``layers``
+    cuts the depth (:func:`flagship.cut`)."""
     import torch
 
     from ompi_tpu_torch.models import transformer as tfm
@@ -66,8 +69,9 @@ def run_phase(phase: str, cpu: bool, small: bool, chain: int = CHAIN,
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}; one of {PHASES}")
     t0 = time.time()
-    drawn = flagship.draw(*((flagship.SMALL, flagship.SMALL_BATCH)
-                            if small else ()))
+    drawn = flagship.draw(flagship.cut(flagship.SMALL if small else None,
+                                       layers),
+                          flagship.SMALL_BATCH if small else None)
     if gate is not None and not gate.readline():
         raise SystemExit(f"step_breakdown {phase}: the parent went away")
     t_gate = time.time()
@@ -119,6 +123,7 @@ def run_phase(phase: str, cpu: bool, small: bool, chain: int = CHAIN,
             "mfu_pct": mfu * 100 if mfu is not None else None,
             "step_ms": dt * 1e3, "loss": loss, "params": s.n_params,
             "chain": chain, "batch": s.batch, "seq": s.cfg.seq,
+            "n_layers": s.cfg.n_layers,
             "flash_launches": launches, "wall_s": time.time() - t0,
             "device_wall_s": time.time() - t_gate}
 
@@ -130,6 +135,9 @@ def main(argv=None) -> list:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--small", action="store_true",
                     help="tiny model (CPU smoke / tests)")
+    ap.add_argument("--layers", type=int, metavar="N",
+                    help="the model's depth (default: the config's); the "
+                         "widths stay")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     bad = sorted(set(args.phases) - set(PHASES))
@@ -137,8 +145,9 @@ def main(argv=None) -> list:
         ap.error(f"unknown phase(s) {bad}; choose from {PHASES}")
     if args.child:
         (phase,) = args.phases
-        print("RESULT " + json.dumps(run_phase(phase, args.cpu, args.small,
-                                                gate=sys.stdin)), flush=True)
+        print("RESULT " + json.dumps(run_phase(
+            phase, args.cpu, args.small, gate=sys.stdin,
+            layers=args.layers)), flush=True)
         return []
     os.makedirs(flagship.OUT_DIR, exist_ok=True)
     phases = args.phases or list(PHASES)
@@ -146,7 +155,8 @@ def main(argv=None) -> list:
     # turn on the device, so no two phases share it
     children = {phase: subprocess.Popen(
         [sys.executable, "-m", "ompi_tpu_torch.tools.step_breakdown",
-         "--child", phase] + ["--cpu"] * args.cpu + ["--small"] * args.small,
+         "--child", phase] + ["--cpu"] * args.cpu + ["--small"] * args.small
+        + (["--layers", str(args.layers)] if args.layers else []),
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=flagship.REPO) for phase in phases}
     recs = []

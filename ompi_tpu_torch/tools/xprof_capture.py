@@ -15,12 +15,13 @@ operators' self time instead (their nesting would count a time twice).
 Usage:
     python -m ompi_tpu_torch.tools.xprof_capture             # the card
     python -m ompi_tpu_torch.tools.xprof_capture --cpu 1 --small
+    python -m ompi_tpu_torch.tools.xprof_capture --layers 1   # cut depth
 
 Artifacts: ``<out>/trace.json`` (default out
 ``build/ompi_tpu_torch/xprof_trace``) and ``summary.json`` beside it;
 the summary also on stdout.  Its keys: ``events``, ``total_op_ms``,
 ``fractions``, ``top_ops_ms``, ``backend``, ``steps``,
-``traced_wall_ms``, ``params``, ``trace``, and the port's
+``traced_wall_ms``, ``params``, ``trace``, and the port's ``n_layers``,
 ``flash_launches`` (the kernels' counters over the traced steps) and
 ``flash_events`` (the trace's events of each flash kernel).
 """
@@ -32,6 +33,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 from ompi_tpu_torch.tools import flagship
 
@@ -133,16 +135,19 @@ def summarize_trace(path: str, device: bool) -> dict:
     }
 
 
-def capture(out_dir: str, steps: int, small: bool, cpu: bool) -> dict:
+def capture(out_dir: str, steps: int, small: bool, cpu: bool,
+            layers: Optional[int] = None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ompi_tpu_torch.models import transformer as tfm
 
     dev = flagship.device(cpu)
-    # the flagship (or its CPU-smoke shrink, the reference's)
-    s = flagship.build(dev, *((flagship.SMALL, flagship.SMALL_BATCH)
-                              if small else ()))
+    # the flagship (or its CPU-smoke shrink, the reference's), at
+    # ``layers`` of depth where given
+    s = flagship.build(dev, flagship.cut(flagship.SMALL if small else None,
+                                         layers),
+                       flagship.SMALL_BATCH if small else None)
     step, init_opt = tfm.make_train_step(s.cfg, s.mesh, lr=flagship.LR)
     opt_state = init_opt(s.params)
     params = s.params
@@ -171,7 +176,7 @@ def capture(out_dir: str, steps: int, small: bool, cpu: bool) -> dict:
     summary = summarize_trace(trace, device=dev.type == "cuda")
     summary.update(
         backend=s.kind, steps=steps, traced_wall_ms=wall * 1e3,
-        params=s.n_params, trace=trace, loss=loss,
+        params=s.n_params, n_layers=s.cfg.n_layers, trace=trace, loss=loss,
         flash_launches={k: after[k] - before[k] for k in after})
     with open(os.path.join(os.path.dirname(trace), "summary.json"),
               "w") as f:
@@ -186,13 +191,17 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--small", action="store_true",
                     help="tiny model (CPU smoke / tests)")
+    ap.add_argument("--layers", type=int, metavar="N",
+                    help="the model's depth (default: the config's); the "
+                         "widths stay")
     ap.add_argument("--cpu", type=int, metavar="N", default=0,
                     help="run on the CPU (N = 1: one process is one "
                          "device)")
     args = ap.parse_args(argv)
     if args.cpu > 1:
         ap.error("--cpu takes 1: a process of the port is one device")
-    summary = capture(args.out, args.steps, args.small, bool(args.cpu))
+    summary = capture(args.out, args.steps, args.small, bool(args.cpu),
+                      args.layers)
     print(json.dumps(summary))
     return 0
 

@@ -68,9 +68,23 @@ def test_mca_case_on_the_port(name, request):
     _call(getattr(ref_mca, name), True, request, [])
 
 
+@pytest.fixture
+def stream_verbosity():
+    """``test_stream_verbosity_gating`` leaves its stream's verbosity at 5
+    in the package it ran on, and the reference's own module, run later
+    in the same worker, then finds the stream loud: put it back."""
+    import ompi_tpu.core.config as jax_config
+    import ompi_tpu_torch.core.config as port_config
+
+    yield
+    for registry in (jax_config.var_registry, port_config.var_registry):
+        if registry.lookup("output_tst_stream_verbose") is not None:
+            registry.set("output_tst_stream_verbose", 0)
+
+
 @pytest.mark.parametrize("port", [False, True], ids=["jax", "port"])
 @pytest.mark.parametrize("name", _cases(ref_output))
-def test_output_case(name, port, request):
+def test_output_case(name, port, request, stream_verbosity):
     _call(getattr(ref_output, name), port, request, [])
 
 

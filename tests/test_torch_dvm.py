@@ -111,6 +111,20 @@ def test_dvm_respawn_recovers_rank(tmp_path):
 
 # -- the port's own ------------------------------------------------------------
 
+def test_dvm_reports_the_first_failure_not_a_killed_rank(dvm):
+    """Rank 1 exits 3 at once; the abort errmgr then kills rank 0 (exit
+    -15).  The tenant's code is the first failure's, 3, as on the
+    launcher's and the plm's paths, not the first non-zero code in rank
+    order (143)."""
+    prog = ("import os, sys, time\n"
+            "if os.environ['OMPI_TPU_RANK'] == '1':\n"
+            "    sys.exit(3)\n"
+            "time.sleep(60)\n")
+    r = tpurun("--dvm-submit", "-np", "2", "--dvm-uri", dvm, "--",
+               sys.executable, "-c", prog)
+    assert r.returncode == 3, (r.returncode, r.stderr[-2000:])
+
+
 def test_host_pool_hnp_and_orteds_import_no_torch(dvm):
     """A tenant of a host pool: its rank, its orted (the rank's parent)
     and the pool's HNP (the orted's parent, ``tpurun --dvm-start``) have

@@ -118,6 +118,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.xprof_capture",
                 "ompi_tpu_torch.tools.step_breakdown",
                 "ompi_tpu_torch.tools.cost_analysis",
+                "ompi_tpu_torch.tools.mfu_sweep",
                 *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
                 *_DPM_PLANE, *_TREE_PLANE, *_DVM_PLANE, *_COLL_DEMO):
         assert mod in res["imported"]
@@ -418,7 +419,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax\b|jaxlib\b|optax\b|"
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "tests/torch_ranks.py",
+    + ["chip_smoke.py", "ompi_tpu_torch/tools/asan_native.sh",
+       "tests/torch_ranks.py",
        "tests/torch_host_harness.py", "tests/torch_shmem_atomic_prog.py",
        "tests/torch_shmem_ext_prog.py", "tests/test_torch_osc_card.py"]))
 def test_sources_import_no_jax(path):
@@ -532,3 +534,25 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_caches_bytecode_for_its_children(tmp_path):
+    """``cache_bytecode`` turns the cache on where the environment turned
+    it off, and a process started after it writes its bytecode under
+    the checkout's ``build/pycache``, nowhere else."""
+    code = (
+        "import subprocess, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as C\n"
+        f"print(C.cache_bytecode({str(tmp_path)!r}))\n"
+        "subprocess.run([sys.executable, '-c', 'import json.tool'],"
+        " check=True)\n")
+    env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
+    env.pop("PYTHONPYCACHEPREFIX", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    prefix = tmp_path / "build" / "pycache"
+    assert out.stdout.strip() == str(prefix)
+    written = [p.name for p in prefix.rglob("*.pyc")]
+    assert any(n.startswith("tool.") for n in written), written

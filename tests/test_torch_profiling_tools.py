@@ -239,3 +239,44 @@ def test_flash_costs_equal_chip_smoke_bounds(shape):
     for part, key in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
         b = C.bwd_bound_ms(part, bh, t_q, t_k, d, item, True, 0, 0)
         assert got[key] == (b[3], b[2])
+
+
+def _params(widths: dict) -> int:
+    from ompi_tpu_torch.models.transformer import TransformerConfig
+    from ompi_tpu_torch.models.transformer import init_params
+
+    return flagship.count_params(init_params(TransformerConfig(**widths)))
+
+
+def test_cut_keeps_the_widths():
+    assert flagship.cut(None, None) is None
+    assert flagship.cut(flagship.SMALL, None) is flagship.SMALL
+    cfg, batch = flagship.config(flagship.cut(None, 1))
+    assert (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.d_ff,
+            cfg.seq, batch) == (32000, 2048, 16, 1, 8192, 1024, 16)
+    assert flagship.cut(flagship.SMALL, 1) == dict(flagship.SMALL,
+                                                   n_layers=1)
+    with pytest.raises(ValueError, match="--layers"):
+        flagship.cut(None, 0)
+
+
+@pytest.mark.parametrize("tool", ["xprof_capture", "step_breakdown",
+                                  "cost_analysis"])
+def test_layers_cuts_each_tools_depth(tool, tmp_path, monkeypatch, bwd_var):
+    """``--layers 1`` through each tool's command line: one layer of
+    ``--small``'s widths (cost_analysis's own small widths), the records
+    saying so."""
+    monkeypatch.setattr(flagship, "SWEEP", str(tmp_path / "sweep.jsonl"))
+    widths = flagship.SMALL
+    if tool == "xprof_capture":
+        assert xc.main(["--cpu", "1", "--small", "--layers", "1", "--steps",
+                        "1", "--out", str(tmp_path / "trace")]) == 0
+        rec = json.load(open(tmp_path / "trace" / "summary.json"))
+    elif tool == "step_breakdown":
+        (rec,) = SB.main(["--cpu", "--small", "--layers", "1", "fwd"])
+    else:
+        rec = CA.main(["--cpu", "--small", "--layers", "1"])
+        widths = CA.SMALL
+    assert "error" not in rec, rec
+    assert rec["n_layers"] == 1
+    assert rec["params"] == _params(flagship.cut(widths, 1)) < _params(widths)
