@@ -353,12 +353,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    within ``SWEEP_LSE_ATOL``; the same kernels given one zeroed tile of
    keys must fail each limit), timed beside their bounds and SDPA; then
    ``python -m ompi_tpu_torch.tools.mfu_sweep`` on ``SWEEP_ROWS`` (each
-   row a fresh child at full depth): every row a record and no error,
+   row a fresh child at full depth, but ``SWEEP_CUT_ROWS``: b32, b8 ×
+   2048 and b4 × 4096 run by a second command at ``--layers 1``, which
+   paid for phase bench): every row a record and no error,
    losses finite and below ln(vocab) + 0.5, the flash rows' launches
    exact (the ``-pbwd`` row's dq and dk/dv too), none for ``xla``,
    matmul_peak's share of the peak in (0, 105], the ``SWEEP_SAME`` rows'
    losses within ``SWEEP_LOSS_RTOL``; the rows' launches are on the
    phase's line;
+18i. bench (after sweep) — the benchmark tool as a user runs it,
+   ``python -m ompi_tpu_torch.tools.bench`` in a fresh process: exit 0
+   and one stdout line; backend ``gpu`` and this card's name; the
+   flagship's MFU at the reference's configuration (plain attention,
+   batch 16 × 1024, a 32-step chain) in (0, 105] over the sweep's 468M
+   parameters; the 12 matrix rows in the reference's order, none an
+   error, the four that need two cards carrying the one-card note;
+   ``remote_dma`` correct over its 64 MiB window with one put launch a
+   call; ``flash_bwd_kernel``'s gradients finite with 2 / 2 / 2 flash
+   launches; the tuner's row (every algorithm of allreduce, allgather
+   and bcast at 4 KiB–64 MiB a shard) holds platform=cuda, the card's
+   name, n_devices=1 and no rule, ships nothing
+   (``ompi_tpu_torch/mpi/coll/`` unchanged), and coll/xla's decisions
+   at 4 KiB and 64 MiB are the same with its file as without; the
+   bench's flash and put launches are on the kernels line (path
+   ``bench``);
 19. collectives (third from last) — ``make_mesh`` on the card with NCCL at
    world size 1: every device collective on CUDA tensors equals the same
    call on the one-process CPU communicator;
@@ -379,14 +397,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    equal to the direct call, timed with its peak memory; the host cost
    of a 4 KiB ``comm.allreduce`` beside the direct call, and psum against
    rs_ag at 64 and 256 MiB;
-20a. tune (on the same NCCL group) — ``tools.tune`` at world size 1:
-   every algorithm of allreduce, allgather and bcast (qint8 included) at
-   the reference's sizes (4 KiB–64 MiB f32 a shard), µs each; the file
-   (a temporary path) holds platform=cuda, the card's name and
-   n_devices=1 and no rule, and coll/xla's decisions at 4 KiB and 64 MiB
-   are those without it;
 21. the ``kernels`` line (6 entries; the flash kernels' launches by
-   path: decode, train, ring, moe_decode, moe_train, ckpt), then the
+   path: decode, train, ring, moe_decode, moe_train, ckpt, bench; the
+   put kernel's: rma_ranks, bench), then the
    card's nvidia-smi line,
    then the result line ``{"ok": true, "device": {...}}``.
 
@@ -3705,59 +3718,6 @@ def phase_hwtopo(card):
           f"{torch.cuda.device_count()}")
     check(discover().accelerators == 0, "hwtopo probed without being asked")
     emit("hwtopo", topology=dc.asdict(topo), smt=topo.smt, card=card)
-
-
-def phase_tune(card, mesh):
-    """The tuner at world size 1 on phase collectives' NCCL group: the
-    reference's size sweep over every algorithm; the file holds the
-    provenance and no rule, and coll/xla decides as without it."""
-    import tempfile
-
-    import torch
-
-    from ompi_tpu_torch.mpi.coll import rules, xla
-    from ompi_tpu_torch.mpi.device_comm import device_world
-    from ompi_tpu_torch.tools.tune import DEFAULT_SIZES, tune_device_colls
-
-    dc = device_world(mesh)
-    comp = xla.XlaColl()
-    comp.register_params()
-
-    def decisions():
-        xla._measured_cache.clear()
-        return {c: [comp._decide(c, None, dc, n) for n in (4 << 10,
-                                                            64 << 20)]
-                for c in xla.XlaColl.ALGORITHMS}
-
-    with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "xla_measured_rules.conf")
-        t0 = time.perf_counter()
-        text, table = tune_device_colls(mesh, sizes=DEFAULT_SIZES,
-                                        out_path=out)
-        secs = time.perf_counter() - t0
-        rs = rules.load_rules(out)
-        name = torch.cuda.get_device_name(0)
-        check(rs.meta == {"platform": "cuda",
-                          "device_kind": name.replace(" ", "_"),
-                          "n_devices": "1"}, f"tune provenance {rs.meta}")
-        check(len(rs) == 0, f"tune at one card wrote rules:\n{text}")
-        check(all(set(row) == set(xla.XlaColl.ALGORITHMS[c])
-                  for c, rows in table.items() for row in rows.values()),
-              f"a cell was not measured: {table}")
-        saved = xla._MEASURED_PATH
-        without = decisions()
-        xla._MEASURED_PATH = out
-        try:
-            with_file = decisions()
-        finally:
-            xla._MEASURED_PATH = saved
-            xla._measured_cache.clear()
-    check(with_file == without,
-          f"decisions moved with the file: {with_file} vs {without}")
-    ar = table["allreduce"]["64MiB"]
-    emit("tune", us=table, seconds=secs, rules=len(rs), meta=rs.meta,
-         decisions_4KiB_64MiB=without,
-         psum_over_rs_ag_64MiB=ar["psum"] / ar["rs_ag"], card=card)
 
 
 #: the pipeline phase: one flagship-width stage over 16 × 512 tokens
@@ -7749,7 +7709,16 @@ SWEEP_LSE_ATOL = 1e-3
 #: tile of this many keys, from the middle of the sequence on, zeroed in
 #: the kernels' inputs and the outputs held against the true references
 SWEEP_FAULT_KEYS = 128
-SWEEP_TIMEOUT = 900          # the sweep command, seconds
+SWEEP_TIMEOUT = 900          # a sweep command, seconds
+#: the rows run by a second command at ``SWEEP_LAYERS`` of depth
+#: (``--layers``: the flagship's widths and the rows' batch and sequence
+#: kept), which paid for phase bench's seconds; their checks hold at any
+#: depth.  matmul_peak and the ``SWEEP_SAME`` rows keep the 8 layers: at
+#: 1–3 layers in bf16 the three rows memorise their batch within the 24
+#: steps and their losses part by 10–47% on the H100
+SWEEP_CUT_ROWS = ("b32-chunk128-dots", "b8-s2048-flash-chain16",
+                  "b4-s4096-flash-chain16")
+SWEEP_LAYERS = CUT_LAYERS
 #: the CPU rehearsal: the rows at --cpu --small
 SWEEP_SMALL = False
 
@@ -7889,6 +7858,7 @@ def phase_sweep(fa, card):
     """The flagship MFU sweep as a user runs it: ``python -m
     ompi_tpu_torch.tools.mfu_sweep`` on ``SWEEP_ROWS``, each row in its
     own child (records appended to build/ompi_tpu_torch/MFU_SWEEP.jsonl),
+    ``SWEEP_CUT_ROWS`` by a second command at ``SWEEP_LAYERS`` of depth,
     after the forward, dq and dk/dv are held against their plain
     versions at the long rows' lengths.  Every row must give a record
     and no error; every loss finite and below ln(vocab) + 0.5; the flash
@@ -7912,27 +7882,36 @@ def phase_sweep(fa, card):
     small = ["--cpu", "--small"] if SWEEP_SMALL else []
     n_before = len(_jsonl(flagship.SWEEP)) if os.path.exists(
         flagship.SWEEP) else 0
+    widths = flagship.SMALL if SWEEP_SMALL else FLAGSHIP
+    layers = {label: min(SWEEP_LAYERS, widths["n_layers"])
+              if label in SWEEP_CUT_ROWS else widths["n_layers"]
+              for label in SWEEP_ROWS}
     t1 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.mfu_sweep",
-                        *SWEEP_ROWS, *small], capture_output=True, text=True,
-                       timeout=SWEEP_TIMEOUT,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    recs, rcs, errs = {}, [], ""
+    for rows, depth in (([k for k in SWEEP_ROWS if k not in SWEEP_CUT_ROWS],
+                         []),
+                        (list(SWEEP_CUT_ROWS),
+                         ["--layers", str(SWEEP_LAYERS)])):
+        r = subprocess.run([sys.executable, "-m",
+                            "ompi_tpu_torch.tools.mfu_sweep", *rows, *small,
+                            *depth], capture_output=True, text=True,
+                           timeout=SWEEP_TIMEOUT,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        rcs.append(r.returncode)
+        errs += r.stderr[-2000:]
+        for ln in r.stdout.splitlines():
+            if ln.startswith("[sweep] ") and ": {" in ln:
+                rec = json.loads(ln.split(": ", 1)[1])
+                recs[rec["label"]] = rec
     secs["rows"] = time.perf_counter() - t1
-    recs = {}
-    for ln in r.stdout.splitlines():
-        if ln.startswith("[sweep] ") and ": {" in ln:
-            rec = json.loads(ln.split(": ", 1)[1])
-            recs[rec["label"]] = rec
     check(sorted(recs) == sorted(SWEEP_ROWS)
           and not [k for k, v in recs.items() if "error" in v]
-          and r.returncode == 0,
-          f"sweep: rc {r.returncode}, rows {sorted(recs)}, errors "
-          f"{ {k: v for k, v in recs.items() if 'error' in v} }\n"
-          f"{r.stderr[-2000:]}")
+          and rcs == [0, 0],
+          f"sweep: rc {rcs}, rows {sorted(recs)}, errors "
+          f"{ {k: v for k, v in recs.items() if 'error' in v} }\n{errs}")
     check(len(_jsonl(flagship.SWEEP)) == n_before + len(SWEEP_ROWS),
           f"sweep: {flagship.SWEEP} did not gain {len(SWEEP_ROWS)} rows")
     grid = {label: cfg for label, cfg, _ in M.GRID}
-    widths = flagship.SMALL if SWEEP_SMALL else FLAGSHIP
     most = math.log(widths["vocab"]) + 0.5
     launches = {}
     for label, rec in recs.items():
@@ -7947,7 +7926,10 @@ def phase_sweep(fa, card):
               f"sweep {label}: loss {rec['loss']} (below {most}), step ms "
               f"{rec['step_ms']}")
         launches[label] = rec["flash_launches"]
-        want = _sweep_expected(cfg, widths["n_layers"])
+        check(rec["n_layers"] == layers[label],
+              f"sweep {label}: {rec['n_layers']} layers, want "
+              f"{layers[label]}")
+        want = _sweep_expected(cfg, layers[label])
         check(rec["flash_launches"] == want,
               f"sweep {label}: flash launches {rec['flash_launches']}, want "
               f"{want}")
@@ -7958,7 +7940,8 @@ def phase_sweep(fa, card):
           f"at most {SWEEP_LOSS_RTOL})")
     keys = ("step_ms", "tokens_per_s", "mfu_pct", "loss", "params",
             "peak_gib", "import_s", "init_s", "wall_s", "wait_s",
-            "flash_launches", "batch", "seq", "chain", "outer", "ms",
+            "flash_launches", "batch", "seq", "n_layers", "chain", "outer",
+            "ms",
             "tflops", "pct_of_peak", "dispatch_rt_ms", "backend")
     secs["phase"] = time.perf_counter() - t0
     emit("sweep", card=card,
@@ -7966,7 +7949,160 @@ def phase_sweep(fa, card):
          same_function={"rows": SWEEP_SAME, "losses": same,
                         "spread": spread, "rtol": SWEEP_LOSS_RTOL},
          kernels=kernels, flash_launches=launches, seconds=secs)
-    return launches
+    return {label: rec["params"] for label, rec in recs.items()
+            if "params" in rec}
+
+
+#: phase bench: the bench's command, seconds
+BENCH_TIMEOUT = 900
+#: the bench's matrix rows, in the reference's order (bench.py:1098-1115)
+BENCH_ROWS = ("ring_latency", "shm_pingpong", "shm_msgrate", "hbm_copy",
+              "allreduce_sweep", "mesh_bcast_allgather",
+              "grad_reduce_scatter", "oshmem_device", "remote_dma",
+              "decode_throughput", "flash_bwd_kernel", "tuned_crossovers")
+#: the rows that need two or more cards: on one card they carry the note
+BENCH_ONE_CARD_ROWS = ("allreduce_sweep", "mesh_bcast_allgather",
+                       "grad_reduce_scatter", "oshmem_device")
+#: the sweep row whose parameters (468M) the headline must count
+BENCH_PARAMS_ROW = "b16-chunk128-xla"
+
+
+def _tree_digest(path: str) -> dict:
+    """{file name: sha256} of the files directly in ``path``."""
+    import hashlib
+
+    out = {}
+    for fn in sorted(os.listdir(path)):
+        full = os.path.join(path, fn)
+        if os.path.isfile(full):
+            with open(full, "rb") as f:
+                out[fn] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _bench_tuner_checks(row: dict, name: str) -> dict:
+    """The tuner's row at one card: provenance only, no rule, every cell
+    measured, nothing shipped, and coll/xla decides with the row's file
+    exactly as without it."""
+    import tempfile
+
+    from ompi_tpu_torch.mpi.coll import rules, xla
+    from ompi_tpu_torch.mpi.device_comm import device_world
+    from ompi_tpu_torch.parallel.mesh import make_mesh
+
+    check(row["meta"] == {"platform": "cuda",
+                          "device_kind": name.replace(" ", "_"),
+                          "n_devices": "1"}, f"tune provenance {row['meta']}")
+    check(row["value"] == 0 and row["rules"] == [],
+          f"tune at one card gave rules: {row['rules']}")
+    check(row["shipped"].startswith("no"), f"tune shipped {row['shipped']}")
+    table = row["table_us"]
+    check(all(set(cell) == set(xla.XlaColl.ALGORITHMS[c])
+              for c, cells in table.items() for cell in cells.values())
+          and set(table) == set(xla.XlaColl.ALGORITHMS),
+          f"a cell was not measured: {table}")
+    dc = device_world(make_mesh(device=DEVICE))
+    comp = xla.XlaColl()
+    comp.register_params()
+
+    def decisions():
+        xla._measured_cache.clear()
+        return {c: [comp._decide(c, None, dc, n) for n in (4 << 10,
+                                                            64 << 20)]
+                for c in xla.XlaColl.ALGORITHMS}
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "xla_measured_rules.conf")
+        with open(out, "w") as f:
+            f.write("".join(f"#! {k}={v}\n" for k, v in row["meta"].items()))
+        check(rules.load_rules(out).meta == row["meta"]
+              and len(rules.load_rules(out)) == 0, "tune file round trip")
+        saved = xla._MEASURED_PATH
+        without = decisions()
+        xla._MEASURED_PATH = out
+        try:
+            with_file = decisions()
+        finally:
+            xla._MEASURED_PATH = saved
+            xla._measured_cache.clear()
+    check(with_file == without,
+          f"decisions moved with the file: {with_file} vs {without}")
+    ar = table["allreduce"]["64MiB"]
+    return {"decisions_4KiB_64MiB": without,
+            "psum_over_rs_ag_64MiB": ar["psum"] / ar["rs_ag"]}
+
+
+def phase_bench(card, name: str, params: int):
+    """The benchmark tool as a user runs it: ``python -m
+    ompi_tpu_torch.tools.bench`` once, in a fresh process.  It must exit
+    0 with exactly one stdout line: backend ``gpu`` and this card's name,
+    a headline MFU in (0, 105] over ``params`` parameters (the sweep's
+    468M), the 12 rows in the reference's order with no ``error``, the
+    four rows that need two cards carrying the one-card note,
+    ``remote_dma`` correct over its 64 MiB window with one put launch a
+    call, ``flash_bwd_kernel``'s gradients finite with the forward, dq
+    and dk/dv launched twice each (warm and timed), and the tuner's row
+    shipping nothing: ``ompi_tpu_torch/mpi/coll/`` is unchanged and
+    coll/xla decides as without its file.  → the bench's kernel
+    launches."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    coll = os.path.join(here, "ompi_tpu_torch", "mpi", "coll")
+    before = _tree_digest(coll)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()     # the bench's processes get the card
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.bench"],
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+                       cwd=here)
+    secs = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    check(r.returncode == 0 and len(lines) == 1,
+          f"bench: rc {r.returncode}, {len(lines)} stdout lines\n"
+          f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    rec = json.loads(lines[0])
+    check(rec["backend"] == "gpu" and rec["kind"] == name
+          and rec["n_devices"] == 1, f"bench backend: {rec.get('backend')}, "
+          f"{rec.get('kind')}, {rec.get('n_devices')}")
+    check(rec["unit"] == "% MFU" and 0 < rec["value"] <= 105
+          and rec["params"] == params and rec["step_ms"] > 0
+          and rec["tokens_per_s"] > 0,
+          f"bench headline: {rec.get('value')} {rec.get('unit')}, params "
+          f"{rec.get('params')} (want {params}), {rec.get('error')}")
+    rows = {row["config"]: row for row in rec["matrix"]}
+    check([row["config"] for row in rec["matrix"]] == list(BENCH_ROWS),
+          f"bench rows: {[row['config'] for row in rec['matrix']]}")
+    bad = {k: v["error"] for k, v in rows.items() if "error" in v}
+    check(not bad, f"bench rows failed: {bad}")
+    for k in BENCH_ONE_CARD_ROWS:
+        check(rows[k].get("note") == rows["mesh_bcast_allgather"]["note"]
+              and "single card" in rows[k]["note"],
+              f"bench {k}: no one-card note")
+    dma = rows["remote_dma"]
+    lo, hi = dma["iters"]
+    want_puts = (1 + len(dma["reps_lo_s"])) * lo + (
+        1 + len(dma["reps_hi_s"])) * hi + 1
+    check(dma["correct"] is True and dma["shape"] == [1 << 24]
+          and dma["launches"] == want_puts,
+          f"bench remote_dma: correct {dma['correct']}, shape "
+          f"{dma['shape']}, put launches {dma['launches']} (want "
+          f"{want_puts})")
+    fb = rows["flash_bwd_kernel"]
+    check(fb["grads_finite"] is True and fb["launches"] == {
+        "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+          f"bench flash_bwd_kernel: finite {fb['grads_finite']}, launches "
+          f"{fb['launches']}")
+    tune = _bench_tuner_checks(rows["tuned_crossovers"], name)
+    check(_tree_digest(coll) == before,
+          "bench changed ompi_tpu_torch/mpi/coll/")
+    emit("bench", seconds=secs, card=card,
+         record={k: v for k, v in rec.items() if k != "counters"},
+         tune=tune)
+    return {"flash_fwd": fb["launches"]["flash_fwd"],
+            "flash_bwd_dq": fb["launches"]["flash_bwd_dq"],
+            "flash_bwd_dkv": fb["launches"]["flash_bwd_dkv"],
+            "put": dma["launches"]}
 
 
 def main() -> int:
@@ -8023,7 +8159,9 @@ def main() -> int:
     run("plm", phase_plm, card)
     run("dvm", phase_dvm, card)
     run("tools", phase_tools, card, name)
-    run("sweep", phase_sweep, fa, card)
+    sweep_params = run("sweep", phase_sweep, fa, card)
+    bench = run("bench", phase_bench, card, name,
+                sweep_params[BENCH_PARAMS_ROW])
     params_np = run("params", flagship_params)
     decode_launches = run("decode", phase_decode, fa, card, params_np)
     run("cache", phase_cache, fa)
@@ -8039,7 +8177,6 @@ def main() -> int:
     run("moe_small", phase_train_small, fa, True)
     mesh = run("collectives", phase_collectives, card)
     run("mpi_coll", phase_mpi_coll, card, mesh)
-    run("tune", phase_tune, card, mesh)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -8052,13 +8189,14 @@ def main() -> int:
          "replaces": "ompi_tpu/ops/flash_attention.py:61 (_fwd_kernel)",
          "launches": decode_launches + train["flash_fwd"]
          + ring["flash_fwd"] + moe_decode + moe_train["flash_fwd"]
-         + ckpt["flash_fwd"],
+         + ckpt["flash_fwd"] + bench["flash_fwd"],
          "launches_by_path": {"decode": decode_launches,
                               "train": train["flash_fwd"],
                               "ring": ring["flash_fwd"],
                               "moe_decode": moe_decode,
                               "moe_train": moe_train["flash_fwd"],
-                              "ckpt": ckpt["flash_fwd"]},
+                              "ckpt": ckpt["flash_fwd"],
+                              "bench": bench["flash_fwd"]},
          **fwd, "ok": True},
     ]
     for part, line in (("dq", 173), ("dkv", 215)):
@@ -8068,17 +8206,20 @@ def main() -> int:
             "replaces": f"ompi_tpu/ops/flash_attention.py:{line} "
                         f"(_bwd_{part}_kernel)",
             "launches": train[key] + ring[key] + moe_train[key]
-            + ckpt[key],
+            + ckpt[key] + bench[key],
             "launches_by_path": {"train": train[key], "ring": ring[key],
                                  "moe_train": moe_train[key],
-                                 "ckpt": ckpt[key]},
+                                 "ckpt": ckpt[key], "bench": bench[key]},
             **bwd[part], "ok": True})
     for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
+        by_path = {"rma_ranks": rma_launches[kind],
+                   "bench": bench.get(kind, 0)}
         kernels.append({
             "name": f"remote_dma_{kind}", "route": "cuda",
             "source": src + "remote_dma.cu",
             "replaces": f"ompi_tpu/ops/remote_dma.py:{line} (_{kind}_kernel)",
-            "launches": rma_launches[kind], **rma[kind], "ok": True})
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **rma[kind], "ok": True})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=secs,
          card=card, bytecode_cache=pycache)

@@ -5,7 +5,8 @@ variable system, opal/mca/base/mca_base_var.h:78-96,404-475;
 mca_base_var.c): every tunable is a registered, typed, self-describing
 variable with one namespace and a fixed source precedence
 
-    default  <  file ($OMPI_TPU_PARAM_FILE, then ./ompi-tpu-params.conf)
+    default  <  file (~/.ompi_tpu/params.conf < ./ompi-tpu-params.conf
+                      < $OMPI_TPU_PARAM_FILE)
              <  environment (OMPI_TPU_MCA_<framework>_<name>)
              <  command line (--mca <framework>_<name> <value>)
              <  programmatic set_var()
@@ -18,10 +19,8 @@ any source but the default warns once) or known under synonyms (the
 framework-selection variable ``btl_`` is also ``btl``, so ``--mca btl
 self,tcp`` sets it).  The environment prefix, the file format and the
 value parsers are the JAX package's, so one
-``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both.
-The params file in the user's home directory, which the JAX package
-also reads, is left out: the port reads nothing outside its working
-directory but the file ``$OMPI_TPU_PARAM_FILE`` names.
+``OMPI_TPU_MCA_ops_flash_bwd_kernel`` setting reads the same in both,
+and so does a line of the user's ``~/.ompi_tpu/params.conf``.
 """
 
 from __future__ import annotations
@@ -170,10 +169,14 @@ class VarRegistry:
     def _load_files(self) -> None:
         """``name = value`` lines, '#' comments (the reference's
         mca_base_parse_paramfile.c); the first file to define a name
-        wins, so paths are listed highest precedence first."""
+        wins, so paths are listed highest precedence first:
+        ``$OMPI_TPU_PARAM_FILE``, ``./ompi-tpu-params.conf``,
+        ``~/.ompi_tpu/params.conf``."""
         paths = [p for p in (os.environ.get(ENV_PARAM_FILE),
                              os.path.join(os.getcwd(),
-                                          "ompi-tpu-params.conf")) if p]
+                                          "ompi-tpu-params.conf"),
+                             os.path.join(os.path.expanduser("~"),
+                                          ".ompi_tpu", "params.conf")) if p]
         for path in paths:
             try:
                 with open(path) as fh:

@@ -22,8 +22,11 @@ checkout (gitignored).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -62,14 +65,16 @@ def config(small: Optional[dict] = None, batch: Optional[int] = None,
     (a dict of widths, ``seq`` and ``ce_chunk``) replaces the widths for
     a CPU run, ``batch`` the batch, and ``fields`` (any of
     ``ROW_FIELDS``) the step's options: flash attention, ``remat="dots"``
-    and bf16 compute unless a field says otherwise.  With ``small`` the
-    sequence stays ``small``'s: a row's ``seq`` is a width."""
+    and bf16 compute unless a field says otherwise.  Where ``small`` sets
+    ``seq`` the sequence stays ``small``'s: a row's ``seq`` is a width
+    (``cut(None, layers)`` sets only the depth, so a row keeps its
+    sequence)."""
     from ompi_tpu_torch.models.transformer import TransformerConfig
 
     bad = sorted(set(fields) - set(ROW_FIELDS))
     if bad:
         raise ValueError(f"not a row field: {bad}; one of {ROW_FIELDS}")
-    if small:
+    if small and "seq" in small:
         fields.pop("seq", None)
     widths = dict(FLAGSHIP, seq=TRAIN["seq"], ce_chunk=TRAIN["ce_chunk"])
     widths.update(small or {})
@@ -146,17 +151,43 @@ class Step:
         return device_kind(self.mesh.device)
 
 
+def _import_quietly(name: str) -> None:
+    try:
+        importlib.import_module(name)
+    except Exception:  # noqa: BLE001 — the first real use imports it again
+        pass
+
+
+@contextlib.contextmanager
+def importing_dynamo():
+    """Import ``torch._dynamo`` on a thread while the block runs (a numpy
+    draw, which releases the GIL): ``torch.utils.checkpoint`` (remat,
+    the chunked loss) imports it at its first call, most of a fresh
+    process's first training step otherwise.  The block must import
+    nothing itself."""
+    th = threading.Thread(target=_import_quietly, args=("torch._dynamo",),
+                          daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        th.join()
+
+
 def draw(small: Optional[dict] = None, batch: Optional[int] = None,
          **fields):
     """The host half of :func:`build`: (cfg, batch, the parameters from
     ``init_params`` seed 0 as numpy, one batch of tokens drawn with numpy
-    seed 0); touches no device.  ``fields`` as :func:`config`'s."""
+    seed 0); touches no device.  ``fields`` as :func:`config`'s.
+    ``torch._dynamo`` is imported meanwhile (:func:`importing_dynamo`)."""
     from ompi_tpu_torch.models.transformer import init_params
 
     cfg, batch = config(small, batch, **fields)
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab, size=(batch, cfg.seq)).astype(np.int32)
-    return cfg, batch, init_params(cfg), toks
+    with importing_dynamo():
+        params = init_params(cfg)
+    return cfg, batch, params, toks
 
 
 def build(dev, small: Optional[dict] = None, batch: Optional[int] = None,

@@ -16,9 +16,11 @@ readback of the last loss; step time = wall / (outer · chain).  MFU =
 H100's 989e12; null on any other device and with ``--cpu``).
 
 The children start ``AHEAD`` rows ahead: while a row runs, the next
-rows' children import, draw their parameters on the host and create
-their CUDA context (a process's first touch of the card takes seconds
-on its own), then wait for their turn (a line on their stdin).  A
+rows' children import, draw their parameters on the host (importing
+``torch._dynamo`` meanwhile, which ``torch.utils.checkpoint`` would
+import at the first step) and create their CUDA context (a process's first
+touch of the card takes seconds on its own), then wait for their turn
+(a line on their stdin).  A
 waiting child launches no work on the card, so a row's steps have the
 card to themselves; a row's budget runs from its turn.  The reference's
 ``bench._enable_compile_cache`` (a shared XLA compile cache) has no
@@ -56,11 +58,14 @@ Usage:
     python -m ompi_tpu_torch.tools.mfu_sweep --quick        # QUICK
     python -m ompi_tpu_torch.tools.mfu_sweep LABEL ...      # these rows
     python -m ompi_tpu_torch.tools.mfu_sweep --cpu --small b16-chunk128-dots
+    python -m ompi_tpu_torch.tools.mfu_sweep --layers 1 LABEL ...   # cut depth
 
 The rows run on the card; ``--cpu`` asks for the CPU (a row without it
 on a machine with no CUDA device fails) and ``--small`` for
-``flagship.SMALL``'s widths, sequence and batch (the tests).  The exit
-code is 1 if any row failed.
+``flagship.SMALL``'s widths, sequence and batch (the tests);
+``--layers N`` cuts the rows' depth and keeps their widths and
+sequences (a record's ``n_layers``).  The exit code is 1 if any row
+failed.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 from ompi_tpu_torch.tools import flagship
 
@@ -196,14 +202,17 @@ def time_train_loop(cfg, mesh, tokens, chain: int, outer: int,
     calls of a ``chain``-step ``make_train_loop`` at lr 1e-3, after one
     warm call; ``params`` are trainable leaves on the mesh's device,
     ``init_params(cfg)`` seed 0 through ``from_jax_params(...,
-    train=True)`` by default.  The clock is closed by a value readback
+    train=True)`` by default (``torch._dynamo`` imported during the
+    draw, ``flagship.importing_dynamo``).  The clock is closed by a value readback
     of the last loss, which waits for every step before it."""
     from ompi_tpu_torch.models import transformer as tfm
     from ompi_tpu_torch.models.weights import from_jax_params
 
     if params is None:
-        params = from_jax_params(tfm.init_params(cfg), cfg, mesh.device,
-                                 train=True, mesh=mesh)
+        with flagship.importing_dynamo():
+            params_np = tfm.init_params(cfg)
+        params = from_jax_params(params_np, cfg, mesh.device, train=True,
+                                 mesh=mesh)
     n_params = flagship.count_params(params)
     loop, init_opt = tfm.make_train_loop(cfg, mesh, lr=flagship.LR,
                                          steps=chain)
@@ -246,10 +255,13 @@ def _peak_memory_gib(dev):
     return torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
 
-def run_row(cfg: dict, cpu: bool, small: bool, gate=None) -> dict:
+def run_row(cfg: dict, cpu: bool, small: bool, gate=None,
+            layers: Optional[int] = None) -> dict:
     """One training row in this process → its record (without the
-    label).  The device is resolved first (no card and no ``--cpu``
-    fails here), then the host half, then ``gate`` is waited on."""
+    label), at ``layers`` of depth (default the config's).  The device
+    is resolved first (no card and no ``--cpu`` fails here), then the
+    host half (``flagship.draw``, which imports ``torch._dynamo``
+    meanwhile), then ``gate`` is waited on."""
     from ompi_tpu_torch.core.config import var_registry
 
     t0 = time.time()
@@ -262,8 +274,9 @@ def run_row(cfg: dict, cpu: bool, small: bool, gate=None) -> dict:
     mca = row.pop("_mca", None)
     for k, v in (mca or {}).items():
         var_registry.set(k, v)
-    drawn = flagship.draw(*((flagship.SMALL, flagship.SMALL_BATCH)
-                            if small else (None, batch)), **row)
+    drawn = flagship.draw(flagship.cut(flagship.SMALL if small else None,
+                                       layers),
+                          flagship.SMALL_BATCH if small else batch, **row)
     init_s = _init_device(dev)
     import_s = time.time() - t0
     wait_s = _wait_turn(gate)
@@ -288,6 +301,7 @@ def run_row(cfg: dict, cpu: bool, small: bool, gate=None) -> dict:
            "wall_s": import_s + time.time() - t_dev, "wait_s": wait_s,
            "init_s": init_s,
            "chain": chain, "outer": outer, "seq": s.cfg.seq,
+           "n_layers": s.cfg.n_layers,
            "flash_launches": flagship.flash_counts(),
            "peak_gib": _peak_memory_gib(dev)}
     if mca:
@@ -357,12 +371,14 @@ def matmul_peak(cpu: bool, small: bool, gate=None) -> dict:
             "peak_tflops": peak / 1e12 if peak else None, "backend": kind}
 
 
-def _start(label: str, cfg, cpu: bool, small: bool) -> subprocess.Popen:
+def _start(label: str, cfg, cpu: bool, small: bool,
+           layers: Optional[int] = None) -> subprocess.Popen:
     """A row's child, started at once: it does its host half and then
     waits for a line on its stdin."""
     return subprocess.Popen(
         [sys.executable, "-m", "ompi_tpu_torch.tools.mfu_sweep", "--child",
-         label, json.dumps(cfg)] + ["--cpu"] * cpu + ["--small"] * small,
+         label, json.dumps(cfg)] + ["--cpu"] * cpu + ["--small"] * small
+        + (["--layers", str(layers)] if layers is not None else []),
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=flagship.REPO)
 
@@ -414,6 +430,9 @@ def main(argv=None) -> list:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--small", action="store_true",
                     help="tiny model (CPU smoke / tests)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the rows' depth (widths unchanged; default the "
+                         "config's)")
     ap.add_argument("--out", default=flagship.SWEEP,
                     help="JSONL file the rows are appended to")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -423,7 +442,8 @@ def main(argv=None) -> list:
         cfg = json.loads(cfg)
         rec = (matmul_peak(args.cpu, args.small, gate=sys.stdin)
                if cfg is None else
-               run_row(cfg, args.cpu, args.small, gate=sys.stdin))
+               run_row(cfg, args.cpu, args.small, gate=sys.stdin,
+                       layers=args.layers))
         print("RESULT " + json.dumps(rec), flush=True)
         return []
     grid = _select(args.labels, args.quick)
@@ -435,7 +455,7 @@ def main(argv=None) -> list:
             for j in range(i, min(i + AHEAD + 1, len(grid))):
                 if procs[j] is None:
                     procs[j] = _start(grid[j][0], grid[j][1], args.cpu,
-                                      args.small)
+                                      args.small, args.layers)
             print(f"[sweep] {label} (budget {budget}s) ...", flush=True)
             rec = _finish(label, procs[i], budget)
             rec["ts"] = time.strftime("%Y-%m-%dT%H:%MZ", time.gmtime())

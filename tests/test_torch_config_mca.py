@@ -8,6 +8,9 @@ package's.
 - Each source (file, environment, command line, ``set``) set once on a
   fresh registry of each package reads back the same value and the same
   ``VarSource`` name, and the precedence between them is the same.
+- A line of ``~/.ompi_tpu/params.conf`` reads the same value and
+  ``VarSource.FILE`` in fresh registries of both packages, and a
+  ``./ompi-tpu-params.conf`` line still wins over it.
 - Read-only, deprecated, synonym and info-level variables behave as the
   JAX package's; a deprecated variable set from outside warns once.
 - The framework lifecycle: ``add_instance`` on an open framework opens
@@ -116,6 +119,28 @@ def test_each_source_reads_back(cfg, tmp_path, monkeypatch):
         "DEFAULT", "FILE", "ENV", "COMMAND_LINE", "SET"]
     assert [int(x) for x in cfg.InfoLevel] == list(range(1, 10))
 
+
+
+def test_home_params_file_reads_as_the_jax_packages(tmp_path, monkeypatch):
+    home = tmp_path / "home"
+    (home / ".ompi_tpu").mkdir(parents=True)
+    (home / ".ompi_tpu" / "params.conf").write_text(
+        "fw_home = 21\nfw_both = 22\n")
+    work = tmp_path / "work"
+    work.mkdir()
+    (work / "ompi-tpu-params.conf").write_text("fw_both = 23\n")
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.delenv("OMPI_TPU_PARAM_FILE", raising=False)
+    monkeypatch.chdir(work)
+    got = {}
+    for label, cfg in (("jax", jcfg), ("port", pcfg)):
+        reg = cfg.VarRegistry()
+        got[label] = {
+            name: (v.value, v.source.name) for name, v in (
+                (n, reg.register(cfg.Var("fw", n, cfg.VarType.INT, 0)))
+                for n in ("home", "both"))}
+    assert got["port"] == got["jax"] == {"home": (21, "FILE"),
+                                         "both": (23, "FILE")}
 
 def _flags(cfg, monkeypatch, capsys) -> dict:
     monkeypatch.setenv("OMPI_TPU_MCA_fw_ro", "9")

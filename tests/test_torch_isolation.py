@@ -119,6 +119,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                 "ompi_tpu_torch.tools.step_breakdown",
                 "ompi_tpu_torch.tools.cost_analysis",
                 "ompi_tpu_torch.tools.mfu_sweep",
+                "ompi_tpu_torch.tools.bench",
                 *_TRACE_PLANE, *_FT_PLANE, *_IO_PLANE, *_OSC_PLANE,
                 *_DPM_PLANE, *_TREE_PLANE, *_DVM_PLANE, *_COLL_DEMO):
         assert mod in res["imported"]

@@ -8,7 +8,8 @@ against the repo's ``tools/mfu_sweep.py`` and ``bench._time_train_loop``.
   2, outer 1, gives ``bench._time_train_loop``'s parameter count and
   last loss on JAX's CPU within 1e-4 relative (measured: equal).
 - A row's child (``--cpu --small``) prints the reference's record keys
-  and the flash kernels' launches, with no MFU off the card; a timed-out
+  and the flash kernels' launches, with no MFU off the card, and
+  ``--layers`` cuts its depth; a timed-out
   child and a child without a card give the reference's ``error``
   records; an unknown label exits non-zero with the reference's message.
 - At small f32 widths, configs that differ only in attention (flash,
@@ -272,10 +273,31 @@ def test_config_takes_a_rows_fields():
     assert (cfg.attention, cfg.remat, cfg.compute_dtype, cfg.seq,
             cfg.ce_chunk, batch) == ("flash", "dots", "bfloat16", 1024, 256,
                                      16)
-    # a small run keeps its sequence
+    # a small run keeps its sequence; a depth cut keeps the row's
     assert flagship.config(flagship.SMALL, 2, seq=4096)[0].seq == 64
+    cut, _ = flagship.config(flagship.cut(None, 1), 4, seq=4096)
+    assert (cut.seq, cut.n_layers, cut.d_model, cut.d_ff) == (
+        4096, 1, 2048, 8192)
     with pytest.raises(ValueError, match="not a row field"):
         flagship.config(None, 8, d_model=64)
+
+
+def test_layers_cut_a_rows_depth(tmp_path):
+    """``--layers 1`` reaches the child: one layer of flagship.SMALL's
+    two, one layer's parameters fewer, the widths and batch kept."""
+    out = tmp_path / "sweep.jsonl"
+    r = _sweep("--cpu", "--small", "--layers", "1", "--out", str(out),
+               "b16-chunk128-dots")
+    assert r.returncode == 0, r.stderr[-2000:]
+    (rec,) = _records(r.stdout)
+    assert rec["n_layers"] == 1 and flagship.SMALL["n_layers"] == 2
+    d, f = flagship.SMALL["d_model"], flagship.SMALL["d_ff"]
+    full = M.run_row(dict(M.GRID[1][1], chain=1, outer=1), cpu=True,
+                     small=True)
+    assert full["n_layers"] == 2
+    assert full["params"] - rec["params"] == 4 * d * d + 2 * d * f + 2 * d
+    assert (rec["batch"], rec["seq"]) == (full["batch"], full["seq"])
+    assert np.isfinite(rec["loss"])
 
 
 def test_row_runs_the_backward_kernels_only_where_its_mca_asks(registry):
