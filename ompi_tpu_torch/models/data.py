@@ -11,7 +11,8 @@ The port of ``ompi_tpu.models.data``:
   device (pinned host memory, ``non_blocking``) while the current step
   computes, keeping up to ``depth`` batches in flight; a source error is
   raised at the consumer, and ``close`` (also before the first ``next``)
-  releases the thread and drops the buffered batches.
+  releases the thread and drops the buffered batches.  The consumer's
+  wait for a batch is the model span ``data.wait``.
 
 Over a mesh of ranks every rank slices the same deterministic global
 batch and keeps its block, with no coordination: rank (d, s) takes rows
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.models.transformer import shard_tokens
+from ompi_tpu_torch.mpi import trace
 
 __all__ = ["TokenSource", "ArraySource", "MemmapSource", "prefetch",
            "batches", "train_stream"]
@@ -135,7 +137,10 @@ def prefetch(it: Iterator[np.ndarray], mesh=None, depth: int = 2):
         def __next__(self):
             if closed.is_set():
                 raise StopIteration
-            item = q.get()
+            # the consumer's wait, on its own thread: a profiler sees no
+            # span the worker opens (it started before the profiler)
+            with trace.model_span("data.wait"):
+                item = q.get()
             if item is stop:
                 self.close()
                 raise StopIteration

@@ -12,9 +12,16 @@ switch as training.  The switch's capacity is computed per call, so a
 cached step computes it from its B tokens: under a binding capacity the
 drop pattern can differ from a full forward's, as in the JAX package;
 the two agree exactly when capacity does not bind.
+
+A call's model spans (``mpi.trace.model_span``): ``decode.prefill``
+through the first token, one ``decode.step`` a cached step (one token
+for every request), and in it one ``decode.attend`` a layer (the cache
+write, its f32 cast, the mask, softmax and both einsums).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -23,6 +30,7 @@ from ompi_tpu_torch.models.transformer import (TransformerConfig,
                                                _dense_ffn_tail,
                                                _moe_ffn_tail, _rmsnorm,
                                                _rope)
+from ompi_tpu_torch.mpi import trace
 from ompi_tpu_torch.parallel.layers import column_parallel, row_parallel
 
 __all__ = ["make_decoder"]
@@ -48,12 +56,14 @@ def _step_layer(cfg: TransformerConfig, comm, lp, h, kc, vc, pos: int,
     v = column_parallel(x, lp["wv"].to(cdt)).reshape(B, 1, hl, hd)
     q = _rope(q, positions[pos:pos + 1])
     k = _rope(k, positions[pos:pos + 1])
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kc.to(f32)) * (hd ** -0.5)
-    s = torch.where(positions <= pos, s, -1e30)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, vc.to(f32))
+    with trace.model_span("decode.attend", pos=pos):
+        kc[:, pos] = k[:, 0].to(kc.dtype)
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32),
+                         kc.to(f32)) * (hd ** -0.5)
+        s = torch.where(positions <= pos, s, -1e30)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, vc.to(f32))
     o = o.to(cdt).reshape(B, 1, hl * hd)
     h = h + row_parallel(o, lp["wo"].to(cdt), comm, axis="tp")
     if cfg.moe_experts:
@@ -111,42 +121,48 @@ def make_decoder(cfg: TransformerConfig, mesh, max_new: int,
         return (scaled - torch.log(-torch.log(u.clamp_min(1e-20)))).argmax(
             dim=-1)
 
+    calls = itertools.count()
+
     @torch.no_grad()
     def run(params, prompt, seed):
-        prompt = tfm.as_tokens(prompt, dev)
-        B, Tp = prompt.shape
-        Tmax = Tp + max_new
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        positions = torch.arange(Tmax, device=dev)
+        call = next(calls)
+        with trace.model_span("decode.prefill", call=call):
+            prompt = tfm.as_tokens(prompt, dev)
+            B, Tp = prompt.shape
+            Tmax = Tp + max_new
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            positions = torch.arange(Tmax, device=dev)
 
-        # ---- prefill: one backbone pass, K/V collected ----
-        h, (_aux, ks, vs) = tfm._local_backbone(cfg, comm, params, prompt,
-                                                collect_kv=True)
-        # The cache is preallocated once as (L, B, Tmax, H, hd) in compute
-        # dtype; each cached step writes its token's k/v in place at
-        # `pos` (the JAX package pads and carries immutable caches).
-        kc = torch.zeros((ks.shape[0], B, Tmax) + ks.shape[3:], dtype=cdt,
-                         device=dev)
-        vc = torch.zeros_like(kc)
-        kc[:, :, :Tp] = ks
-        vc[:, :, :Tp] = vs
-        del ks, vs
-        # the unembed matrix in the compute dtype, made once per call
-        emb_c = params["emb"].to(cdt)
-        tok = pick(tfm.unembed(h[:, -1, :], emb_c, cdt), gen)
+            # ---- prefill: one backbone pass, K/V collected ----
+            h, (_aux, ks, vs) = tfm._local_backbone(cfg, comm, params,
+                                                    prompt, collect_kv=True)
+            # The cache is preallocated once as (L, B, Tmax, H, hd) in
+            # compute dtype; each cached step writes its token's k/v in
+            # place at `pos` (the JAX package pads and carries immutable
+            # caches).
+            kc = torch.zeros((ks.shape[0], B, Tmax) + ks.shape[3:],
+                             dtype=cdt, device=dev)
+            vc = torch.zeros_like(kc)
+            kc[:, :, :Tp] = ks
+            vc[:, :, :Tp] = vs
+            del ks, vs
+            # the unembed matrix in the compute dtype, made once per call
+            emb_c = params["emb"].to(cdt)
+            tok = pick(tfm.unembed(h[:, -1, :], emb_c, cdt), gen)
         out = [tok]
 
         # emit the PRODUCED token and run max_new-1 steps: tok0 is known
         # from prefill, so the last single-token pass is not computed
         for pos in range(Tp, Tmax - 1):
-            h = params["emb"][tok].to(cdt)[:, None, :]        # (B, 1, D)
-            for i in range(cfg.n_layers):
-                lp = {key: params[key][i] for key in keys}
-                h = _step_layer(cfg, comm, lp, h, kc[i], vc[i], pos,
-                                positions)
-            h = _rmsnorm(h, params["lnf"])
-            tok = pick(tfm.unembed(h[:, 0, :], emb_c, cdt), gen)
+            with trace.model_span("decode.step", call=call, pos=pos):
+                h = params["emb"][tok].to(cdt)[:, None, :]    # (B, 1, D)
+                for i in range(cfg.n_layers):
+                    lp = {key: params[key][i] for key in keys}
+                    h = _step_layer(cfg, comm, lp, h, kc[i], vc[i], pos,
+                                    positions)
+                h = _rmsnorm(h, params["lnf"])
+                tok = pick(tfm.unembed(h[:, 0, :], emb_c, cdt), gen)
             out.append(tok)
         return torch.cat([prompt, torch.stack(out, dim=1)],
                          dim=1).to(torch.int32)

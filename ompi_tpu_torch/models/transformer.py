@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Any
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ompi_tpu_torch.mpi import trace
 from ompi_tpu_torch.parallel.collectives import group_size, sum_forward
 from ompi_tpu_torch.parallel.layers import (column_parallel, row_parallel,
                                             tp_input)
@@ -527,9 +529,12 @@ def _make_loss_and_grads(cfg: TransformerConfig, mesh):
     dp = int(mesh.shape["dp"])
 
     def value_and_grad(params, tokens):
-        loss = loss_fn(params, tokens)
+        with trace.model_span("train.forward"):
+            loss = loss_fn(params, tokens)
         keys = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        # the backward's kernels launch from the autograd engine's thread
+        with trace.model_span("train.backward"):
+            grads = torch.autograd.grad(loss, [params[k] for k in keys])
         return loss.detach(), dict(zip(keys, grads))
 
     def local_loss_and_grads(params, tokens):
@@ -593,7 +598,8 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
 
         def body(params, opt_state, tokens):
             loss, grads = loss_and_grads(params, tokens)
-            opt_state = z_update(grads, opt_state, params)
+            with trace.model_span("train.optimizer"):
+                opt_state = z_update(grads, opt_state, params)
             return params, opt_state, loss
 
         return body, z_init
@@ -601,8 +607,9 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
     if store is None:
         def body(params, opt_state, tokens):
             loss, grads = loss_and_grads(params, tokens)
-            updates, opt_state = opt.update_(grads, opt_state, params)
-            with torch.no_grad():
+            with trace.model_span("train.optimizer"), \
+                    torch.no_grad():
+                updates, opt_state = opt.update_(grads, opt_state, params)
                 for k, u in updates.items():
                     params[k].add_(u)
             return params, opt_state, loss
@@ -615,11 +622,12 @@ def _make_step_body(cfg: TransformerConfig, mesh, lr):
 
     def body(params, opt_state, tokens):
         loss, grads = loss_and_grads(params, tokens)
-        g32 = {k: g.to(f32) for k, g in grads.items()}
-        del grads
-        master = opt_state["master"]
-        updates, inner = opt.update_(g32, opt_state["opt"], master)
-        with torch.no_grad():
+        with trace.model_span("train.optimizer"), \
+                torch.no_grad():
+            g32 = {k: g.to(f32) for k, g in grads.items()}
+            del grads
+            master = opt_state["master"]
+            updates, inner = opt.update_(g32, opt_state["opt"], master)
             for k, u in updates.items():
                 master[k].add_(u)
                 params[k].copy_(master[k])      # rounds to the storage dtype
@@ -673,9 +681,12 @@ def make_train_step(cfg: TransformerConfig, mesh, lr=3e-4):
     count."""
     body, init = _make_step_body(cfg, mesh, lr)
     dev = mesh.device
+    count = itertools.count()
 
     def step(params, opt_state, tokens):
-        return body(params, opt_state, as_tokens(tokens, dev))
+        n = next(count)
+        with trace.model_span("train.step", step=n):
+            return body(params, opt_state, as_tokens(tokens, dev))
 
     return step, init
 
@@ -685,12 +696,15 @@ def make_train_loop(cfg: TransformerConfig, mesh, lr=3e-4, steps: int = 8):
     optimizer steps on the same tokens, losses a (steps,) f32 tensor."""
     body, init = _make_step_body(cfg, mesh, lr)
     dev = mesh.device
+    count = itertools.count()
 
     def run(params, opt_state, tokens):
         tokens = as_tokens(tokens, dev)
         losses = []
         for _ in range(steps):
-            params, opt_state, loss = body(params, opt_state, tokens)
+            n = next(count)
+            with trace.model_span("train.step", step=n):
+                params, opt_state, loss = body(params, opt_state, tokens)
             losses.append(loss)
         return params, opt_state, torch.stack(losses).to(torch.float32)
 

@@ -3,11 +3,18 @@ port's copy of the JAX package's ``mpi/trace.py``, whole: the same
 counter, histogram and pvar names, environment variables, dump file names
 and wire shapes, so either package's tools read the other's dumps).
 
-The port differs in one place: :func:`collrec_sig` signs a torch dtype
-(the device route's tensors) with the numpy type code and itemsize of
-the numpy dtype it stands for (``_TORCH_DTYPE_NUM``), read from the
+The port differs in two places.  :func:`collrec_sig` signs a torch
+dtype (the device route's tensors) with the numpy type code and itemsize
+of the numpy dtype it stands for (``_TORCH_DTYPE_NUM``), read from the
 dtype's name, so a bf16 or f32 collective signs the same in both
-packages; this module imports neither torch nor numpy.  MPI-IO's four
+packages.  And the model path feeds it: :func:`model_span` (category
+``model``, after the JAX package's categories) opens a torch profiler's
+``record_function("ompi.<name>")`` while one records and a ring span
+while the timeline is armed, and the MoE switch counts its routed and
+dropped tokens (``MODEL_COUNTERS``) under the same gate, the drops
+summed on the device and read without a sync (``_DeviceSum``).
+Importing this module imports neither torch nor numpy: the gate binds
+torch at its first read, from the model path, which has imported it.  MPI-IO's four
 ``io`` spans (``mpi.io``: read_at, write_at, read_at_all, write_at_all)
 and the host windows' ``osc`` events (``mpi.osc``: the fence, lock,
 unlock, pscw_complete and pscw_wait spans and the post instant) emit as
@@ -59,9 +66,9 @@ import re
 import tempfile
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from types import FrameType
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, ContextManager, Iterator, Optional
 
 from ompi_tpu_torch.core.config import VarType, register_var, var_registry
 from ompi_tpu_torch.mpi.mpit import Pvar, PvarClass, pvar_registry
@@ -79,7 +86,8 @@ __all__ = [
     "coll_event", "coll_stuck", "collrec_tail", "collrec_sig",
     "collrec_kind_id", "collrec_kind_name", "COLLREC_KINDS",
     "COLLREC_TAIL", "push_now", "trace_id", "next_span_id",
-    "drain_native_spans", "timeline_capture",
+    "drain_native_spans", "timeline_capture", "model_on", "model_span",
+    "MODEL_COUNTERS", "MODEL_SPAN_PREFIX",
 ]
 
 ENV_FLAG = "OMPI_TPU_TRACE"
@@ -94,9 +102,11 @@ ENV_METRICS_URI = "OMPI_TPU_METRICS_URI"
 #: the drain volume; 0 records everything once the timeline is armed)
 ENV_NATIVE_SPAN_MIN = "OMPI_TPU_TRACE_NATIVE_MIN_NS"
 
-#: the timeline categories (→ one Chrome tid per category at export)
+#: the timeline categories (→ one Chrome tid per category at export);
+#: the port's ``model`` (:func:`model_span`) comes last, so the host
+#: plane's tids are the JAX package's
 CATEGORIES = ("pml", "btl", "coll", "osc", "io", "ckpt", "datatype",
-              "runtime", "errmgr")
+              "runtime", "errmgr", "model")
 
 register_var("trace", "metrics_push_period", VarType.DOUBLE, 0.0,
              "seconds between pvar-snapshot pushes from each rank to its "
@@ -262,23 +272,94 @@ _COUNTER_SPECS = (
      "native-plane park/batch spans drained from the arena/net span "
      "rings into the flight recorder (GIL-released sections made "
      "visible; gated on the timeline being armed)"),
+    # the port's own (MODEL_COUNTERS): the model path's MoE switch,
+    # counted while model_on() holds, the drops as a device sum
+    ("moe_tokens_routed_total", "tokens",
+     "tokens routed by the MoE switch while the model spans were armed "
+     "(a torch profiler recording, or the timeline; a remat recompute "
+     "routes its tokens again)"),
+    ("moe_tokens_dropped_total", "tokens",
+     "of the routed tokens, those over their expert's capacity, which "
+     "only the residual path carries (summed on the device; a read takes "
+     "the newest total the device has finished, never waiting for it)"),
 )
+
+#: the counters the port has and the JAX package lacks
+MODEL_COUNTERS = ("moe_tokens_routed_total", "moe_tokens_dropped_total")
 
 #: plain-int counter store: dict increments, no lock — losses under
 #: pathological thread races are acceptable for metrics (like the
 #: reference's unlocked monitoring counters)
 counters: dict[str, int] = {name: 0 for name, _u, _d in _COUNTER_SPECS}
 
+#: a counter's part counted on the device (the MoE switch's drops):
+#: name → :class:`_DeviceSum`, added to its ``counters`` int at a read
+_device_sums: dict[str, "_DeviceSum"] = {}
 
-def count(name: str, delta: int = 1) -> None:
-    """Bump an always-on counter (must be a registered name)."""
-    counters[name] += delta
+
+class _DeviceSum:
+    """A running sum of device scalars that a read never waits for.  Each
+    add queues, behind the work that made its scalar, the sum and a copy
+    of the new total into pinned host memory, then records an event; a
+    read takes the copied total once the event has passed, else the last
+    total it took.  A stream stuck behind a hung collective, or a sticky
+    device error, leaves that last total standing: the crash dump and the
+    SIGTERM handler read every counter."""
+
+    def __init__(self, total: Any, host: Any, event: Any) -> None:
+        self.total, self.host, self.event = total, host, event
+        self.taken = 0
+
+    @classmethod
+    def like(cls, t: Any) -> "_DeviceSum":
+        import torch
+
+        return cls(torch.zeros((), dtype=torch.int64, device=t.device),
+                   torch.zeros((), dtype=torch.int64, pin_memory=True),
+                   torch.cuda.Event())
+
+    def add(self, delta: Any) -> None:
+        import torch
+
+        self.total.add_(delta)
+        self.host.copy_(self.total, non_blocking=True)
+        self.event.record(torch.cuda.current_stream(self.total.device))
+
+    def read(self) -> int:
+        try:
+            if self.event.query():
+                self.taken = int(self.host)
+        except Exception:  # noqa: BLE001 — a sticky device error
+            pass
+        return self.taken
+
+
+def count(name: str, delta: Any = 1) -> None:
+    """Bump an always-on counter (must be a registered name).  ``delta``
+    may be a scalar tensor (the model path's counts): a device one is
+    summed on the device (:class:`_DeviceSum`), with no sync."""
+    if isinstance(delta, int):
+        counters[name] += delta
+    elif getattr(delta, "is_cuda", False):
+        ds = _device_sums.get(name)
+        if ds is None:
+            ds = _device_sums[name] = _DeviceSum.like(delta)
+        ds.add(delta)
+    else:
+        counters[name] += int(delta)
+
+
+def _folded(name: str) -> int:
+    """A counter's value: its host count plus what its device sum has
+    finished (a read makes no sync)."""
+    ds = _device_sums.get(name)
+    return counters[name] if ds is None else counters[name] + ds.read()
 
 
 def counters_snapshot() -> dict[str, int]:
     """Point-in-time copy of every always-on counter plus the convertor
     call stats — the provenance block bench.py embeds per record."""
-    snap = dict(counters)
+    snap = {name: _folded(name) for name in counters}
     from ompi_tpu_torch.mpi import datatype as _dt
 
     snap["convertor_pack_calls_total"] = _dt.stats.pack_calls
@@ -291,7 +372,7 @@ def counters_snapshot() -> dict[str, int]:
 for _name, _unit, _desc in _COUNTER_SPECS:
     pvar_registry.register_or_get(Pvar(
         _name, PvarClass.COUNTER, unit=_unit, description=_desc,
-        read_fn=lambda _b, n=_name: counters[n]))
+        read_fn=lambda _b, n=_name: _folded(n)))
 
 
 # ---------------------------------------------------------------------------
@@ -1050,6 +1131,67 @@ def span(cat: str, name: str, rank: int = -1,
         yield
     finally:
         complete(cat, name, t0, rank=rank, **args)
+
+
+# ---------------------------------------------------------------------------
+# the model path's spans: the train step and its phases, the decode loop,
+# the input pipeline's wait, the attention and MoE layers
+# ---------------------------------------------------------------------------
+
+#: a model span's name in a torch profiler's trace is this + its name
+MODEL_SPAN_PREFIX = "ompi."
+
+#: ``torch.autograd._profiler_enabled``, bound at the first gate read
+_profiler_enabled: Optional[Callable[[], bool]] = None
+
+_MODEL_OFF = nullcontext()
+
+
+def _profiling() -> bool:
+    """Is a torch profiler recording on this thread?  (The autograd
+    engine's threads inherit the state of the thread that started the
+    backward.)"""
+    global _profiler_enabled
+    f = _profiler_enabled
+    if f is None:
+        import torch
+
+        f = _profiler_enabled = torch.autograd._profiler_enabled
+    return f()
+
+
+def model_on() -> bool:
+    """The model path's gate: the timeline is armed, or a torch profiler
+    is recording on this thread."""
+    return active or _profiling()
+
+
+def model_span(name: str, **args: Any) -> ContextManager[None]:
+    """A span of the model path.  Off (the timeline disarmed and no
+    profiler recording): a shared null context, nothing else.  Under a
+    torch profiler: ``record_function("ompi." + name)``, on the device
+    trace's clock, CUPTI tying each kernel launched inside to it.  With
+    the timeline armed: also a ``model`` span in the ring, with
+    ``args`` (a train step's number, a decode call and position)."""
+    if not active and not _profiling():
+        return _MODEL_OFF
+    return _model_span(name, args)
+
+
+@contextmanager
+def _model_span(name: str, args: dict[str, Any]) -> Iterator[None]:
+    t0 = time.monotonic_ns()
+    try:
+        if _profiling():
+            import torch
+
+            with torch.profiler.record_function(MODEL_SPAN_PREFIX + name):
+                yield
+        else:
+            yield
+    finally:
+        if active:
+            complete("model", name, t0, **args)
 
 
 def attach_pml(pml: Any) -> Any:

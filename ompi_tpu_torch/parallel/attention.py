@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ompi_tpu_torch.mpi import trace
 from ompi_tpu_torch.parallel.collectives import all_gather, all_to_all, shift
 
 __all__ = ["local_attention", "local_attention_lse", "ring_attention",
@@ -81,9 +82,11 @@ def local_attention(q, k, v, causal: bool = True, q_offset=0, k_offset=0,
     scores (the name the JAX package gives it), "auto" = flash for a CUDA
     tensor whose shape tiles, materialized otherwise.
     """
-    o, _ = local_attention_lse(q, k, v, causal=causal, q_offset=q_offset,
-                               k_offset=k_offset, scale=scale, impl=impl)
-    return o.to(q.dtype)
+    with trace.model_span("attention"):
+        o, _ = local_attention_lse(q, k, v, causal=causal,
+                                   q_offset=q_offset, k_offset=k_offset,
+                                   scale=scale, impl=impl)
+        return o.to(q.dtype)
 
 
 def local_attention_lse(q, k, v, causal: bool = True, q_offset=0,

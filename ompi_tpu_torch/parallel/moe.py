@@ -34,7 +34,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
+from ompi_tpu_torch.mpi import trace
 from ompi_tpu_torch.parallel.collectives import all_to_all
 
 __all__ = ["switch_moe", "moe_params", "route", "dispatch", "combine",
@@ -215,7 +217,16 @@ def switch_moe(comm, x: torch.Tensor, params: dict, axis: str = "ep",
     (dropped tokens included, no gradient) and p_e the mean gate prob.
     An axis the mesh lacks, or of size 1, makes the exchange vanish.
     ``onehot=True`` dispatches and combines with the plain one-hot form.
+    The call is the model span ``moe``; while the model path's gate
+    holds (``mpi.trace.model_on``) it counts its tokens and their drops.
     """
+    with trace.model_span("moe"):
+        return _switch_moe(comm, x, params, axis, capacity_factor, capacity,
+                           with_aux, onehot)
+
+
+def _switch_moe(comm, x, params, axis, capacity_factor, capacity, with_aux,
+                onehot):
     B, T, D = x.shape
     names = comm.mesh.axis_names
     if axis in names and axis not in comm.axes:
@@ -250,6 +261,14 @@ def switch_moe(comm, x: torch.Tensor, params: dict, axis: str = "ep",
     out = all_to_all(comm, out.reshape(E, C, D), axis, 0, 0)
     y = (combine_onehot if onehot else combine)(out, r)
     y = (y * r.gate[:, None].to(x.dtype)).reshape(B, T, D)
+    if trace.model_on():
+        trace.count("moe_tokens_routed_total", n_tok)
+        # a device sum, no sync (a read takes the newest total the device
+        # has finished), made outside the dispatch modes: a selective
+        # checkpoint's recompute must not have to find a sum whose
+        # running total is global state
+        with _disable_current_modes():
+            trace.count("moe_tokens_dropped_total", (~r.keep).sum())
     if _records is not None:
         top2 = r.probs.detach().topk(2, dim=-1).values
         _records.append({"load": r.onehot.sum(dim=0),

@@ -41,7 +41,7 @@ __all__ = ["merge_captures", "flow_events", "causality_problems"]
 # keep in sync with ompi_tpu_torch.mpi.trace.CATEGORIES (see module docstring
 # for why this is a copy, not an import)
 CATEGORIES = ("pml", "btl", "coll", "osc", "io", "ckpt", "datatype",
-              "runtime", "errmgr")
+              "runtime", "errmgr", "model")
 
 #: span names carrying ``args.fl`` — the send/recv halves of one
 #: message (keep in sync with tools/trace_export.py)

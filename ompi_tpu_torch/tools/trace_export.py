@@ -17,6 +17,14 @@ category), events globally sorted by timestamp.
         $TMPDIR/ompi_tpu_trace_*_rank*.json
     python -m ompi_tpu_torch.tools.trace_export -o merged.json \
         --dir $TMPDIR --jobid 7
+
+With ``--onto PROFILE`` the dumps are laid onto a ``torch.profiler``
+Chrome trace instead (:func:`onto_profile`): the ring's spans, the
+model path's ``model`` spans among them, on the clock of the
+profiler's kernels.
+
+    python -m ompi_tpu_torch.tools.trace_export -o both.json \
+        --onto trace.json $TMPDIR/ompi_tpu_trace_*_rank0.json
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ def dump_glob(jobid: "int | None" = None) -> str:
 # keep in sync with ompi_tpu_torch.mpi.trace.CATEGORIES (the exporter must not
 # import the package: it runs standalone in CI validation steps)
 CATEGORIES = ("pml", "btl", "coll", "osc", "io", "ckpt", "datatype",
-              "runtime", "errmgr")
+              "runtime", "errmgr", "model")
 
 #: span names that carry a flow id (``args.fl``) — the send/recv halves
 #: of one message; each cross-rank pair becomes a Perfetto flow arrow
@@ -186,6 +194,49 @@ def merge(paths: list[str],
                                    for r, v in sorted(per_rank.items())}},
         "traceEvents": meta + all_events,
     }
+
+
+#: a dump's pid in a profiler trace: this + its rank (kineto's pids are
+#: the process's and the devices' ids)
+ONTO_PID_BASE = 1 << 30
+
+
+def onto_profile(profile: dict, paths: list[str]) -> dict:
+    """A ``torch.profiler`` Chrome trace with flight-recorder dumps laid
+    onto its clock.  The profiler's ``ts`` (µs) plus its
+    ``baseTimeNanoseconds`` is Unix-epoch time; a dump's ``ts`` is
+    CLOCK_MONOTONIC, and its ``clock_offset_ns`` the wall clock less the
+    monotonic one, so a ring event moves to
+    ``(monotonic + clock_offset_ns − baseTimeNanoseconds) / 1000``.
+    Each dump becomes process ``ONTO_PID_BASE + rank`` (named
+    ``flight recorder, rank N``), one thread per category."""
+    base = profile.get("baseTimeNanoseconds")
+    if not isinstance(base, (int, float)):
+        raise ValueError("the profiler trace has no baseTimeNanoseconds")
+    added: list[dict] = []
+    for path in paths:
+        rank, events, other = _load(path)
+        offset = other.get("clock_offset_ns")
+        if not isinstance(offset, (int, float)):
+            raise ValueError(f"{path}: the dump has no clock_offset_ns")
+        shift_us = (offset - base) / 1000.0
+        pid = ONTO_PID_BASE + rank
+        added.append({"ph": "M", "name": "process_name", "pid": pid,
+                      "tid": 0,
+                      "args": {"name": f"flight recorder, rank {rank}"}})
+        tids = set()
+        for ev in events:
+            ev = dict(ev, pid=pid)
+            if "ts" in ev:
+                ev["ts"] = float(ev["ts"]) + shift_us
+            tids.add(int(ev.get("tid", 0)))
+            added.append(ev)
+        for tid in sorted(tids):
+            name = CATEGORIES[tid] if tid < len(CATEGORIES) else "other"
+            added.append({"ph": "M", "name": "thread_name", "pid": pid,
+                          "tid": tid, "args": {"name": name}})
+    return dict(profile,
+                traceEvents=list(profile.get("traceEvents", [])) + added)
 
 
 def flow_events(events: list[dict]) -> list[dict]:
@@ -391,6 +442,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--validate", action="store_true",
                    help="only validate the merged document; nonzero exit "
                         "on schema problems")
+    p.add_argument("--onto", default=None, metavar="PROFILE",
+                   help="lay the dumps onto this torch.profiler Chrome "
+                        "trace's clock (beside its kernels) instead of "
+                        "merging them on their own")
     p.add_argument("--validate-file", default=None, metavar="FILE",
                    help="validate an EXISTING merged trace JSON (e.g. a "
                         "saved /timeline response) instead of merging; "
@@ -425,6 +480,15 @@ def main(argv: list[str] | None = None) -> int:
     if not paths:
         print("trace_export: no input dumps found", file=sys.stderr)
         return 2
+
+    if args.onto:
+        with open(args.onto, encoding="utf-8") as f:
+            doc = onto_profile(json.load(f), paths)
+        with open(args.output, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        print(f"trace_export: wrote {args.output} — {len(paths)} dump(s) "
+              f"onto {args.onto}")
+        return 0
 
     offsets = None
     if args.offsets:

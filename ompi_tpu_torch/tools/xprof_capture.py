@@ -22,19 +22,24 @@ Artifacts: ``<out>/trace.json`` (default out
 the summary also on stdout.  Its keys: ``events``, ``total_op_ms``,
 ``fractions``, ``top_ops_ms``, ``backend``, ``steps``,
 ``traced_wall_ms``, ``params``, ``trace``, and the port's ``n_layers``,
-``flash_launches`` (the kernels' counters over the traced steps) and
-``flash_events`` (the trace's events of each flash kernel).
+``flash_launches`` (the kernels' counters over the traced steps),
+``flash_events`` (the trace's events of each flash kernel) and
+``spans_ms``: the ms of work under each of the model path's spans
+(``ompi.train.step``, ``.forward``, ``.backward``, ``.optimizer``,
+``ompi.attention``, ``ompi.moe``, ...) over the traced steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import sys
 import time
 from typing import Optional
 
+from ompi_tpu_torch.mpi.trace import MODEL_SPAN_PREFIX
 from ompi_tpu_torch.tools import flagship
 
 # Event name → category.  The reference's keywords (HLO op names) first,
@@ -58,6 +63,13 @@ FLASH = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "bwd_dq_",
          "flash_bwd_dkv": "bwd_dkv_"}
 #: Chrome-trace categories of device work
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: categories of the host calls that launch device work
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: spans whose work another thread launches: the backward's kernels
+#: come from the autograd engine's device thread
+ANY_THREAD = ("ompi.train.step", "ompi.train.backward")
+#: the input pipeline's copies, launched while the backward runs
+_HTOD = "Memcpy HtoD"
 
 
 def categorize(name: str) -> str:
@@ -77,23 +89,84 @@ def categorize(name: str) -> str:
 
 
 def _self_times(events: list) -> list:
-    """(name, self µs) of nested host operator events: each event's
-    duration less its children's on the same thread."""
+    """(name, self µs, thread, start µs) of nested host operator events:
+    each event's duration less its children's on the same thread."""
     out = []
     by_thread: dict = {}
     for e in events:
         by_thread.setdefault((e.get("pid"), e.get("tid")), []).append(e)
-    for evs in by_thread.values():
+    for thread, evs in by_thread.items():
         evs.sort(key=lambda e: (float(e["ts"]), -float(e["dur"])))
-        stack: list = []      # [end, name, self]
+        stack: list = []      # [end, name, self, thread, start]
         for e in evs:
             ts, dur = float(e["ts"]), float(e["dur"])
             while stack and stack[-1][0] <= ts:
                 out.append(tuple(stack.pop()[1:]))
             if stack:
                 stack[-1][2] -= dur
-            stack.append([ts + dur, e["name"], dur])
+            stack.append([ts + dur, e["name"], dur, thread, ts])
         out.extend(tuple(s[1:]) for s in stack)
+    return out
+
+
+def _inside(lst: list, starts: list, ts: float) -> bool:
+    i = bisect.bisect_right(starts, ts) - 1
+    return i >= 0 and lst[i][1] >= ts
+
+
+def span_times(events: list, device: bool) -> dict:
+    """ms of work under each ``ompi.*`` span of a Chrome trace's complete
+    events.  With ``device`` the work is the device events, each placed
+    by the host call that launched it (its correlation id): it counts
+    under a span open on that thread at the launch, or, for the step's
+    and the backward's spans, open on any thread, an HtoD copy (the
+    input pipeline's) apart.  Without, the work is the host operators' self
+    times, placed by their own start and thread."""
+    spans: dict = {}      # name → {thread: sorted [(start, end)]}
+    launch: dict = {}     # correlation → (thread, ts)
+    for e in events:
+        thread, ts = (e.get("pid"), e.get("tid")), float(e["ts"])
+        name, cat = str(e.get("name", "")), e.get("cat")
+        if cat == "user_annotation" and name.startswith(MODEL_SPAN_PREFIX):
+            spans.setdefault(name, {}).setdefault(thread, []).append(
+                (ts, ts + float(e["dur"])))
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in _LAUNCH_CATS and corr is not None:
+            launch[corr] = (thread, ts)
+    if device:
+        work = []         # (name, µs, launching thread, launch ts)
+        for e in events:
+            corr = (e.get("args") or {}).get("correlation")
+            if e.get("cat") in _DEVICE_CATS and corr in launch:
+                work.append((e["name"], float(e["dur"])) + launch[corr])
+    else:
+        work = _self_times([e for e in events if e.get("cat") == "cpu_op"])
+    out = {}
+    for name, by_thread in sorted(spans.items()):
+        anywhere = name in ANY_THREAD
+        if anywhere:
+            by_thread = {None: _union(
+                iv for lst in by_thread.values() for iv in lst)}
+        lists = {t: sorted(lst) for t, lst in by_thread.items()}
+        starts = {t: [s for s, _ in lst] for t, lst in lists.items()}
+        total = 0.0
+        for op, dur, thread, ts in work:
+            key = None if anywhere else thread
+            if (key in lists and not (anywhere and op.startswith(_HTOD))
+                    and _inside(lists[key], starts[key], ts)):
+                total += dur
+        out[name] = total / 1e3
+    return out
+
+
+def _union(intervals) -> list:
+    """Sorted, merged (start, end) intervals."""
+    out: list = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
     return out
 
 
@@ -111,7 +184,8 @@ def summarize_trace(path: str, device: bool) -> dict:
             raise RuntimeError(f"no device event in the trace {path}: the "
                                f"profiler saw no kernel")
     else:
-        timed = _self_times([e for e in events if e.get("cat") == "cpu_op"])
+        timed = [t[:2] for t in _self_times(
+            [e for e in events if e.get("cat") == "cpu_op"])]
     per_cat: dict[str, float] = {}
     per_op: dict[str, float] = {}
     n_events = 0
@@ -132,6 +206,7 @@ def summarize_trace(path: str, device: bool) -> dict:
         "top_ops_ms": {k: v / 1e3 for k, v in top},
         "flash_events": {k: sum(1 for name, _ in timed if frag in name)
                          for k, frag in FLASH.items()},
+        "spans_ms": span_times(events, device),
     }
 
 

@@ -163,9 +163,16 @@ def test_pvar_duplicate_register_raises():
 
 def test_the_trace_planes_pvars_are_the_jax_packages():
     """Every pvar the port's trace plane registers is the JAX package's,
-    with the same class, unit and description."""
-    for name in pmpit.pvar_registry.names():
-        if name.startswith("test_"):
+    with the same class, unit and description, but for the port's own
+    model counters."""
+    from ompi_tpu_torch.mpi import trace as ptrace
+
+    names = [n for n in pmpit.pvar_registry.names()
+             if not n.startswith("test_")]
+    assert set(names) - set(jmpit.pvar_registry.names()) == \
+        set(ptrace.MODEL_COUNTERS)
+    for name in names:
+        if name in ptrace.MODEL_COUNTERS:
             continue
         a, b = pmpit.pvar_registry.lookup(name), \
             jmpit.pvar_registry.lookup(name)

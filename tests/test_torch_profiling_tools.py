@@ -87,6 +87,16 @@ def test_capture_cpu_smoke(tmp_path):
     # on the CPU the wrappers run their plain versions: no launch
     assert summary["flash_launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                          "flash_bwd_dkv": 0}
+    # the model spans' work: the step's three phases take all of it
+    spans = summary["spans_ms"]
+    assert set(spans) == {"ompi.train.step", "ompi.train.forward",
+                          "ompi.train.backward", "ompi.train.optimizer",
+                          "ompi.attention"}
+    assert all(v > 0 for v in spans.values())
+    phases = sum(spans[f"ompi.train.{p}"]
+                 for p in ("forward", "backward", "optimizer"))
+    assert phases == pytest.approx(spans["ompi.train.step"], rel=0.01)
+    assert spans["ompi.train.step"] <= summary["total_op_ms"] * 1.0001
 
 
 def test_categorize_keywords():
@@ -160,6 +170,37 @@ def test_summarize_device_trace(tmp_path):
                                  "flash_bwd_dkv": 1}
     with pytest.raises(RuntimeError, match="no device event"):
         xc.summarize_trace(_trace(tmp_path, ev[-1:]), device=True)
+
+
+def test_span_times_place_device_work_by_its_launch(tmp_path):
+    """A device event counts under a span open on the thread that
+    launched it, or for the step's and the backward's spans on any
+    thread, an HtoD copy apart."""
+    def span(name, tid, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": name,
+                "ts": ts, "dur": dur, "pid": 1, "tid": tid}
+
+    def work(corr, tid, at, dur, name="k", cat="kernel"):
+        return [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunch",
+                 "ts": at, "dur": 1, "pid": 1, "tid": tid,
+                 "args": {"correlation": corr}},
+                {"ph": "X", "cat": cat, "name": name, "ts": at + 5,
+                 "dur": dur, "pid": 0, "tid": 7,
+                 "args": {"correlation": corr}}]
+
+    ev = [span("ompi.train.step", 1, 0, 1000),
+          span("ompi.train.forward", 1, 0, 100), *work(1, 1, 10, 40),
+          *work(2, 2, 50, 8),         # another thread: not the forward's
+          span("ompi.train.backward", 1, 100, 500), *work(3, 2, 200, 300),
+          *work(4, 3, 300, 20, name="Memcpy HtoD (Pinned -> Device)",
+                cat="gpu_memcpy"),
+          span("ompi.train.optimizer", 1, 600, 300), *work(5, 1, 700, 60),
+          span("ompi.other", 1, 950, 10)]
+    s = xc.summarize_trace(_trace(tmp_path, ev), device=True)
+    assert s["spans_ms"] == pytest.approx({
+        "ompi.train.step": 0.408, "ompi.train.forward": 0.04,
+        "ompi.train.backward": 0.3, "ompi.train.optimizer": 0.06,
+        "ompi.other": 0.0})
 
 
 def test_host_self_times_do_not_count_twice(tmp_path):

@@ -521,8 +521,12 @@ def test_pusher_delta_compresses_and_full_heals():
         assert "pml_zero_copy_sends_total" in full, name
         assert set(second) == set(keys), (name, sorted(second))
         assert set(third) == set(keys) | {"btl_shm_publish_total"}, name
+    # each package pushes all its counters: the JAX package's, and in the
+    # port the model counters besides
     counters = {n for n, _u, _d in ptrace._COUNTER_SPECS}
-    assert counters <= set(got["port"][0]) and counters <= set(got["jax"][0])
+    jcounters = {n for n, _u, _d in J.trace._COUNTER_SPECS}
+    assert counters - jcounters == set(ptrace.MODEL_COUNTERS)
+    assert counters <= set(got["port"][0]) and jcounters <= set(got["jax"][0])
 
 
 def test_pusher_rides_vector_deltas():

@@ -442,8 +442,9 @@ def test_flush_documents_equal_the_jax_package(tmp_path):
     assert [_comparable(d) for d in docs[1]] == \
         [_comparable(d) for d in docs[0]]
     for jd, pd in zip(*docs):
+        # every JAX counter, and the port's model counters besides
         assert set(pd["otherData"]["counters"]) == \
-            set(jd["otherData"]["counters"])
+            set(jd["otherData"]["counters"]) | set(ptrace.MODEL_COUNTERS)
 
 
 def test_export_merges_ranks_into_chrome_trace(tmp_path):
@@ -742,7 +743,10 @@ def test_zero_copy_vs_packed_send_counters():
 
 def test_counters_snapshot_carries_convertor_stats():
     snap = ptrace.counters_snapshot()
-    assert set(snap) == set(jtrace.counters_snapshot())
+    jsnap = jtrace.counters_snapshot()
+    # the JAX package's counters, and the port's model counters besides
+    assert set(jsnap) <= set(snap)
+    assert set(snap) - set(jsnap) == set(ptrace.MODEL_COUNTERS)
     for key in ("convertor_pack_calls_total", "convertor_unpack_calls_total",
                 "pml_zero_copy_sends_total", "convertor_plan_single_total"):
         assert key in snap
@@ -770,9 +774,16 @@ def test_metrics_snapshot_prometheus_shape():
             metric, val = ln.split()
             assert metric.startswith("ompi_tpu_")
             float(val)
-    # the counters' HELP/TYPE lines are the JAX package's, word for word
+    # the counters' HELP/TYPE lines are the JAX package's, word for word;
+    # the port's model counters are its own
     jtext = jtrace.metrics_snapshot()
+    for name, _u, _d in jtrace._COUNTER_SPECS:
+        assert f"ompi_tpu_{name} " in text
+    for name in ptrace.MODEL_COUNTERS:
+        assert f"ompi_tpu_{name} " not in jtext
     for name, _u, _d in ptrace._COUNTER_SPECS:
+        if name in ptrace.MODEL_COUNTERS:
+            continue
         for kind in ("# HELP", "# TYPE"):
             want = [ln for ln in jtext.splitlines()
                     if ln.startswith(f"{kind} ompi_tpu_{name} ")]
