@@ -99,13 +99,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    full-sequence kernels', with a profiled ring by kernel kind;
 9. decode — the flagship 468M dense model (bench.py's decode widths) with
    ``attention="flash"``: a greedy KV-cache decode of 16 prompts of 512
-   tokens, the launch counts of that one call, the same prompt through the
-   plain attention path, the prefill time (max_new=1), the per-token time
-   by the two-max_new slope, tokens/s and peak memory; then torch.profiler
-   windows over the prefill and a 16-token decode: device busy and idle
-   share, and the kernels that take the time;
+   tokens, the launch counts of that one call (flash: one a layer;
+   decode attention: one a layer a cached step), the same prompt through
+   the plain attention path, the prefill time (max_new=1), the per-token
+   time by the two-max_new slope, tokens/s and peak memory; then
+   torch.profiler windows over the prefill and a 16-token decode: device
+   busy and idle share, and the kernels that take the time; then the
+   cached step's attention kernel at the phase's own shapes (B = 16,
+   Tmax = 608) against its plain version, timed beside it and SDPA
+   (``decode_attn_b16``); the
+   dense model's phase adds a ``decode_attn`` row: the kernel at the
+   benchmark cell's shapes (B = 256, Tmax = 640, pos = 576, 16 heads of
+   128, bf16, and an f32 cache) against its plain version and SDPA,
+   with its bound;
 10. cache — on the small f32 config of the decode tests, the cached greedy
-   decode through the kernel equals a token-by-token full-forward greedy
+   decode through the kernels (flash in the prefill, decode attention in
+   every cached step) equals a token-by-token full-forward greedy
    exactly;
 11. train — the flagship model training at bench.py's MFU widths (batch
    16 × seq 1024, bf16, remat "dots", ce_chunk 256), through the
@@ -1028,6 +1037,100 @@ def routing_agreement(routes, routes_x):
                 else None)}
 
 
+def decode_attn_check(da, B, tmax, pos, dtype, H=16, D=128, seed=5):
+    """The cached step's attention kernel at (B, Tmax, H heads of D) in
+    ``dtype`` against its plain version: outputs within the f32
+    summation-order tolerance (bf16: one ulp), both caches bit-identical
+    after the write, and one launch.  → the operands and the max abs
+    error."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+
+    q, k, v = rand(B, 1, H, D), rand(B, 1, H, D), rand(B, 1, H, D)
+    kc, vc = rand(B, tmax, H, D), rand(B, tmax, H, D)
+    positions = torch.arange(tmax, device=DEVICE)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = da.launch_count
+    got = da.decode_attention(q, k, v, kc, vc, pos, positions)
+    want = da.decode_attention_plain(q, k, v, kc2, vc2, pos, positions)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = ((1e-5, 2.0 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5))
+    check(torch.allclose(got.float(), want.float(), atol=tol[0],
+                         rtol=tol[1]),
+          f"decode attention kernel disagrees at B={B} Tmax={tmax} "
+          f"pos={pos} {dtype}: {err}")
+    check(torch.equal(kc, kc2) and torch.equal(vc, vc2),
+          f"decode attention kernel's cache write differs from the plain "
+          f"version's at B={B} Tmax={tmax} pos={pos} {dtype}")
+    check(da.launch_count - before == 1,
+          f"decode attention at B={B}: {da.launch_count - before} launches "
+          f"in one call")
+    return (q, k, v, kc, vc, positions), err
+
+
+def decode_attn_times(da, ops, pos):
+    """Kernel, plain and library ms of one case, and its bound by bytes
+    (the slots 0..pos-1 of K and V read once, q/k/v read, o and slot pos
+    of K and V written).  The library is PyTorch's SDPA over the cache's
+    own slot views ``kc[:, :pos+1]`` after the same slot write (timed
+    here only; the port never calls it)."""
+    import torch
+
+    q, k, v, kc, vc, positions = ops
+    B, tmax, H, D = kc.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        kc[:, pos] = k[:, 0]
+        vc[:, pos] = v[:, 0]
+        return sdpa(q.transpose(1, 2), kc[:, :pos + 1].transpose(1, 2),
+                    vc[:, :pos + 1].transpose(1, 2)).transpose(1, 2)
+
+    want = da.decode_attention_plain(q, k, v, kc, vc, pos, positions)
+    lib_err = (library().float() - want.float()).abs().max().item()
+    before = da.launch_count
+    ms = cuda_ms(lambda: da.decode_attention(q, k, v, kc, vc, pos,
+                                             positions))
+    check(da.launch_count - before == 23,
+          f"{da.launch_count - before} decode attention launches in 23 "
+          f"timed calls")
+    plain_ms = cuda_ms(lambda: da.decode_attention_plain(
+        q, k, v, kc, vc, pos, positions), iters=5, warmup=1)
+    library_ms = cuda_ms(library)
+    nbytes = (2 * pos + 6) * B * H * D * kc.element_size()
+    # the kernel's arithmetic is f32 on the CUDA cores for either cache
+    bound_ms, bound_by = bound(nbytes, 4 * B * H * D * (pos + 1),
+                               F32_FLOPS)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes,
+            "share_of_bound": bound_ms / ms}
+
+
+def decode_attn_row(da):
+    """The cached step's attention kernel at the benchmark cell's shapes
+    (B = 256, Tmax = 640, pos = 576, H = 16, hd = 128, bf16), and at the
+    same shape with an f32 cache: checked against the plain version,
+    then the kernel's, the plain version's and SDPA's ms and the bound
+    by bytes."""
+    import torch
+
+    B, tmax, pos = 256, 640, 576
+    ops, err = decode_attn_check(da, B, tmax, pos, torch.bfloat16)
+    row = {"shape": [B, tmax, 16, 128], "pos": pos, "dtype": "bfloat16",
+           "max_abs_err": err,
+           **decode_attn_times(da, ops, pos)}
+    del ops
+    ops, err = decode_attn_check(da, B, tmax, pos, torch.float32)
+    row["float32"] = {"max_abs_err": err, **decode_attn_times(da, ops, pos)}
+    return row
+
+
 def phase_decode(fa, card, params_np, moe: bool = False):
     import torch
 
@@ -1035,6 +1138,7 @@ def phase_decode(fa, card, params_np, moe: bool = False):
     from ompi_tpu_torch.models.transformer import (TransformerConfig,
                                                    make_forward)
     from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.ops import decode_attention as da
     from ompi_tpu_torch.parallel import moe as moe_mod
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
@@ -1058,13 +1162,18 @@ def phase_decode(fa, card, params_np, moe: bool = False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launch_count = 0
+    attn_before = da.launch_count
     out = dec(params, prompt)
     torch.cuda.synchronize()
     launches = fa.launch_count
+    attn_launches = da.launch_count - attn_before
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(launches == cfg.n_layers,
           f"{launches} flash launches in one decode call, want "
           f"{cfg.n_layers}")
+    check(attn_launches == cfg.n_layers * (lo - 1),
+          f"{attn_launches} decode attention launches in one decode call, "
+          f"want {cfg.n_layers * (lo - 1)}")
     out = out.cpu().numpy()
     check(out.shape == (batch, prompt_len + lo) and out.dtype == np.int32,
           f"tokens {out.dtype} {out.shape}")
@@ -1132,6 +1241,7 @@ def phase_decode(fa, card, params_np, moe: bool = False):
                        "flagship 468M dense (bench.py decode widths)"),
          n_params=n_params, batch=batch, prompt=prompt_len,
          max_new=[lo, hi], load_s=load_s, flash_launches=launches,
+         decode_attn_launches=attn_launches,
          generated_agree_with_plain=agree,
          first_token_agree_with_plain=first_agree,
          prefill_logits_max_abs_diff=logit_err,
@@ -1143,7 +1253,22 @@ def phase_decode(fa, card, params_np, moe: bool = False):
          card=card)
     phase_profile(make_decoder, cfg, mesh, params, prompt, card,
                   "moe_profile" if moe else "profile")
-    return launches
+    # the kernel at this phase's own shapes (its longer call's Tmax and
+    # last cached slot): 256 rows, fewer blocks than the card holds
+    tmax, hd = prompt_len + hi, cfg.d_model // cfg.n_heads
+    ops, err = decode_attn_check(da, batch, tmax, tmax - 2, torch.bfloat16,
+                                 cfg.n_heads, hd)
+    at_batch = {"shape": [batch, tmax, cfg.n_heads, hd], "pos": tmax - 2,
+                "dtype": "bfloat16", "max_abs_err": err,
+                **decode_attn_times(da, ops, tmax - 2)}
+    del ops
+    emit(f"{name}_attn_b{batch}", **at_batch, card=card)
+    if moe:
+        return launches, attn_launches, None
+    row = decode_attn_row(da)
+    row[f"batch_{batch}"] = at_batch
+    emit("decode_attn", **row, card=card)
+    return launches, attn_launches, row
 
 
 def dev_us(e):
@@ -1310,6 +1435,7 @@ def phase_cache(fa):
     from ompi_tpu_torch.models.transformer import (TransformerConfig,
                                                    init_params, make_forward)
     from ompi_tpu_torch.models.weights import from_jax_params
+    from ompi_tpu_torch.ops import decode_attention as da
     from ompi_tpu_torch.parallel.mesh import make_mesh
 
     cfg = TransformerConfig(vocab=97, d_model=64, n_heads=4, n_layers=2,
@@ -1319,6 +1445,7 @@ def phase_cache(fa):
     params = from_jax_params(init_params(cfg), cfg, "cuda")
     fwd = make_forward(cfg, mesh)
     before = fa.launch_count
+    attn_before = da.launch_count
     for seed, prompt_len, max_new in ((0, 8, 5), (4, 7, 3)):
         prompt = np.random.default_rng(seed).integers(
             0, cfg.vocab, size=(4, prompt_len)).astype(np.int32)
@@ -1326,9 +1453,15 @@ def phase_cache(fa):
         np.testing.assert_array_equal(
             got.cpu().numpy(),
             _greedy_reference(fwd, params, prompt, max_new))
+    attn_launches = da.launch_count - attn_before
+    check(attn_launches == cfg.n_layers * (4 + 2),
+          f"{attn_launches} decode attention launches in the cache phase, "
+          f"want {cfg.n_layers * (4 + 2)}")
     emit("cache", config="tests/parallel/test_decode.py CFG, flash, f32",
          prompts=[8, 7], exact=True,
-         kernel_launches=fa.launch_count - before)
+         kernel_launches=fa.launch_count - before,
+         decode_attn_launches=attn_launches)
+    return attn_launches
 
 
 def counts(fa):
@@ -8163,15 +8296,17 @@ def main() -> int:
     bench = run("bench", phase_bench, card, name,
                 sweep_params[BENCH_PARAMS_ROW])
     params_np = run("params", flagship_params)
-    decode_launches = run("decode", phase_decode, fa, card, params_np)
-    run("cache", phase_cache, fa)
+    decode_launches, decode_attn, attn_row = run("decode", phase_decode, fa,
+                                                 card, params_np)
+    cache_attn = run("cache", phase_cache, fa)
     train = run("train", phase_train, fa, card, params_np)
     run("train_small", phase_train_small, fa)
     ckpt = run("ckpt", phase_ckpt, fa, card, params_np)
     del params_np
     moe_np = run("moe_params", flagship_params, True)
     run("moe_layer", phase_moe_layer, card, moe_np)
-    moe_decode = run("moe_decode", phase_decode, fa, card, moe_np, True)
+    moe_decode, moe_decode_attn, _ = run("moe_decode", phase_decode, fa,
+                                         card, moe_np, True)
     moe_train = run("moe_train", phase_moe_train, fa, card, moe_np)
     del moe_np
     run("moe_small", phase_train_small, fa, True)
@@ -8211,6 +8346,15 @@ def main() -> int:
                                  "moe_train": moe_train[key],
                                  "ckpt": ckpt[key], "bench": bench[key]},
             **bwd[part], "ok": True})
+    by_path = {"decode": decode_attn, "cache": cache_attn,
+               "moe_decode": moe_decode_attn}
+    kernels.append({
+        "name": "decode_attn", "route": "cuda",
+        "source": src + "decode_attn.cu",
+        "replaces": "none: the JAX package's einsum "
+                    "(ompi_tpu/models/decode.py _step_layer)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **attn_row, "ok": True})
     for kind, line in (("put", 55), ("get", 120), ("bcast", 178)):
         by_path = {"rma_ranks": rma_launches[kind],
                    "bench": bench.get(kind, 0)}

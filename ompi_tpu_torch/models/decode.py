@@ -16,7 +16,10 @@ the two agree exactly when capacity does not bind.
 A call's model spans (``mpi.trace.model_span``): ``decode.prefill``
 through the first token, one ``decode.step`` a cached step (one token
 for every request), and in it one ``decode.attend`` a layer (the cache
-write, its f32 cast, the mask, softmax and both einsums).
+write and the attention over slots 0..pos: on the card one launch of
+``ops/decode_attention.py``'s kernel, which reads the cache in its own
+dtype; on the CPU the plain version's f32 cast, mask, softmax and
+einsums).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ompi_tpu_torch.models.transformer import (TransformerConfig,
                                                _moe_ffn_tail, _rmsnorm,
                                                _rope)
 from ompi_tpu_torch.mpi import trace
+from ompi_tpu_torch.ops.decode_attention import decode_attention
 from ompi_tpu_torch.parallel.layers import column_parallel, row_parallel
 
 __all__ = ["make_decoder"]
@@ -39,16 +43,18 @@ __all__ = ["make_decoder"]
 def _step_layer(cfg: TransformerConfig, comm, lp, h, kc, vc, pos: int,
                 positions):
     """One layer for ONE new token at ``pos``: writes the token's k/v into
-    this layer's cache in place and attends over the whole cache.
+    this layer's cache in place and attends over the slots 0..pos.
 
-    h: (B, 1, D); kc/vc: (B, Tmax, H, hd) views of the cache.  The
-    attention runs in f32 over all Tmax slots with the slots after
-    ``pos`` masked to -1e30, as in the JAX package.
+    h: (B, 1, D); kc/vc: (B, Tmax, H, hd) views of the cache.  The block
+    is ``ops.decode_attention``: on the card one kernel that stores the
+    token's k/v and reads the valid slots of the cache as they are stored
+    (bf16 in the serving configs), accumulating in f32; on the CPU the
+    plain version, which attends in f32 over all Tmax slots with the
+    slots after ``pos`` masked to -1e30, as in the JAX package.
     """
     cdt = h.dtype
     B = h.shape[0]
-    Tmax, hl, hd = kc.shape[1], kc.shape[2], kc.shape[3]
-    f32 = torch.float32
+    hl, hd = kc.shape[2], kc.shape[3]
 
     x = _rmsnorm(h, lp["ln1"])
     q = column_parallel(x, lp["wq"].to(cdt)).reshape(B, 1, hl, hd)
@@ -57,14 +63,8 @@ def _step_layer(cfg: TransformerConfig, comm, lp, h, kc, vc, pos: int,
     q = _rope(q, positions[pos:pos + 1])
     k = _rope(k, positions[pos:pos + 1])
     with trace.model_span("decode.attend", pos=pos):
-        kc[:, pos] = k[:, 0].to(kc.dtype)
-        vc[:, pos] = v[:, 0].to(vc.dtype)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32),
-                         kc.to(f32)) * (hd ** -0.5)
-        s = torch.where(positions <= pos, s, -1e30)
-        w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, vc.to(f32))
-    o = o.to(cdt).reshape(B, 1, hl * hd)
+        o = decode_attention(q, k, v, kc, vc, pos, positions)
+    o = o.reshape(B, 1, hl * hd)
     h = h + row_parallel(o, lp["wo"].to(cdt), comm, axis="tp")
     if cfg.moe_experts:
         return _moe_ffn_tail(cfg, h, lp, comm)[0]  # aux: training only
